@@ -1,8 +1,8 @@
 """Randomized Hadamard transform over gradient buckets (paper §3.3).
 
 Counterpart of ``src/repro/core/hadamard.py`` (``rademacher_sign``,
-``ht_encode``, ``ht_decode``; the quantized encoders wait for the
-``optireduce_q`` slice). A bucket is processed in ``block``-long blocks;
+``ht_encode``, ``ht_decode`` and the fused encode-side stages of the
+quantized exchange, ``ht_encode_amax`` and ``ht_encode_quant``). A bucket is processed in ``block``-long blocks;
 blockwise HT commutes with TAR sharding when shard boundaries are
 block-aligned (``core.tar.pad_for_tar``), and the transform is linear, so
 ``decode(mean_i(encode(g_i))) == mean_i(g_i)`` without drops, while under
@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.fwht import randomized_fwht
+from repro_torch.kernels.ht_quant import ht_amax, ht_quant
 
 
 def rademacher_sign(gen: torch.Generator, block: int) -> torch.Tensor:
@@ -45,3 +46,26 @@ def ht_decode(y: torch.Tensor, sign: torch.Tensor, *,
     """Inverse of ``ht_encode`` with the same sign: per block d * (H y)."""
     x = randomized_fwht(_blocks(y, block), sign, mode="decode")
     return x.reshape(y.shape)
+
+
+# ------------------------------------------------- fused encode-side stages
+# The rotated bucket is never materialized: kernels B3 and B4 rotate in
+# registers and emit only the per-block amax or the uint8 codes.
+
+def ht_encode_amax(x: torch.Tensor, sign: torch.Tensor, *,
+                   block: int = 4096) -> torch.Tensor:
+    """Per-block amax of ``ht_encode(x)`` without materializing it:
+    ``(..., L)`` -> ``(..., L / block)`` fp32, the quantization-grid pass
+    (pmax these across peers, then call :func:`ht_encode_quant`)."""
+    return ht_amax(_blocks(x, block), sign)
+
+
+def ht_encode_quant(x: torch.Tensor, sign: torch.Tensor, noise: torch.Tensor,
+                    lo: torch.Tensor, step: torch.Tensor, *,
+                    block: int = 4096, bits: int = 8) -> torch.Tensor:
+    """Fused ``ht_encode`` + shared-grid stochastic quantization.
+    x: ``(..., L)`` block-aligned; noise ``(L / block, block)`` and lo/step
+    ``(L / block,)``, one copy shared by every peer. Returns ``(..., L)``
+    uint8 codes."""
+    codes = ht_quant(_blocks(x, block), sign, noise, lo, step, bits=bits)
+    return codes.reshape(x.shape)

@@ -4,16 +4,17 @@ Counterpart of ``src/repro/core/pipeline.py``, main-path subset: every
 gradient-sync strategy is a :class:`CollectiveSpec` composing a Topology
 (:class:`TarTopology` with the all_to_all schedule, :class:`PsumTopology`),
 a Transport (:class:`Reliable`, :class:`Lossy`) and a Codec
-(:class:`Identity`, :class:`Hadamard`). A strategy name resolves through the
-registry (``psum``, ``tar_tcp``, ``optireduce``).
+(:class:`Identity`, :class:`Hadamard`, :class:`HTQuant`). A strategy name
+resolves through the registry (``psum``, ``tar_tcp``, ``optireduce``,
+``optireduce_q``).
 
 The reference runs one rank per device inside ``shard_map``; here every
 stage works on ``(P, ...)`` stacks over the peer axis
 (``core/collectives.py``), so one kernel launch serves all P peers of a
 bucket. The randomness the reference draws from keys inside the stages
-(the Hadamard sign, each receiver's arrival mask) comes from the context's
-:class:`Draws` provider instead, so a test can hand in the reference's own
-draws.
+(the Hadamard sign, each receiver's arrival mask, the quantizer's
+stochastic-rounding noise) comes from the context's :class:`Draws` provider
+instead, so a test can hand in the reference's own draws.
 """
 from __future__ import annotations
 
@@ -25,7 +26,11 @@ import torch
 from . import collectives
 from . import drops as drops_lib
 from . import tar as tar_lib
-from .hadamard import ht_decode, ht_encode, rademacher_sign
+from repro_torch.kernels.dequant_reduce import dequant_masked_mean
+from repro_torch.kernels.quant import grid_quant
+
+from .hadamard import (ht_decode, ht_encode, ht_encode_amax, ht_encode_quant,
+                       rademacher_sign)
 from .keys import Key, fold_in, generator
 
 
@@ -92,12 +97,19 @@ class Draws(Protocol):
         """Receiver's ``(n, s)`` fp32 arrival mask for the bucket's stage-1
         exchange, its own row all ones."""
 
+    def noise(self, bucket: int, salt: int,
+              shape: tuple[int, ...]) -> torch.Tensor:
+        """Uniform [0, 1) fp32 stochastic-rounding noise of the bucket's
+        quantizer ``salt`` (3: stage 1, 4: stage 2), one copy shared by
+        every peer."""
+
 
 @dataclasses.dataclass(frozen=True)
 class GeneratorDraws:
     """The default provider: ``torch.Generator``s seeded from the key path
     of the reference — sign from the bucket key ``fold_in(key, b)``, a
-    receiver's mask from ``fold_in(bucket_key, receiver)``."""
+    receiver's mask from ``fold_in(bucket_key, receiver)``, a quantizer's
+    noise from ``fold_in(bucket_key, salt)``."""
     key: Key                              # the sync key of this step
     cfg: OptiReduceConfig
     device: torch.device
@@ -114,6 +126,11 @@ class GeneratorDraws:
                                    rate=self.cfg.drop_rate,
                                    packet_elems=self.cfg.packet_elems,
                                    self_index=receiver)
+
+    def noise(self, bucket: int, salt: int,
+              shape: tuple[int, ...]) -> torch.Tensor:
+        gen = generator(fold_in(fold_in(self.key, bucket), salt), self.device)
+        return torch.rand(shape, generator=gen, device=self.device)
 
 
 @dataclasses.dataclass
@@ -132,6 +149,9 @@ class SyncContext:
     def sign(self, block: int) -> torch.Tensor:
         return self.draws.sign(self.bucket, block)
 
+    def noise(self, salt: int, shape: tuple[int, ...]) -> torch.Tensor:
+        return self.draws.noise(self.bucket, salt, shape)
+
     def loss_fraction(self) -> torch.Tensor:
         """Observed entry-loss fraction this step, averaged over receivers
         (the reference's ``pmean`` of dropped/total)."""
@@ -144,8 +164,13 @@ class SyncContext:
 # ------------------------------------------------------------------- codecs
 @dataclasses.dataclass
 class Encoded:
-    """A codec's wire form of one ``(P, L)`` bucket stack."""
+    """A codec's wire form of one ``(P, L)`` bucket stack: ``data`` is what
+    travels (fp32 values or uint8 codes); ``lo`` / ``step`` are a
+    quantizing codec's per-Hadamard-block grids, ``(L / block,)``, one copy
+    shared by every peer (None otherwise)."""
     data: torch.Tensor | None
+    lo: torch.Tensor | None = None
+    step: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +217,94 @@ class Hadamard(Codec):
         return ht_decode(gathered, ctx.sign(block), block=block)
 
 
+_STAGE1_SALT = 3     # stage-1 stochastic-rounding noise
+_STAGE2_SALT = 4     # stage-2 (broadcast) noise
+
+
+class HTQuant(Codec):
+    """Hadamard rotation + THC-style shared-grid uniform stochastic
+    quantization (the reference's beyond-paper ``optireduce_q``).
+
+    Per-block ``[-amax_b, amax_b]`` grids are pmax'd over the peers, so every
+    peer derives the same grids and the codes are homomorphic. The encode is
+    split around that pmax: :meth:`local_amax` (kernel B3: rotate + per-block
+    amax, the rotated bucket never written) before it, and
+    :meth:`encode_given_amax` (kernel B4: rotate + quantize) after it. The
+    receive side dequantizes and takes the compensated mean in one pass
+    (kernel B5), the aggregated shard is re-quantized for stage 2 (kernel
+    B6), and :meth:`decode_gathered` dequantizes and decodes (kernel B1).
+    Both noises are one copy shared by every peer, drawn under
+    ``_STAGE1_SALT`` and ``_STAGE2_SALT`` (the reference's ``fold_in(key,
+    3)`` and ``fold_in(key, 4)``). The code width is ``cfg.quant_bits``.
+    """
+
+    @staticmethod
+    def _bits(cfg: OptiReduceConfig) -> int:
+        bits = cfg.quant_bits
+        if not 1 <= bits <= 8:
+            raise ValueError(f"uint8 codes hold 1..8 bits, got {bits}")
+        return bits
+
+    def block(self, cfg: OptiReduceConfig) -> int:
+        return cfg.hadamard_block
+
+    @staticmethod
+    def _grids(enc: Encoded, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Each receiver's slice of the bucket's grids: ``(n, S / block)``
+        (the reference's ``_grids(enc, shard_index, nblk)``, all at once)."""
+        return enc.lo.view(n, -1), enc.step.view(n, -1)
+
+    def local_amax(self, x: torch.Tensor,
+                   ctx: SyncContext) -> tuple[torch.Tensor, torch.Tensor]:
+        """Pre-``pmax`` half of :meth:`encode`: ``(x, amax)`` with each
+        peer's per-block amax ``(P, L / block)``; x stays un-rotated (the
+        quantize kernel rotates again)."""
+        block = ctx.cfg.hadamard_block
+        return x, ht_encode_amax(x, ctx.sign(block), block=block)
+
+    def encode_given_amax(self, x: torch.Tensor, amax: torch.Tensor,
+                          ctx: SyncContext) -> Encoded:
+        """Post-``pmax`` half of :meth:`encode`: quantize onto the grids
+        derived from the peer-shared ``amax`` ``(L / block,)``."""
+        block = ctx.cfg.hadamard_block
+        bits = self._bits(ctx.cfg)
+        levels = (1 << bits) - 1
+        amax = torch.clamp(amax, min=1e-12)
+        # a true division on every device: CUDA divides by a Python scalar
+        # as a multiply by its reciprocal, one ulp off for some amax
+        step = 2.0 * amax / torch.full_like(amax, levels)
+        lo = -amax
+        noise = ctx.noise(_STAGE1_SALT, (x.shape[-1] // block, block))
+        codes = ht_encode_quant(x, ctx.sign(block), noise, lo, step,
+                                block=block, bits=bits)
+        return Encoded(codes, lo=lo, step=step)
+
+    def encode(self, x, ctx):
+        x1, amax = self.local_amax(x, ctx)
+        return self.encode_given_amax(x1, collectives.pmax(amax)[0], ctx)
+
+    def reduce(self, received, mask, enc, ctx):
+        n = received.shape[0]
+        lo, step = self._grids(enc, n)
+        return dequant_masked_mean(received, lo, step, mask,
+                                   block=ctx.cfg.hadamard_block)
+
+    def encode_shard(self, own, enc, ctx):
+        block = ctx.cfg.hadamard_block
+        n, s = own.shape
+        noise = ctx.noise(_STAGE2_SALT, (s // block, block))
+        codes = grid_quant(own.reshape(-1, block), noise, enc.lo, enc.step,
+                           bits=self._bits(ctx.cfg))
+        return codes.view(n, s)
+
+    def decode_gathered(self, gathered, enc, ctx):
+        block = ctx.cfg.hadamard_block
+        shape = gathered.shape
+        vals = (gathered.reshape(*shape[:-1], -1, block).to(torch.float32)
+                * enc.step[:, None] + enc.lo[:, None]).reshape(shape)
+        return ht_decode(vals, ctx.sign(block), block=block)
+
+
 # --------------------------------------------------------------- transports
 class Reliable:
     """Everything arrives (TCP-class transports): no mask, no loss stats."""
@@ -223,7 +336,8 @@ class Topology:
     engine can skew them across buckets (``sync_packed(mode='pipelined')``):
     ``encode_stage`` (pad + codec encode), ``exchange_stage`` (the
     collectives and the reduce between them) and ``decode_stage`` (codec
-    decode + unpad). Stage state is a tuple of tensors."""
+    decode + unpad). Stage state is a tuple of tensors (None in a slot
+    the codec does not use)."""
 
     def validate(self, transport: Reliable, codec: Codec) -> None:
         pass
@@ -284,21 +398,36 @@ class TarTopology(Topology):
     def encode_stage(self, bucket, transport, codec, ctx):
         n = collectives.axis_size(bucket)
         x, _ = tar_lib.pad_for_tar(bucket, n, codec.block(ctx.cfg))
-        return (codec.encode(x, ctx).data,)
+        if hasattr(codec, "local_amax"):
+            # split encode (quantizing codec): only the pre-collective half
+            # here; the grid pmax and the quantize ride the exchange stage,
+            # as in the reference's pipelined schedule
+            return codec.local_amax(x, ctx)
+        return (codec.encode(x, ctx).data, None)
 
     def exchange_stage(self, state, transport, codec, ctx):
-        (data,) = state
+        data, amax = state
+        lo = step = None
+        if amax is not None:
+            # deferred half of the split encode: share the grids over the
+            # peers, then quantize
+            enc = codec.encode_given_amax(data, collectives.pmax(amax)[0],
+                                          ctx)
+            data, lo, step = enc.data, enc.lo, enc.step
         n = collectives.axis_size(data)
         s = data.shape[-1] // n
         received = collectives.all_to_all(data.view(n, n, s))
         mask = transport.arrival_mask(ctx, n, s)
-        enc = Encoded(data)
+        enc = Encoded(data, lo=lo, step=step)
         own = codec.reduce(received, mask, enc, ctx)
         wire = codec.encode_shard(own, enc, ctx)
-        return (collectives.all_gather(wire),)
+        return (collectives.all_gather(wire), lo, step)
 
     def decode_stage(self, state, length, transport, codec, ctx):
-        out = codec.decode_gathered(state[0], Encoded(None), ctx)
+        # only the quantization grids survive the exchange
+        gathered, lo, step = state
+        out = codec.decode_gathered(gathered, Encoded(None, lo=lo, step=step),
+                                    ctx)
         return out[..., :length]
 
 
@@ -340,7 +469,7 @@ _REGISTRY: dict[str, Callable[[OptiReduceConfig], CollectiveSpec]] = {}
 _NOT_PORTED = {
     "gloo_ring": "A14", "nccl_tree": "A14", "bcube": "A14",
     "tar_rounds": "A14", "optireduce_rounds": "A14", "ring_ht": "A14",
-    "optireduce_q": "A13", "tar_rounds_q": "A13", "optireduce_2d": "A15",
+    "tar_rounds_q": "A14", "optireduce_2d": "A15",
 }
 
 
@@ -384,3 +513,9 @@ register_strategy("tar_tcp",
 def _optireduce_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
     codec = Hadamard() if cfg.use_hadamard else Identity()
     return CollectiveSpec(TarTopology(), Lossy(), codec)
+
+
+# the quantized exchange: TAR x Lossy x HTQuant (the reference's
+# TarTopology(outer="pmean"); the pod axis it names is not ported)
+register_strategy("optireduce_q",
+                  CollectiveSpec(TarTopology(), Lossy(), HTQuant()))

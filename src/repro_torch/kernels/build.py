@@ -7,8 +7,9 @@ compiled on first use into its own shared library under
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so <src>
 
-The library name carries a hash of the source, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is. Only sources in this
+The library name carries a hash of the source, of every shared header
+(``kernels/*/csrc/*.cuh``) and of the flags, so an edited kernel or header
+is rebuilt and an unchanged one is loaded as it is. Only sources in this
 package are compiled; nothing is fetched or taken from elsewhere. A failed
 build raises with the compiler's output. :func:`build_all` starts one
 ``nvcc`` per source at once and waits for all of them (what a cold run on
@@ -41,6 +42,12 @@ def sources() -> dict[str, Path]:
     return {p.stem: p for p in found}
 
 
+def headers() -> list[Path]:
+    """Every shared header of the port's kernels (``#include``d by relative
+    path), in a fixed order."""
+    return sorted(KERNELS_DIR.glob("*/csrc/*.cuh"))
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -51,9 +58,12 @@ def nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha1(src.read_bytes())
+    for hdr in headers():
+        h.update(str(hdr.relative_to(KERNELS_DIR)).encode())
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def _start(src: Path) -> tuple[Path, Path, subprocess.Popen | None]:

@@ -62,7 +62,9 @@ def fwht_ref(x: torch.Tensor) -> torch.Tensor:
         a, b = y[:, :, 0, :], y[:, :, 1, :]
         y = torch.stack([a + b, a - b], dim=2).reshape(-1, n)
         h *= 2
-    y = y / torch.sqrt(torch.tensor(float(n), dtype=torch.float32))
+    # a 0-dim tensor on y's device keeps this a true division on the card
+    # (CUDA divides by a CPU scalar as a multiply by its reciprocal)
+    y = y / torch.full((), float(n), device=y.device).sqrt()
     return y.reshape(shape).to(dtype)
 
 

@@ -6,12 +6,16 @@ flags; the values this slice does not run (wire transports, the adaptive
 control plane, checkpoints, tracing, tensor parallelism, FSDP, ...) raise,
 naming their ROADMAP item. ``--dp`` is the number of peers simulated on the
 card, ``--device`` where they run (the CUDA device unless asked otherwise).
-On the card every Hadamard encode/decode and every drop-compensated mean is
-a launch of the port's CUDA kernels.
+On the card every Hadamard encode/decode, every drop-compensated mean and,
+with ``--strategy optireduce_q``, every quantization stage (grid pass,
+stage-1 codes, dequant + mean, stage-2 codes) is a launch of the port's
+CUDA kernels.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-paper \\
       --steps 3 --dp 4 --drop-rate 0.01
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-paper \\
+      --steps 3 --dp 4 --drop-rate 0.01 --strategy optireduce_q
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 2
 """

@@ -6,19 +6,33 @@ this file imports no JAX, so it runs on the GPU machine as it is:
 
 Tolerances as in ``chip_smoke.py``: 1e-5 for a rotation (fp32 adds of
 unit-scale values, same order as the plain butterfly), 2e-6 for the
-masked mean (at most 4 products summed).
+masked mean (at most 4 products summed). The quantized-exchange kernels B3,
+B4 and B6 must equal their plain versions bitwise (the same butterfly, max
+exact in any order, the quantizer's IEEE ops in the same order); B5 sums at
+most 4 dequantized values of magnitude <= amax, in peer order where the
+plain version's reduction may pick another order: within 8 ulp of amax.
+Non-finite input keeps the plain versions' semantics exactly: B3 passes
+NaN through as ``torch.amax`` does, and a NaN quotient gives code 0.
 """
 import pytest
 import torch
 
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed
 from repro_torch.core.pipeline import GeneratorDraws, SyncContext
+from repro_torch.kernels.dequant_reduce import dequant_masked_mean
+from repro_torch.kernels.dequant_reduce import ops as dq_ops
 from repro_torch.kernels.fwht import ops as fwht_ops
 from repro_torch.kernels.fwht import randomized_fwht
 from repro_torch.kernels.fwht import ref as fwht_ref
 from repro_torch.kernels.masked_sum import masked_mean
 from repro_torch.kernels.masked_sum import ops as mm_ops
+from repro_torch.kernels.ht_quant import ht_amax, ht_quant
+from repro_torch.kernels.ht_quant import ops as hq_ops
+from repro_torch.kernels.ht_quant import ref as hq_ref
 from repro_torch.kernels.masked_sum.ref import masked_mean_ref
+from repro_torch.kernels.quant import grid_quant
+from repro_torch.kernels.quant import ops as gq_ops
+from repro_torch.kernels.quant.ref import grid_quant_ref
 
 ROT_TOL = 1e-5
 MEAN_TOL = 2e-6
@@ -88,12 +102,126 @@ def test_masked_mean_kernel_matches_plain(dev, length):
     assert bool((got[:, :9] == 0).all())
 
 
+def _grids(amax, bits=8):
+    amax = torch.clamp(amax, min=1e-12)
+    return -amax, 2.0 * amax / ((1 << bits) - 1)
+
+
+@pytest.mark.parametrize("n", [16, 256, 1024, 4096])
+def test_ht_amax_kernel_equals_plain(dev, n):
+    g = _gen(dev, n)
+    x = torch.randn((4, 37, n), generator=g, device=dev)    # ragged rows
+    sign = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, 1., -1.)
+    before = hq_ops.amax_launches
+    got = ht_amax(x, sign)
+    assert hq_ops.amax_launches == before + 1
+    assert got.shape == (4, 37)
+    assert torch.equal(got, hq_ref.ht_amax_ref(x, sign))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n", [16, 1024, 4096])
+def test_ht_quant_kernel_equals_plain(dev, n, bits):
+    """Per-peer rows of a strided arena slice, one shared copy of the noise
+    and grids."""
+    g = _gen(dev, 100 + n)
+    rows = 12
+    arena = torch.randn((4, 2, rows * n), generator=g, device=dev)
+    x = arena[:, 1].view(4, rows, n)
+    sign = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, 1., -1.)
+    noise = torch.rand((rows, n), generator=g, device=dev)
+    lo, step = _grids(hq_ref.ht_amax_ref(x, sign).amax(0), bits)
+    before = hq_ops.quant_launches
+    got = ht_quant(x, sign, noise, lo, step, bits=bits)
+    assert hq_ops.quant_launches == before + 1
+    assert got.dtype == torch.uint8 and got.shape == x.shape
+    assert torch.equal(got, hq_ref.ht_quant_ref(x, sign, noise, lo, step,
+                                                 bits=bits))
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("s,block", [(4096, 1024), (1000 * 16, 16)])
+def test_dequant_mean_kernel_matches_plain(dev, s, block, masked):
+    """On the all_to_all view of the codes, each receiver on its own grid
+    slice."""
+    g = _gen(dev, s + masked)
+    p = 4
+    sent = torch.randint(0, 256, (p, p * s), generator=g, device=dev,
+                         dtype=torch.uint8)
+    received = sent.view(p, p, s).transpose(0, 1)
+    amax = torch.rand(p * s // block, generator=g, device=dev) * 3 + 0.1
+    lo, step = _grids(amax)
+    lo, step = lo.view(p, -1), step.view(p, -1)
+    mask = None
+    if masked:
+        mask = (torch.rand((p, p, s), generator=g, device=dev) < 0.8).float()
+        mask[:, :, :9] = 0.0
+    before = dq_ops.launches
+    got = dequant_masked_mean(received, lo, step, mask, block=block)
+    assert dq_ops.launches == before + 1
+    want = dequant_masked_mean(received.cpu(), lo.cpu(), step.cpu(),
+                               None if mask is None else mask.cpu(),
+                               block=block)
+    tol = 8 * 2.0 ** -23 * float(amax.max())
+    torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=0)
+    if masked:
+        assert bool((got[:, :9] == 0).all())
+
+
+@pytest.mark.parametrize("cols", [1024, 1000])
+def test_grid_quant_kernel_equals_plain(dev, cols):
+    g = _gen(dev, cols)
+    p, r = 4, 25
+    x = torch.randn((p * r, cols), generator=g, device=dev)
+    noise = torch.rand((r, cols), generator=g, device=dev)
+    lo, step = _grids(x.abs().amax(-1))
+    before = gq_ops.launches
+    got = grid_quant(x, noise, lo, step, bits=8)
+    assert gq_ops.launches == before + 1
+    assert torch.equal(got, grid_quant_ref(x, noise, lo, step, bits=8))
+
+
+def test_quant_kernels_reject_widths_they_do_not_take(dev):
+    """B5 and B6 take 4 columns a thread; the sync engine's Hadamard
+    blocks (16..4096) always allow it."""
+    x = torch.zeros((8, 1001), device=dev)
+    g = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gq_ops.grid_quant_launch(x, x, g, g, bits=8)
+    codes = torch.zeros((1, 4, 36), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="multiple"):
+        dq_ops.dequant_mean_launch(codes, g[None, :4], g[None, :4], None,
+                                   block=9)
+
+
+@pytest.mark.parametrize("n", [16, 1024, 4096])
+def test_ht_kernels_pass_non_finite_values_as_plain(dev, n):
+    """A NaN or an inf spreads over its block in the rotation: B3's amax
+    of that block is NaN (inf) as in the plain version, and B4's codes on
+    such grids equal the plain version's (a NaN quotient gives code 0)."""
+    g = _gen(dev, 200 + n)
+    x = torch.randn((4, 9, n), generator=g, device=dev)
+    x[1, 2, 3] = float("nan")
+    x[3, 7, 0] = float("inf")
+    sign = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, 1., -1.)
+    got = ht_amax(x, sign)
+    want = hq_ref.ht_amax_ref(x, sign)
+    torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
+    assert bool(got[1, 2].isnan()) and bool(got[3, 7].isinf())
+    lo, step = _grids(got.amax(0))
+    assert bool(lo[2].isnan()) and bool(step[7].isinf())
+    noise = torch.rand((9, n), generator=g, device=dev)
+    assert torch.equal(ht_quant(x, sign, noise, lo, step, bits=8),
+                       hq_ref.ht_quant_ref(x, sign, noise, lo, step, bits=8))
+
+
+@pytest.mark.parametrize("strategy", ["optireduce", "optireduce_q"])
 @pytest.mark.parametrize("mode", ["scan", "pipelined"])
-def test_sync_packed_on_card_matches_cpu(dev, mode):
+def test_sync_packed_on_card_matches_cpu(dev, mode, strategy):
     """The whole sync path, card kernels against CPU plain versions, with
     the same draws."""
-    cfg = OptiReduceConfig(drop_rate=0.05, drop_pattern="bernoulli",
-                           hadamard_block=1024)
+    cfg = OptiReduceConfig(strategy=strategy, drop_rate=0.05,
+                           drop_pattern="bernoulli", hadamard_block=1024)
     cpu = torch.device("cpu")
     arena = torch.randn((4, 3, 16_384), generator=torch.Generator()
                         .manual_seed(0))
@@ -106,6 +234,9 @@ def test_sync_packed_on_card_matches_cpu(dev, mode):
 
         def mask(self, b, r, n, s):
             return self.inner.mask(b, r, n, s).to(dev)
+
+        def noise(self, b, salt, shape):
+            return self.inner.noise(b, salt, shape).to(dev)
 
     want = sync_packed(arena, SyncContext(cfg=cfg, draws=HostDraws.inner),
                        mode=mode)

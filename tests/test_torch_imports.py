@@ -36,6 +36,37 @@ def test_scan_sees_the_package():
 
 
 def test_kernel_sources_are_in_the_package():
-    srcs = sorted(p.name for p in (ROOT / "src" / "repro_torch" / "kernels")
-                  .glob("*/csrc/*.cu"))
-    assert srcs == ["fwht.cu", "masked_mean.cu"]
+    from repro_torch.kernels import build
+    kdir = ROOT / "src" / "repro_torch" / "kernels"
+    srcs = sorted(p.name for p in kdir.glob("*/csrc/*.cu"))
+    assert srcs == ["dequant_mean.cu", "fwht.cu", "grid_quant.cu",
+                    "ht_quant.cu", "masked_mean.cu"]
+    assert sorted(build.sources()) == ["dequant_mean", "fwht", "grid_quant",
+                                       "ht_quant", "masked_mean"]
+    assert [p.relative_to(kdir).as_posix() for p in build.headers()] == \
+        ["fwht/csrc/butterfly.cuh"]
+    # every include of a source names a header of the package
+    for src in kdir.glob("*/csrc/*.cu"):
+        for line in src.read_text().splitlines():
+            if line.startswith('#include "'):
+                inc = (src.parent / line.split('"')[1]).resolve()
+                assert inc in [h.resolve() for h in build.headers()], line
+
+
+def test_library_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """Editing a shared header renames every library built from a source,
+    so a stale build is never loaded."""
+    import shutil
+
+    from repro_torch.kernels import build
+    kdir = tmp_path / "kernels"
+    shutil.copytree(ROOT / "src" / "repro_torch" / "kernels", kdir,
+                    ignore=shutil.ignore_patterns("*.py", "__pycache__"))
+    monkeypatch.setattr(build, "KERNELS_DIR", kdir)
+    srcs = {p.stem: p for p in kdir.glob("*/csrc/*.cu")}
+    before = {name: build._target(p).name for name, p in srcs.items()}
+    hdr = kdir / "fwht" / "csrc" / "butterfly.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {name: build._target(p).name for name, p in srcs.items()}
+    assert all(before[n] != after[n] for n in srcs)
+    assert all(after[n].startswith(n + "-") for n in srcs)

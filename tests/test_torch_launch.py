@@ -34,12 +34,23 @@ def test_main_returns_zero_with_scan_and_microbatches():
     (["--dp-mode", "fsdp"], "A15"),
     (["--ckpt-dir", "ck"], "A12"),
     (["--trace"], "A19"),
-    (["--strategy", "optireduce_q"], "A13"),
+    (["--strategy", "tar_rounds_q"], "A14"),
     (["--strategy", "gloo_ring"], "A14"),
 ])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train.run(["--smoke", "--device", "cpu", "--steps", "1", *flags])
+
+
+def test_quantized_exchange_two_steps_on_cpu():
+    records = train.run(["--smoke", "--device", "cpu", "--steps", "2",
+                         "--seq-len", "32", "--strategy", "optireduce_q",
+                         "--drop-rate", "0.05", "--log-every", "1"])
+    assert len(records) == 2
+    for rec in records:
+        assert math.isfinite(rec["loss"]) and rec["loss"] > 0
+        assert 0 < rec["loss_frac"] < 0.2
+        assert math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0
 
 
 def test_vmap_sync_mode_is_not_ported():
