@@ -33,7 +33,25 @@ Run from the root of a checkout. Phases, each printing one JSON line:
    optireduce and for optireduce_q (noise included);
 9. one more step of each main path under ``torch.profiler``: wall time,
    device busy time and idle share, and the largest device and host
-   entries.
+   entries;
+10. kernel B7 (THC's quantizer onto one shared range) against its plain
+    version at the THC path's full-width shape: x (8, 148,304, 1024), one
+    shared (148,304, 1024) noise copy, the range formed from the data as
+    the harness forms it, bits 4 and 8 — codes bitwise equal, a NaN giving
+    code 0;
+11. the THC path: ``repro_torch.sim.tta.run_training`` with the THC
+    compressor, 8 workers, seq 64, 3 steps on gpt2-paper at full width,
+    kernels required — per-step accuracy, replica divergence (exactly 0)
+    and step ms, peak memory, and the launch counts, which must be 1 (B7)
+    and 2 (B1) a step and none of B2-B6; then its third step of a new run
+    under ``torch.profiler``, as in 9.;
+12. the harness's other paths on gpt2-smoke, 2 steps each: Top-K,
+    TernGrad, tail drops at 0.01 (divergence > 0) and the same with error
+    feedback — every accuracy finite;
+13. 2 THC steps of the harness on gpt2-smoke on the card against the CPU,
+    same parameters and draws: the codes that differ counted, accuracy
+    within one eval token a differing code, parameters within what those
+    codes move through momentum SGD.
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -115,6 +133,7 @@ def main() -> int:
     from repro_torch.kernels.ht_quant import ops as hq_ops
     from repro_torch.kernels.masked_sum import ops as mm_ops
     from repro_torch.kernels.masked_sum import ref as mm_ref
+    from repro_torch.kernels import runtime
     from repro_torch.kernels.quant import ops as gq_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -219,14 +238,16 @@ def main() -> int:
                 "ht_amax": (hq_ops, "amax_launches"),
                 "ht_quant": (hq_ops, "quant_launches"),
                 "dequant_mean": (dq_ops, "launches"),
-                "grid_quant": (gq_ops, "launches")}
+                "grid_quant": (gq_ops, "launches"),
+                "uniform_quant": (gq_ops, "uniform_launches")}
     steps = 4
     per_step = {
         "optireduce": {"fwht": 48, "masked_mean": 24, "ht_amax": 0,
-                       "ht_quant": 0, "dequant_mean": 0, "grid_quant": 0},
+                       "ht_quant": 0, "dequant_mean": 0, "grid_quant": 0,
+                       "uniform_quant": 0},
         "optireduce_q": {"fwht": 24, "masked_mean": 0, "ht_amax": 24,
                          "ht_quant": 24, "dequant_mean": 24,
-                         "grid_quant": 24}}
+                         "grid_quant": 24, "uniform_quant": 0}}
     launches = {}
     for strategy, want_counts in per_step.items():
         launches[strategy] = train_main_path(strategy, steps, counters)
@@ -242,6 +263,26 @@ def main() -> int:
     # 9. where one step of each main path's time goes
     profile_step(dev, "optireduce")
     profile_step(dev, "optireduce_q")
+
+    # 10. B7, THC's quantizer, at the THC path's full-width shape
+    b7 = check_uniform_quant(dev, gen)
+
+    # 11. the THC path of the harness at full width; it counts its own
+    runtime.set_kernel_mode("kernel")
+    launches["thc"] = train_thc(counters)
+    runtime.set_kernel_mode(None)
+    thc_steps = 3
+    want_counts = {k: 0 for k in counters}
+    want_counts.update(fwht=2 * thc_steps, uniform_quant=thc_steps)
+    if launches["thc"] != want_counts:
+        fail(f"thc: launch counts {launches['thc']} over {thc_steps} "
+             f"steps, expected {want_counts}")
+
+    profile_thc(dev)
+
+    # 12., 13. the harness's other paths; THC on the card against the CPU
+    tta_paths(dev)
+    check_thc_against_cpu(dev)
 
     kernels.append({
         "name": "fwht", "route": "cuda",
@@ -279,6 +320,14 @@ def main() -> int:
             "max_abs_err": q["max_abs_err"], "ms": q["ms"],
             "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
             "bound_by": q["bound_by"], "library_ms": q["library_ms"]})
+    kernels.append({
+        "name": "uniform_quant", "route": "cuda",
+        "source": "src/repro_torch/kernels/quant/csrc/grid_quant.cu",
+        "replaces": "src/repro/kernels/quant/quant.py:124",
+        "launches": launches["thc"]["uniform_quant"],
+        "max_abs_err": b7["max_abs_err"], "ms": b7["ms"],
+        "plain_ms": b7["plain_ms"], "bound_ms": b7["bound_ms"],
+        "bound_by": b7["bound_by"], "library_ms": None})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -448,6 +497,238 @@ def check_quant_kernels(dev, gen) -> dict:
     return out
 
 
+THC_WORKERS = 8
+THC_ROWS = 148_304         # gpt2-paper's 151,862,784 params padded to
+                           # 8 workers x blocks of 1024, over 1024
+
+
+def check_uniform_quant(dev, gen) -> dict:
+    """B1 and B7 against their plain versions at the shapes the THC path
+    hands them: B1's encode of the 8 workers' gradients as one
+    (8 x 148,304, 1024) launch with the pre sign and its decode of the
+    (148,304, 1024) mean with the post sign; B7 on the rotated stack as one
+    launch, one shared noise copy, the range from the data as the harness
+    forms it. Returns B7's bits-4 row (the harness's default width)."""
+    import torch
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.fwht import ref as fwht_ref
+    from repro_torch.kernels.quant import ops as gq_ops
+    from repro_torch.kernels.quant import ref as gq_ref
+
+    x = torch.randn((THC_WORKERS * THC_ROWS, BLOCK), generator=gen,
+                    device=dev)
+    sign = torch.where(torch.rand((BLOCK,), generator=gen, device=dev) < 0.5,
+                       1.0, -1.0)
+    for rows, mode, rmode in ((x.shape[0], "pre", "encode"),
+                              (THC_ROWS, "post", "decode")):
+        xs = x[:rows]
+        got = fwht_ops.fwht_launch(xs, sign, mode)
+        want = fwht_ref.randomized_fwht_ref(xs, sign, mode=rmode)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        del got, want
+        if not math.isfinite(err) or err > FWHT_TOL:
+            fail(f"fwht at the THC shape {rows}x{BLOCK} {mode}: max abs err "
+                 f"{err} > {FWHT_TOL}")
+        b_ms, b_by = bound(fwht_ref.fwht_bytes(rows, BLOCK),
+                           fwht_ref.fwht_flops(rows, BLOCK))
+        emit({"phase": "fwht_thc", "rows": rows, "n": BLOCK, "mode": mode,
+              "max_abs_err": err, "tolerance": FWHT_TOL,
+              "ms": time_ms(lambda: fwht_ops.fwht_launch(xs, sign, mode),
+                            reps=10),
+              "bound_ms": b_ms, "bound_by": b_by})
+    del xs
+    torch.cuda.empty_cache()
+    x.mul_(1e-3)                 # gradient scale, as the harness sees it
+    noise = torch.rand((THC_ROWS, BLOCK), generator=gen, device=dev)
+    lohi = torch.stack([x.min() * 1.2 - 1e-3, x.max() * 1.2 + 1e-3])
+    rows = {}
+    for bits in (4, 8):
+        got = gq_ops.uniform_quant_launch(x, noise, lohi, bits=bits)
+        want = gq_ref.uniform_quant_ref(x, noise, lohi[0], lohi[1],
+                                        bits=bits)
+        torch.cuda.synchronize()
+        mismatched = int((got != want).sum())
+        err = float((got.int() - want.int()).abs().max())
+        del got, want
+        if mismatched:
+            fail(f"uniform_quant bits={bits}: {mismatched} codes differ "
+                 "from the plain version")
+        ms = time_ms(lambda: gq_ops.uniform_quant_launch(x, noise, lohi,
+                                                         bits=bits))
+        plain_ms = time_ms(lambda: gq_ref.uniform_quant_ref(
+            x, noise, lohi[0], lohi[1], bits=bits), reps=3, warmup=1)
+        b_ms, b_by = bound(
+            gq_ref.uniform_quant_bytes(x.shape[0], BLOCK, THC_ROWS),
+            gq_ref.uniform_quant_flops(x.shape[0], BLOCK))
+        rows[bits] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "uniform_quant", "bits": bits,
+              "shape": [THC_WORKERS, THC_ROWS, BLOCK],
+              "noise_shape": [THC_ROWS, BLOCK], "lohi": lohi.tolist(),
+              "mismatched_codes": mismatched, "library_ms": None,
+              **rows[bits]})
+    # a NaN gives code 0 and leaves the other codes as the plain version's
+    bad = x[:4096].clone()
+    bad[1, 3] = float("nan")
+    got = gq_ops.uniform_quant_launch(bad, noise[:4096], lohi, bits=4)
+    want = gq_ref.uniform_quant_ref(bad, noise[:4096], lohi[0], lohi[1],
+                                    bits=4)
+    if not (torch.equal(got, want) and int(got[1, 3]) == 0):
+        fail("uniform_quant on a NaN differs from the plain version")
+    emit({"phase": "uniform_quant_nan", "nan_code": int(got[1, 3]),
+          "codes_equal_plain": True})
+    del x, noise
+    torch.cuda.empty_cache()
+    return rows[4]
+
+
+def train_thc(counters: dict) -> dict:
+    """The THC path of the time-to-accuracy harness at full width, through
+    its entry point; returns each kernel's launches in this run alone."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.sim.tta import TrainRunConfig, run_training
+
+    rc = TrainRunConfig(compressor="thc", n_workers=THC_WORKERS,
+                        per_worker_batch=4, seq_len=64, steps=3,
+                        eval_every=1)
+    cfg = get_config("gpt2-paper")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    hist = run_training(rc, device="cuda", cfg=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(mod, attr)
+              for name, (mod, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for i, step in enumerate(hist["steps"]):
+        acc, div = hist["acc"][i], hist["divergence"][i]
+        emit({"phase": "tta_thc_step", "step": step, "acc": acc,
+              "divergence": div, "step_ms": hist["step_s"][step] * 1e3})
+        if not math.isfinite(acc) or div != 0.0:
+            fail(f"thc step {step}: acc {acc}, divergence {div} (every "
+                 "replica gets the same bucket: it must be exactly 0)")
+    emit({"phase": "tta_thc", "arch": cfg.name, "workers": rc.n_workers,
+          "steps": rc.steps, "bits": rc.thc_bits,
+          "block": rc.hadamard_block, "wall_s": wall,
+          "peak_mem_bytes": peak, "launches": counts,
+          "per_step": {k: v / rc.steps for k, v in counts.items()}})
+    return counts
+
+
+def tta_paths(dev) -> None:
+    """The harness's other paths on gpt2-smoke on the card, 2 steps each."""
+    from repro_torch.sim.tta import TrainRunConfig, run_training
+
+    paths = {"topk": {"compressor": "topk"},
+             "terngrad": {"compressor": "terngrad"},
+             "tail": {"drop_rate": 0.01},
+             "tail_ef": {"drop_rate": 0.01, "recovery": "ef"}}
+    for name, kw in paths.items():
+        rc = TrainRunConfig(steps=2, eval_every=1, **kw)
+        hist = run_training(rc, device=dev)
+        emit({"phase": "tta_paths", "path": name, "acc": hist["acc"],
+              "divergence": hist["divergence"], "drops": hist["drops"],
+              "step_ms": [t * 1e3 for t in hist["step_s"]]})
+        if not all(math.isfinite(a) for a in hist["acc"]):
+            fail(f"tta path {name}: accuracy {hist['acc']}")
+        if name.startswith("tail") and not hist["divergence"][-1] > 0:
+            fail(f"tta path {name}: stage-2 drops left the replicas equal "
+                 f"(divergence {hist['divergence']})")
+
+
+def check_thc_against_cpu(dev) -> None:
+    """2 THC steps of the harness on gpt2-smoke, card against CPU, same
+    parameters and draws.
+
+    A summed code that differs between the two (a floor on a boundary, the
+    gradients summed in another order) moves each entry of its Hadamard
+    block by |d| x step / (N sqrt(block)). Accuracy is held within one eval
+    token a differing code so far. Momentum SGD (0.9) carries a step-0
+    difference into step 1 as 1.9 x lr x it and a step-1 difference as lr x
+    it, so each parameter is held within lr x (1.9 move_0 + move_1) x 1.1
+    (the gradient's response to the moved parameters) + lr x 1e-5 (fp32
+    sums in other orders through the model)."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.keys import generator, key
+    from repro_torch.models import init_params
+    from repro_torch.sim.tta import (KeyDraws, ReplicaRun, TrainRunConfig,
+                                     _flatten)
+    from repro_torch.tree import tree_map
+
+    cpu = torch.device("cpu")
+    rc = TrainRunConfig(compressor="thc", n_workers=4, per_worker_batch=4,
+                        seq_len=32, steps=2, eval_every=1, lr=0.1)
+    cfg = get_smoke("gpt2-paper")
+    base = init_params(generator(key(0)), cfg, device="cpu")
+    runs = {"cpu": ReplicaRun(rc, device=cpu, cfg=cfg, params=base,
+                              draws=KeyDraws(cpu)),
+            "cuda": ReplicaRun(rc, device=dev, cfg=cfg, params=base,
+                               draws=_HostDraws(KeyDraws(cpu), dev))}
+    tokens = runs["cpu"].eval_labels.numel()
+    n, block = rc.n_workers, rc.hadamard_block
+    flipped = 0
+    moves, details = [], []
+    for step in range(rc.steps):
+        acc, sums = {}, {}
+        for name, run in runs.items():
+            sums[name] = _thc_code_sum(run, step)
+            run.step(step)
+            acc[name] = run.accuracy()
+        (a, lohi), (b, lohi_b) = sums["cpu"], sums["cuda"]
+        d = (a - b).abs()
+        qstep = float(lohi[1] - lohi[0]) / ((1 << rc.thc_bits) - 1)
+        moves.append((d.sum(1).double() * qstep / (n * math.sqrt(block)))
+                     .repeat_interleave(block)[:runs["cpu"].length])
+        flipped += int(d.sum())
+        lohi_diff = float((lohi - lohi_b).abs().max())
+        details.append({"step": step, "codes_differing": int((d > 0).sum()),
+                        "code_sum_abs_diff": int(d.sum()),
+                        "lohi_max_abs_diff": lohi_diff, "acc": acc})
+        if abs(acc["cpu"] - acc["cuda"]) > flipped / tokens + 1e-9:
+            fail(f"thc card vs CPU step {step}: accuracy {acc} apart by "
+                 f"more than {flipped} of {tokens} eval tokens")
+    # every replica holds the same parameters (divergence 0): worker 0's
+    p_cpu, p_gpu = (_flatten(tree_map(lambda x: x[0], r.params))[0].cpu()
+                    for r in runs.values())
+    allowed = rc.lr * (1.1 * (1.9 * moves[0] + moves[1]) + 1e-5)
+    excess = float(((p_cpu - p_gpu).abs() - allowed).max())
+    p_err = float((p_cpu - p_gpu).abs().max())
+    emit({"phase": "tta_reference_check", "arch": cfg.name, "steps": 2,
+          "workers": n, "eval_tokens": tokens, "steps_detail": details,
+          "params_max_abs_diff": p_err,
+          "param_excess_over_bound": excess})
+    if excess > 0:
+        fail(f"thc card vs CPU: parameters {p_err} apart, {excess} past "
+             "what the differing codes move")
+
+
+def _thc_code_sum(run, step: int):
+    """The summed codes and the range that ``run.step(step)`` aggregates:
+    its workers' gradients, padded, rotated and quantized from the draws
+    the step takes. Returns both on the CPU."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.compression import thc_compress
+    from repro_torch.core.keys import fold_in
+
+    rc, block = run.rc, run.rc.hadamard_block
+    flats = run.worker_flats(run.data.global_batch(step))
+    g = F.pad(flats, (0, (-flats.shape[1]) % (rc.n_workers * block)))
+    lohi = torch.stack([g.min() * 1.2 - 1e-3, g.max() * 1.2 + 1e-3])
+    skey = fold_in(run.key, step)
+    codes = thc_compress(
+        g, run.draws.sign(skey, block),
+        run.draws.uniform(fold_in(skey, 1), (g.shape[1] // block, block)),
+        lohi, bits=rc.thc_bits, block=block).codes
+    return codes.to(torch.int32).sum(0).cpu(), lohi.cpu()
+
+
 def train_main_path(strategy: str, steps: int, counters: dict) -> dict:
     """One main path through the launcher at full width; returns each
     kernel's launches in this run alone."""
@@ -483,20 +764,15 @@ def train_main_path(strategy: str, steps: int, counters: dict) -> dict:
 
 
 class _HostDraws:
-    """The CPU generators' draws, served on any device: both runs of the
-    comparison see the same signs, masks and quantization noise."""
+    """A draws provider's CPU draws, served on any device: both runs of a
+    comparison see the same signs, masks and noises."""
 
     def __init__(self, inner, device):
         self.inner, self.device = inner, device
 
-    def sign(self, bucket, block):
-        return self.inner.sign(bucket, block).to(self.device)
-
-    def mask(self, bucket, receiver, n, s):
-        return self.inner.mask(bucket, receiver, n, s).to(self.device)
-
-    def noise(self, bucket, salt, shape):
-        return self.inner.noise(bucket, salt, shape).to(self.device)
+    def __getattr__(self, name):
+        draw = getattr(self.inner, name)
+        return lambda *args, **kw: draw(*args, **kw).to(self.device)
 
 
 def check_step_against_cpu(dev, strategy: str) -> None:
@@ -621,9 +897,6 @@ def check_step_against_cpu(dev, strategy: str) -> None:
 
 
 def profile_step(dev, strategy: str) -> None:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.core.allreduce import OptiReduceConfig
     from repro_torch.core.keys import generator, key
@@ -642,17 +915,47 @@ def profile_step(dev, strategy: str) -> None:
     step_fn, opt = build_train_step(cfg, tc, peers=4, device=dev)
     state = opt.init(params)
     batches = [data.host_batch(s, 0, 1) for s in range(3)]
+
+    def one(s):
+        nonlocal params, state
+        params, state, m = step_fn(params, state, batches[s], s, k)
+        float(m["loss"])
+    profile_third_step(one, {"strategy": strategy, "arch": cfg.name,
+                             "peers": PEERS})
+
+
+def profile_thc(dev) -> None:
+    """The THC path's third step at full width under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.sim.tta import ReplicaRun, TrainRunConfig
+
+    rc = TrainRunConfig(compressor="thc", n_workers=THC_WORKERS,
+                        per_worker_batch=4, seq_len=64, steps=3)
+    run = ReplicaRun(rc, device=dev, cfg=get_config("gpt2-paper"))
+
+    def one(s):
+        run.step(s)
+        run.synchronize()
+    profile_third_step(one, {"path": "tta_thc", "arch": "gpt2-paper",
+                             "workers": rc.n_workers})
+
+
+def profile_third_step(one, label: dict) -> None:
+    """Run ``one(0)``, ``one(1)`` (each a step ending in a synchronisation)
+    on the host clock, then ``one(2)`` under ``torch.profiler``: wall time,
+    device busy time and idle share, and the largest device and host
+    entries."""
+    from torch.profiler import ProfilerActivity, profile
+
     wall = []
     for s in range(2):
         t0 = time.perf_counter()
-        params, state, m = step_fn(params, state, batches[s], s, k)
-        float(m["loss"])
+        one(s)
         wall.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        params, state, m = step_fn(params, state, batches[2], 2, k)
-        float(m["loss"])
+        one(2)
         prof_wall = (time.perf_counter() - t0) * 1e3
     rows = prof.key_averages()
 
@@ -669,8 +972,7 @@ def profile_step(dev, strategy: str) -> None:
                      reverse=True)[:12]
     launches = sum(r.count for r in host
                    if r.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
-    emit({"phase": "profile", "strategy": strategy, "arch": cfg.name,
-          "peers": PEERS,
+    emit({"phase": "profile", **label,
           "step_ms_unprofiled": wall[-1], "step_ms_profiled": prof_wall,
           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
           # busy over the profiled step's wall time; the second share

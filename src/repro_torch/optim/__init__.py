@@ -1,4 +1,5 @@
 from .optimizers import (AdamState, OptimizerConfig, adamw, make_optimizer,
-                         sgd)
+                         momentum_sgd, sgd)
 
-__all__ = ["AdamState", "OptimizerConfig", "adamw", "make_optimizer", "sgd"]
+__all__ = ["AdamState", "OptimizerConfig", "adamw", "make_optimizer",
+           "momentum_sgd", "sgd"]

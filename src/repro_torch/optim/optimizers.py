@@ -1,12 +1,17 @@
-"""Optimizers: SGD and AdamW, written out as the reference writes them.
+"""Optimizers: SGD, momentum SGD and AdamW, written out as the reference
+writes them.
 
 Counterpart of ``src/repro/optim/optimizers.py``. AdamW here is
 ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)`` on every leaf, in fp32,
 with moments kept in ``state_dtype`` — not ``torch.optim.AdamW``, whose
-decay and epsilon placement differ. States are trees mirroring the
-parameters. ``update`` writes the new parameters and moments into the
-given tensors in place (no second copy of either) and returns them.
-Momentum SGD and Adafactor wait for a later slice.
+decay and epsilon placement differ. Momentum SGD is ``m = momentum * m + g``
+then ``p -= lr * m`` in fp32 (the time-to-accuracy harness's optimizer).
+States are trees mirroring the parameters. ``update`` writes the new
+parameters and moments into the given tensors in place (no second copy of
+either) and returns them. The reference's ``scan_update`` only bounds XLA's
+fp32 transients by mapping the update over stacked layers; eager PyTorch
+updates one leaf at a time already, so it has no counterpart here. Adafactor
+waits for a later slice.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ class OptimizerConfig:
     beta2: float = 0.95
     eps: float = 1e-8
     weight_decay: float = 0.01
+    momentum: float = 0.9
     state_dtype: torch.dtype = torch.float32
     grad_clip: float = 1.0
 
@@ -53,6 +59,24 @@ def sgd(cfg: OptimizerConfig) -> Optimizer:
         return params, state
 
     return Optimizer(init, update, state_like_params=False)
+
+
+def momentum_sgd(cfg: OptimizerConfig) -> Optimizer:
+    def init(params):
+        return tree_map(lambda p: torch.zeros(p.shape, dtype=cfg.state_dtype,
+                                              device=p.device), params)
+
+    @torch.no_grad()
+    def update(grads, state, params, lr, step):
+        del step
+        for p, g, m in zip(tree_leaves(params), tree_leaves(grads),
+                           tree_leaves(state)):
+            mf = cfg.momentum * m.to(torch.float32) + g.to(torch.float32)
+            p.copy_(p.to(torch.float32) - lr * mf)
+            m.copy_(mf)
+        return params, state
+
+    return Optimizer(init, update, state_like_params=True)
 
 
 def adamw(cfg: OptimizerConfig) -> Optimizer:
@@ -88,11 +112,11 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
     return Optimizer(init, update, state_like_params=True)
 
 
-_REGISTRY = {"sgd": sgd, "adamw": adamw}
+_REGISTRY = {"sgd": sgd, "momentum": momentum_sgd, "adamw": adamw}
 
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
-    if cfg.name in ("momentum", "adafactor"):
+    if cfg.name == "adafactor":
         raise NotImplementedError(f"optimizer {cfg.name!r} is not ported "
                                   "yet: ROADMAP A10")
     if cfg.name not in _REGISTRY:

@@ -7,7 +7,7 @@ this file imports no JAX, so it runs on the GPU machine as it is:
 Tolerances as in ``chip_smoke.py``: 1e-5 for a rotation (fp32 adds of
 unit-scale values, same order as the plain butterfly), 2e-6 for the
 masked mean (at most 4 products summed). The quantized-exchange kernels B3,
-B4 and B6 must equal their plain versions bitwise (the same butterfly, max
+B4 and B6, and THC's quantizer B7, must equal their plain versions bitwise (the same butterfly, max
 exact in any order, the quantizer's IEEE ops in the same order); B5 sums at
 most 4 dequantized values of magnitude <= amax, in peer order where the
 plain version's reduction may pick another order: within 8 ulp of amax.
@@ -16,8 +16,10 @@ NaN through as ``torch.amax`` does, and a NaN quotient gives code 0.
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed
+from repro_torch.core.compression import thc_compress
 from repro_torch.core.pipeline import GeneratorDraws, SyncContext
 from repro_torch.kernels.dequant_reduce import dequant_masked_mean
 from repro_torch.kernels.dequant_reduce import ops as dq_ops
@@ -30,9 +32,10 @@ from repro_torch.kernels.ht_quant import ht_amax, ht_quant
 from repro_torch.kernels.ht_quant import ops as hq_ops
 from repro_torch.kernels.ht_quant import ref as hq_ref
 from repro_torch.kernels.masked_sum.ref import masked_mean_ref
-from repro_torch.kernels.quant import grid_quant
+from repro_torch.kernels.quant import grid_quant, uniform_quant
 from repro_torch.kernels.quant import ops as gq_ops
-from repro_torch.kernels.quant.ref import grid_quant_ref
+from repro_torch.kernels.quant.ref import grid_quant_ref, uniform_quant_ref
+from repro_torch.sim.tta import KeyDraws, TrainRunConfig, _aggregate
 
 ROT_TOL = 1e-5
 MEAN_TOL = 2e-6
@@ -192,6 +195,86 @@ def test_quant_kernels_reject_widths_they_do_not_take(dev):
     with pytest.raises(ValueError, match="multiple"):
         dq_ops.dequant_mean_launch(codes, g[None, :4], g[None, :4], None,
                                    block=9)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("cols", [1024, 4096])
+def test_uniform_quant_kernel_equals_plain(dev, cols, bits):
+    """B7 on a (W, R, C) stack with one shared (R, C) noise copy and the
+    range as the harness forms it; a NaN gives code 0 as in the plain
+    version."""
+    g = _gen(dev, cols + bits)
+    w, r = 8, 37
+    x = torch.randn((w, r, cols), generator=g, device=dev)
+    x[3, 5, 7] = float("nan")
+    noise = torch.rand((r, cols), generator=g, device=dev)
+    finite = x.nan_to_num()
+    lohi = torch.stack([finite.min() * 1.2 - 1e-3, finite.max() * 1.2 + 1e-3])
+    before = gq_ops.uniform_launches
+    got = uniform_quant(x, noise, lohi, bits=bits)
+    assert gq_ops.uniform_launches == before + 1
+    want = uniform_quant_ref(x.reshape(-1, cols), noise, lohi[0], lohi[1],
+                             bits=bits).view(x.shape)
+    assert torch.equal(got, want)
+    assert int(got[3, 5, 7]) == 0
+
+
+def test_uniform_quant_kernel_rejects_what_it_does_not_take(dev):
+    """B7 takes 4 columns a thread and its range as 2 fp32 on the card."""
+    lohi = torch.tensor([-1.0, 1.0], device=dev)
+    x = torch.zeros((8, 1001), device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gq_ops.uniform_quant_launch(x, x, lohi, bits=4)
+    x = torch.zeros((8, 1024), device=dev)
+    with pytest.raises(ValueError, match="lohi"):
+        gq_ops.uniform_quant_launch(x, x, lohi.cpu(), bits=4)
+    with pytest.raises(ValueError, match="lohi"):
+        gq_ops.uniform_quant_launch(x, x, torch.zeros(3, device=dev), bits=4)
+    with pytest.raises(TypeError):
+        gq_ops.uniform_quant_launch(x, x, lohi.double(), bits=4)
+    with pytest.raises(ValueError, match="must divide"):
+        gq_ops.uniform_quant_launch(x, x[:3], lohi, bits=4)
+
+
+def test_thc_aggregate_on_card_matches_cpu(dev):
+    """THC's aggregation, one B1 encode, one B7 and one B1 decode on the
+    card, against the plain versions on the CPU with the same draws: codes
+    equal but for isolated floor-boundary flips (the two rotations sum in
+    another order), each moving its block by one grid step /
+    (N sqrt(block))."""
+    n, block = 4, 1024
+    rc = TrainRunConfig(n_workers=n, hadamard_block=block, compressor="thc")
+    x = torch.randn((n, 30_000), generator=torch.Generator().manual_seed(1))
+    cpu = torch.device("cpu")
+
+    class HostDraws:
+        inner = KeyDraws(cpu)
+
+        def sign(self, k, b):
+            return self.inner.sign(k, b).to(dev)
+
+        def uniform(self, k, shape):
+            return self.inner.uniform(k, shape).to(dev)
+
+    want, _ = _aggregate(x, (0, 3), rc, {}, draws=HostDraws.inner)
+    b1, b7 = fwht_ops.launches, gq_ops.uniform_launches
+    got, _ = _aggregate(x.to(dev), (0, 3), rc, {}, draws=HostDraws())
+    assert (fwht_ops.launches - b1, gq_ops.uniform_launches - b7) == (2, 1)
+    # the codes the two aggregations summed, from the same draws
+    g = F.pad(x, (0, (-x.shape[1]) % (n * block)))
+    lohi = torch.stack([g.min() * 1.2 - 1e-3, g.max() * 1.2 + 1e-3])
+    sign = HostDraws.inner.sign((0, 3), block)
+    noise = HostDraws.inner.uniform((0, 3, 1), (g.shape[1] // block, block))
+    sums = [thc_compress(g.to(d), sign.to(d), noise.to(d), lohi.to(d),
+                         block=block).codes.to(torch.int32).sum(0).cpu()
+            for d in (cpu, dev)]
+    flips = (sums[1] - sums[0]).abs()
+    assert int(flips.sum()) <= 1e-4 * flips.numel() * n
+    lo, hi = lohi.tolist()
+    step = (hi - lo) / 15
+    bound = (flips.sum(1).float() * step / (n * block ** 0.5)) \
+        .repeat_interleave(block)[:30_000]
+    assert bool(((got.cpu() - want).abs() <= bound + ROT_TOL).all())
 
 
 @pytest.mark.parametrize("n", [16, 1024, 4096])
