@@ -20,6 +20,9 @@ Run from the root of a checkout. Phases, each printing one JSON line:
    1024) arena slice, B5 (dequant + mean) with and without a mask on the
    all_to_all view of (4, 4, 1,638,400) codes, B6 (grid quantize) on
    (6,400, 1024) — B3, B4 and B6 must be equal, B5 within 8 ulp of amax;
+   then B3 and B4 at blocks of 1024, 2048 and 4096 with 1 or 4 peers of one
+   bucket each (phases ``ht_amax_sweep``, ``ht_quant_sweep``): bitwise,
+   timed, with the bound, its share and the registers a thread;
 6. the main path: ``repro_torch.launch.train`` on gpt2-paper at full width
    (151,862,784 params, 24 buckets of 6,553,600), 4 peers, optireduce,
    drop rate 0.01 tail, seq 128, global batch 8, adamw — per-step loss,
@@ -32,8 +35,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
    the plain versions on the CPU from the same parameters and draws, for
    optireduce and for optireduce_q (noise included);
 9. one more step of each main path under ``torch.profiler``: wall time,
-   device busy time and idle share, and the largest device and host
-   entries;
+   device busy time and idle share, the largest device and host entries,
+   and each of the port's kernels' device time;
 10. kernel B7 (THC's quantizer onto one shared range) against its plain
     version at the THC path's full-width shape: x (8, 148,304, 1024), one
     shared (148,304, 1024) noise copy, the range formed from the data as
@@ -95,13 +98,21 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+HOLD_CYCLES = 40_000_000   # ~20 ms of spinning at the H100's ~2 GHz
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls, timed with CUDA events.
+    A spin kernel holds the stream while the calls are queued, so they run
+    back to back: a wrapper's host time (tens of us a launch) does not count
+    as kernel time unless queueing them all takes longer than the spin."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -157,6 +168,9 @@ def main() -> int:
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
+    regs = {}
+    for name, log in logs.items():
+        regs.update(build.registers(log or build.ptxas_log(name)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(logs), "ptxas": ptxas})
 
@@ -230,7 +244,8 @@ def main() -> int:
     del data, received, mask, got, want
 
     # 5. B3-B6, the quantized exchange's kernels
-    quant = check_quant_kernels(dev, gen)
+    quant = check_quant_kernels(dev, gen, regs)
+    sweep_ht_kernels(dev, gen, regs)
 
     # 6., 7. the main paths, through the launcher; each counts its own
     counters = {"fwht": (fwht_ops, "launches"),
@@ -335,7 +350,68 @@ def main() -> int:
     return 0
 
 
-def check_quant_kernels(dev, gen) -> dict:
+def ht_registers(regs: dict, n: int, quant: bool):
+    """Registers a thread of B3's (quant False) or B4's instantiation for
+    block length n, from the ptxas report."""
+    key = f"ht_kernelILi{n.bit_length() - 1}ELb{int(quant)}E"
+    hits = [r for entry, r in regs.items() if key in entry]
+    return hits[0] if hits else "not measured"
+
+
+HT_SWEEP_N = (1024, 2048, 4096)
+
+
+def sweep_ht_kernels(dev, gen, regs: dict) -> None:
+    """B3 and B4 at block lengths 1024, 2048 and 4096 and 1 or 4 peers, each
+    peer holding one bucket (6,553,600 fp32) as 6,553,600 / n rows of a
+    strided arena slice, with G = rows a peer: bitwise against the plain
+    versions, then timed, with the bound, its share and the registers."""
+    import torch
+    from repro_torch.kernels.ht_quant import ops as hq_ops
+    from repro_torch.kernels.ht_quant import ref as hq_ref
+
+    for n in HT_SWEEP_N:
+        per_peer = BUCKET // n
+        sign = torch.where(torch.rand((n,), generator=gen, device=dev) < 0.5,
+                           1.0, -1.0)
+        noise = torch.rand((per_peer, n), generator=gen, device=dev)
+        for peers in (1, PEERS):
+            arena = torch.randn((peers, 2, BUCKET), generator=gen, device=dev)
+            x = arena[:, 1].view(peers, per_peer, n)
+            rows = peers * per_peer
+            amax = hq_ops.ht_amax_launch(x, sign)
+            shared = torch.clamp(amax.amax(0), min=1e-12)
+            lo, step = -shared, 2.0 * shared / 255
+            codes = hq_ops.ht_quant_launch(x, sign, noise, lo, step, bits=8)
+            if not torch.equal(amax, hq_ref.ht_amax_ref(x, sign)):
+                fail(f"ht_amax n={n} peers={peers}: differs from plain")
+            mismatched = int((codes != hq_ref.ht_quant_ref(
+                x, sign, noise, lo, step, bits=8)).sum())
+            if mismatched:
+                fail(f"ht_quant n={n} peers={peers}: {mismatched} codes "
+                     "differ from the plain version")
+            for name, fn, nbytes, flops in (
+                    ("ht_amax", lambda: hq_ops.ht_amax_launch(x, sign),
+                     hq_ref.ht_amax_bytes(rows, n),
+                     hq_ref.ht_amax_flops(rows, n)),
+                    ("ht_quant", lambda: hq_ops.ht_quant_launch(
+                        x, sign, noise, lo, step, bits=8),
+                     hq_ref.ht_quant_bytes(rows, n, per_peer),
+                     hq_ref.ht_quant_flops(rows, n))):
+                ms = time_ms(fn)
+                b_ms, b_by = bound(nbytes, flops)
+                emit({"phase": f"{name}_sweep", "n": n, "peers": peers,
+                      "rows_per_peer": per_peer, "grid_rows": per_peer,
+                      "bitwise_equal_plain": True, "ms": ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "share_of_bound": b_ms / ms,
+                      "registers": ht_registers(regs, n, name == "ht_quant")})
+            del arena, x, amax, codes
+        del noise
+    torch.cuda.empty_cache()
+
+
+def check_quant_kernels(dev, gen, regs: dict) -> dict:
     """B3-B6 against their plain versions on the card, at the shapes
     ``optireduce_q`` gives them on the full-width path, chained as the
     exchange chains them: amax -> shared grids -> stage-1 codes -> the
@@ -358,6 +434,8 @@ def check_quant_kernels(dev, gen) -> dict:
         b_ms, b_by = bound(nbytes, flops)
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+        if "registers" in extra:           # B3, B4: the share too
+            extra["share_of_bound"] = b_ms / ms
         emit({"phase": phase, **row, **extra})
         if name is not None:
             out[name] = row
@@ -380,7 +458,7 @@ def check_quant_kernels(dev, gen) -> dict:
            hq_ref.ht_amax_bytes(rows, BLOCK),
            hq_ref.ht_amax_flops(rows, BLOCK),
            time_ms(lambda: torch.matmul(x * sign, h).abs().amax(-1), reps=5),
-           shape=list(x.shape),
+           shape=list(x.shape), registers=ht_registers(regs, BLOCK, False),
            library="composite: torch.matmul(x * sign, H).abs().amax(-1), "
                    "fp32, TF32 off")
     del h
@@ -403,7 +481,8 @@ def check_quant_kernels(dev, gen) -> dict:
                                                bits=8), reps=5),
            hq_ref.ht_quant_bytes(rows, BLOCK, PEER_BLOCKS),
            hq_ref.ht_quant_flops(rows, BLOCK), shape=list(x.shape),
-           mismatched_codes=mismatched)
+           mismatched_codes=mismatched,
+           registers=ht_registers(regs, BLOCK, True))
     del arena, want, diff
 
     # B3 and B4 on non-finite input: a NaN and an inf each spread over their
@@ -940,11 +1019,17 @@ def profile_thc(dev) -> None:
                              "workers": rc.n_workers})
 
 
+# the port's kernel functions, as the profiler names them
+PORTED_KERNELS = ("fwht_rows_kernel", "masked_mean_vec4", "ht_kernel",
+                  "dequant_mean_kernel", "grid_quant_kernel",
+                  "uniform_quant_kernel")
+
+
 def profile_third_step(one, label: dict) -> None:
     """Run ``one(0)``, ``one(1)`` (each a step ending in a synchronisation)
     on the host clock, then ``one(2)`` under ``torch.profiler``: wall time,
-    device busy time and idle share, and the largest device and host
-    entries."""
+    device busy time and idle share, the largest device and host entries,
+    and the device time of each of the port's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = []
@@ -972,6 +1057,7 @@ def profile_third_step(one, label: dict) -> None:
                      reverse=True)[:12]
     launches = sum(r.count for r in host
                    if r.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    ported = [r for r in on_dev if any(k in r.key for k in PORTED_KERNELS)]
     emit({"phase": "profile", **label,
           "step_ms_unprofiled": wall[-1], "step_ms_profiled": prof_wall,
           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
@@ -985,6 +1071,8 @@ def profile_third_step(one, label: dict) -> None:
           "kernel_launches": launches,
           "top_device": [{"name": r.key[:90], "ms": dev_us(r) / 1e3,
                           "count": r.count} for r in top_dev],
+          "ported_kernels": [{"name": r.key[:90], "ms": dev_us(r) / 1e3,
+                              "count": r.count} for r in ported],
           "top_host": [{"name": r.key[:90],
                         "ms": r.self_cpu_time_total / 1e3,
                         "count": r.count} for r in top_cpu]})

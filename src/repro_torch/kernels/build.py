@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -97,6 +98,27 @@ def build_all() -> dict[str, str]:
     library already built)."""
     started = {name: (src, *_start(src)) for name, src in sources().items()}
     return {name: _finish(*job) for name, job in started.items()}
+
+
+def registers(log: str) -> dict[str, int]:
+    """``{entry: registers a thread}`` from an ``nvcc -Xptxas -v`` log, by
+    each kernel's mangled name."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = int(m.group(1))
+    return out
+
+
+def ptxas_log(name: str) -> str:
+    """The ``-Xptxas -v`` log kept beside the built library ``<name>``
+    (empty when it was not built here)."""
+    log = _target(sources()[name]).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

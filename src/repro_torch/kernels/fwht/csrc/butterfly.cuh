@@ -15,7 +15,8 @@
 //   3. the butterflies of bits log2(E)..log2(n)-1 run in registers.
 // Bits are applied lowest first, as kernels/fwht/ref.py::fwht_ref does, so the
 // output is in Sylvester (natural) order with the plain version's adds.
-// normalise() then applies the orthonormal 1/sqrt(n) scale.
+// normalise() then applies the orthonormal 1/sqrt(n) scale (a multiply by
+// a power of two where log2(n) is even).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -114,10 +115,17 @@ __device__ __forceinline__ void rotate_row(const float* __restrict__ src,
   butterfly_pass<LOG_N, (1 << (S::LOG_E - S::LOG_T))>(v);
 }
 
-// The orthonormal scale, an IEEE division as the plain version's.
+// The orthonormal scale, bitwise the plain version's IEEE division by
+// sqrt(n). For even log2(n), sqrt(n) is a power of two, so v / sqrt(n) and
+// v * 2^(-log2(n)/2) are the correctly rounded value of the same real
+// number (subnormals included): one multiply. Odd log2(n) keeps the
+// division by the rounded sqrt(n).
 template <int LOG_N>
 __device__ __forceinline__ float normalise(float v) {
-  return __fdiv_rn(v, sqrtf((float)Shape<LOG_N>::N));
+  if constexpr (LOG_N % 2 == 0)
+    return __fmul_rn(v, 1.f / (float)(1 << (LOG_N / 2)));
+  else
+    return __fdiv_rn(v, sqrtf((float)Shape<LOG_N>::N));
 }
 
 }  // namespace butterfly

@@ -50,9 +50,10 @@ def split_factors(n: int) -> tuple[int, int]:
     return 1 << ((k + 1) // 2), 1 << (k // 2)
 
 
-def fwht_ref(x: torch.Tensor) -> torch.Tensor:
-    """Orthonormal FWHT over the last axis (butterfly oracle)."""
-    shape, dtype = x.shape, x.dtype
+def fwht_unnormalised_ref(x: torch.Tensor) -> torch.Tensor:
+    """Unnormalised H x over the last axis, fp32: the butterfly's adds,
+    lowest index bit first, without the 1/sqrt(n) scale."""
+    shape = x.shape
     n = shape[-1]
     _log2(n)
     y = x.to(torch.float32).reshape(-1, n)
@@ -62,10 +63,19 @@ def fwht_ref(x: torch.Tensor) -> torch.Tensor:
         a, b = y[:, :, 0, :], y[:, :, 1, :]
         y = torch.stack([a + b, a - b], dim=2).reshape(-1, n)
         h *= 2
-    # a 0-dim tensor on y's device keeps this a true division on the card
-    # (CUDA divides by a CPU scalar as a multiply by its reciprocal)
-    y = y / torch.full((), float(n), device=y.device).sqrt()
-    return y.reshape(shape).to(dtype)
+    return y.reshape(shape)
+
+
+def orthonormal_scale_ref(y: torch.Tensor, n: int) -> torch.Tensor:
+    """``y / sqrt(n)``: a true division, by a 0-dim tensor on y's device
+    (CUDA divides by a CPU scalar as a multiply by its reciprocal)."""
+    return y / torch.full((), float(n), device=y.device).sqrt()
+
+
+def fwht_ref(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal FWHT over the last axis (butterfly oracle)."""
+    return orthonormal_scale_ref(fwht_unnormalised_ref(x), x.shape[-1]).to(
+        x.dtype)
 
 
 def fwht_mxu_ref(x: torch.Tensor) -> torch.Tensor:

@@ -110,36 +110,58 @@ def _grids(amax, bits=8):
     return -amax, 2.0 * amax / ((1 << bits) - 1)
 
 
-@pytest.mark.parametrize("n", [16, 256, 1024, 4096])
+HT_SIZES = [16, 32, 64, 128, 256, 512, 1024, 2048, 4096]
+
+
+def _peer_views(g, dev, peers, rows, n):
+    """A strided (P, rows, n) arena slice, as the sync engine hands it over,
+    and a stride-0 broadcast view of one peer's rows."""
+    arena = torch.randn((peers, 2, rows * n), generator=g, device=dev)
+    own = torch.randn((rows, n), generator=g, device=dev)
+    return {"strided": arena[:, 1].view(peers, rows, n),
+            "broadcast": own.unsqueeze(0).expand(peers, rows, n)}
+
+
+@pytest.mark.parametrize("n", HT_SIZES)
 def test_ht_amax_kernel_equals_plain(dev, n):
+    """Every block length (odd log2 n keeps the division by sqrt(n)), 1, 3
+    and 4 peers, rows that are not a multiple of a tile (ragged last tile),
+    strided and broadcast peer views."""
     g = _gen(dev, n)
-    x = torch.randn((4, 37, n), generator=g, device=dev)    # ragged rows
     sign = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, 1., -1.)
-    before = hq_ops.amax_launches
-    got = ht_amax(x, sign)
-    assert hq_ops.amax_launches == before + 1
-    assert got.shape == (4, 37)
-    assert torch.equal(got, hq_ref.ht_amax_ref(x, sign))
+    for peers in (1, 3, 4):
+        for kind, x in _peer_views(g, dev, peers, 37, n).items():
+            before = hq_ops.amax_launches
+            got = ht_amax(x, sign)
+            assert hq_ops.amax_launches == before + 1
+            assert got.shape == (peers, 37)
+            assert torch.equal(got, hq_ref.ht_amax_ref(x, sign)), (peers,
+                                                                   kind)
 
 
-@pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("n", [16, 1024, 4096])
+@pytest.mark.parametrize("bits", [8, 4, 1])
+@pytest.mark.parametrize("n", HT_SIZES)
 def test_ht_quant_kernel_equals_plain(dev, n, bits):
-    """Per-peer rows of a strided arena slice, one shared copy of the noise
-    and grids."""
-    g = _gen(dev, 100 + n)
-    rows = 12
-    arena = torch.randn((4, 2, rows * n), generator=g, device=dev)
-    x = arena[:, 1].view(4, rows, n)
+    """Per-peer rows of a strided arena slice (and a broadcast view), one
+    shared copy of the noise and grids: 1, 3 and 4 peers, 12 rows a peer
+    and G = 4, 6 or 12 grid rows (row i reads grid i % G), and 13 rows a
+    peer with G = 13 (a ragged last tile)."""
+    g = _gen(dev, 100 + n + bits)
     sign = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, 1., -1.)
-    noise = torch.rand((rows, n), generator=g, device=dev)
-    lo, step = _grids(hq_ref.ht_amax_ref(x, sign).amax(0), bits)
-    before = hq_ops.quant_launches
-    got = ht_quant(x, sign, noise, lo, step, bits=bits)
-    assert hq_ops.quant_launches == before + 1
-    assert got.dtype == torch.uint8 and got.shape == x.shape
-    assert torch.equal(got, hq_ref.ht_quant_ref(x, sign, noise, lo, step,
-                                                 bits=bits))
+    for peers in (1, 3, 4):
+        for rows, grids in ((12, (4, 6, 12)), (13, (13,))):
+            for kind, x in _peer_views(g, dev, peers, rows, n).items():
+                amax = hq_ref.ht_amax_ref(x, sign).amax(0)
+                for gr in grids:
+                    noise = torch.rand((gr, n), generator=g, device=dev)
+                    lo, step = _grids(amax.view(-1, gr).amax(0), bits)
+                    before = hq_ops.quant_launches
+                    got = ht_quant(x, sign, noise, lo, step, bits=bits)
+                    assert hq_ops.quant_launches == before + 1
+                    assert got.dtype == torch.uint8 and got.shape == x.shape
+                    assert torch.equal(got, hq_ref.ht_quant_ref(
+                        x, sign, noise, lo, step, bits=bits)), (peers, rows,
+                                                               kind, gr)
 
 
 @pytest.mark.parametrize("masked", [True, False])
@@ -277,7 +299,7 @@ def test_thc_aggregate_on_card_matches_cpu(dev):
     assert bool(((got.cpu() - want).abs() <= bound + ROT_TOL).all())
 
 
-@pytest.mark.parametrize("n", [16, 1024, 4096])
+@pytest.mark.parametrize("n", [16, 32, 1024, 2048, 4096])
 def test_ht_kernels_pass_non_finite_values_as_plain(dev, n):
     """A NaN or an inf spreads over its block in the rotation: B3's amax
     of that block is NaN (inf) as in the plain version, and B4's codes on
@@ -291,11 +313,13 @@ def test_ht_kernels_pass_non_finite_values_as_plain(dev, n):
     want = hq_ref.ht_amax_ref(x, sign)
     torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
     assert bool(got[1, 2].isnan()) and bool(got[3, 7].isinf())
-    lo, step = _grids(got.amax(0))
-    assert bool(lo[2].isnan()) and bool(step[7].isinf())
     noise = torch.rand((9, n), generator=g, device=dev)
-    assert torch.equal(ht_quant(x, sign, noise, lo, step, bits=8),
-                       hq_ref.ht_quant_ref(x, sign, noise, lo, step, bits=8))
+    for bits in (8, 4, 1):
+        lo, step = _grids(got.amax(0), bits)
+        assert bool(lo[2].isnan()) and bool(step[7].isinf())
+        assert torch.equal(ht_quant(x, sign, noise, lo, step, bits=bits),
+                           hq_ref.ht_quant_ref(x, sign, noise, lo, step,
+                                               bits=bits)), bits
 
 
 @pytest.mark.parametrize("strategy", ["optireduce", "optireduce_q"])

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch/`` and nothing in
-``chip_smoke.py`` imports JAX or the JAX package ``repro`` (checked on the
-syntax tree, so an import inside a function counts too)."""
+``chip_smoke.py`` or ``tools/`` imports JAX or the JAX package ``repro``
+(checked on the syntax tree, so an import inside a function counts too)."""
 import ast
 import pathlib
 
@@ -8,7 +8,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -73,3 +73,18 @@ def test_library_hash_covers_shared_headers(tmp_path, monkeypatch):
     after = {name: build._target(p).name for name, p in srcs.items()}
     assert all(before[n] != after[n] for n in srcs)
     assert all(after[n].startswith(n + "-") for n in srcs)
+
+
+def test_ptxas_report_gives_registers_by_kernel():
+    """``build.registers`` reads each entry's registers a thread from an
+    ``nvcc -Xptxas -v`` log, as chip_smoke.py reports them."""
+    from repro_torch.kernels import build
+    log = """ptxas info    : Compiling entry function '_Z1aILi10EEv' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILi10EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 8 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+    assert build.registers(log) == {"_Z1aILi10EEv": 56, "_Z1bv": 168}
+    assert build.registers("") == {}
