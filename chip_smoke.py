@@ -54,7 +54,30 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 13. 2 THC steps of the harness on gpt2-smoke on the card against the CPU,
     same parameters and draws: the codes that differ counted, accuracy
     within one eval token a differing code, parameters within what those
-    codes move through momentum SGD.
+    codes move through momentum SGD;
+14. ``rounds_main``: the launcher again, ``--strategy optireduce_rounds
+    --incast 2`` (the paper's round schedule), as in 6.: 48 B1 and 24 B2
+    launches and 144 peer-axis permutes (24 buckets x 2 (4 - 1)) a step,
+    96 incast groups, none of B3-B7;
+15. ``strategies``: one full-width arena (4, 24, 6,553,600) fp32 with
+    distinct peers through ``sync_packed(mode="pipelined")`` for every
+    ported strategy (psum, gloo_ring, nccl_tree, bcube, tar_tcp,
+    tar_rounds, optireduce, optireduce_q, optireduce_rounds, tar_rounds_q,
+    ring_ht): at drop 0 against the fp64 peer mean (fp32 sums, the
+    rotation's rounding, or the quantizers' grid-step bound), at drop 0.01
+    (the lossy ones) every peer's row bitwise equal; device ms (CUDA
+    events), launches per kernel and permutes of each;
+16. ``policies``: the same arena with peer 2 ejected (``active_peers=(0, 1,
+    3)``) on optireduce, optireduce_rounds, tar_rounds_q, ring_ht and
+    gloo_ring (every row bitwise equal, the mean over the active peers
+    within tolerance); ``shard_weights=(2, 2, 2, 1)`` at drop 0 on
+    tar_rounds and optireduce_rounds (bitwise the uniform result) and
+    gloo_ring (within the fp32 sum bound: its chunks add in another order
+    once re-cut); ``dead_links=((1, 2),)`` on optireduce_rounds at drop
+    0.01 (bitwise the run without it, 6 + 4 permutes a bucket);
+17. ``rounds_cpu``: 8.'s comparison for optireduce_rounds and tar_rounds_q;
+    and 9.'s profile for optireduce_rounds, with the permutes and the device
+    ms of the index kernels (the permutes' gathers and indexed writes).
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -87,6 +110,7 @@ BLOCK = 1024                     # hadamard_block as the launcher sets it
 BUCKET = 6_553_600
 PEER_BLOCKS = BUCKET // BLOCK    # 6,400 blocks a peer
 SHARD = BUCKET // PEERS          # 1,638,400 = 1,600 blocks a shard
+ROUNDS_INCAST = 2                # the round schedule's I (a2a ignores it)
 
 
 def emit(obj) -> None:
@@ -146,6 +170,7 @@ def main() -> int:
     from repro_torch.kernels.masked_sum import ref as mm_ref
     from repro_torch.kernels import runtime
     from repro_torch.kernels.quant import ops as gq_ops
+    from repro_torch.core import collectives, tar
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -247,37 +272,58 @@ def main() -> int:
     quant = check_quant_kernels(dev, gen, regs)
     sweep_ht_kernels(dev, gen, regs)
 
-    # 6., 7. the main paths, through the launcher; each counts its own
+    # 6., 7., 14. the main paths, through the launcher; each counts its own
+    # kernel launches and peer-axis permutes
     counters = {"fwht": (fwht_ops, "launches"),
                 "masked_mean": (mm_ops, "launches"),
                 "ht_amax": (hq_ops, "amax_launches"),
                 "ht_quant": (hq_ops, "quant_launches"),
                 "dequant_mean": (dq_ops, "launches"),
                 "grid_quant": (gq_ops, "launches"),
-                "uniform_quant": (gq_ops, "uniform_launches")}
-    steps = 4
+                "uniform_quant": (gq_ops, "uniform_launches"),
+                "permutes": (collectives, "permutes")}
+    none = {k: 0 for k in counters}
     per_step = {
-        "optireduce": {"fwht": 48, "masked_mean": 24, "ht_amax": 0,
-                       "ht_quant": 0, "dequant_mean": 0, "grid_quant": 0,
-                       "uniform_quant": 0},
-        "optireduce_q": {"fwht": 24, "masked_mean": 0, "ht_amax": 24,
-                         "ht_quant": 24, "dequant_mean": 24,
-                         "grid_quant": 24, "uniform_quant": 0}}
+        "optireduce": {**none, "fwht": 48, "masked_mean": 24},
+        "optireduce_q": {**none, "fwht": 24, "ht_amax": 24, "ht_quant": 24,
+                         "dequant_mean": 24, "grid_quant": 24},
+        # the paper's round schedule: 2 (4 - 1) permutes a bucket
+        "optireduce_rounds": {**none, "fwht": 48, "masked_mean": 24,
+                              "permutes": 24 * 2 * (PEERS - 1)}}
+    steps = {"optireduce": 4, "optireduce_q": 4, "optireduce_rounds": 4}
     launches = {}
     for strategy, want_counts in per_step.items():
-        launches[strategy] = train_main_path(strategy, steps, counters)
-        want_counts = {k: v * steps for k, v in want_counts.items()}
+        groups = tar.round_groups
+        launches[strategy] = train_main_path(strategy, steps[strategy],
+                                             counters)
+        want_counts = {k: v * steps[strategy] for k, v in want_counts.items()}
         if launches[strategy] != want_counts:
             fail(f"{strategy}: launch counts {launches[strategy]} over "
-                 f"{steps} steps, expected {want_counts}")
+                 f"{steps[strategy]} steps, expected {want_counts}")
+        if strategy == "optireduce_rounds":
+            # incast 2: ceil(3 / 2) = 2 round groups a stage
+            groups = (tar.round_groups - groups) / steps[strategy]
+            emit({"phase": "rounds_main", "incast": ROUNDS_INCAST,
+                  "round_groups_per_step": groups,
+                  "permutes_per_step": launches[strategy]["permutes"]
+                  / steps[strategy]})
+            if groups != 24 * 2 * 2:
+                fail(f"optireduce_rounds: {groups} round groups a step, "
+                     "expected 96")
 
-    # 8. the same trainer on the card and on the CPU, same params and draws
-    check_step_against_cpu(dev, "optireduce")
-    check_step_against_cpu(dev, "optireduce_q")
+    # 15., 16. every ported strategy, and the participation policies, on one
+    # full-width arena
+    sync_strategies(dev, counters)
+
+    # 8., 17. the same trainer on the card and on the CPU, same params and
+    # draws
+    for strategy in ("optireduce", "optireduce_q", "optireduce_rounds",
+                     "tar_rounds_q"):
+        check_step_against_cpu(dev, strategy)
 
     # 9. where one step of each main path's time goes
-    profile_step(dev, "optireduce")
-    profile_step(dev, "optireduce_q")
+    for strategy in ("optireduce", "optireduce_q", "optireduce_rounds"):
+        profile_step(dev, strategy)
 
     # 10. B7, THC's quantizer, at the THC path's full-width shape
     b7 = check_uniform_quant(dev, gen)
@@ -823,7 +869,7 @@ def train_main_path(strategy: str, steps: int, counters: dict) -> dict:
         "--strategy", strategy, "--drop-rate", "0.01", "--drop-pattern",
         "tail", "--seq-len", "128", "--global-batch", "8", "--optimizer",
         "adamw", "--device", "cuda", "--kernel-mode", "kernel",
-        "--log-every", "1"])
+        "--incast", str(ROUNDS_INCAST), "--log-every", "1"])
     torch.cuda.synchronize()
     counts = {name: getattr(mod, attr)
               for name, (mod, attr) in counters.items()}
@@ -840,6 +886,164 @@ def train_main_path(strategy: str, steps: int, counters: dict) -> dict:
           "launches": counts,
           "per_step": {k: v / steps for k, v in counts.items()}})
     return counts
+
+
+STRATEGIES = ("psum", "gloo_ring", "nccl_tree", "bcube", "tar_tcp",
+              "tar_rounds", "optireduce", "optireduce_q", "optireduce_rounds",
+              "tar_rounds_q", "ring_ht")
+LOSSY = ("optireduce", "optireduce_q", "optireduce_rounds", "tar_rounds_q")
+ROTATED = ("optireduce", "optireduce_rounds", "ring_ht")
+QUANTIZED = ("optireduce_q", "tar_rounds_q")
+ROT_E2E_TOL = 5e-5   # encode and decode, each within 2e-5 of exact at unit
+                     # scale (B1's check: 1e-5 from plain), plus fp32 sums
+ARENA_BUCKETS = 24   # gpt2-paper's 151,862,784 params in 6,553,600 buckets
+
+
+def sync_strategies(dev, counters: dict) -> None:
+    """Phases ``strategies`` and ``policies``: one full-width arena, (4, 24,
+    6,553,600) fp32 with distinct peers, through ``sync_packed(mode=
+    "pipelined")`` for every ported strategy, and the three participation
+    policies on the strategies that run them.
+
+    Held against the fp64 mean over the contributing peers: within P 2^-23
+    max|x| for fp32 sums; within ``ROT_E2E_TOL`` for the rotated ones; for
+    the quantized ones each Hadamard block's error within the grid-step
+    bound, L2 norm <= 2 step_b sqrt(block) (stage 1 and stage 2 each move a
+    rotated entry by less than one step, and the rotation keeps L2 norms).
+    Lossy strategies at drop 0.01: every peer's row bitwise equal."""
+    import torch
+    from repro_torch.core.allreduce import OptiReduceConfig, sync_packed
+    from repro_torch.core.pipeline import GeneratorDraws, SyncContext
+    from repro_torch.kernels.ht_quant import ref as hq_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    arena = torch.empty((PEERS, ARENA_BUCKETS, BUCKET), device=dev)
+    for p in range(PEERS):                      # distinct peers
+        arena[p].normal_(generator=gen).mul_(1.0 + 0.25 * p)
+    sum_tol = PEERS * 2.0 ** -23 * float(arena.abs().max())
+
+    def run(strategy, rate=0.0, **policy):
+        cfg = OptiReduceConfig(strategy=strategy, drop_rate=rate,
+                               drop_pattern="tail", hadamard_block=BLOCK,
+                               incast=ROUNDS_INCAST, **policy)
+        draws = GeneratorDraws(key=(0, 7), cfg=cfg, device=dev)
+        ctx = SyncContext(cfg=cfg, draws=draws)
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sync_packed(arena, ctx, mode="pipelined")
+        end.record()
+        torch.cuda.synchronize()
+        counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        return out, start.elapsed_time(end), counts, draws
+
+    def replicas_equal(out):
+        return all(torch.equal(out[p], out[0]) for p in range(1, PEERS))
+
+    def error(strategy, out, peers, draws):
+        """The worst error against the fp64 mean over ``peers``, over its
+        tolerance (<= 1 passes)."""
+        worst = 0.0
+        for b in range(ARENA_BUCKETS):
+            want = arena[list(peers), b].double().mean(0)
+            err = (out[:, b].double() - want).abs()
+            if strategy not in QUANTIZED:
+                tol = ROT_E2E_TOL if strategy in ROTATED else sum_tol
+                worst = max(worst, float(err.max()) / tol)
+                continue
+            # the grids the codec shared: the max over every peer of each
+            # rotated block's amax (ejected peers too), over the bucket
+            # padded for the shards
+            shards = len(peers)
+            pad = (-BUCKET) % (shards * BLOCK)
+            x = torch.nn.functional.pad(arena[:, b], (0, pad))
+            amax = hq_ref.ht_amax_ref(x.view(PEERS, -1, BLOCK),
+                                      draws.sign(b, BLOCK)).amax(0)
+            step = 2.0 * amax.clamp(min=1e-12) / 255
+            l2 = torch.nn.functional.pad(err, (0, pad)).view(
+                PEERS, -1, BLOCK).norm(dim=-1)
+            bound = 2.0 * step.double() * math.sqrt(BLOCK) + ROT_E2E_TOL
+            worst = max(worst, float((l2 / bound).max()))
+        return worst
+
+    for strategy in STRATEGIES:
+        out, ms, counts, draws = run(strategy)
+        worst = error(strategy, out, range(PEERS), draws)
+        row = {"phase": "strategies", "strategy": strategy, "drop_rate": 0.0,
+               "device_ms": ms, "launches": counts,
+               "error_over_tolerance": worst,
+               "replicas_equal": replicas_equal(out)}
+        del out
+        if strategy in LOSSY:
+            out, ms_d, counts_d, _ = run(strategy, 0.01)
+            row.update(device_ms_drop_0_01=ms_d, launches_drop_0_01=counts_d,
+                       replicas_equal_drop_0_01=replicas_equal(out))
+            del out
+        emit(row)
+        if not (worst <= 1.0 and row["replicas_equal"]
+                and row.get("replicas_equal_drop_0_01", True)):
+            fail(f"strategies: {row}")
+
+    # degraded participation: peer 2 ejected, every replica still the same
+    active = (0, 1, 3)
+    for strategy in ("optireduce", "optireduce_rounds", "tar_rounds_q",
+                     "ring_ht", "gloo_ring"):
+        out, ms, counts, draws = run(strategy, active_peers=active)
+        worst = error(strategy, out, active, draws)
+        row = {"phase": "policies", "policy": "active_peers",
+               "active_peers": list(active), "strategy": strategy,
+               "device_ms": ms, "launches": counts,
+               "error_over_tolerance": worst,
+               "replicas_equal": replicas_equal(out)}
+        del out
+        emit(row)
+        if not (worst <= 1.0 and row["replicas_equal"]):
+            fail(f"policies: {row}")
+
+    # weighted shards at drop 0: the uniform result's bits on the TAR
+    # rounds (each column's mean is over the same senders in the same
+    # order); the ring sums each chunk starting at its owner, so re-cut
+    # chunks add in another order: within the fp32 sum bound
+    weights = (2, 2, 2, 1)
+    for strategy in ("tar_rounds", "optireduce_rounds", "gloo_ring"):
+        uniform, _, _, _ = run(strategy)
+        out, ms, counts, _ = run(strategy, shard_weights=weights)
+        diff = float((out - uniform).abs().max())
+        row = {"phase": "policies", "policy": "shard_weights",
+               "shard_weights": list(weights), "strategy": strategy,
+               "device_ms": ms, "launches": counts,
+               "bitwise_equal_uniform": bool(torch.equal(out, uniform)),
+               "max_abs_diff_uniform": diff,
+               "values_differing": int((out != uniform).sum()),
+               "bit_patterns_differing": int(
+                   (out.view(torch.int32) != uniform.view(torch.int32)).sum())}
+        del out, uniform
+        emit(row)
+        ok = row["bitwise_equal_uniform"] if strategy != "gloo_ring" \
+            else diff <= sum_tol
+        if not ok:
+            fail(f"policies: {row}")
+
+    # a dead link under drops: relayed rounds, the same bits; one relayed
+    # round in each stage (2 permutes more a stage)
+    base, _, _, _ = run("optireduce_rounds", 0.01)
+    out, ms, counts, _ = run("optireduce_rounds", 0.01,
+                             dead_links=((1, 2),))
+    row = {"phase": "policies", "policy": "dead_links",
+           "dead_links": [[1, 2]], "strategy": "optireduce_rounds",
+           "drop_rate": 0.01, "device_ms": ms, "launches": counts,
+           "permutes_per_bucket": counts["permutes"] / ARENA_BUCKETS,
+           "bitwise_equal_no_dead_link": bool(torch.equal(out, base))}
+    del out, base, arena
+    torch.cuda.empty_cache()
+    emit(row)
+    if not (row["bitwise_equal_no_dead_link"]
+            and counts["permutes"] == ARENA_BUCKETS * (6 + 4)):
+        fail(f"policies: {row}")
 
 
 class _HostDraws:
@@ -885,10 +1089,11 @@ def check_step_against_cpu(dev, strategy: str) -> None:
     from repro_torch.tree import tree_leaves, tree_map
 
     runtime.set_kernel_mode(None)       # by device: card kernels, CPU plain
-    quantized = strategy == "optireduce_q"
+    quantized = strategy in ("optireduce_q", "tar_rounds_q")
     cfg = get_smoke("gpt2-paper")
     sync = OptiReduceConfig(strategy=strategy, drop_rate=0.05,
-                            drop_pattern="bernoulli", hadamard_block=256)
+                            drop_pattern="bernoulli", hadamard_block=256,
+                            incast=ROUNDS_INCAST)
     ocfg = OptimizerConfig(lr=1e-2)
     tc = TrainConfig(sync=sync, optimizer=ocfg, bucket_elems=16_384,
                      seq_chunk=32)
@@ -968,7 +1173,8 @@ def check_step_against_cpu(dev, strategy: str) -> None:
         if not (worst <= STEP_TOL and p_err <= STEP_TOL):
             fail(f"card vs CPU step: metrics {worst}, params {p_err} > "
                  f"{STEP_TOL}")
-    emit({"phase": "reference_check", "strategy": strategy,
+    emit({"phase": "rounds_cpu" if "rounds" in strategy
+          else "reference_check", "strategy": strategy,
           "arch": cfg.name, "steps": 2, "metrics_max_abs_diff": worst,
           "params_max_abs_diff": p_err, "tolerance": STEP_TOL,
           "each_step_from_cpu_state": quantized, "quant": details,
@@ -985,7 +1191,8 @@ def profile_step(dev, strategy: str) -> None:
 
     cfg = get_config("gpt2-paper")
     sync = OptiReduceConfig(strategy=strategy, drop_rate=0.01,
-                            drop_pattern="tail", hadamard_block=BLOCK)
+                            drop_pattern="tail", hadamard_block=BLOCK,
+                            incast=ROUNDS_INCAST)
     tc = TrainConfig(sync=sync, seq_chunk=128)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
                                   global_batch=8, seed=0))
@@ -1032,16 +1239,20 @@ def profile_third_step(one, label: dict) -> None:
     and the device time of each of the port's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import collectives
+
     wall = []
     for s in range(2):
         t0 = time.perf_counter()
         one(s)
         wall.append((time.perf_counter() - t0) * 1e3)
+    permutes = collectives.permutes
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         one(2)
         prof_wall = (time.perf_counter() - t0) * 1e3
+    permutes = collectives.permutes - permutes
     rows = prof.key_averages()
 
     def dev_us(r):
@@ -1058,6 +1269,10 @@ def profile_third_step(one, label: dict) -> None:
     launches = sum(r.count for r in host
                    if r.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
     ported = [r for r in on_dev if any(k in r.key for k in PORTED_KERNELS)]
+    # gathers and indexed writes: the permutes' index_select / index_copy_
+    # and the schedules' per-peer row reads and writes (also embedding and
+    # loss gathers, which every path has)
+    indexed = [r for r in on_dev if "index" in r.key.lower()]
     emit({"phase": "profile", **label,
           "step_ms_unprofiled": wall[-1], "step_ms_profiled": prof_wall,
           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
@@ -1069,6 +1284,9 @@ def profile_third_step(one, label: dict) -> None:
           "device_idle_share_of_unprofiled_step": (1 - busy_ms / wall[-1])
           if busy_ms > 0 else "not measured",
           "kernel_launches": launches,
+          "permutes": permutes,
+          "index_kernels_ms": sum(dev_us(r) for r in indexed) / 1e3,
+          "index_kernels_launches": sum(r.count for r in indexed),
           "top_device": [{"name": r.key[:90], "ms": dev_us(r) / 1e3,
                           "count": r.count} for r in top_dev],
           "ported_kernels": [{"name": r.key[:90], "ms": dev_us(r) / 1e3,

@@ -1,12 +1,15 @@
 """Composable collective pipeline: Topology × Transport × Codec (DESIGN §3).
 
-Counterpart of ``src/repro/core/pipeline.py``, main-path subset: every
-gradient-sync strategy is a :class:`CollectiveSpec` composing a Topology
-(:class:`TarTopology` with the all_to_all schedule, :class:`PsumTopology`),
-a Transport (:class:`Reliable`, :class:`Lossy`) and a Codec
-(:class:`Identity`, :class:`Hadamard`, :class:`HTQuant`). A strategy name
-resolves through the registry (``psum``, ``tar_tcp``, ``optireduce``,
-``optireduce_q``).
+Counterpart of ``src/repro/core/pipeline.py``: every gradient-sync strategy
+is a :class:`CollectiveSpec` composing a Topology (:class:`TarTopology`
+with the all_to_all or the paper's round schedule, :class:`RingTopology`
+for the ring / tree / BCube baselines, :class:`PsumTopology`), a Transport
+(:class:`Reliable`, :class:`Lossy`) and a Codec (:class:`Identity`,
+:class:`Hadamard`, :class:`HTQuant`). A strategy name resolves through the
+registry: every name of the reference but ``optireduce_2d`` (the pod axis,
+ROADMAP A15). The participation policies (``active_peers``,
+``shard_weights``, ``dead_links``) run as in the reference; the wire,
+adaptive and recovery transports and codecs wait for later slices.
 
 The reference runs one rank per device inside ``shard_map``; here every
 stage works on ``(P, ...)`` stacks over the peer axis
@@ -19,12 +22,13 @@ instead, so a test can hand in the reference's own draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Protocol
+from typing import Callable, ClassVar, Protocol
 
 import torch
 
 from . import collectives
 from . import drops as drops_lib
+from . import ring as ring_lib
 from . import tar as tar_lib
 from repro_torch.kernels.dequant_reduce import dequant_masked_mean
 from repro_torch.kernels.quant import grid_quant
@@ -58,8 +62,15 @@ class OptiReduceConfig:
     incast: int = 1
     quant_bits: int = 8
     rs_wire_bits: int = 0
+    # degraded participation (DESIGN §5): the active peers (None or the full
+    # set: everyone); ejected peers' contributions are excluded and they
+    # still receive the result
     active_peers: tuple[int, ...] | None = None
+    # straggler-proportional shard units per active peer (DESIGN §10; None
+    # or uniform: equal shards); rounds-scheduled TAR and the ring only
     shard_weights: tuple[int, ...] | None = None
+    # dead directed (src, dst) edges: the rounds relay around them, the ring
+    # reorders itself (DESIGN §10)
     dead_links: tuple[tuple[int, int], ...] = ()
     recovery: str = "none"
 
@@ -71,12 +82,6 @@ class OptiReduceConfig:
             todo.append("pod_axis (2D TAR): ROADMAP A15")
         if self.rs_wire_bits:
             todo.append("rs_wire_bits (FSDP reduce-scatter): ROADMAP A15")
-        if self.active_peers is not None:
-            todo.append("active_peers (degraded participation): ROADMAP A14")
-        if self.shard_weights is not None:
-            todo.append("shard_weights (rebalanced shards): ROADMAP A14")
-        if self.dead_links:
-            todo.append("dead_links (ring rewiring): ROADMAP A14")
         if self.recovery != "none":
             todo.append(f"recovery={self.recovery!r}: ROADMAP A16")
         if todo:
@@ -92,10 +97,12 @@ class Draws(Protocol):
     def sign(self, bucket: int, block: int) -> torch.Tensor:
         """The bucket's Hadamard sign, ``(block,)`` fp32 of +-1."""
 
-    def mask(self, bucket: int, receiver: int, n: int,
-             s: int) -> torch.Tensor:
+    def mask(self, bucket: int, receiver: int, n: int, s: int,
+             self_index: int | None = None) -> torch.Tensor:
         """Receiver's ``(n, s)`` fp32 arrival mask for the bucket's stage-1
-        exchange, its own row all ones."""
+        exchange, drawn under the receiver's id; row ``self_index`` (the
+        receiver's own, unless a degraded round schedule indexes rows by
+        virtual position) all ones."""
 
     def noise(self, bucket: int, salt: int,
               shape: tuple[int, ...]) -> torch.Tensor:
@@ -118,14 +125,15 @@ class GeneratorDraws:
         return rademacher_sign(
             generator(fold_in(self.key, bucket), self.device), block)
 
-    def mask(self, bucket: int, receiver: int, n: int,
-             s: int) -> torch.Tensor:
+    def mask(self, bucket: int, receiver: int, n: int, s: int,
+             self_index: int | None = None) -> torch.Tensor:
         gen = generator(fold_in(fold_in(self.key, bucket), receiver),
                         self.device)
         return drops_lib.make_mask(self.cfg.drop_pattern, gen, n, s,
                                    rate=self.cfg.drop_rate,
                                    packet_elems=self.cfg.packet_elems,
-                                   self_index=receiver)
+                                   self_index=receiver if self_index is None
+                                   else self_index)
 
     def noise(self, bucket: int, salt: int,
               shape: tuple[int, ...]) -> torch.Tensor:
@@ -161,6 +169,47 @@ class SyncContext:
         return frac.mean()
 
 
+def active_subset(cfg: OptiReduceConfig, n: int) -> tuple[int, ...] | None:
+    """The sorted degraded-participation set for an n-peer axis, or None
+    when everyone takes part: the full set normalises to None, so a policy
+    naming every peer stays on the full-participation trace bitwise."""
+    ap = cfg.active_peers
+    if ap is None:
+        return None
+    ap = tuple(sorted({int(p) for p in ap}))
+    if not ap:
+        raise ValueError("active_peers must name at least one peer")
+    if ap[0] < 0 or ap[-1] >= n:
+        raise ValueError(f"active_peers {ap} outside the {n}-peer axis")
+    return None if len(ap) == n else ap
+
+
+def weights_subset(cfg: OptiReduceConfig,
+                   n_active: int) -> tuple[int, ...] | None:
+    """The shard units of an ``n_active``-peer schedule, or None when they
+    are uniform (normalised away, as :func:`active_subset` does)."""
+    w = cfg.shard_weights
+    if w is None:
+        return None
+    w = tuple(int(u) for u in w)
+    if len(w) != n_active:
+        raise ValueError(f"shard_weights {w} do not match the "
+                         f"{n_active}-peer active set")
+    if any(u < 1 for u in w):
+        raise ValueError(f"shard_weights must be positive integers, got {w}")
+    return None if all(u == w[0] for u in w) else w
+
+
+def dead_link_set(cfg: OptiReduceConfig,
+                  n: int) -> tuple[tuple[int, int], ...]:
+    """The dead directed edges, sorted and deduplicated."""
+    out = tuple(sorted({(int(s), int(d)) for (s, d) in cfg.dead_links or ()}))
+    for (s, d) in out:
+        if not (0 <= s < n and 0 <= d < n) or s == d:
+            raise ValueError(f"dead link {(s, d)} outside the {n}-peer axis")
+    return out
+
+
 # ------------------------------------------------------------------- codecs
 @dataclasses.dataclass
 class Encoded:
@@ -177,7 +226,13 @@ class Encoded:
 class Codec:
     """Identity codec — also the base class defining the codec protocol:
     ``encode`` before stage 1, ``reduce`` the received ``(P, N, S)``
-    shards, ``encode_shard`` for stage 2, ``decode_gathered`` after it."""
+    shards, ``encode_shard`` for stage 2, ``decode_gathered`` after it, and
+    ``decode_values`` for a bucket that a topology reduced internally (the
+    ring). ``linear`` marks codecs whose decode commutes with averaging, the
+    only ones a ring composes with. ``shard_index`` ``(P,)``, where given,
+    names the shard each receiver reduces (the virtual position of a
+    degraded round schedule); None means receiver r reduces shard r."""
+    linear: ClassVar[bool] = True
 
     def block(self, cfg: OptiReduceConfig) -> int:
         return 1
@@ -186,16 +241,22 @@ class Codec:
         return Encoded(x)
 
     def reduce(self, received: torch.Tensor, mask: torch.Tensor | None,
-               enc: Encoded, ctx: SyncContext) -> torch.Tensor:
+               enc: Encoded, ctx: SyncContext,
+               shard_index: torch.Tensor | None = None) -> torch.Tensor:
         return tar_lib.masked_mean(received, mask)
 
     def encode_shard(self, own: torch.Tensor, enc: Encoded,
-                     ctx: SyncContext) -> torch.Tensor:
+                     ctx: SyncContext,
+                     shard_index: torch.Tensor | None = None) -> torch.Tensor:
         return own
 
     def decode_gathered(self, gathered: torch.Tensor, enc: Encoded,
                         ctx: SyncContext) -> torch.Tensor:
         return gathered
+
+    def decode_values(self, vals: torch.Tensor, enc: Encoded,
+                      ctx: SyncContext) -> torch.Tensor:
+        return vals
 
 
 class Identity(Codec):
@@ -215,6 +276,8 @@ class Hadamard(Codec):
     def decode_gathered(self, gathered, enc, ctx):
         block = ctx.cfg.hadamard_block
         return ht_decode(gathered, ctx.sign(block), block=block)
+
+    decode_values = decode_gathered
 
 
 _STAGE1_SALT = 3     # stage-1 stochastic-rounding noise
@@ -236,7 +299,9 @@ class HTQuant(Codec):
     Both noises are one copy shared by every peer, drawn under
     ``_STAGE1_SALT`` and ``_STAGE2_SALT`` (the reference's ``fold_in(key,
     3)`` and ``fold_in(key, 4)``). The code width is ``cfg.quant_bits``.
+    Not ``linear``: a ring cannot average its codes.
     """
+    linear = False
 
     @staticmethod
     def _bits(cfg: OptiReduceConfig) -> int:
@@ -249,10 +314,15 @@ class HTQuant(Codec):
         return cfg.hadamard_block
 
     @staticmethod
-    def _grids(enc: Encoded, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Each receiver's slice of the bucket's grids: ``(n, S / block)``
-        (the reference's ``_grids(enc, shard_index, nblk)``, all at once)."""
-        return enc.lo.view(n, -1), enc.step.view(n, -1)
+    def _grids(enc: Encoded, nblk: int, shard_index: torch.Tensor | None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Each receiver's slice of the bucket's grids, ``(P, nblk)`` (the
+        reference's ``_grids(enc, shard_index, nblk)``, all receivers at
+        once): receiver r's is shard r's, or shard ``shard_index[r]``'s."""
+        lo, step = enc.lo.view(-1, nblk), enc.step.view(-1, nblk)
+        if shard_index is None:
+            return lo, step
+        return lo[shard_index], step[shard_index]
 
     def local_amax(self, x: torch.Tensor,
                    ctx: SyncContext) -> tuple[torch.Tensor, torch.Tensor]:
@@ -283,18 +353,20 @@ class HTQuant(Codec):
         x1, amax = self.local_amax(x, ctx)
         return self.encode_given_amax(x1, collectives.pmax(amax)[0], ctx)
 
-    def reduce(self, received, mask, enc, ctx):
-        n = received.shape[0]
-        lo, step = self._grids(enc, n)
-        return dequant_masked_mean(received, lo, step, mask,
-                                   block=ctx.cfg.hadamard_block)
+    def reduce(self, received, mask, enc, ctx, shard_index=None):
+        block = ctx.cfg.hadamard_block
+        lo, step = self._grids(enc, received.shape[-1] // block, shard_index)
+        return dequant_masked_mean(received, lo, step, mask, block=block)
 
-    def encode_shard(self, own, enc, ctx):
+    def encode_shard(self, own, enc, ctx, shard_index=None):
         block = ctx.cfg.hadamard_block
         n, s = own.shape
+        lo, step = self._grids(enc, s // block, shard_index)
         noise = ctx.noise(_STAGE2_SALT, (s // block, block))
-        codes = grid_quant(own.reshape(-1, block), noise, enc.lo, enc.step,
-                           bits=self._bits(ctx.cfg))
+        # row i of the (n * s / block) rows reads grid i: receiver r's rows
+        # its own shard's grids
+        codes = grid_quant(own.reshape(-1, block), noise, lo.reshape(-1),
+                           step.reshape(-1), bits=self._bits(ctx.cfg))
         return codes.view(n, s)
 
     def decode_gathered(self, gathered, enc, ctx):
@@ -304,26 +376,42 @@ class HTQuant(Codec):
                 * enc.step[:, None] + enc.lo[:, None]).reshape(shape)
         return ht_decode(vals, ctx.sign(block), block=block)
 
+    # a value-domain shard decodes as the rotation alone
+    decode_values = Hadamard.decode_values
+
 
 # --------------------------------------------------------------- transports
 class Reliable:
-    """Everything arrives (TCP-class transports): no mask, no loss stats."""
+    """Everything arrives (TCP-class transports): no mask, no loss stats.
+    ``incast`` is the round schedules' I."""
 
-    def arrival_mask(self, ctx: SyncContext, n: int,
-                     s: int) -> torch.Tensor | None:
+    def arrival_mask(self, ctx: SyncContext, n: int, s: int,
+                     self_index: tuple[int, ...] | None = None
+                     ) -> torch.Tensor | None:
         return None
+
+    def incast(self, ctx: SyncContext) -> int:
+        return ctx.cfg.incast
 
 
 class Lossy(Reliable):
     """UBT best-effort delivery: the drop model (core/drops.py) decides each
-    receiver's arrivals, ``(P, N, S)`` with receiver r in row r, and the
-    loss counts feed ``ctx.loss_fraction``."""
+    receiver's arrivals, ``(P, n, S)`` with receiver r in row r, and the
+    loss counts feed ``ctx.loss_fraction``. ``self_index``, one row per
+    receiver, names the row each receiver never drops when it is not the
+    receiver's id (a degraded round schedule's virtual positions); the
+    draws stay keyed on the receiver's id either way."""
 
-    def arrival_mask(self, ctx, n, s):
+    def arrival_mask(self, ctx, n, s, self_index=None):
         if ctx.cfg.drop_rate <= 0.0:
             return None
-        mask = torch.stack([ctx.draws.mask(ctx.bucket, r, n, s)
-                            for r in range(n)])
+        if self_index is None:
+            mask = torch.stack([ctx.draws.mask(ctx.bucket, r, n, s)
+                                for r in range(n)])
+        else:
+            mask = torch.stack([ctx.draws.mask(ctx.bucket, r, n, s,
+                                               self_index=i)
+                                for r, i in enumerate(self_index)])
         dropped = (1.0 - mask).sum(dim=(1, 2))
         ctx.stats["dropped"] = ctx.stats.get("dropped", 0.0) + dropped
         ctx.stats["total"] = ctx.stats.get("total", 0.0) + float(n * s)
@@ -371,6 +459,15 @@ class PsumTopology(Topology):
                              "drops (use a TAR topology)")
 
     def encode_stage(self, bucket, transport, codec, ctx):
+        cfg, n = ctx.cfg, collectives.axis_size(bucket)
+        if active_subset(cfg, n) is not None:
+            raise ValueError(
+                "psum cannot exclude peers: degraded participation needs a "
+                "TAR or ring topology")
+        if weights_subset(cfg, n) is not None or dead_link_set(cfg, n):
+            raise ValueError(
+                "psum cannot rebalance shards or route around links: use a "
+                "rounds-scheduled TAR or ring topology")
         return (bucket,)
 
     def exchange_stage(self, state, transport, codec, ctx):
@@ -381,23 +478,152 @@ class PsumTopology(Topology):
 
 
 @dataclasses.dataclass(frozen=True)
-class TarTopology(Topology):
-    """Transpose AllReduce (§3.1): stage-1 shard exchange -> codec reduce ->
-    stage-2 broadcast. Only the ``'a2a'`` schedule is ported; the paper's
-    round schedule waits for ROADMAP A14."""
-    schedule: str = "a2a"
+class RingTopology(Topology):
+    """Baseline schedules that reduce internally: Gloo Ring, recursive
+    halving-doubling ("NCCL Tree"), Gloo BCube. They compose with a
+    *linear* codec (decode commutes with the internal averaging) and a
+    reliable transport."""
+    kind: str = "ring"                   # ring | tree | bcube
 
     def __post_init__(self):
-        if self.schedule == "rounds":
-            raise NotImplementedError(
-                "TarTopology(schedule='rounds') is not ported yet: "
-                "ROADMAP A14")
-        if self.schedule != "a2a":
-            raise ValueError(f"unknown TAR schedule {self.schedule!r}")
+        if self.kind not in ("ring", "tree", "bcube"):
+            raise ValueError(f"unknown ring topology kind {self.kind!r}")
+
+    def validate(self, transport, codec):
+        if isinstance(transport, Lossy):
+            raise ValueError(
+                f"{self.kind} reduces in-flight partial sums; the UBT drop "
+                "model needs TAR's receive structure (Lossy -> TarTopology)")
+        if not codec.linear:
+            raise ValueError(
+                f"codec {type(codec).__name__} does not commute with "
+                f"{self.kind}'s internal reduction")
+
+    def _geometry(self, cfg: OptiReduceConfig, n: int):
+        """(active, order, weights): the degraded set, the (possibly
+        link-rewired) virtual ring order and the per-position shard weights;
+        None, None, None on the uniform full-participation trace. A dead
+        (i -> j) edge reorders the virtual ring around it (ring hops are all
+        distance 1) instead of ejecting j; weights follow their peer."""
+        active = active_subset(cfg, n)
+        part = active if active is not None else tuple(range(n))
+        weights = weights_subset(cfg, len(part))
+        dead = dead_link_set(cfg, n)
+        if (active is not None or weights is not None or dead) \
+                and self.kind != "ring":
+            raise ValueError(
+                f"{self.kind} exchanges over a rigid power-of-base "
+                "structure; degraded participation, shard weights and dead "
+                "links need kind='ring' (or a TAR topology)")
+        order = tar_lib.ring_order(part, dead) if dead else part
+        if weights is not None and order != part:
+            weights = tuple(weights[part.index(p)] for p in order)
+        if active is None and order == part and weights is None:
+            return None, None, None
+        return active, order, weights
+
+    def _pad_n(self, cfg: OptiReduceConfig, n: int) -> int:
+        _, order, weights = self._geometry(cfg, n)
+        if weights is not None:
+            return sum(weights)
+        return n if order is None else len(order)
 
     def encode_stage(self, bucket, transport, codec, ctx):
         n = collectives.axis_size(bucket)
-        x, _ = tar_lib.pad_for_tar(bucket, n, codec.block(ctx.cfg))
+        x, _ = tar_lib.pad_for_tar(bucket, self._pad_n(ctx.cfg, n),
+                                   codec.block(ctx.cfg))
+        return (codec.encode(x, ctx).data,)
+
+    def exchange_stage(self, state, transport, codec, ctx):
+        (data,) = state
+        n = collectives.axis_size(data)
+        active, order, weights = self._geometry(ctx.cfg, n)
+        if order is not None:
+            # the virtual ring of active peers in link-avoiding order; the
+            # graft replaces the ejected peers' garbage
+            out = ring_lib.ring_allreduce(data, active=order, weights=weights)
+            if active is not None:
+                out = tar_lib.graft_inactive(out, active)
+        elif self.kind == "ring":
+            out = ring_lib.ring_allreduce(data)
+        elif self.kind == "tree":
+            out = ring_lib.tree_allreduce(data)
+        else:
+            out = ring_lib.bcube_allreduce(data, base=4 if n % 4 == 0 else 2)
+        return (out,)
+
+    def decode_stage(self, state, length, transport, codec, ctx):
+        # the stage-1 encode output is gone by now: data=None says so
+        return codec.decode_values(state[0], Encoded(None), ctx)[..., :length]
+
+
+@dataclasses.dataclass(frozen=True)
+class TarTopology(Topology):
+    """Transpose AllReduce (§3.1): stage-1 shard exchange -> codec reduce ->
+    stage-2 broadcast.
+
+    ``schedule``: ``'a2a'`` runs the stages as ``collectives.all_to_all``
+    and ``all_gather`` views; ``'rounds'`` runs the paper's explicit
+    2 * ceil((N-1)/I) round schedule of ``collectives.ppermute`` calls,
+    taking I from the transport. ``outer`` says how a pod axis would join
+    (``'tar'`` or ``'pmean'``); the pod axis itself waits for ROADMAP A15,
+    so here it only names the reference's composition.
+
+    Degraded participation (``cfg.active_peers`` a proper subset): the
+    rounds schedule is regenerated over the virtual ring of active peers
+    (A shards, 2(A-1) rounds, ejected peers self-loop) plus ceil(E/A) graft
+    rounds to the ejected peers; the a2a schedule keeps its N shards and
+    zeroes ejected senders' rows of the arrival mask at every receiver.
+    Either way the result is the mean over active contributions, and every
+    peer, ejected or not, holds it.
+    """
+    schedule: str = "a2a"                # a2a | rounds
+    outer: str = "tar"                   # tar | pmean
+
+    def __post_init__(self):
+        if self.schedule not in ("a2a", "rounds"):
+            raise ValueError(f"unknown TAR schedule {self.schedule!r}")
+        if self.outer not in ("tar", "pmean"):
+            raise ValueError(f"unknown TAR outer mode {self.outer!r}")
+
+    def _participation(self, cfg: OptiReduceConfig, n: int):
+        """(active, n_shards, weights, dead): the rounds schedule shards
+        over the active set (straggler-proportionally under ``weights``)
+        and relays around ``dead`` links; a2a keeps N uniform shards and
+        excludes by mask."""
+        active = active_subset(cfg, n)
+        part = active if active is not None else tuple(range(n))
+        weights = weights_subset(cfg, len(part))
+        dead = dead_link_set(cfg, n)
+        if (weights is not None or dead) and self.schedule != "rounds":
+            raise ValueError(
+                "the a2a TAR schedule can neither resize its tiles nor avoid "
+                "an edge: use schedule='rounds' for shard_weights / "
+                "dead_links")
+        if active is not None and self.schedule == "rounds":
+            return active, len(active), weights, dead
+        return active, n, weights, dead
+
+    @staticmethod
+    def _check_weighted(cfg: OptiReduceConfig, codec) -> None:
+        if not codec.linear:
+            raise ValueError(
+                "shard_weights require a linear codec: a quantizing codec "
+                "grids the bucket by uniform shard geometry")
+        if cfg.recovery != "none":
+            raise ValueError(
+                "shard_weights are incompatible with gradient recovery: "
+                "stale-fill indexes the bucket by uniform shard geometry")
+
+    def encode_stage(self, bucket, transport, codec, ctx):
+        cfg = ctx.cfg
+        n = collectives.axis_size(bucket)
+        _, n_shards, weights, _ = self._participation(cfg, n)
+        if weights is not None:
+            self._check_weighted(cfg, codec)
+            # pad so the bucket cuts into sum(weights) block-aligned units
+            n_shards = sum(weights)
+        x, _ = tar_lib.pad_for_tar(bucket, n_shards, codec.block(cfg))
         if hasattr(codec, "local_amax"):
             # split encode (quantizing codec): only the pre-collective half
             # here; the grid pmax and the quantize ride the exchange stage,
@@ -407,6 +633,7 @@ class TarTopology(Topology):
 
     def exchange_stage(self, state, transport, codec, ctx):
         data, amax = state
+        cfg = ctx.cfg
         lo = step = None
         if amax is not None:
             # deferred half of the split encode: share the grids over the
@@ -414,14 +641,58 @@ class TarTopology(Topology):
             enc = codec.encode_given_amax(data, collectives.pmax(amax)[0],
                                           ctx)
             data, lo, step = enc.data, enc.lo, enc.step
-        n = collectives.axis_size(data)
-        s = data.shape[-1] // n
-        received = collectives.all_to_all(data.view(n, n, s))
-        mask = transport.arrival_mask(ctx, n, s)
         enc = Encoded(data, lo=lo, step=step)
-        own = codec.reduce(received, mask, enc, ctx)
-        wire = codec.encode_shard(own, enc, ctx)
-        return (collectives.all_gather(wire), lo, step)
+        n = collectives.axis_size(data)
+        active, n_shards, weights, dead = self._participation(cfg, n)
+        rounds = self.schedule == "rounds"
+        if weights is not None:
+            self._check_weighted(cfg, codec)
+            plan = tar_lib.shard_plan(data.shape[-1], weights,
+                                      codec.block(cfg))
+            if plan.padded != data.shape[-1]:
+                raise ValueError(
+                    f"bucket length {data.shape[-1]} not a multiple of "
+                    f"sum(shard_weights)={sum(weights)} units")
+            shards = tar_lib.weighted_rows(data, plan)
+        else:
+            plan = None
+            shards = data.view(n, n_shards, -1)
+        s = shards.shape[-1]
+        if rounds:
+            received = tar_lib.tar_exchange_rounds(
+                shards, incast=transport.incast(ctx), active=active,
+                dead_links=dead)
+        else:
+            received = collectives.all_to_all(shards)
+        shard_index = None
+        if rounds and active is not None:
+            # rows are in virtual-ring order; so are shard ownership and the
+            # self row of the drop mask
+            vpos, _ = tar_lib.peer_lookup(active, n)
+            shard_index = collectives.index(vpos, data.device)
+            mask = transport.arrival_mask(ctx, n_shards, s, self_index=vpos)
+        else:
+            mask = transport.arrival_mask(ctx, n_shards, s)
+            if active is not None:
+                # a2a: exclude ejected senders' rows at EVERY receiver (the
+                # ejected peer's own row included, so replicas agree); the
+                # compensated mean treats them as dropped
+                _, is_active = tar_lib.peer_lookup(active, n)
+                rows = collectives.index(tuple(int(v) for v in is_active),
+                                         data.device).to(torch.float32)
+                rows = rows[:, None]
+                mask = rows.expand(n, n, s) if mask is None else mask * rows
+        own = codec.reduce(received, mask, enc, ctx, shard_index=shard_index)
+        wire = codec.encode_shard(own, enc, ctx, shard_index=shard_index)
+        if rounds:
+            gathered = tar_lib.tar_broadcast_rounds(
+                wire, incast=transport.incast(ctx), active=active,
+                dead_links=dead, plan=plan)
+            if active is not None:
+                gathered = tar_lib.graft_inactive(gathered, active)
+        else:
+            gathered = collectives.all_gather(wire)
+        return (gathered, lo, step)
 
     def decode_stage(self, state, length, transport, codec, ctx):
         # only the quantization grids survive the exchange
@@ -466,11 +737,7 @@ class CollectiveSpec:
 _REGISTRY: dict[str, Callable[[OptiReduceConfig], CollectiveSpec]] = {}
 
 # reference strategies that wait for a later slice, with their ROADMAP item
-_NOT_PORTED = {
-    "gloo_ring": "A14", "nccl_tree": "A14", "bcube": "A14",
-    "tar_rounds": "A14", "optireduce_rounds": "A14", "ring_ht": "A14",
-    "tar_rounds_q": "A14", "optireduce_2d": "A15",
-}
+_NOT_PORTED = {"optireduce_2d": "A15"}
 
 
 def register_strategy(name: str, spec: CollectiveSpec | None = None):
@@ -505,8 +772,18 @@ def resolve_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
 
 register_strategy("psum",
                   CollectiveSpec(PsumTopology(), Reliable(), Identity()))
+register_strategy("gloo_ring",
+                  CollectiveSpec(RingTopology("ring"), Reliable(), Identity()))
+register_strategy("nccl_tree",
+                  CollectiveSpec(RingTopology("tree"), Reliable(), Identity()))
+register_strategy("bcube",
+                  CollectiveSpec(RingTopology("bcube"), Reliable(),
+                                 Identity()))
 register_strategy("tar_tcp",
                   CollectiveSpec(TarTopology(), Reliable(), Identity()))
+register_strategy("tar_rounds",
+                  CollectiveSpec(TarTopology(schedule="rounds", outer="pmean"),
+                                 Reliable(), Identity()))
 
 
 @register_strategy("optireduce")
@@ -519,3 +796,16 @@ def _optireduce_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
 # TarTopology(outer="pmean"); the pod axis it names is not ported)
 register_strategy("optireduce_q",
                   CollectiveSpec(TarTopology(), Lossy(), HTQuant()))
+
+
+# the paper's round schedule with drops and the rotation
+register_strategy("optireduce_rounds",
+                  CollectiveSpec(TarTopology(schedule="rounds", outer="pmean"),
+                                 Lossy(), Hadamard()))
+# the round schedule with the quantized exchange
+register_strategy("tar_rounds_q",
+                  CollectiveSpec(TarTopology(schedule="rounds", outer="pmean"),
+                                 Lossy(), HTQuant()))
+# Gloo's ring over rotated buckets
+register_strategy("ring_ht",
+                  CollectiveSpec(RingTopology("ring"), Reliable(), Hadamard()))

@@ -9,13 +9,19 @@ card, ``--device`` where they run (the CUDA device unless asked otherwise).
 On the card every Hadamard encode/decode, every drop-compensated mean and,
 with ``--strategy optireduce_q``, every quantization stage (grid pass,
 stage-1 codes, dequant + mean, stage-2 codes) is a launch of the port's
-CUDA kernels.
+CUDA kernels. ``--strategy`` takes every registered name: the paper's round
+schedule (``optireduce_rounds``, ``tar_rounds``, ``tar_rounds_q``, with
+``--incast`` its I) and the Gloo-ring / NCCL-tree / BCube baselines
+(``gloo_ring``, ``ring_ht``, ``nccl_tree``, ``bcube``) among them.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-paper \\
       --steps 3 --dp 4 --drop-rate 0.01
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-paper \\
       --steps 3 --dp 4 --drop-rate 0.01 --strategy optireduce_q
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-paper \\
+      --steps 3 --dp 4 --drop-rate 0.01 --strategy optireduce_rounds \\
+      --incast 2
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 2
 """
@@ -93,7 +99,7 @@ _NOT_PORTED = (
     ("rendezvous", None, "--rendezvous: ROADMAP A18"),
     ("recovery", "none", "--recovery: ROADMAP A16"),
     ("adaptive", False, "--adaptive (control plane): ROADMAP A17"),
-    ("rebalance", False, "--rebalance: ROADMAP A14/A17"),
+    ("rebalance", False, "--rebalance (the control plane): ROADMAP A17"),
     ("report", None, "--report: ROADMAP A17"),
     ("trace", None, "--trace: ROADMAP A19"),
     ("trace_capacity", None, "--trace-capacity: ROADMAP A19"),

@@ -350,3 +350,60 @@ def test_sync_packed_on_card_matches_cpu(dev, mode, strategy):
     got = sync_packed(arena.to(dev), SyncContext(cfg=cfg, draws=HostDraws()),
                       mode=mode)
     torch.testing.assert_close(got.cpu(), want, atol=ROT_TOL, rtol=0)
+
+
+class _HostDraws:
+    """The CPU provider's draws, served on the card: both runs of a
+    comparison see the same signs, masks and noises."""
+
+    def __init__(self, cfg, dev):
+        self.inner = GeneratorDraws((0,), cfg, torch.device("cpu"))
+        self.dev = dev
+
+    def sign(self, b, block):
+        return self.inner.sign(b, block).to(self.dev)
+
+    def mask(self, b, r, n, s, self_index=None):
+        return self.inner.mask(b, r, n, s, self_index=self_index).to(self.dev)
+
+    def noise(self, b, salt, shape):
+        return self.inner.noise(b, salt, shape).to(self.dev)
+
+
+@pytest.mark.parametrize("strategy,rate,policy", [
+    ("optireduce_rounds", 0.05, {}), ("tar_rounds_q", 0.05, {}),
+    ("tar_rounds", 0.0, {}), ("gloo_ring", 0.0, {}), ("nccl_tree", 0.0, {}),
+    ("bcube", 0.0, {}), ("ring_ht", 0.0, {}),
+    ("optireduce", 0.05, {"active_peers": (0, 1, 3)}),
+    ("optireduce_rounds", 0.05, {"active_peers": (0, 1, 3)}),
+    ("tar_rounds_q", 0.05, {"active_peers": (0, 1, 3)}),
+    ("ring_ht", 0.0, {"active_peers": (0, 1, 3)}),
+    ("gloo_ring", 0.0, {"shard_weights": (2, 2, 2, 1)}),
+    ("optireduce_rounds", 0.0, {"shard_weights": (2, 2, 2, 1)}),
+    ("optireduce_rounds", 0.05, {"dead_links": ((1, 2),)}),
+])
+def test_rounds_and_policies_on_card_match_cpu(dev, strategy, rate, policy):
+    """The round schedule, the ring baselines and the participation
+    policies: card kernels against CPU plain versions on the same draws,
+    every replica (ejected peers included) holding the same bits."""
+    cfg = OptiReduceConfig(strategy=strategy, drop_rate=rate, incast=2,
+                           drop_pattern="bernoulli", hadamard_block=1024,
+                           **policy)
+    arena = torch.randn((4, 3, 16_384), generator=torch.Generator()
+                        .manual_seed(0))
+    for mode in ("scan", "pipelined"):
+        want = sync_packed(arena, SyncContext(
+            cfg=cfg, draws=_HostDraws(cfg, torch.device("cpu")).inner),
+            mode=mode)
+        before = (fwht_ops.launches, mm_ops.launches, dq_ops.launches)
+        got = sync_packed(arena.to(dev), SyncContext(
+            cfg=cfg, draws=_HostDraws(cfg, dev)), mode=mode)
+        torch.testing.assert_close(got.cpu(), want, atol=ROT_TOL, rtol=0)
+        assert all(torch.equal(got[p], got[0]) for p in range(1, 4))
+        launched = [a - b for a, b in zip(
+            (fwht_ops.launches, mm_ops.launches, dq_ops.launches), before)]
+        rotated = strategy not in ("tar_rounds", "gloo_ring", "nccl_tree",
+                                   "bcube")
+        assert (launched[0] > 0) == rotated, launched
+        if rate > 0:
+            assert launched[1] + launched[2] == 3, launched

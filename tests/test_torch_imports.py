@@ -32,7 +32,8 @@ def test_no_jax_or_reference_import(path):
 def test_scan_sees_the_package():
     assert len(FILES) > 20
     pkg = ROOT / "src" / "repro_torch"
-    for path in ("sim/__init__.py", "sim/tta.py", "core/compression.py"):
+    for path in ("sim/__init__.py", "sim/tta.py", "core/compression.py",
+                 "core/ring.py"):
         assert pkg / path in FILES
     assert "torch" in _imported(ROOT / "src" / "repro_torch" / "kernels"
                                 / "fwht" / "ops.py")

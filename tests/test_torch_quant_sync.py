@@ -206,8 +206,9 @@ def _flips(a, b):
 def test_optireduce_q_is_registered():
     spec = resolve_spec(OptiReduceConfig(strategy="optireduce_q"))
     assert isinstance(spec.codec, HTQuant)
-    with pytest.raises(NotImplementedError, match="A14"):
-        resolve_spec(OptiReduceConfig(strategy="tar_rounds_q"))
+    rounds = resolve_spec(OptiReduceConfig(strategy="tar_rounds_q"))
+    assert isinstance(rounds.codec, HTQuant)
+    assert rounds.topology.schedule == "rounds"
 
 
 @pytest.mark.parametrize("case", list(CASES))

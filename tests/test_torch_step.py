@@ -5,8 +5,9 @@ The reference runs on 4 forced host devices in one subprocess (once for the
 file, results handed over as an ``.npz``): ``gpt2-smoke``, 4 data ranks,
 ``optireduce`` with ``hadamard_block=256`` and ``bucket_elems=16384`` (8
 buckets, so the pipelined steady state runs), AdamW, for a drop rate of
-0.05 under the ``tail`` and ``bernoulli`` patterns and for no drops. The
-child also records the reference's own draws — each bucket's Hadamard sign
+0.05 under the ``tail`` and ``bernoulli`` patterns and for no drops, and
+``optireduce_rounds`` (the paper's round schedule, incast 2) with tail drops
+at 0.05. The child also records the reference's own draws — each bucket's Hadamard sign
 and each receiver's arrival mask, derived from its keys exactly as the
 step derives them — and the port's run is handed those
 (:class:`InjectedDraws`). Without drops the synced gradient does not depend
@@ -52,8 +53,11 @@ GLOBAL_BATCH = 8
 LR = 1e-2
 M_TOL = 1e-6        # AdamW first moment (largest entry ~3e-2)
 PARAM_TOL = 5e-2 * LR
-CASES = {"tail": ("tail", 0.05), "bernoulli": ("bernoulli", 0.05),
-         "nodrop": ("tail", 0.0)}
+# name -> (strategy, drop pattern, drop rate, incast)
+CASES = {"tail": ("optireduce", "tail", 0.05, 1),
+         "bernoulli": ("optireduce", "bernoulli", 0.05, 1),
+         "nodrop": ("optireduce", "tail", 0.0, 1),
+         "rounds": ("optireduce_rounds", "tail", 0.05, 2)}
 
 CHILD = r"""
 import os, sys
@@ -76,8 +80,7 @@ from repro.train.trainer import TrainConfig, build_train_step
 out_path, steps, peers, block, bucket, seq, gb, lr = sys.argv[1:9]
 steps, peers, block, bucket = int(steps), int(peers), int(block), int(bucket)
 seq, gb, lr = int(seq), int(gb), float(lr)
-cases = {"tail": ("tail", 0.05), "bernoulli": ("bernoulli", 0.05),
-         "nodrop": ("tail", 0.0)}
+cases = eval(sys.argv[9])
 cfg = get_smoke("gpt2-paper")
 mesh = make_mesh((peers,), ("data",))
 data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
@@ -87,9 +90,10 @@ params0 = init_params(key, cfg)
 save = {}
 for i, leaf in enumerate(jax.tree.leaves(params0)):
     save[f"init/{i}"] = np.asarray(leaf)
-for name, (pattern, rate) in cases.items():
-    sync = OptiReduceConfig(strategy="optireduce", drop_rate=rate,
-                            drop_pattern=pattern, hadamard_block=block)
+for name, (strategy, pattern, rate, incast) in cases.items():
+    sync = OptiReduceConfig(strategy=strategy, drop_rate=rate,
+                            drop_pattern=pattern, hadamard_block=block,
+                            incast=incast)
     tc = TrainConfig(sync=sync, optimizer=OptimizerConfig(lr=lr),
                      bucket_elems=bucket, seq_chunk=seq)
     make_step, opt, _ = build_train_step(cfg, tc, mesh)
@@ -153,7 +157,8 @@ def ref(tmp_path_factory):
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
         [sys.executable, "-c", CHILD, str(out), str(STEPS), str(PEERS),
-         str(BLOCK), str(BUCKET), str(SEQ), str(GLOBAL_BATCH), str(LR)],
+         str(BLOCK), str(BUCKET), str(SEQ), str(GLOBAL_BATCH), str(LR),
+         repr(CASES)],
         env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + "\n" + proc.stderr
     with np.load(out) as z:
@@ -173,10 +178,11 @@ def _port_params(ref):
 
 
 def _run_port(ref, case, *, sync_mode="pipelined", inject=True):
-    pattern, rate = CASES[case]
+    strategy, pattern, rate, incast = CASES[case]
     cfg = get_smoke("gpt2-paper")
-    sync = OptiReduceConfig(strategy="optireduce", drop_rate=rate,
-                            drop_pattern=pattern, hadamard_block=BLOCK)
+    sync = OptiReduceConfig(strategy=strategy, drop_rate=rate,
+                            drop_pattern=pattern, hadamard_block=BLOCK,
+                            incast=incast)
     tc = TrainConfig(sync=sync, optimizer=OptimizerConfig(lr=LR),
                      bucket_elems=BUCKET, seq_chunk=SEQ, sync_mode=sync_mode)
     step_fn, opt = build_train_step(cfg, tc, peers=PEERS, device="cpu")
@@ -198,7 +204,7 @@ def _run_port(ref, case, *, sync_mode="pipelined", inject=True):
     return history
 
 
-@pytest.mark.parametrize("case", ["tail", "bernoulli", "nodrop"])
+@pytest.mark.parametrize("case", ["tail", "bernoulli", "nodrop", "rounds"])
 def test_step_matches_reference(ref, case):
     history = _run_port(ref, case, inject=case != "nodrop")
     for step, (metrics, leaves, moments) in enumerate(history):
