@@ -77,7 +77,32 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     0.01 (bitwise the run without it, 6 + 4 permutes a bucket);
 17. ``rounds_cpu``: 8.'s comparison for optireduce_rounds and tar_rounds_q;
     and 9.'s profile for optireduce_rounds, with the permutes and the device
-    ms of the index kernels (the permutes' gathers and indexed writes).
+    ms of the index kernels (the permutes' gathers and indexed writes);
+18. ``adaptive_codec``: the launcher with the §3.2 control plane in the loop,
+    ``--strategy optireduce --adaptive --drop-rate 0.002 --steps 5 --trace
+    --report`` at 6.'s full width: per step the policy the step ran under,
+    B1 and B2 launches, loss_frac, step ms, the trace's ``step`` span's
+    host ms beyond the step (logging, control plane, any rebuild) and the
+    device busy ms of the first and last step (under ``torch.profiler``),
+    then the control plane's host us a step, replayed on the run's own
+    telemetry; B1 must be 48 a step while
+    ``use_hadamard`` is on and 0 while it is off, B2 24; the rebuilds must
+    equal the ``(step rebuilt)`` lines and each policy switch an
+    ``adaptive:`` line; the trace must validate with one ``step`` span a
+    step, ``python -m repro_torch.obs.report`` on it exit 0, and the report
+    hold one row a step;
+19. ``adaptive_rounds``: the same for ``--strategy optireduce_rounds
+    --incast 2 --adaptive --drop-rate 0.01 --steps 6``: every step 48 B1, 24
+    B2 and 144 permutes, and 24 x 2 x ceil(3 / I) incast groups at the
+    step's incast I, none of B3-B7;
+20. ``netsim``: the calibrated network simulator on the host at the sizes
+    of ``benchmarks/bench_tta.py`` (8 nodes, 25 MB buckets of GPT-2 base's
+    497 MB of fp32 gradients, 150 steps x 19 buckets) for gloo_ring, bcube,
+    nccl_ring, nccl_tree, tar_tcp and optireduce in local_1.5, local_3.0
+    and cloudlab: the simulated mean, p50 and p99 gradient-aggregation ms
+    and mean drop, and the host seconds each took; every value finite, Gloo
+    ring's mean over OptiReduce's above 1 in local_1.5 and larger in
+    local_3.0, OptiReduce's mean drop in (0, 0.01), the reliable ones 0.
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -86,9 +111,12 @@ exits 1.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -310,6 +338,11 @@ def main() -> int:
             if groups != 24 * 2 * 2:
                 fail(f"optireduce_rounds: {groups} round groups a step, "
                      "expected 96")
+
+    # 18., 19. the launcher with the control plane in the loop; 20. the
+    # network simulator
+    adaptive_runs(counters)
+    run_netsim()
 
     # 15., 16. every ported strategy, and the participation policies, on one
     # full-width arena
@@ -888,6 +921,262 @@ def train_main_path(strategy: str, steps: int, counters: dict) -> dict:
     return counts
 
 
+class _Tee(io.TextIOBase):
+    """Writes to every stream it holds (the console and a capture)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+class _StepWatch:
+    """Wraps the launcher's ``build_train_step`` to see each step: the sync
+    config its step function was built with, each counter's increase in
+    that step alone, and, for the steps named, a ``torch.profiler`` record
+    (read after the run, so its analysis is not in the step's time)."""
+
+    def __init__(self, counters: dict, profile_steps=()):
+        from repro_torch.core import tar
+        self.counters = {**counters, "round_groups": (tar, "round_groups")}
+        self.profile_steps = set(profile_steps)
+        self.builds = []
+        self.steps = []
+
+    def _snapshot(self):
+        return {k: getattr(mod, attr)
+                for k, (mod, attr) in self.counters.items()}
+
+    def wrap(self, build_train_step):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def build(cfg, tc, **kw):
+            step_fn, opt = build_train_step(cfg, tc, **kw)
+            self.builds.append(tc.sync)
+
+            def watched(*args, **kwargs):
+                before = self._snapshot()
+                prof = None
+                if len(self.steps) in self.profile_steps:
+                    torch.cuda.synchronize()
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                    prof.__enter__()
+                out = step_fn(*args, **kwargs)
+                if prof is not None:
+                    torch.cuda.synchronize()
+                    prof.__exit__(None, None, None)
+                after = self._snapshot()
+                self.steps.append({
+                    "sync": tc.sync, "prof": prof,
+                    "counts": {k: after[k] - before[k] for k in after}})
+                return out
+            return watched, opt
+        return build
+
+
+ADAPTIVE_LINE = re.compile(r"^adaptive: use_hadamard=(True|False) "
+                           r"incast=(\d+) .*\((step rebuilt|cached step "
+                           r"reused)\)$")
+
+
+def adaptive_run(phase: str, strategy: str, rate: float, steps: int,
+                 counters: dict, extra=()) -> None:
+    """Phases ``adaptive_codec`` and ``adaptive_rounds``: the launcher with
+    ``--adaptive --trace --report`` at full width, every step held to the
+    policy it ran under."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import ControlPlane, StepTelemetry
+
+    out_dir = ROOT / "build" / "chip_smoke" / phase
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report_path = out_dir / "report.json"
+    trace_dir = out_dir / "trace"
+    watch = _StepWatch(counters, profile_steps=(0, steps - 1))
+    real = launch_train.build_train_step
+    launch_train.build_train_step = watch.wrap(real)
+    captured = io.StringIO()
+    torch.cuda.synchronize()
+    for mod, attr in watch.counters.values():
+        setattr(mod, attr, 0)
+    try:
+        with contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+            records = launch_train.run([
+                "--arch", "gpt2-paper", "--steps", str(steps), "--dp",
+                str(PEERS), "--strategy", strategy, "--drop-rate", str(rate),
+                "--drop-pattern", "tail", "--seq-len", "128",
+                "--global-batch", "8", "--optimizer", "adamw", "--device",
+                "cuda", "--kernel-mode", "kernel", "--log-every", "1",
+                "--adaptive", "--trace", str(trace_dir), "--report",
+                str(report_path), *extra])
+    finally:
+        launch_train.build_train_step = real
+    torch.cuda.synchronize()
+
+    with open(trace_dir / "trace_rank00.json") as f:
+        payload = obs.validate_trace(json.load(f))
+    step_spans = [e for e in payload["traceEvents"]
+                  if e["ph"] == "X" and e["name"] == "step"]
+    spans = {e["args"]["step"]: e["dur"] / 1e3 for e in step_spans}
+    rotates_always = strategy != "optireduce"
+    rounds = "rounds" in strategy
+    policies = []
+    for i, (rec, st) in enumerate(zip(records, watch.steps)):
+        sync, c = st["sync"], st["counts"]
+        busy = device_busy_ms(st["prof"]) if st["prof"] else None
+        policies.append((sync.use_hadamard, sync.incast))
+        want = {k: 0 for k in c}
+        want.update(fwht=48 if (rotates_always or sync.use_hadamard) else 0,
+                    masked_mean=24)
+        if rounds:
+            want.update(permutes=24 * 2 * (PEERS - 1),
+                        round_groups=24 * 2 * math.ceil(
+                            (PEERS - 1) / sync.incast))
+        row = {"phase": f"{phase}_step", "step": i,
+               "use_hadamard": sync.use_hadamard, "incast": sync.incast,
+               "launches": c, "loss": rec["loss"],
+               "loss_frac": rec["loss_frac"], "step_ms": rec["step_s"] * 1e3,
+               # the step span's host ms beyond the step: logging, the
+               # control plane, the report row and any rebuild
+               "loop_host_ms_beyond_step": spans.get(i, math.nan)
+               - rec["step_s"] * 1e3,
+               "profiled": busy is not None, "device_busy_ms": busy}
+        emit(row)
+        if c != want:
+            fail(f"{phase} step {i}: launches {c} under use_hadamard="
+                 f"{sync.use_hadamard} incast={sync.incast}, expected {want}")
+        # at drop 0.002 a step of 288 (peer, receiver) pairs may lose none
+        if not (math.isfinite(rec["loss"]) and 0 <= rec["loss_frac"] < 0.1):
+            fail(f"{phase} step {i}: loss {rec['loss']} loss_frac "
+                 f"{rec['loss_frac']}")
+    if len(watch.steps) != steps or len(records) != steps:
+        fail(f"{phase}: {len(watch.steps)} steps seen, {len(records)} "
+             f"records, expected {steps}")
+
+    # every policy switch is one adaptive: line, every rebuild one
+    # "(step rebuilt)", in order
+    lines = [ADAPTIVE_LINE.match(ln)
+             for ln in captured.getvalue().splitlines()
+             if ln.startswith("adaptive:")]
+    if not all(lines):
+        fail(f"{phase}: malformed adaptive line in {captured.getvalue()!r}")
+    printed = [(m.group(1) == "True", int(m.group(2))) for m in lines]
+    switches = [b for a, b in zip(policies, policies[1:]) if a != b]
+    rebuilt = sum(m.group(3) == "step rebuilt" for m in lines)
+    if switches != printed[:len(switches)] or \
+            len(printed) - len(switches) > 1:
+        # the last line may switch after the last step
+        fail(f"{phase}: policies by step {policies} against the adaptive "
+             f"lines {printed}")
+    if len(watch.builds) - 1 != rebuilt:
+        fail(f"{phase}: {len(watch.builds) - 1} rebuilds, {rebuilt} "
+             "'(step rebuilt)' lines")
+
+    # the control plane alone, on the host: this run's telemetry replayed
+    telemetry = [StepTelemetry(step=i, loss_frac=r["loss_frac"],
+                               step_time=r["step_s"])
+                 for i, r in enumerate(records)]
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        control = ControlPlane.create(n_nodes=PEERS)
+        for t in telemetry:
+            control.observe(t)
+            control.apply(watch.builds[0])
+    control_us = (time.perf_counter() - t0) / (reps * steps) * 1e6
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", str(trace_dir)],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    with open(report_path) as f:
+        report = json.load(f)
+    summary = {"phase": phase, "strategy": strategy, "drop_rate": rate,
+               "steps": steps, "policies": policies, "adaptive_lines":
+               len(printed), "rebuilds": rebuilt,
+               "cached_reuses": len(printed) - rebuilt,
+               "trace_step_spans": len(step_spans),
+               "control_plane_host_us_per_step": control_us,
+               "trace_records": len(payload["traceEvents"]),
+               "policy_events": sum(e.get("cat") == "policy"
+                                    for e in payload["traceEvents"]),
+               "obs_report_rc": proc.returncode,
+               "report_rows": len(report["steps"])}
+    emit(summary)
+    print(proc.stdout, flush=True)
+    if sorted(spans) != list(range(steps)) or len(step_spans) != steps \
+            or proc.returncode != 0 or \
+            len(report["steps"]) != steps:
+        fail(f"{phase}: {summary}\n{proc.stderr}")
+
+
+def adaptive_runs(counters: dict) -> None:
+    adaptive_run("adaptive_codec", "optireduce", 0.002, 5, counters)
+    adaptive_run("adaptive_rounds", "optireduce_rounds", 0.01, 6, counters,
+                 extra=("--incast", str(ROUNDS_INCAST)))
+
+
+NETSIM_ENVS = ("local_1.5", "local_3.0", "cloudlab")
+NETSIM_STRATEGIES = ("gloo_ring", "bcube", "nccl_ring", "nccl_tree",
+                     "tar_tcp", "optireduce")
+GRAD_BYTES = 124e6 * 4           # GPT-2 base fp32 gradients (bench_tta.py)
+SIM_BUCKET = 25 * 2 ** 20
+SIM_STEPS = 150
+
+
+def run_netsim() -> None:
+    """Phase ``netsim``: ``simulate_job`` at ``benchmarks/bench_tta.py``'s
+    sizes. The milliseconds are the simulator's, not the card's."""
+    from repro_torch.sim import NetworkModel, simulate_job
+
+    buckets = math.ceil(GRAD_BYTES / SIM_BUCKET)
+    res = {}
+    for env in NETSIM_ENVS:
+        for strategy in NETSIM_STRATEGIES:
+            t0 = time.perf_counter()
+            r = simulate_job(strategy, n_nodes=8, bucket_bytes=SIM_BUCKET,
+                             n_steps=SIM_STEPS * buckets,
+                             env=NetworkModel.environment(env, seed=11),
+                             compute_ms=0.0, overlap=0.0)
+            row = {"phase": "netsim", "env": env, "strategy": strategy,
+                   "nodes": 8, "bucket_bytes": SIM_BUCKET,
+                   "simulated_steps": SIM_STEPS * buckets,
+                   "simulated_mean_ga_ms": r["mean_ga_ms"],
+                   "simulated_p50_ga_ms": r["p50_ga_ms"],
+                   "simulated_p99_ga_ms": r["p99_ga_ms"],
+                   "mean_drop": r["mean_drop"],
+                   "host_seconds": time.perf_counter() - t0}
+            emit(row)
+            res[env, strategy] = row
+            if not all(math.isfinite(row[k]) for k in (
+                    "simulated_mean_ga_ms", "simulated_p50_ga_ms",
+                    "simulated_p99_ga_ms", "mean_drop")):
+                fail(f"netsim: {row}")
+    gap = {env: res[env, "gloo_ring"]["simulated_mean_ga_ms"]
+           / res[env, "optireduce"]["simulated_mean_ga_ms"]
+           for env in NETSIM_ENVS}
+    emit({"phase": "netsim_summary", "gloo_ring_over_optireduce": gap,
+          "host_seconds": sum(r["host_seconds"] for r in res.values())})
+    if not 1.0 < gap["local_1.5"] < gap["local_3.0"]:
+        fail(f"netsim: Gloo ring over OptiReduce {gap}")
+    for env in NETSIM_ENVS:
+        drop = res[env, "optireduce"]["mean_drop"]
+        if not 0.0 < drop < 0.01:
+            fail(f"netsim: optireduce mean drop {drop} in {env}")
+        for strategy in NETSIM_STRATEGIES[:-1]:
+            if res[env, strategy]["mean_drop"] != 0.0:
+                fail(f"netsim: {strategy} dropped in {env}")
+
+
 STRATEGIES = ("psum", "gloo_ring", "nccl_tree", "bcube", "tar_tcp",
               "tar_rounds", "optireduce", "optireduce_q", "optireduce_rounds",
               "tar_rounds_q", "ring_ht")
@@ -1232,6 +1521,21 @@ PORTED_KERNELS = ("fwht_rows_kernel", "masked_mean_vec4", "ht_kernel",
                   "uniform_quant_kernel")
 
 
+def _dev_us(r):
+    return getattr(r, "self_device_time_total",
+                   getattr(r, "self_cuda_time_total", 0.0))
+
+
+def _device_rows(rows):
+    """Device-side rows only (kernels, copies, sets): the host op rows
+    above them report the same device time again."""
+    return [r for r in rows if str(r.device_type).endswith("CUDA")]
+
+
+def device_busy_ms(prof) -> float:
+    return sum(_dev_us(r) for r in _device_rows(prof.key_averages())) / 1e3
+
+
 def profile_third_step(one, label: dict) -> None:
     """Run ``one(0)``, ``one(1)`` (each a step ending in a synchronisation)
     on the host clock, then ``one(2)`` under ``torch.profiler``: wall time,
@@ -1254,15 +1558,9 @@ def profile_third_step(one, label: dict) -> None:
         prof_wall = (time.perf_counter() - t0) * 1e3
     permutes = collectives.permutes - permutes
     rows = prof.key_averages()
-
-    def dev_us(r):
-        return getattr(r, "self_device_time_total",
-                       getattr(r, "self_cuda_time_total", 0.0))
-    # device-side rows only (kernels, copies, sets): the host op rows
-    # above them report the same device time again
-    on_dev = [r for r in rows if str(r.device_type).endswith("CUDA")]
-    busy_ms = sum(dev_us(r) for r in on_dev) / 1e3
-    top_dev = sorted(on_dev, key=dev_us, reverse=True)[:12]
+    on_dev = _device_rows(rows)
+    busy_ms = sum(_dev_us(r) for r in on_dev) / 1e3
+    top_dev = sorted(on_dev, key=_dev_us, reverse=True)[:12]
     host = [r for r in rows if not str(r.device_type).endswith("CUDA")]
     top_cpu = sorted(host, key=lambda r: r.self_cpu_time_total,
                      reverse=True)[:12]
@@ -1285,11 +1583,11 @@ def profile_third_step(one, label: dict) -> None:
           if busy_ms > 0 else "not measured",
           "kernel_launches": launches,
           "permutes": permutes,
-          "index_kernels_ms": sum(dev_us(r) for r in indexed) / 1e3,
+          "index_kernels_ms": sum(_dev_us(r) for r in indexed) / 1e3,
           "index_kernels_launches": sum(r.count for r in indexed),
-          "top_device": [{"name": r.key[:90], "ms": dev_us(r) / 1e3,
+          "top_device": [{"name": r.key[:90], "ms": _dev_us(r) / 1e3,
                           "count": r.count} for r in top_dev],
-          "ported_kernels": [{"name": r.key[:90], "ms": dev_us(r) / 1e3,
+          "ported_kernels": [{"name": r.key[:90], "ms": _dev_us(r) / 1e3,
                               "count": r.count} for r in ported],
           "top_host": [{"name": r.key[:90],
                         "ms": r.self_cpu_time_total / 1e3,

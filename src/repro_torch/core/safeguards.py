@@ -66,10 +66,13 @@ class LossMonitor:
                 self._snapshots.popleft()
 
     def rollback(self) -> tuple[int, Any] | None:
-        """Most recent snapshot (step, params), or None."""
+        """Most recent snapshot (step, params), or None. The parameters
+        are clones: the optimizers update in place, and the snapshot must
+        survive the steps after a rollback (the reference's arrays are
+        immutable)."""
         if not self._snapshots:
             return None
         step, params = self._snapshots[-1]
         self.consecutive_skips = 0
         self.halted = False
-        return step, params
+        return step, tree_map(lambda p: p.clone(), params)

@@ -104,6 +104,22 @@ def test_loss_monitor_halts_like_reference():
                                                          torch.ones(2))
 
 
+def test_two_rollbacks_around_an_in_place_update_agree():
+    """The optimizers write parameters in place, so a rollback hands out
+    copies: a second rollback gives the snapshot again, as the reference's
+    immutable arrays do."""
+    port, ref = LossMonitor(), JMonitor()
+    port.maybe_snapshot(0, {"w": torch.ones(2)})
+    ref.maybe_snapshot(0, {"w": jnp.ones(2)})
+    _, first = port.rollback()
+    first["w"].add_(1.0)                       # a step after the rollback
+    _, second = port.rollback()
+    _, want = ref.rollback()
+    assert second["w"] is not first["w"]
+    np.testing.assert_array_equal(second["w"].numpy(), np.asarray(want["w"]))
+    np.testing.assert_array_equal(second["w"].numpy(), np.ones(2, np.float32))
+
+
 def test_collectives_on_the_peer_axis():
     x = torch.arange(4 * 4 * 3, dtype=torch.float32).view(4, 4, 3)
     y = collectives.all_to_all(x)

@@ -1,5 +1,6 @@
 """The port's launcher end to end on the CPU (the plain versions of the
-kernels), and its refusal of the reference's flags this slice does not run.
+kernels), and its refusal of the reference's flags the port does not run
+yet.
 """
 import math
 
@@ -38,14 +39,20 @@ def test_main_returns_zero_with_scan_and_microbatches():
     (["--strategy", "gloo_ring"], "A14"),
     (["--rebalance"], "A17"),
     (["--strategy", "optireduce_2d"], "A15"),
+    (["--recovery", "ef+budget"], "A16"),
+    (["--resume"], "A12"),
 ])
-def test_unported_flags_raise(flags, item):
-    """Flags of later slices raise naming their item; the round schedule
-    and the ring baselines of A14 (ported) train one step."""
+def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
+    """Flags of later slices raise naming their item; those of the ported
+    items train one step: the round schedule and the ring baselines (A14),
+    the control plane (A17) and the tracer (A19, writing into the working
+    directory)."""
+    monkeypatch.chdir(tmp_path)
     argv = ["--smoke", "--device", "cpu", "--steps", "1", *flags]
-    if item == "A14":
+    if item in ("A14", "A17", "A19"):
         records = train.run([*argv, "--seq-len", "16"])
         assert len(records) == 1 and math.isfinite(records[0]["loss"])
+        assert (tmp_path / "trace_rank00.json").exists() == (item == "A19")
         return
     with pytest.raises(NotImplementedError, match=item):
         train.run(argv)
