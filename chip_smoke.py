@@ -104,6 +104,31 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     ring's mean over OptiReduce's above 1 in local_1.5 and larger in
     local_3.0, OptiReduce's mean drop in (0, 0.01), the reliable ones 0.
 
+21. ``recovery_main``: the launcher with ``--recovery ef --drop-pattern
+    burst`` (drop rate 0.01) as in 6., 4 steps: per step loss, loss_frac,
+    the entries the stale cache filled (> 0), step ms and peak memory;
+    exactly 120 B1 launches a step (the data's encode and decode, the
+    cache's one-row encode, the residuals' encode and decode, 24 buckets)
+    and none of B2 (the plain mean follows the fill); then one more step of
+    it profiled as in 9., with its elementwise kernels listed;
+22. ``recovery_stale`` (``--recovery stale``, 3 steps: 72 B1, 0 B2 a step)
+    and ``recovery_rounds`` (``optireduce_rounds --incast 2 --recovery ef``,
+    2 steps: 120 B1, 0 B2, 144 permutes a step);
+23. ``recovery_budget``: ``--recovery ef+budget --report``, 3 steps, the
+    loss budget's phase, loss EMA, budget and deadline factor a step from
+    the report, every one finite;
+24. ``recovery_check``: 3 gpt2-smoke steps of ``--recovery ef`` under burst
+    drops at 0.05, card against CPU as in 8.: metrics, parameters, both
+    AdamW moments, the stale cache and the residuals within ``STEP_TOL``,
+    the filled counts equal;
+25. ``checkpoint``: ``--recovery ef`` at full width, ``--steps 2 --ckpt-dir
+    T`` (a temporary directory): the parts of the final save (bf16
+    parameters, AdamW moments, cache, residuals) with the bytes on disk,
+    the host-copy, write and restore seconds; the restored leaves equal to
+    the saved state bit for bit; then ``--resume --steps 4`` (steps 2 and
+    3), whose loss and loss_frac must agree with two uninterrupted 4-step
+    runs within the spread between those two.
+
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
 Without CUDA, or without the repository around it, it prints no result and
@@ -322,8 +347,8 @@ def main() -> int:
     launches = {}
     for strategy, want_counts in per_step.items():
         groups = tar.round_groups
-        launches[strategy] = train_main_path(strategy, steps[strategy],
-                                             counters)
+        launches[strategy], _ = train_main_path(strategy, steps[strategy],
+                                                counters)
         want_counts = {k: v * steps[strategy] for k, v in want_counts.items()}
         if launches[strategy] != want_counts:
             fail(f"{strategy}: launch counts {launches[strategy]} over "
@@ -338,6 +363,12 @@ def main() -> int:
             if groups != 24 * 2 * 2:
                 fail(f"optireduce_rounds: {groups} round groups a step, "
                      "expected 96")
+
+    # 21.-23. loss recovery through the launcher at full width; 24. the
+    # budget's report; 25. card against CPU; 26. checkpoints and resume
+    recovery_paths(counters)
+    check_recovery_against_cpu(dev)
+    checkpoint_phase(dev)
 
     # 18., 19. the launcher with the control plane in the loop; 20. the
     # network simulator
@@ -354,9 +385,11 @@ def main() -> int:
                      "tar_rounds_q"):
         check_step_against_cpu(dev, strategy)
 
-    # 9. where one step of each main path's time goes
+    # 9. where one step of each main path's time goes (21.: and with
+    # error feedback under burst drops)
     for strategy in ("optireduce", "optireduce_q", "optireduce_rounds"):
         profile_step(dev, strategy)
+    profile_step(dev, "optireduce", recovery="ef", pattern="burst")
 
     # 10. B7, THC's quantizer, at the THC path's full-width shape
     b7 = check_uniform_quant(dev, gen)
@@ -887,9 +920,21 @@ def _thc_code_sum(run, step: int):
     return codes.to(torch.int32).sum(0).cpu(), lohi.cpu()
 
 
-def train_main_path(strategy: str, steps: int, counters: dict) -> dict:
+def train_argv(strategy: str, pattern: str = "tail",
+               recovery: str = "none") -> list[str]:
+    """The launcher's flags of a main path at full width."""
+    return ["--arch", "gpt2-paper", "--dp", str(PEERS), "--strategy",
+            strategy, "--drop-rate", "0.01", "--drop-pattern", pattern,
+            "--recovery", recovery, "--seq-len", "128", "--global-batch",
+            "8", "--optimizer", "adamw", "--device", "cuda", "--kernel-mode",
+            "kernel", "--incast", str(ROUNDS_INCAST), "--log-every", "1"]
+
+
+def train_main_path(strategy: str, steps: int, counters: dict, *,
+                    pattern: str = "tail", recovery: str = "none",
+                    phase: str = "train", extra=()) -> tuple[dict, list]:
     """One main path through the launcher at full width; returns each
-    kernel's launches in this run alone."""
+    kernel's launches in this run alone, and the step records."""
     import torch
     from repro_torch.launch import train as launch_train
 
@@ -897,28 +942,32 @@ def train_main_path(strategy: str, steps: int, counters: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    records = launch_train.run([
-        "--arch", "gpt2-paper", "--steps", str(steps), "--dp", str(PEERS),
-        "--strategy", strategy, "--drop-rate", "0.01", "--drop-pattern",
-        "tail", "--seq-len", "128", "--global-batch", "8", "--optimizer",
-        "adamw", "--device", "cuda", "--kernel-mode", "kernel",
-        "--incast", str(ROUNDS_INCAST), "--log-every", "1"])
+    records = launch_train.run([*train_argv(strategy, pattern, recovery),
+                                "--steps", str(steps), *extra])
     torch.cuda.synchronize()
     counts = {name: getattr(mod, attr)
               for name, (mod, attr) in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     for i, rec in enumerate(records):
-        emit({"phase": "train_step", "strategy": strategy, "step": i,
-              "loss": rec["loss"], "loss_frac": rec["loss_frac"],
-              "grad_norm": rec["grad_norm"], "step_ms": rec["step_s"] * 1e3})
+        row = {"phase": f"{phase}_step", "strategy": strategy, "step": i,
+               "loss": rec["loss"], "loss_frac": rec["loss_frac"],
+               "grad_norm": rec["grad_norm"], "step_ms": rec["step_s"] * 1e3}
+        if recovery != "none":
+            row.update(recovery=recovery, filled=rec["filled"],
+                       peak_mem_bytes=peak)
+        emit(row)
         if not (math.isfinite(rec["loss"]) and rec["loss_frac"] > 0):
             fail(f"{strategy} step {i}: loss {rec['loss']} loss_frac "
                  f"{rec['loss_frac']}")
-    emit({"phase": "train", "strategy": strategy, "arch": "gpt2-paper",
+        if recovery != "none" and not rec["filled"] > 0:
+            fail(f"{phase} step {i}: the stale cache filled "
+                 f"{rec['filled']} entries")
+    emit({"phase": phase, "strategy": strategy, "recovery": recovery,
+          "drop_pattern": pattern, "arch": "gpt2-paper",
           "peers": PEERS, "steps": steps, "peak_mem_bytes": peak,
           "launches": counts,
           "per_step": {k: v / steps for k, v in counts.items()}})
-    return counts
+    return counts, records
 
 
 class _Tee(io.TextIOBase):
@@ -1123,6 +1172,232 @@ def adaptive_runs(counters: dict) -> None:
     adaptive_run("adaptive_codec", "optireduce", 0.002, 5, counters)
     adaptive_run("adaptive_rounds", "optireduce_rounds", 0.01, 6, counters,
                  extra=("--incast", str(ROUNDS_INCAST)))
+
+
+# phase -> (strategy, recovery, steps, B1 launches a step, permutes a step)
+RECOVERY_PATHS = {
+    "recovery_main": ("optireduce", "ef", 4, 120, 0),
+    "recovery_stale": ("optireduce", "stale", 3, 72, 0),
+    "recovery_rounds": ("optireduce_rounds", "ef", 2, 120,
+                        24 * 2 * (PEERS - 1)),
+    "recovery_budget": ("optireduce", "ef+budget", 3, 120, 0),
+}
+
+
+def recovery_paths(counters: dict) -> None:
+    """Phases ``recovery_main``, ``recovery_stale``, ``recovery_rounds`` and
+    ``recovery_budget``: the launcher with ``--recovery`` under burst drops
+    at 0.01, full width. Each step's launches are exact: the fill encodes
+    the cache once a bucket (a (1, 6,553,600) row) besides the data's
+    encode and decode, error feedback adds one encode and one decode of
+    the (4, 6,553,600) stack, and the plain mean after the fill leaves B2
+    unlaunched."""
+    out_dir = ROOT / "build" / "chip_smoke" / "recovery_budget"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report_path = out_dir / "report.json"
+    for phase, (strategy, mode, steps, b1, permutes) in \
+            RECOVERY_PATHS.items():
+        extra = ("--report", str(report_path)) if "budget" in mode else ()
+        counts, _ = train_main_path(strategy, steps, counters,
+                                    pattern="burst", recovery=mode,
+                                    phase=phase, extra=extra)
+        want = {k: 0 for k in counters}
+        want.update(fwht=b1 * steps, permutes=permutes * steps)
+        if counts != want:
+            fail(f"{phase}: launch counts {counts} over {steps} steps, "
+                 f"expected {want}")
+        if "budget" not in mode:
+            continue
+        with open(report_path) as f:
+            rows = json.load(f)["steps"]
+        for row in rows:
+            budget = row["budget"]
+            emit({"phase": "recovery_budget_report", "step": row["step"],
+                  "budget_phase": budget["phase"],
+                  "loss_ema": budget["loss_ema"], "budget": budget["budget"],
+                  "deadline_factor": budget["deadline_factor"]})
+            if not all(math.isfinite(v) for v in budget.values()):
+                fail(f"recovery_budget step {row['step']}: {budget}")
+        if len(rows) != steps:
+            fail(f"recovery_budget: {len(rows)} report rows, expected "
+                 f"{steps}")
+
+
+def check_recovery_against_cpu(dev) -> None:
+    """Phase ``recovery_check``: 3 gpt2-smoke steps of ``--recovery ef``
+    under burst drops at 0.05 on the card against the plain versions on
+    the CPU, same parameters and draws. Metrics, parameters, both AdamW
+    moments, the stale cache and the residuals within ``STEP_TOL`` (phase
+    8's card-vs-CPU bound); the filled count exactly (the same masks)."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import recovery as recovery_lib
+    from repro_torch.core.allreduce import OptiReduceConfig
+    from repro_torch.core.bucket_plan import BucketPlan
+    from repro_torch.core.keys import fold_in, generator, key
+    from repro_torch.core.pipeline import GeneratorDraws
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.models import init_params
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train.trainer import TrainConfig, build_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    runtime.set_kernel_mode(None)       # by device: card kernels, CPU plain
+    cfg = get_smoke("gpt2-paper")
+    sync = OptiReduceConfig(strategy="optireduce", drop_rate=0.05,
+                            drop_pattern="burst", hadamard_block=256,
+                            recovery="ef")
+    tc = TrainConfig(sync=sync, optimizer=OptimizerConfig(lr=1e-2),
+                     bucket_elems=16_384, seq_chunk=32)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=8, seed=0))
+    k = key(0)
+    base = init_params(generator(k), cfg, device="cpu")
+    plan = BucketPlan.for_tree(base, tc.bucket_elems)
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    fns, params, states, recs, metrics = {}, {}, {}, {}, {}
+    for name, device in devices.items():
+        fns[name], opt = build_train_step(cfg, tc, peers=PEERS,
+                                          device=device)
+        params[name] = tree_map(lambda p: p.clone().to(device), base)
+        states[name] = opt.init(params[name])
+        recs[name] = recovery_lib.init_state(
+            recovery_lib.parse("ef"), plan.num_buckets, plan.bucket_elems,
+            peers=PEERS, device=device)
+        metrics[name] = []
+    launched = fwht_ops.launches
+    for step in range(3):
+        for name, device in devices.items():
+            draws = _HostDraws(GeneratorDraws(
+                key=fold_in(fold_in(k, step), 7), cfg=sync,
+                device=torch.device("cpu")), device)
+            params[name], states[name], recs[name], m = fns[name](
+                params[name], states[name], data.host_batch(step, 0, 1),
+                step, k, draws=draws, rec_state=recs[name])
+            metrics[name].append({n: float(v) for n, v in m.items()})
+    launched = fwht_ops.launches - launched
+
+    def worst(a, b):
+        return max(float((x.detach().float() - y.detach().float().cpu())
+                         .abs().max())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    diffs = {"metrics": max(abs(a[n] - b[n]) for a, b in zip(
+        metrics["cpu"], metrics["cuda"]) for n in a if n != "filled"),
+        "params": worst(params["cpu"], params["cuda"]),
+        "adam_m": worst(states["cpu"].m, states["cuda"].m),
+        "adam_v": worst(states["cpu"].v, states["cuda"].v),
+        "stale": worst(recs["cpu"]["stale"], recs["cuda"]["stale"]),
+        "ef": worst(recs["cpu"]["ef"], recs["cuda"]["ef"])}
+    filled_equal = [a["filled"] == b["filled"] > 0
+                    for a, b in zip(metrics["cpu"], metrics["cuda"])]
+    emit({"phase": "recovery_check", "arch": cfg.name, "steps": 3,
+          "recovery": "ef", "drop_pattern": "burst", "drop_rate": 0.05,
+          "max_abs_diff": diffs, "tolerance": STEP_TOL,
+          "filled_equal": filled_equal, "fwht_launches_on_card": launched,
+          "cpu": metrics["cpu"], "gpu": metrics["cuda"]})
+    # 8 buckets: 5 B1 launches a bucket a step on the card
+    if not (all(v <= STEP_TOL for v in diffs.values()) and all(filled_equal)
+            and launched == 3 * 8 * 5):
+        fail(f"recovery card vs CPU: {diffs}, filled {filled_equal}, "
+             f"{launched} B1 launches")
+
+
+def checkpoint_phase(dev) -> None:
+    """Phase ``checkpoint``: ``--recovery ef`` at full width under burst
+    drops. ``--steps 2 --ckpt-dir T`` (its final save, labelled 2, holds
+    bf16 parameters, AdamW's fp32 moments, the stale cache and the
+    residuals); the files restored onto the card equal the state saved bit
+    for bit; ``--resume --steps 4`` runs steps 2 and 3, whose loss and
+    loss_frac must agree with two uninterrupted 4-step runs within the
+    spread between those two."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.tree import tree_leaves, tree_map
+
+    class Watched(ckpt_lib.AsyncCheckpointer):
+        """Keeps a copy on the card of every tree it is asked to save."""
+        made = []
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.saved = {}
+            Watched.made.append(self)
+
+        def save(self, step, tree, meta=None):
+            self.saved[step] = tree_map(lambda t: t.detach().clone(), tree)
+            super().save(step, tree, meta)
+
+    argv = train_argv("optireduce", "burst", "ef")
+    uninterrupted = [launch_train.run([*argv, "--steps", "4"])
+                     for _ in range(2)]
+    real = ckpt_lib.AsyncCheckpointer
+    ckpt_lib.AsyncCheckpointer = Watched
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            free = shutil.disk_usage(tmp).free
+            first = launch_train.run([*argv, "--steps", "2", "--ckpt-dir",
+                                      tmp])
+            saver = Watched.made[-1]
+            saved = saver.saved.pop(2)
+            step_dir = Path(tmp) / "step_00000002"
+            on_disk = sum(f.stat().st_size for f in step_dir.iterdir())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step, back, _ = ckpt_lib.restore(tmp, saved, device=dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            pairs = list(zip(tree_leaves(back), tree_leaves(saved)))
+            bitwise = step == 2 and all(
+                a.dtype == b.dtype and a.device == b.device
+                and torch.equal(a, b) for a, b in pairs)
+
+            def nbytes(tree):
+                return sum(t.numel() * t.element_size()
+                           for t in tree_leaves(tree))
+            parts = {"params_bf16": nbytes(saved[0]),
+                     "adamw_m_v_fp32": nbytes(saved[1]),
+                     "stale_fp32": nbytes(saved[2]["stale"]),
+                     "ef_fp32": nbytes(saved[2]["ef"])}
+            del back, saved, pairs
+            resumed = launch_train.run([*argv, "--steps", "4", "--resume",
+                                        "--ckpt-dir", tmp])
+            resume_saver = Watched.made[-1]
+            resume_saver.saved.clear()
+    finally:
+        ckpt_lib.AsyncCheckpointer = real
+    spread, off = {}, {}
+    for k in ("loss", "loss_frac"):
+        spread[k] = max(abs(a[k] - b[k]) for a, b in zip(
+            uninterrupted[0][2:], uninterrupted[1][2:]))
+        off[k] = max(abs(r[k] - u[k]) for run in uninterrupted
+                     for r, u in zip(resumed, run[2:]))
+    emit({"phase": "checkpoint", "arch": "gpt2-paper", "recovery": "ef",
+          "label": 2, "bytes": parts, "bytes_total": sum(parts.values()),
+          "bytes_on_disk": on_disk, "disk_free_bytes": free,
+          "host_copy_s": saver.copy_s, "write_s": saver.write_s,
+          "restore_s": restore_s, "bitwise": bitwise,
+          "resume_host_copy_s": resume_saver.copy_s,
+          "resume_write_s": resume_saver.write_s,
+          "first": [(r["loss"], r["loss_frac"]) for r in first],
+          "resumed": [(r["loss"], r["loss_frac"]) for r in resumed],
+          "uninterrupted": [[(r["loss"], r["loss_frac"]) for r in run]
+                            for run in uninterrupted],
+          "run_to_run_spread": spread, "resumed_off_by": off})
+    if not bitwise:
+        fail("checkpoint: the restored leaves differ from the saved state")
+    if len(first) != 2 or len(resumed) != 2:
+        fail(f"checkpoint: {len(first)} steps, then {len(resumed)} resumed "
+             "(expected 2 and 2: steps 2 and 3)")
+    if any(off[k] > spread[k] for k in off):
+        fail(f"checkpoint: the resumed steps are off by {off}, beyond the "
+             f"run-to-run spread {spread}")
 
 
 NETSIM_ENVS = ("local_1.5", "local_3.0", "cloudlab")
@@ -1470,9 +1745,12 @@ def check_step_against_cpu(dev, strategy: str) -> None:
           "cpu": metrics["cpu"], "gpu": metrics["cuda"]})
 
 
-def profile_step(dev, strategy: str) -> None:
+def profile_step(dev, strategy: str, *, recovery: str = "none",
+                 pattern: str = "tail") -> None:
     from repro_torch.configs import get_config
+    from repro_torch.core import recovery as recovery_lib
     from repro_torch.core.allreduce import OptiReduceConfig
+    from repro_torch.core.bucket_plan import BucketPlan
     from repro_torch.core.keys import generator, key
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import init_params
@@ -1480,8 +1758,8 @@ def profile_step(dev, strategy: str) -> None:
 
     cfg = get_config("gpt2-paper")
     sync = OptiReduceConfig(strategy=strategy, drop_rate=0.01,
-                            drop_pattern="tail", hadamard_block=BLOCK,
-                            incast=ROUNDS_INCAST)
+                            drop_pattern=pattern, hadamard_block=BLOCK,
+                            incast=ROUNDS_INCAST, recovery=recovery)
     tc = TrainConfig(sync=sync, seq_chunk=128)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
                                   global_batch=8, seed=0))
@@ -1489,14 +1767,24 @@ def profile_step(dev, strategy: str) -> None:
     params = init_params(generator(k, dev), cfg, device=dev)
     step_fn, opt = build_train_step(cfg, tc, peers=4, device=dev)
     state = opt.init(params)
+    plan = BucketPlan.for_tree(params, tc.bucket_elems)
+    rec = recovery_lib.init_state(recovery_lib.parse(recovery),
+                                  plan.num_buckets, plan.bucket_elems,
+                                  peers=PEERS, device=dev) or None
     batches = [data.host_batch(s, 0, 1) for s in range(3)]
 
     def one(s):
-        nonlocal params, state
-        params, state, m = step_fn(params, state, batches[s], s, k)
+        nonlocal params, state, rec
+        if rec is None:
+            params, state, m = step_fn(params, state, batches[s], s, k)
+        else:
+            params, state, rec, m = step_fn(params, state, batches[s], s, k,
+                                            rec_state=rec)
         float(m["loss"])
-    profile_third_step(one, {"strategy": strategy, "arch": cfg.name,
-                             "peers": PEERS})
+    label = {"strategy": strategy, "arch": cfg.name, "peers": PEERS}
+    if recovery != "none":
+        label.update(recovery=recovery, drop_pattern=pattern)
+    profile_third_step(one, label)
 
 
 def profile_thc(dev) -> None:
@@ -1571,6 +1859,11 @@ def profile_third_step(one, label: dict) -> None:
     # and the schedules' per-peer row reads and writes (also embedding and
     # loss gathers, which every path has)
     indexed = [r for r in on_dev if "index" in r.key.lower()]
+    # elementwise kernels: with recovery, the fill's and the residuals'
+    # passes over the (P, N, S) stacks and the arena sit among them
+    elementwise = sorted((r for r in on_dev
+                          if "elementwise" in r.key.lower()),
+                         key=_dev_us, reverse=True)
     emit({"phase": "profile", **label,
           "step_ms_unprofiled": wall[-1], "step_ms_profiled": prof_wall,
           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
@@ -1585,6 +1878,10 @@ def profile_third_step(one, label: dict) -> None:
           "permutes": permutes,
           "index_kernels_ms": sum(_dev_us(r) for r in indexed) / 1e3,
           "index_kernels_launches": sum(r.count for r in indexed),
+          "elementwise_ms": sum(_dev_us(r) for r in elementwise) / 1e3,
+          "elementwise_launches": sum(r.count for r in elementwise),
+          "top_elementwise": [{"name": r.key[:90], "ms": _dev_us(r) / 1e3,
+                               "count": r.count} for r in elementwise[:8]],
           "top_device": [{"name": r.key[:90], "ms": _dev_us(r) / 1e3,
                           "count": r.count} for r in top_dev],
           "ported_kernels": [{"name": r.key[:90], "ms": _dev_us(r) / 1e3,

@@ -49,11 +49,17 @@ def sync_bucket(bucket: torch.Tensor, ctx: SyncContext,
 
 def sync_packed(batch: torch.Tensor, ctx: SyncContext, *,
                 mode: str = "scan",
-                spec: CollectiveSpec | None = None) -> torch.Tensor:
+                spec: CollectiveSpec | None = None,
+                stale: torch.Tensor | None = None) -> torch.Tensor:
     """Sync a packed ``(P, B, bucket_elems)`` arena; returns a new arena of
     the same shape. Bucket b draws under ``ctx.for_bucket(b)`` (the
     reference's ``fold_in(key, b)``); loss counts accumulate in
-    ``ctx.stats``."""
+    ``ctx.stats``.
+
+    ``stale`` (optional, ``(B, bucket_elems)``, one copy for every peer):
+    the previous step's synced arena, the prediction cache of a stale-fill
+    recovery codec. Bucket b's row enters at its encode and rides the stage
+    state through the skew; None leaves every path as without recovery."""
     if mode not in MODES:
         if mode == "vmap":
             raise NotImplementedError("sync mode 'vmap' is not ported yet: "
@@ -66,16 +72,25 @@ def sync_packed(batch: torch.Tensor, ctx: SyncContext, *,
     if spec is None:
         spec = resolve_spec(ctx.cfg)
     nbuckets, length = batch.shape[1], batch.shape[2]
+    if stale is not None and tuple(stale.shape) != (nbuckets, length):
+        raise ValueError(f"stale cache of shape {tuple(stale.shape)} for a "
+                         f"({nbuckets}, {length}) arena a peer")
+
+    def stale_at(b):
+        return None if stale is None else stale[b]
+
     out = torch.empty(batch.shape, dtype=torch.float32, device=batch.device)
     if mode == "scan":
         for b in range(nbuckets):
-            out[:, b] = spec.all_reduce(batch[:, b], ctx.for_bucket(b))
+            out[:, b] = spec.all_reduce(batch[:, b],
+                                        ctx.for_bucket(b, stale_at(b)))
         return out
     encoded: dict[int, tuple] = {}
     exchanged: dict[int, tuple] = {}
     for it in range(nbuckets + 2):
         if it < nbuckets:                                 # encode bucket k
-            encoded[it] = spec.encode_stage(batch[:, it], ctx.for_bucket(it))
+            encoded[it] = spec.encode_stage(batch[:, it],
+                                            ctx.for_bucket(it, stale_at(it)))
         k = it - 1
         if 0 <= k < nbuckets:                             # exchange k-1
             exchanged[k] = spec.exchange_stage(encoded.pop(k),

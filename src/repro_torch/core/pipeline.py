@@ -8,9 +8,9 @@ for the ring / tree / BCube baselines, :class:`PsumTopology`), a Transport
 Codec (:class:`Identity`, :class:`Hadamard`, :class:`HTQuant`). A strategy
 name resolves through the registry: every name of the reference but
 ``optireduce_2d`` (the pod axis, ROADMAP A15). The participation policies
-(``active_peers``, ``shard_weights``, ``dead_links``) run as in the
-reference; the wire transport and the recovery codecs wait for later
-slices.
+(``active_peers``, ``shard_weights``, ``dead_links``) and the loss-recovery
+codec (``cfg.recovery``, core/recovery.py) run as in the reference; the
+wire transport waits for a later slice.
 
 The reference runs one rank per device inside ``shard_map``; here every
 stage works on ``(P, ...)`` stacks over the peer axis
@@ -84,8 +84,6 @@ class OptiReduceConfig:
             todo.append("pod_axis (2D TAR): ROADMAP A15")
         if self.rs_wire_bits:
             todo.append("rs_wire_bits (FSDP reduce-scatter): ROADMAP A15")
-        if self.recovery != "none":
-            todo.append(f"recovery={self.recovery!r}: ROADMAP A16")
         if todo:
             raise NotImplementedError("not ported yet: " + "; ".join(todo))
         if self.drop_pattern not in ("bernoulli", "tail", "straggler",
@@ -145,16 +143,20 @@ class GeneratorDraws:
 
 @dataclasses.dataclass
 class SyncContext:
-    """Per-step (and, inside the engine, per-bucket) context."""
+    """Per-step (and, inside the engine, per-bucket) context. ``stale`` is
+    the bucket's previous decoded value ``(L,)``, set by the sync engine
+    when a stale-fill recovery codec is armed (None otherwise)."""
     cfg: OptiReduceConfig
     draws: Draws
     bucket: int = 0
     stats: dict = dataclasses.field(default_factory=dict)
+    stale: torch.Tensor | None = None
 
-    def for_bucket(self, bucket: int) -> "SyncContext":
+    def for_bucket(self, bucket: int,
+                   stale: torch.Tensor | None = None) -> "SyncContext":
         """This step's context for one bucket (stats shared)."""
         return SyncContext(cfg=self.cfg, draws=self.draws, bucket=bucket,
-                           stats=self.stats)
+                           stats=self.stats, stale=stale)
 
     def sign(self, block: int) -> torch.Tensor:
         return self.draws.sign(self.bucket, block)
@@ -218,10 +220,14 @@ class Encoded:
     """A codec's wire form of one ``(P, L)`` bucket stack: ``data`` is what
     travels (fp32 values or uint8 codes); ``lo`` / ``step`` are a
     quantizing codec's per-Hadamard-block grids, ``(L / block,)``, one copy
-    shared by every peer (None otherwise)."""
+    shared by every peer (None otherwise); ``stale`` is the previous step's
+    bucket encoded under this step's sign, ``(1, L)``, the prediction a
+    :class:`~repro_torch.core.recovery.StaleFill` codec puts in lost
+    entries (None without recovery)."""
     data: torch.Tensor | None
     lo: torch.Tensor | None = None
     step: torch.Tensor | None = None
+    stale: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -692,12 +698,16 @@ class TarTopology(Topology):
         if hasattr(codec, "local_amax"):
             # split encode (quantizing codec): only the pre-collective half
             # here; the grid pmax and the quantize ride the exchange stage,
-            # as in the reference's pipelined schedule
-            return codec.local_amax(x, ctx)
-        return (codec.encode(x, ctx).data, None)
+            # as in the reference's pipelined schedule (StaleFill never
+            # wraps a quantizing codec)
+            return (*codec.local_amax(x, ctx), None)
+        enc = codec.encode(x, ctx)
+        # 3rd slot: the re-encoded stale bucket a recovery codec attaches,
+        # carried to this bucket's reduce through the skew
+        return (enc.data, None, enc.stale)
 
     def exchange_stage(self, state, transport, codec, ctx):
-        data, amax = state
+        data, amax, stale = state
         cfg = ctx.cfg
         lo = step = None
         if amax is not None:
@@ -706,7 +716,7 @@ class TarTopology(Topology):
             enc = codec.encode_given_amax(data, collectives.pmax(amax)[0],
                                           ctx)
             data, lo, step = enc.data, enc.lo, enc.step
-        enc = Encoded(data, lo=lo, step=step)
+        enc = Encoded(data, lo=lo, step=step, stale=stale)
         n = collectives.axis_size(data)
         active, n_shards, weights, dead = self._participation(cfg, n)
         rounds = self.schedule == "rounds"
@@ -757,7 +767,7 @@ class TarTopology(Topology):
                 gathered = tar_lib.graft_inactive(gathered, active)
         else:
             gathered = collectives.all_gather(wire)
-        return (gathered, lo, step)
+        return (gathered, lo, step)         # stale consumed in the reduce
 
     def decode_stage(self, state, length, transport, codec, ctx):
         # only the quantization grids survive the exchange
@@ -803,6 +813,15 @@ _REGISTRY: dict[str, Callable[[OptiReduceConfig], CollectiveSpec]] = {}
 
 # reference strategies that wait for a later slice, with their ROADMAP item
 _NOT_PORTED = {"optireduce_2d": "A15"}
+
+
+def _recovered(codec: Codec, cfg: OptiReduceConfig):
+    """Fold ``cfg.recovery`` into a lossy strategy's codec; ``"none"``
+    returns the codec itself, so the spec is the one without recovery."""
+    if cfg.recovery == "none":
+        return codec
+    from . import recovery as recovery_lib
+    return recovery_lib.wrap_codec(codec, cfg)
 
 
 def register_strategy(name: str, spec: CollectiveSpec | None = None):
@@ -854,7 +873,7 @@ register_strategy("tar_rounds",
 @register_strategy("optireduce")
 def _optireduce_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
     codec = Hadamard() if cfg.use_hadamard else Identity()
-    return CollectiveSpec(TarTopology(), Lossy(), codec)
+    return CollectiveSpec(TarTopology(), Lossy(), _recovered(codec, cfg))
 
 
 # The next three are factories, as in the reference, though their specs
@@ -865,21 +884,22 @@ def _optireduce_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
 def _optireduce_q_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
     """The quantized exchange: TAR x Lossy x HTQuant (the reference's
     TarTopology(outer="pmean"); the pod axis it names is not ported)."""
-    return CollectiveSpec(TarTopology(), Lossy(), HTQuant())
+    # _recovered rejects recovery over quantized codes
+    return CollectiveSpec(TarTopology(), Lossy(), _recovered(HTQuant(), cfg))
 
 
 @register_strategy("optireduce_rounds")
 def _optireduce_rounds_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
     """The paper's round schedule with drops and the rotation."""
     return CollectiveSpec(TarTopology(schedule="rounds", outer="pmean"),
-                          Lossy(), Hadamard())
+                          Lossy(), _recovered(Hadamard(), cfg))
 
 
 @register_strategy("tar_rounds_q")
 def _tar_rounds_q_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
     """The round schedule with the quantized exchange."""
     return CollectiveSpec(TarTopology(schedule="rounds", outer="pmean"),
-                          Lossy(), HTQuant())
+                          Lossy(), _recovered(HTQuant(), cfg))
 
 
 # Gloo's ring over rotated buckets

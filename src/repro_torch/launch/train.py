@@ -2,9 +2,19 @@
 with the P peers on one card.
 
 Counterpart of ``src/repro/launch/train.py``. It takes the reference's
-flags; the values this slice does not run (wire transports, recovery,
-checkpoints, tensor parallelism, FSDP, ...) raise, naming their ROADMAP
-item. ``--adaptive`` closes the §3.2 loop as the reference does: each
+flags; the values this slice does not run (wire transports, tensor
+parallelism, FSDP, ...) raise, naming their ROADMAP item. ``--recovery
+stale|ef|ef+budget`` arms the loss-recovery codec (core/recovery.py) and
+threads its state through the steps; ``ef+budget`` adds the control plane's
+phase-aware ``LossBudget``, its phase fed from the step count and the loss.
+``--ckpt-dir`` saves ``(params, opt_state)`` (with ``rec_state`` under
+``--recovery``) every ``--ckpt-every`` steps and after the last, in the
+background (``train/checkpoint.py``); ``--resume`` continues from the
+newest. As in the reference, the state after step s is saved under the
+label s and a resume starts at step s, so a resume from a periodic
+checkpoint runs its step again (ROADMAP C); the final save, labelled
+``--steps``, does not. ``--adaptive`` closes the §3.2 loop as the reference
+does: each
 step's loss fraction and host time feed the runtime ``ControlPlane``, and
 when its ``SyncPolicy`` moves, the next step runs the policy's step function
 (from a ``PolicyStepCache``, or built anew with ``build_train_step``; the
@@ -33,6 +43,12 @@ Example:
       --steps 2
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 6 --adaptive --drop-rate 0.002 --trace build/trace
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 2 --recovery ef --drop-pattern burst --drop-rate 0.05 \\
+      --ckpt-dir build/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 4 --recovery ef --drop-pattern burst --drop-rate 0.05 \\
+      --ckpt-dir build/ckpt --resume
 """
 from __future__ import annotations
 
@@ -44,7 +60,9 @@ import time
 
 from repro_torch import obs
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.core import recovery as recovery_lib
 from repro_torch.core.allreduce import OptiReduceConfig, strategy_names
+from repro_torch.core.bucket_plan import BucketPlan
 from repro_torch.core.pipeline import RingTopology, TarTopology, resolve_spec
 from repro_torch.core.keys import generator, key as make_key
 from repro_torch.core.safeguards import LossMonitor
@@ -55,6 +73,7 @@ from repro_torch.models import init_params
 from repro_torch.optim.optimizers import OptimizerConfig
 from repro_torch.runtime import (ControlPlane, PolicyStepCache, StepTelemetry,
                                  SyncPolicy)
+from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.trainer import TrainConfig, build_train_step
 
 
@@ -77,7 +96,13 @@ def parser() -> argparse.ArgumentParser:
                     help=f"one of {', '.join(strategy_names())}")
     ap.add_argument("--drop-rate", type=float, default=0.0)
     ap.add_argument("--drop-pattern", default="tail")
-    ap.add_argument("--recovery", default="none")
+    ap.add_argument("--recovery", default="none",
+                    choices=recovery_lib.MODES,
+                    help="gradient-loss recovery beyond zero-fill (DESIGN "
+                         "§8): 'stale' fills lost wire entries from the "
+                         "previous step's synced bucket; 'ef' adds "
+                         "per-peer error-feedback residuals; 'ef+budget' "
+                         "adds the phase-aware loss budget")
     ap.add_argument("--transport", default="lossy")
     ap.add_argument("--wire-deadline", type=float, default=None)
     ap.add_argument("--rendezvous", default=None)
@@ -114,9 +139,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatch", type=int, default=None)
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save checkpoints here (every --ckpt-every steps "
+                         "and after the last)")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest checkpoint in --ckpt-dir")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     return ap
@@ -127,19 +155,16 @@ _NOT_PORTED = (
     ("transport", "lossy", "--transport inproc|udp (wire): ROADMAP A18"),
     ("wire_deadline", None, "--wire-deadline: ROADMAP A18"),
     ("rendezvous", None, "--rendezvous: ROADMAP A18"),
-    ("recovery", "none", "--recovery: ROADMAP A16"),
     ("tp", 1, "--tp > 1 (tensor parallelism): ROADMAP A15"),
     ("production_mesh", False, "--production-mesh: ROADMAP A15"),
     ("dp_mode", "replicated", "--dp-mode fsdp: ROADMAP A15"),
-    ("ckpt_dir", None, "--ckpt-dir (checkpoints): ROADMAP A12"),
-    ("resume", False, "--resume (checkpoints): ROADMAP A12"),
 )
 
 
 def run(argv=None) -> list[dict]:
-    """Parse ``argv``, train, and return one record per step (loss,
-    grad_norm, loss_frac, skipped, step_s: host seconds to the step's last
-    result)."""
+    """Parse ``argv``, train, and return one record per step run (loss,
+    grad_norm, loss_frac, skipped, ``filled`` under ``--recovery``, step_s:
+    host seconds to the step's last result)."""
     ap = parser()
     args = ap.parse_args(argv)
     for name, default, what in _NOT_PORTED:
@@ -155,15 +180,19 @@ def run(argv=None) -> list[dict]:
         tracer = obs.configure(
             True, capacity=args.trace_capacity or obs.trace.DEFAULT_CAPACITY)
     control = None
-    if args.adaptive or args.report:
+    with_budget = args.recovery == "ef+budget"
+    if args.adaptive or args.report or with_budget:
         control = ControlPlane.create(n_nodes=args.dp,
-                                      rebalance=args.rebalance)
+                                      rebalance=args.rebalance,
+                                      **({"budget": {}} if with_budget
+                                         else {}))
 
     tc = TrainConfig(
         sync=OptiReduceConfig(strategy=args.strategy,
                               drop_rate=args.drop_rate,
                               drop_pattern=args.drop_pattern,
-                              incast=args.incast, hadamard_block=1024),
+                              incast=args.incast, recovery=args.recovery,
+                              hadamard_block=1024),
         optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr),
         microbatch=args.microbatch, sync_mode=args.sync_mode,
         kernel_mode=args.kernel_mode, seq_chunk=min(512, args.seq_len))
@@ -175,6 +204,30 @@ def run(argv=None) -> list[dict]:
     params = init_params(generator(key, device), cfg, device=device)
     step_fn, opt = build_train_step(cfg, tc, peers=args.dp, device=device)
     opt_state = opt.init(params)
+    rec_state = None
+    if args.recovery != "none":
+        plan = BucketPlan.for_tree(params, tc.bucket_elems)
+        rec_state = recovery_lib.init_state(
+            recovery_lib.parse(args.recovery), plan.num_buckets,
+            plan.bucket_elems, peers=args.dp, device=device)
+
+    def ckpt_tree():
+        return ((params, opt_state) if rec_state is None
+                else (params, opt_state, rec_state))
+
+    start_step = 0
+    ckpt = ckpt_lib.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+    if args.resume and args.ckpt_dir:
+        try:
+            start_step, restored, _ = ckpt_lib.restore(
+                args.ckpt_dir, ckpt_tree(), device=device)
+            if rec_state is None:
+                params, opt_state = restored
+            else:
+                params, opt_state, rec_state = restored
+            print(f"resumed from step {start_step}", flush=True)
+        except FileNotFoundError:
+            pass
 
     if args.adaptive:
         # start from the configured codec so step 0 never rebuilds, and learn
@@ -201,17 +254,27 @@ def run(argv=None) -> list[dict]:
     monitor = LossMonitor(skip_threshold=tc.sync.skip_threshold)
     records, report_rows = [], []
     t0 = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         batch = data.host_batch(step, 0, 1)
         st0 = tracer.now() if tracer is not None else 0.0
         t_step = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, batch, step,
-                                             key)
+        if rec_state is None:
+            params, opt_state, metrics = step_fn(params, opt_state, batch,
+                                                 step, key)
+        else:
+            params, opt_state, rec_state, metrics = step_fn(
+                params, opt_state, batch, step, key, rec_state=rec_state)
         m = {k: float(v) for k, v in metrics.items()}  # waits for the step
         m["step_s"] = time.perf_counter() - t_step
         records.append(m)
+        if with_budget:
+            # the phase follows the run's progress and the loss curve; the
+            # loss EMA is fed through control.observe below
+            control.state.budget.update_phase(
+                progress=(step + 1) / max(args.steps, 1),
+                train_loss=m["loss"])
         if step % args.log_every == 0 or step == args.steps - 1:
-            rate = (step + 1) / (time.perf_counter() - t0)
+            rate = (step - start_step + 1) / (time.perf_counter() - t0)
             print(f"step {step:5d} loss {m['loss']:.4f} "
                   f"gnorm {m['grad_norm']:.3f} "
                   f"loss_frac {m['loss_frac']:.5f} "
@@ -230,6 +293,12 @@ def run(argv=None) -> list[dict]:
                     "dead_links": [list(link)
                                    for link in control.dead_links()],
                     "dead_link_events": []})     # wire only (A18)
+                if with_budget:
+                    budget = control.state.budget
+                    report_rows[-1]["budget"] = {
+                        "phase": budget.phase, "loss_ema": budget.loss_ema,
+                        "budget": budget.budget(),
+                        "deadline_factor": budget.deadline_factor()}
         if args.adaptive:
             new_sync = control.apply(tc.sync)
             if not incast_matters:
@@ -280,6 +349,11 @@ def run(argv=None) -> list[dict]:
             rb = monitor.rollback()
             if rb is not None:
                 _, params = rb
+        if ckpt and step > 0 and step % args.ckpt_every == 0:
+            ckpt.save(step, ckpt_tree())
+    if ckpt:
+        ckpt.save(args.steps, ckpt_tree())
+        ckpt.wait()
     if args.report:
         with open(args.report, "w") as f:
             json.dump({"n_peers": control.detector.n_peers,

@@ -7,8 +7,8 @@ the network. This module is the first half: REAL training of the paper's
 GPT-2 on the synthetic-grammar LM task with the gradient aggregation
 emulated worker by worker (N replicas, per-worker gradients, drops, HT and
 compression through the port's ``core/`` implementations), measuring
-accuracy and steps-to-accuracy. The second half, the per-step wall clock of
-the network simulator (``sim/netsim.py``), is not ported yet (ROADMAP A20).
+accuracy and steps-to-accuracy. The second half, the per-step wall clock,
+is the network simulator's (``sim/netsim.py``), which runs on its own.
 
 On the card the THC baseline runs kernels B1 (rotation) and B7 (quantizer),
 one launch each for all N workers, and B1 again for the decode; the HT of

@@ -16,9 +16,15 @@ peers live on one card as the leading axis of a **packed arena** of shape
 4. one optimizer update is applied, in place, to the single parameter copy
    — the parameters every replica would hold.
 
+With ``sync.recovery`` armed (DESIGN §8, core/recovery.py) the step also
+threads the recovery state: the carried error-feedback residual
+``ef`` ``(P, B, E)`` joins each peer's arena before the sync, the stale
+cache ``stale`` ``(B, E)`` feeds the fill, and the step returns the next
+state (this step's synced arena as the cache, the new residuals).
+
 The loss metric is the mean over peers; ``loss_frac`` the mean over
-receivers. FSDP, tensor and sequence parallelism and wire transports wait
-for later slices (ROADMAP A15, A18).
+receivers. FSDP, the pod axis and tensor parallelism (ROADMAP A15) and the
+wire transports (ROADMAP A18) wait for later slices.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import recovery as recovery_lib
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed
 from repro_torch.core.bucket_plan import BucketPlan
 from repro_torch.core.keys import Key, fold_in
@@ -72,7 +79,12 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, *, peers: int,
     key, draws=None) -> (params, opt_state, metrics)`` updates ``params``
     and ``opt_state`` in place. ``batch`` is the global batch (numpy or
     tensors) split over ``peers``; ``draws`` overrides the step's default
-    :class:`GeneratorDraws` (a test hands in the reference's)."""
+    :class:`GeneratorDraws` (a test hands in the reference's).
+
+    With ``tc.sync.recovery`` armed the call takes ``rec_state=`` (from
+    ``recovery.init_state``) and returns ``(params, opt_state, rec_state,
+    metrics)``: a new state, never sharing storage with the old one, and a
+    ``filled`` metric, the lost wire entries the stale cache filled."""
     if tc.dp_mode != "replicated":
         raise NotImplementedError(f"dp_mode={tc.dp_mode!r} is not ported "
                                   "yet: ROADMAP A15")
@@ -80,10 +92,16 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, *, peers: int,
         kernel_runtime.set_kernel_mode(tc.kernel_mode)
     device = torch.device(device)
     spec = resolve_spec(tc.sync)           # fail fast on unported settings
+    rec_policy = recovery_lib.parse(tc.sync.recovery)
     opt = make_optimizer(tc.optimizer)
 
     def step_fn(params, opt_state, batch, step: int, key: Key,
-                draws: Draws | None = None):
+                draws: Draws | None = None, rec_state: dict | None = None):
+        if rec_policy.any != (rec_state is not None):
+            raise ValueError(
+                f"recovery={tc.sync.recovery!r} "
+                + ("needs rec_state= (recovery.init_state)" if rec_policy.any
+                   else "takes no rec_state"))
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -116,10 +134,26 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, *, peers: int,
             # accumulate in accum_dtype, take the mean in fp32 wire space
             arena = arena.to(torch.float32) / n_micro
 
+        if rec_policy.ef:
+            # the carried residual joins each peer's contribution
+            arena += rec_state["ef"]
+
         ctx = SyncContext(cfg=tc.sync, draws=draws or GeneratorDraws(
             key=fold_in(skey, 7), cfg=tc.sync, device=device))
-        synced = sync_packed(arena, ctx, mode=tc.sync_mode, spec=spec)
+        synced = sync_packed(arena, ctx, mode=tc.sync_mode, spec=spec,
+                             stale=None if rec_state is None
+                             else rec_state["stale"])
         loss_frac = ctx.loss_fraction().to(device)
+        new_rec = None
+        if rec_state is not None:
+            # next step's prediction: this step's synced arena, pre-guard
+            # and pre-clip (a copy: the view would hold all P peers' arenas)
+            new_rec = {"stale": synced[0].clone()}
+            if rec_policy.ef:
+                # the residual against the pre-update cache: what the fill
+                # applied in each peer's stead
+                new_rec["ef"] = recovery_lib.ef_residual_arena(
+                    arena, ctx, stale=rec_state["stale"])
         del arena
 
         g = synced[0]          # every peer holds the same synced arena
@@ -143,6 +177,10 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, *, peers: int,
             "loss_frac": loss_frac,
             "skipped": skipped.to(torch.float32),
         }
-        return params, opt_state, metrics
+        if new_rec is None:
+            return params, opt_state, metrics
+        metrics["filled"] = torch.as_tensor(ctx.stats.get("filled", 0.0),
+                                            device=device)
+        return params, opt_state, new_rec, metrics
 
     return step_fn, opt

@@ -140,12 +140,15 @@ def test_collectives_on_the_peer_axis():
     ("dead_links", ((0, 1),), "A14"), ("recovery", "ef", "A16"),
 ])
 def test_unported_config_values_raise(field, value, item):
-    """The pod axis, FSDP and recovery still raise naming their item; the
-    participation policies of A14 (ported) resolve (their semantics are
-    held against the reference in tests/test_torch_rounds_sync.py)."""
+    """The pod axis and FSDP still raise naming their item; the
+    participation policies of A14 and loss recovery (A16), both ported,
+    resolve (their semantics are held against the reference in
+    tests/test_torch_rounds_sync.py and tests/test_torch_recovery.py)."""
     cfg = OptiReduceConfig(strategy="optireduce_rounds", **{field: value})
-    if item == "A14":
-        assert getattr(resolve_spec(cfg).topology, "schedule") == "rounds"
+    if item in ("A14", "A16"):
+        spec = resolve_spec(cfg)
+        assert getattr(spec.topology, "schedule") == "rounds"
+        assert (type(spec.codec).__name__ == "StaleFill") == (item == "A16")
         return
     with pytest.raises(NotImplementedError, match=item):
         resolve_spec(cfg)

@@ -407,3 +407,56 @@ def test_rounds_and_policies_on_card_match_cpu(dev, strategy, rate, policy):
         assert (launched[0] > 0) == rotated, launched
         if rate > 0:
             assert launched[1] + launched[2] == 3, launched
+
+
+@pytest.mark.parametrize("strategy", ["optireduce", "optireduce_rounds"])
+@pytest.mark.parametrize("mode", ["scan", "pipelined"])
+def test_recovery_on_card_matches_cpu(dev, mode, strategy):
+    """The stale fill and the error-feedback residuals on the card against
+    the CPU's plain versions, same draws: 3 B1 launches a bucket for the
+    fill (encode, the cache's one-row encode, decode) and none of B2, then
+    2 more a bucket for the residuals."""
+    from repro_torch.core import recovery
+    cfg = OptiReduceConfig(strategy=strategy, drop_rate=0.05, incast=2,
+                           drop_pattern="burst", hadamard_block=1024,
+                           recovery="ef")
+    g = torch.Generator().manual_seed(0)
+    arena = torch.randn((4, 3, 16_384), generator=g)
+    stale = torch.randn((3, 16_384), generator=g)
+    cpu_ctx = SyncContext(cfg=cfg, draws=_HostDraws(cfg, torch.device("cpu"))
+                          .inner)
+    want = sync_packed(arena, cpu_ctx, mode=mode, stale=stale)
+    want_ef = recovery.ef_residual_arena(arena, cpu_ctx, stale=stale)
+    ctx = SyncContext(cfg=cfg, draws=_HostDraws(cfg, dev))
+    before = (fwht_ops.launches, mm_ops.launches)
+    got = sync_packed(arena.to(dev), ctx, mode=mode, stale=stale.to(dev))
+    assert (fwht_ops.launches - before[0], mm_ops.launches - before[1]) == \
+        (9, 0)
+    got_ef = recovery.ef_residual_arena(arena.to(dev), ctx,
+                                        stale=stale.to(dev))
+    assert fwht_ops.launches - before[0] == 15
+    torch.testing.assert_close(got.cpu(), want, atol=ROT_TOL, rtol=0)
+    torch.testing.assert_close(got_ef.cpu(), want_ef, atol=ROT_TOL, rtol=0)
+    assert float(ctx.stats["filled"]) == float(cpu_ctx.stats["filled"]) > 0
+
+
+def test_async_checkpoint_of_card_tensors(dev, tmp_path):
+    """The host copy is taken before ``save`` returns: an in-place update
+    on the card right after it does not reach the file; restore goes onto
+    the card, bit for bit."""
+    from repro_torch.train import checkpoint as ckpt
+    g = _gen(dev, 3)
+    tree = ({"w": torch.randn((64, 32), generator=g, device=dev),
+             "b": torch.randn(32, generator=g, device=dev).to(torch.bfloat16)},
+            {"ef": torch.randn((4, 2, 256), generator=g, device=dev)})
+    want = [t.clone() for t in (tree[0]["w"], tree[0]["b"], tree[1]["ef"])]
+    saver = ckpt.AsyncCheckpointer(str(tmp_path))
+    saver.save(2, tree)
+    for t in (tree[0]["w"], tree[0]["b"], tree[1]["ef"]):
+        t.add_(1)
+    saver.wait()
+    _, back, _ = ckpt.restore(str(tmp_path), tree, device=dev)
+    got = (back[0]["w"], back[0]["b"], back[1]["ef"])
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)

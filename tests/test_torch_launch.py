@@ -45,17 +45,28 @@ def test_main_returns_zero_with_scan_and_microbatches():
 def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
     """Flags of later slices raise naming their item; those of the ported
     items train one step: the round schedule and the ring baselines (A14),
-    the control plane (A17) and the tracer (A19, writing into the working
-    directory)."""
+    the control plane (A17), the tracer (A19, writing into the working
+    directory), loss recovery (A16) and checkpoints (A12, a ``--resume``
+    with nothing to resume starting at step 0)."""
     monkeypatch.chdir(tmp_path)
     argv = ["--smoke", "--device", "cpu", "--steps", "1", *flags]
-    if item in ("A14", "A17", "A19"):
+    if item in ("A12", "A14", "A16", "A17", "A19"):
         records = train.run([*argv, "--seq-len", "16"])
         assert len(records) == 1 and math.isfinite(records[0]["loss"])
         assert (tmp_path / "trace_rank00.json").exists() == (item == "A19")
+        assert ("filled" in records[0]) == (item == "A16")
+        assert (tmp_path / "ck" / "step_00000001").exists() == \
+            ("--ckpt-dir" in flags)
         return
     with pytest.raises(NotImplementedError, match=item):
         train.run(argv)
+
+
+def test_recovery_over_quantized_codes_raises():
+    with pytest.raises(ValueError, match="linear codec"):
+        train.run(["--smoke", "--device", "cpu", "--steps", "1",
+                   "--seq-len", "16", "--recovery", "ef", "--strategy",
+                   "optireduce_q"])
 
 
 def test_quantized_exchange_two_steps_on_cpu():
