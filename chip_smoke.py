@@ -129,6 +129,37 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     3), whose loss and loss_frac must agree with two uninterrupted 4-step
     runs within the spread between those two.
 
+26. ``a15_shapes``: B1-B5 at the new shapes of the FSDP
+    reduce-scatter and the pod grid, against their plain versions as in
+    3.-5.: B1 encodes of ``wq``, ``w_gate`` and ``embed`` (4 peers x 576,
+    2,304 and 37,696 blocks of 1024) and the embedding's decode (4 x
+    9,424), B2 on the reduce-scatter's all_to_all view (4, 4, 9,650,176)
+    and on the pod grid's (8, 4, 1,638,400) (both pods in one launch), B3,
+    B4 and B5 at the embedding's length;
+27. ``fsdp_main``: the launcher with ``--dp-mode fsdp`` as in 6., 4 steps:
+    86 gather sites a step (12 layers x 7 weights, the embedding twice),
+    each one reduce-scatter of 2 B1 and 1 B2 over all 4 peers, and the
+    norms' bucket (19,200 entries, 2 B1 and 1 B2): exactly 174 B1 and 87
+    B2 a step; ``loss_frac`` counts the norms' bucket only (as the
+    reference's), so it may be 0;
+28. ``fsdp_q``: ``build_train_step`` with ``sync.rs_wire_bits=8``, 2
+    steps: 86 B3, B4 and B5 and 88 B1 (each site's decode, the bucket's
+    two), 1 B2 a step;
+29. ``pod_main``: ``build_train_step`` with ``pure_dp`` on
+    ``make_host_mesh(dp=4, tp=2)`` (2 pods x 4 data = 8 peers),
+    ``optireduce_2d``, tail drops 0.01, 3 steps: 48 B1 and 24 B2 a step
+    (one launch a bucket for both pods), every one of the 8 peers holding
+    the same synced arena (held after every sync);
+30. ``pod_q``: ``optireduce_q`` on the same grid, 2 steps: 24 B1, B3, B4,
+    B5 and B6 a step;
+31. ``fsdp_check`` and ``pod_check``: gpt2-smoke on the card against the
+    CPU, 2 steps each with the same draws (FSDP on 4 peers; ``pure_dp``
+    ``optireduce_2d`` on 2 x 4), and one FSDP step with 2 micro-batches:
+    metrics, parameters and both AdamW moments within ``STEP_TOL``, the
+    card's launches exact;
+32. ``profile`` of one ``--dp-mode fsdp`` step as in 9., with its peak
+    memory.
+
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
 Without CUDA, or without the repository around it, it prints no result and
@@ -364,6 +395,11 @@ def main() -> int:
                 fail(f"optireduce_rounds: {groups} round groups a step, "
                      "expected 96")
 
+    # 26.-31. the pod axis and FSDP (ROADMAP A15)
+    check_a15_shapes(dev, gen)
+    a15_paths(dev, counters)
+    check_a15_against_cpu(dev)
+
     # 21.-23. loss recovery through the launcher at full width; 24. the
     # budget's report; 25. card against CPU; 26. checkpoints and resume
     recovery_paths(counters)
@@ -390,6 +426,7 @@ def main() -> int:
     for strategy in ("optireduce", "optireduce_q", "optireduce_rounds"):
         profile_step(dev, strategy)
     profile_step(dev, "optireduce", recovery="ef", pattern="burst")
+    profile_step(dev, "optireduce", dp_mode="fsdp")
 
     # 10. B7, THC's quantizer, at the THC path's full-width shape
     b7 = check_uniform_quant(dev, gen)
@@ -932,9 +969,12 @@ def train_argv(strategy: str, pattern: str = "tail",
 
 def train_main_path(strategy: str, steps: int, counters: dict, *,
                     pattern: str = "tail", recovery: str = "none",
-                    phase: str = "train", extra=()) -> tuple[dict, list]:
+                    phase: str = "train", extra=(),
+                    loss_seen: bool = True) -> tuple[dict, list]:
     """One main path through the launcher at full width; returns each
-    kernel's launches in this run alone, and the step records."""
+    kernel's launches in this run alone, and the step records. Each step's
+    loss_frac must be positive unless ``loss_seen`` is off (under FSDP it
+    counts the small replicated bucket alone)."""
     import torch
     from repro_torch.launch import train as launch_train
 
@@ -956,7 +996,8 @@ def train_main_path(strategy: str, steps: int, counters: dict, *,
             row.update(recovery=recovery, filled=rec["filled"],
                        peak_mem_bytes=peak)
         emit(row)
-        if not (math.isfinite(rec["loss"]) and rec["loss_frac"] > 0):
+        if not (math.isfinite(rec["loss"]) and rec["loss_frac"] >= 0
+                and (rec["loss_frac"] > 0 or not loss_seen)):
             fail(f"{strategy} step {i}: loss {rec['loss']} loss_frac "
                  f"{rec['loss_frac']}")
         if recovery != "none" and not rec["filled"] > 0:
@@ -1746,7 +1787,7 @@ def check_step_against_cpu(dev, strategy: str) -> None:
 
 
 def profile_step(dev, strategy: str, *, recovery: str = "none",
-                 pattern: str = "tail") -> None:
+                 pattern: str = "tail", dp_mode: str = "replicated") -> None:
     from repro_torch.configs import get_config
     from repro_torch.core import recovery as recovery_lib
     from repro_torch.core.allreduce import OptiReduceConfig
@@ -1760,7 +1801,7 @@ def profile_step(dev, strategy: str, *, recovery: str = "none",
     sync = OptiReduceConfig(strategy=strategy, drop_rate=0.01,
                             drop_pattern=pattern, hadamard_block=BLOCK,
                             incast=ROUNDS_INCAST, recovery=recovery)
-    tc = TrainConfig(sync=sync, seq_chunk=128)
+    tc = TrainConfig(sync=sync, seq_chunk=128, dp_mode=dp_mode)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
                                   global_batch=8, seed=0))
     k = key(0)
@@ -1782,6 +1823,8 @@ def profile_step(dev, strategy: str, *, recovery: str = "none",
                                             rec_state=rec)
         float(m["loss"])
     label = {"strategy": strategy, "arch": cfg.name, "peers": PEERS}
+    if dp_mode != "replicated":
+        label.update(dp_mode=dp_mode)
     if recovery != "none":
         label.update(recovery=recovery, drop_pattern=pattern)
     profile_third_step(one, label)
@@ -1801,6 +1844,352 @@ def profile_thc(dev) -> None:
         run.synchronize()
     profile_third_step(one, {"path": "tta_thc", "arch": "gpt2-paper",
                              "workers": rc.n_workers})
+
+
+# ------------------------------------------------- the pod axis and FSDP
+# the FSDP reduce-scatter's sites at full width, (name, rows a peer's
+# encode takes): blocks of 1024 of each site's (4, 4 * padded row) stack
+A15_SITES = (("wq", 4 * 768 * 768 // 4 // BLOCK),
+             ("w_gate", 4 * 768 * 3072 // 4 // BLOCK),
+             ("embed", 4 * 9_650_176 // BLOCK))
+EMBED_ROW = 9_650_176        # 192 x 50,257 = 9,649,344, padded to 1024s
+
+
+def check_a15_shapes(dev, gen) -> None:
+    """Phase ``a15_shapes``: B1-B5 at the shapes the FSDP reduce-scatter
+    and the pod grid give them, against their plain versions, timed with
+    their bounds (tolerances of 3.-5.)."""
+    import torch
+    from repro_torch.core import collectives
+    from repro_torch.kernels.dequant_reduce import ops as dq_ops
+    from repro_torch.kernels.dequant_reduce import ref as dq_ref
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.fwht import ref as fwht_ref
+    from repro_torch.kernels.ht_quant import ops as hq_ops
+    from repro_torch.kernels.ht_quant import ref as hq_ref
+    from repro_torch.kernels.masked_sum import ops as mm_ops
+    from repro_torch.kernels.masked_sum import ref as mm_ref
+
+    def row(kernel, site, shape, err, ms, plain_ms, nbytes, flops, **kw):
+        b_ms, b_by = bound(nbytes, flops)
+        emit({"phase": "a15_shapes", "kernel": kernel, "site": site,
+              "shape": list(shape), "max_abs_err": err, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "share_of_bound": b_ms / ms, **kw})
+
+    sign = torch.where(torch.rand((BLOCK,), generator=gen, device=dev) < 0.5,
+                       1.0, -1.0)
+    # B1: each site's encode over all 4 peers, the embedding's decode
+    for site, rows in A15_SITES:
+        x = torch.randn((PEERS, rows, BLOCK), generator=gen, device=dev)
+        cases = [("pre", x)]
+        if site == "embed":
+            cases.append(("post", x[:, :rows // PEERS].contiguous()))
+        for mode, xin in cases:
+            rmode = "encode" if mode == "pre" else "decode"
+            got = fwht_ops.fwht_launch(xin, sign, mode)
+            want = fwht_ref.randomized_fwht_ref(xin, sign, mode=rmode)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not math.isfinite(err) or err > FWHT_TOL:
+                fail(f"a15 fwht {site} {mode}: max abs err {err}")
+            n_rows = xin.shape[0] * xin.shape[1]
+            row("fwht", site, xin.shape, err,
+                time_ms(lambda: fwht_ops.fwht_launch(xin, sign, mode),
+                        reps=10),
+                time_ms(lambda: fwht_ref.randomized_fwht_ref(
+                    xin, sign, mode=rmode), reps=2, warmup=1),
+                fwht_ref.fwht_bytes(n_rows, BLOCK),
+                fwht_ref.fwht_flops(n_rows, BLOCK), mode=mode)
+            del got, want
+        del x, cases
+
+    # B2: the reduce-scatter's all_to_all view of the embedding's rows, and
+    # the pod grid's received stack (a copy: both pods in one launch)
+    for site, shards in (("embed", torch.randn(
+            (PEERS, PEERS * EMBED_ROW), generator=gen, device=dev).view(
+                PEERS, PEERS, EMBED_ROW)),
+            ("pod_bucket", torch.randn((2 * PEERS, PEERS, SHARD),
+                                       generator=gen, device=dev))):
+        pods = 1 if site == "embed" else 2
+        received = collectives.all_to_all(shards, pods)
+        mask = (torch.rand(received.shape, generator=gen, device=dev)
+                < 0.99).to(torch.float32)
+        got = mm_ops.masked_mean_launch(received, mask)
+        want = mm_ref.masked_mean_ref(received, mask)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not math.isfinite(err) or err > MEAN_TOL:
+            fail(f"a15 masked_mean {site}: max abs err {err}")
+        r, n, length = received.shape
+        row("masked_mean", site, received.shape, err,
+            time_ms(lambda: mm_ops.masked_mean_launch(received, mask),
+                    reps=10),
+            time_ms(lambda: mm_ref.masked_mean_ref(received, mask), reps=2,
+                    warmup=1),
+            mm_ref.masked_mean_bytes(r, n, length),
+            mm_ref.masked_mean_flops(r, n, length),
+            strided=not received.is_contiguous())
+        del shards, received, mask, got, want
+
+    # B3, B4, B5: the 8-bit reduce-scatter of the embedding
+    rows = A15_SITES[-1][1]
+    x = torch.randn((PEERS, rows, BLOCK), generator=gen, device=dev)
+    amax = hq_ops.ht_amax_launch(x, sign)
+    want = hq_ref.ht_amax_ref(x, sign)
+    torch.cuda.synchronize()
+    err = float((amax - want).abs().max())
+    if err != 0.0:
+        fail(f"a15 ht_amax embed: max abs err {err}")
+    row("ht_amax", "embed", x.shape, err,
+        time_ms(lambda: hq_ops.ht_amax_launch(x, sign), reps=10),
+        time_ms(lambda: hq_ref.ht_amax_ref(x, sign), reps=2, warmup=1),
+        hq_ref.ht_amax_bytes(PEERS * rows, BLOCK),
+        hq_ref.ht_amax_flops(PEERS * rows, BLOCK))
+    shared = torch.clamp(amax.amax(0), min=1e-12)
+    lo, step = -shared, 2.0 * shared / 255
+    noise = torch.rand((rows, BLOCK), generator=gen, device=dev)
+    codes = hq_ops.ht_quant_launch(x, sign, noise, lo, step, bits=8)
+    want = hq_ref.ht_quant_ref(x, sign, noise, lo, step, bits=8)
+    torch.cuda.synchronize()
+    mismatched = int((codes != want).sum())
+    if mismatched:
+        fail(f"a15 ht_quant embed: {mismatched} codes differ")
+    row("ht_quant", "embed", x.shape, 0.0,
+        time_ms(lambda: hq_ops.ht_quant_launch(x, sign, noise, lo, step,
+                                               bits=8), reps=10),
+        time_ms(lambda: hq_ref.ht_quant_ref(x, sign, noise, lo, step,
+                                            bits=8), reps=2, warmup=1),
+        hq_ref.ht_quant_bytes(PEERS * rows, BLOCK, rows),
+        hq_ref.ht_quant_flops(PEERS * rows, BLOCK))
+    del x, want, noise
+    received = codes.view(PEERS, PEERS, EMBED_ROW).transpose(0, 1)
+    lo_r, step_r = lo.view(PEERS, -1), step.view(PEERS, -1)
+    mask = (torch.rand(received.shape, generator=gen, device=dev)
+            < 0.99).to(torch.float32)
+    got = dq_ops.dequant_mean_launch(received, lo_r, step_r, mask,
+                                     block=BLOCK)
+    want = dq_ref.dequant_masked_mean_ref(
+        received, lo_r.repeat_interleave(BLOCK, dim=-1),
+        step_r.repeat_interleave(BLOCK, dim=-1), mask)
+    torch.cuda.synchronize()
+    tol = DEQ_ULPS * 2.0 ** -23 * float(shared.max())
+    err = float((got - want).abs().max())
+    if not math.isfinite(err) or err > tol:
+        fail(f"a15 dequant_mean embed: max abs err {err} > {tol}")
+    del want
+    row("dequant_mean", "embed", received.shape, err,
+        time_ms(lambda: dq_ops.dequant_mean_launch(
+            received, lo_r, step_r, mask, block=BLOCK), reps=10),
+        time_ms(lambda: dq_ref.dequant_masked_mean_ref(
+            received, lo_r.repeat_interleave(BLOCK, dim=-1),
+            step_r.repeat_interleave(BLOCK, dim=-1), mask), reps=2,
+            warmup=1),
+        dq_ref.dequant_mean_bytes(PEERS, PEERS, EMBED_ROW, BLOCK,
+                                  masked=True),
+        dq_ref.dequant_mean_flops(PEERS, PEERS, EMBED_ROW, masked=True),
+        tolerance=tol)
+    del received, mask, got, codes
+
+
+# per-step launches of the A15 paths at full width (see the docstring)
+A15_PER_STEP = {
+    "fsdp_main": {"fwht": 174, "masked_mean": 87},
+    "fsdp_q": {"fwht": 88, "masked_mean": 1, "ht_amax": 86, "ht_quant": 86,
+               "dequant_mean": 86},
+    "pod_main": {"fwht": 48, "masked_mean": 24},
+    "pod_q": {"fwht": 24, "ht_amax": 24, "ht_quant": 24, "dequant_mean": 24,
+              "grid_quant": 24},
+}
+
+
+def trainer_path(dev, phase: str, tc, mesh, steps: int,
+                 counters: dict) -> None:
+    """A full-width gpt2-paper run through ``build_train_step`` (the paths
+    with no launcher flag): per step loss, loss_frac, step ms; the launch
+    counts of the whole run held to ``A15_PER_STEP``; on a pod grid every
+    peer's synced arena equal after every sync."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.keys import generator, key
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.train import trainer as trainer_mod
+
+    cfg = get_config("gpt2-paper")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                  global_batch=8, seed=0))
+    k = key(0)
+    params = init_params(generator(k, dev), cfg, device=dev)
+    step_fn, opt = trainer_mod.build_train_step(cfg, tc, mesh, device=dev)
+    state = opt.init(params)
+    replicas = []
+    sync_packed = trainer_mod.sync_packed
+
+    def checked(arena, ctx, **kw):
+        out = sync_packed(arena, ctx, **kw)
+        replicas.append(all(torch.equal(out[p], out[0])
+                            for p in range(1, out.shape[0])))
+        return out
+    trainer_mod.sync_packed = checked
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    try:
+        for s in range(steps):
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state,
+                                       data.host_batch(s, 0, 1), s, k)
+            m = {n: float(v) for n, v in m.items()}
+            emit({"phase": f"{phase}_step", "step": s, "loss": m["loss"],
+                  "loss_frac": m["loss_frac"], "grad_norm": m["grad_norm"],
+                  "step_ms": (time.perf_counter() - t0) * 1e3})
+            if not (math.isfinite(m["loss"]) and
+                    math.isfinite(m["grad_norm"])):
+                fail(f"{phase} step {s}: {m}")
+    finally:
+        trainer_mod.sync_packed = sync_packed
+    torch.cuda.synchronize()
+    counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    want = {n: 0 for n in counters}
+    want.update({n: v * steps for n, v in A15_PER_STEP[phase].items()})
+    emit({"phase": phase, "arch": cfg.name, "mesh": mesh.shape,
+          "dp_mode": tc.dp_mode, "pure_dp": tc.pure_dp,
+          "strategy": tc.sync.strategy,
+          "rs_wire_bits": tc.sync.rs_wire_bits, "steps": steps,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "syncs_with_equal_replicas": sum(replicas),
+          "syncs": len(replicas), "launches": counts,
+          "per_step": {n: v / steps for n, v in counts.items()}})
+    if counts != want:
+        fail(f"{phase}: launch counts {counts} over {steps} steps, "
+             f"expected {want}")
+    if not all(replicas):
+        fail(f"{phase}: peers hold different synced arenas")
+
+
+def a15_paths(dev, counters: dict) -> None:
+    """Phases ``fsdp_main``, ``fsdp_q``, ``pod_main`` and ``pod_q``."""
+    from repro_torch.core.allreduce import OptiReduceConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.trainer import TrainConfig
+
+    counts, _ = train_main_path("optireduce", 4, counters,
+                                phase="fsdp_main",
+                                extra=("--dp-mode", "fsdp"), loss_seen=False)
+    want = {n: 0 for n in counters}
+    want.update({n: v * 4 for n, v in A15_PER_STEP["fsdp_main"].items()})
+    if counts != want:
+        fail(f"fsdp_main: launch counts {counts} over 4 steps, expected "
+             f"{want}")
+
+    def tc(strategy, **kw):
+        return TrainConfig(sync=OptiReduceConfig(
+            strategy=strategy, drop_rate=0.01, drop_pattern="tail",
+            hadamard_block=BLOCK, rs_wire_bits=kw.pop("rs_wire_bits", 0)),
+            seq_chunk=128, kernel_mode="kernel", **kw)
+    trainer_path(dev, "fsdp_q", tc("optireduce", dp_mode="fsdp",
+                                   rs_wire_bits=8),
+                 make_host_mesh(PEERS), 2, counters)
+    grid = make_host_mesh(PEERS, 2)
+    trainer_path(dev, "pod_main", tc("optireduce_2d", pure_dp=True), grid,
+                 3, counters)
+    trainer_path(dev, "pod_q", tc("optireduce_q", pure_dp=True), grid, 2,
+                 counters)
+    from repro_torch.kernels import runtime
+    runtime.set_kernel_mode(None)
+
+
+def check_a15_against_cpu(dev) -> None:
+    """Phases ``fsdp_check`` and ``pod_check``: gpt2-smoke on the card
+    against the plain versions on the CPU, same parameters and draws (the
+    bucket draws and the gather sites' draws, both made on the CPU):
+    metrics, parameters and both AdamW moments within ``STEP_TOL``, the
+    card's B1 and B2 launches exact."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.allreduce import OptiReduceConfig
+    from repro_torch.core.keys import fold_in, generator, key
+    from repro_torch.core.pipeline import GeneratorDraws
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.masked_sum import ops as mm_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train.trainer import TrainConfig, build_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    runtime.set_kernel_mode(None)       # by device: card kernels, CPU plain
+    cfg = get_smoke("gpt2-paper")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=8, seed=0))
+    k = key(0)
+    base = init_params(generator(k), cfg, device="cpu")
+    # 16 gather sites (2 layers x 7, the embedding twice) of 2 B1 + 1 B2,
+    # and the norms' bucket; the pod grid's 8 buckets of 2 B1 + 1 B2
+    cases = {"fsdp_check": ("optireduce", "fsdp", False, None, (PEERS,), 2,
+                            (34, 17)),
+             "fsdp_check_micro2": ("optireduce", "fsdp", False, 1, (PEERS,),
+                                   1, (2 * 32 + 2, 2 * 16 + 1)),
+             "pod_check": ("optireduce_2d", "replicated", True, None,
+                           (PEERS, 2), 2, (16, 8))}
+    for phase, (strategy, mode, pure, micro, mesh, steps, per_step) in \
+            cases.items():
+        sync = OptiReduceConfig(strategy=strategy, drop_rate=0.05,
+                                drop_pattern="tail", hadamard_block=256,
+                                skip_threshold=0.9,
+                                pod_axis="model" if pure else None)
+        tc = TrainConfig(sync=sync, optimizer=OptimizerConfig(lr=1e-2),
+                         bucket_elems=16_384, seq_chunk=32, dp_mode=mode,
+                         pure_dp=pure, microbatch=micro)
+        devices = {"cpu": torch.device("cpu"), "cuda": dev}
+        fns, params, states, metrics = {}, {}, {}, {}
+        for name, device in devices.items():
+            fns[name], opt = build_train_step(cfg, tc, make_host_mesh(*mesh),
+                                              device=device)
+            params[name] = tree_map(lambda p: p.clone().to(device), base)
+            states[name] = opt.init(params[name])
+            metrics[name] = []
+        launched = (fwht_ops.launches, mm_ops.launches)
+        for step in range(steps):
+            for name, device in devices.items():
+                cpu = torch.device("cpu")
+                skey = fold_in(k, step)
+                params[name], states[name], m = fns[name](
+                    params[name], states[name], data.host_batch(step, 0, 1),
+                    step, k,
+                    draws=_HostDraws(GeneratorDraws(
+                        key=fold_in(skey, 7), cfg=sync, device=cpu), device),
+                    site_draws=_HostDraws(GeneratorDraws(
+                        key=skey, cfg=sync, device=cpu), device))
+                metrics[name].append({n: float(v) for n, v in m.items()})
+        launched = (fwht_ops.launches - launched[0],
+                    mm_ops.launches - launched[1])
+
+        def worst(a, b):
+            return max(float((x.detach().float() - y.detach().float().cpu())
+                             .abs().max())
+                       for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+        diffs = {"metrics": max(abs(a[n] - b[n]) for a, b in zip(
+            metrics["cpu"], metrics["cuda"]) for n in a),
+            "params": worst(params["cpu"], params["cuda"]),
+            "adam_m": worst(states["cpu"].m, states["cuda"].m),
+            "adam_v": worst(states["cpu"].v, states["cuda"].v)}
+        want = (per_step[0] * steps, per_step[1] * steps)
+        emit({"phase": phase, "arch": cfg.name, "steps": steps,
+              "strategy": strategy, "dp_mode": mode, "pure_dp": pure,
+              "microbatch": micro, "mesh": list(mesh),
+              "max_abs_diff": diffs, "tolerance": STEP_TOL,
+              "card_launches_b1_b2": list(launched),
+              "cpu": metrics["cpu"], "gpu": metrics["cuda"]})
+        if not (all(v <= STEP_TOL for v in diffs.values())
+                and launched == want):
+            fail(f"{phase}: card vs CPU {diffs}, launches {launched} "
+                 f"(expected {want})")
 
 
 # the port's kernel functions, as the profiler names them
@@ -1829,6 +2218,7 @@ def profile_third_step(one, label: dict) -> None:
     on the host clock, then ``one(2)`` under ``torch.profiler``: wall time,
     device busy time and idle share, the largest device and host entries,
     and the device time of each of the port's kernels."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import collectives
@@ -1839,11 +2229,13 @@ def profile_third_step(one, label: dict) -> None:
         one(s)
         wall.append((time.perf_counter() - t0) * 1e3)
     permutes = collectives.permutes
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         one(2)
         prof_wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
     permutes = collectives.permutes - permutes
     rows = prof.key_averages()
     on_dev = _device_rows(rows)
@@ -1875,6 +2267,7 @@ def profile_third_step(one, label: dict) -> None:
           "device_idle_share_of_unprofiled_step": (1 - busy_ms / wall[-1])
           if busy_ms > 0 else "not measured",
           "kernel_launches": launches,
+          "peak_mem_bytes": peak,
           "permutes": permutes,
           "index_kernels_ms": sum(_dev_us(r) for r in indexed) / 1e3,
           "index_kernels_launches": sum(r.count for r in indexed),

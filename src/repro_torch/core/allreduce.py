@@ -2,8 +2,11 @@
 
 Counterpart of ``src/repro/core/allreduce.py``: ``sync_bucket`` (one bucket
 through the resolved spec), ``sync_packed`` (the engine core on a packed
-``(P, B, bucket_elems)`` arena, one ``(B, bucket_elems)`` arena per peer)
-and ``sync_pytree`` (pack -> ``sync_packed`` -> unpack).
+``(P, B, bucket_elems)`` arena, one ``(B, bucket_elems)`` arena per peer),
+``sync_pytree`` (pack -> ``sync_packed`` -> unpack) and
+``reduce_scatter_axis`` (the FSDP gradient reduction through ``rs_spec``).
+On a ``(pod, data)`` grid ``ctx.pods`` gives the pod count G of the
+arena's P = G * N peers (``core/collectives.py``).
 
 Modes of ``sync_packed``:
   ``'scan'``       buckets strictly one after the other.
@@ -21,12 +24,13 @@ import torch
 from repro_torch.tree import tree_map
 
 from .bucket_plan import BucketPlan
-from .pipeline import (CollectiveSpec, OptiReduceConfig, SyncContext,
+from .pipeline import (CollectiveSpec, Hadamard, HTQuant, Identity, Lossy,
+                       OptiReduceConfig, Reliable, SyncContext, TarTopology,
                        resolve_spec, strategy_names)
 
 __all__ = ["OptiReduceConfig", "SyncContext", "CollectiveSpec",
            "resolve_spec", "strategy_names", "sync_bucket", "sync_packed",
-           "sync_pytree"]
+           "sync_pytree", "rs_spec", "reduce_scatter_axis"]
 
 MODES = ("scan", "pipelined")
 
@@ -75,6 +79,10 @@ def sync_packed(batch: torch.Tensor, ctx: SyncContext, *,
     if stale is not None and tuple(stale.shape) != (nbuckets, length):
         raise ValueError(f"stale cache of shape {tuple(stale.shape)} for a "
                          f"({nbuckets}, {length}) arena a peer")
+    if stale is not None and ctx.pods > 1:
+        raise ValueError("recovery does not compose with the 2D (pod, data) "
+                         "hierarchy: the stale wire layout assumes one flat "
+                         "TAR shard order")
 
     def stale_at(b):
         return None if stale is None else stale[b]
@@ -113,3 +121,36 @@ def sync_pytree(grads, ctx: SyncContext, *, bucket_elems: int = 6_553_600,
                                    bucket_elems)
     return plan.unpack(sync_packed(plan.pack(grads), ctx, mode=mode,
                                    spec=spec))
+
+
+def rs_spec(cfg: OptiReduceConfig, *,
+            with_drops: bool = True) -> CollectiveSpec:
+    """The reduce-scatter spec for a config: TAR stage 1 with the rs codec.
+    ``rs_wire_bits`` picks the shared-grid quantizer (the rotation comes
+    with it); otherwise the Hadamard rotation rides along only when drops
+    are live. The quantizer draws its noise under salt 9, so the rs wire
+    never correlates with the bucketed stage-1 draws."""
+    quant = cfg.rs_wire_bits
+    use_ht = (with_drops and cfg.use_hadamard and cfg.drop_rate > 0) or \
+        bool(quant)
+    if quant:
+        codec = HTQuant(bits=quant, noise_salt=9)
+    elif use_ht:
+        codec = Hadamard()
+    else:
+        codec = Identity()
+    return CollectiveSpec(TarTopology(), Lossy() if with_drops else Reliable(),
+                          codec)
+
+
+def reduce_scatter_axis(g: torch.Tensor, axis, dim: int, ctx: SyncContext, *,
+                        with_drops: bool = True) -> torch.Tensor:
+    """OptiReduce as a reduce-scatter: TAR stage 1 + the compensated reduce
+    on each peer's ``(P, *shape)`` tensor, scattering ``dim`` over ``axis``
+    (``collectives.DATA`` or ``POD``). Returns ``(P, *shard)``: peer p's
+    slice ``i`` of ``dim`` (i its index on the axis) holding the
+    drop-compensated mean over the axis's peers. ``ctx.bucket`` names the
+    gather site's draws."""
+    _check_device(g, ctx.cfg)
+    return rs_spec(ctx.cfg, with_drops=with_drops).reduce_scatter(
+        g, axis, dim, ctx)

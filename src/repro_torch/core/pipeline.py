@@ -6,17 +6,24 @@ with the all_to_all or the paper's round schedule, :class:`RingTopology`
 for the ring / tree / BCube baselines, :class:`PsumTopology`), a Transport
 (:class:`Reliable`, :class:`Lossy`, :class:`AdaptiveTransport`) and a
 Codec (:class:`Identity`, :class:`Hadamard`, :class:`HTQuant`). A strategy
-name resolves through the registry: every name of the reference but
-``optireduce_2d`` (the pod axis, ROADMAP A15). The participation policies
-(``active_peers``, ``shard_weights``, ``dead_links``) and the loss-recovery
-codec (``cfg.recovery``, core/recovery.py) run as in the reference; the
-wire transport waits for a later slice.
+name resolves through the registry, every name of the reference among them.
+The participation policies (``active_peers``, ``shard_weights``,
+``dead_links``, on the data axis) and the loss-recovery codec
+(``cfg.recovery``, core/recovery.py) run as in the reference; the wire
+transport waits for a later slice.
 
 The reference runs one rank per device inside ``shard_map``; here every
-stage works on ``(P, ...)`` stacks over the peer axis
+stage works on ``(P, ...)`` stacks over the peer grid
 (``core/collectives.py``), so one kernel launch serves all P peers of a
-bucket. The randomness the reference draws from keys inside the stages
-(the Hadamard sign, each receiver's arrival mask, the quantizer's
+bucket. With a pod axis (``cfg.pod_axis`` and ``SyncContext.pods`` = G >
+1) the P = G * N peers are pod-major and the schedules run over the data
+axis in every pod at once; a TAR topology joins the pods between its two
+stages (``outer``: the hierarchical 2D TAR of §3.1.2, or a pmean), a ring
+folds them with a pmean after its own reduce, psum averages over both axes.
+:meth:`CollectiveSpec.reduce_scatter` is TAR stage 1 on one tensor over one
+axis, the FSDP gradient reduction (``core/allreduce.reduce_scatter_axis``).
+The randomness the reference draws from keys inside the stages (the
+Hadamard sign, each receiver's arrival mask, the quantizer's
 stochastic-rounding noise) comes from the context's :class:`Draws` provider
 instead, so a test can hand in the reference's own draws.
 """
@@ -26,6 +33,7 @@ import dataclasses
 from typing import Callable, ClassVar, Protocol
 
 import torch
+import torch.nn.functional as F
 
 from . import collectives
 from . import drops as drops_lib
@@ -43,8 +51,7 @@ from .ubt import UbtState
 # ------------------------------------------------------------- configuration
 @dataclasses.dataclass(frozen=True)
 class OptiReduceConfig:
-    """Static configuration for gradient sync: the reference's fields, with
-    the values this slice does not run rejected by :meth:`check`."""
+    """Static configuration for gradient sync: the reference's fields."""
     strategy: str = "optireduce"
     data_axis: str = "data"
     pod_axis: str | None = None
@@ -77,67 +84,74 @@ class OptiReduceConfig:
     recovery: str = "none"
 
     def check(self) -> None:
-        """Raise ``NotImplementedError`` naming the ROADMAP item for every
-        field value this slice does not run."""
-        todo = []
-        if self.pod_axis is not None:
-            todo.append("pod_axis (2D TAR): ROADMAP A15")
-        if self.rs_wire_bits:
-            todo.append("rs_wire_bits (FSDP reduce-scatter): ROADMAP A15")
-        if todo:
-            raise NotImplementedError("not ported yet: " + "; ".join(todo))
         if self.drop_pattern not in ("bernoulli", "tail", "straggler",
                                      "burst"):
             raise ValueError(f"unknown drop pattern {self.drop_pattern!r}")
 
 
+# A draw's site: a bucket index b of the step's sync key (the reference's
+# fold_in(sync_key, b)), or a key path below the step key naming one FSDP
+# gather site (``()``: the step key itself, ``(l,)``: fold_in(step_key, l)).
+Site = int | tuple[int, ...]
+
+
 class Draws(Protocol):
-    """Where a sync step's random operands come from."""
+    """Where a sync step's random operands come from. ``bucket`` names the
+    draw's :data:`Site`; the reference keys every draw of a site on the
+    site's key alone, never on a pod index, so every pod draws the same."""
 
-    def sign(self, bucket: int, block: int) -> torch.Tensor:
-        """The bucket's Hadamard sign, ``(block,)`` fp32 of +-1."""
+    def sign(self, bucket: Site, block: int) -> torch.Tensor:
+        """The site's Hadamard sign, ``(block,)`` fp32 of +-1."""
 
-    def mask(self, bucket: int, receiver: int, n: int, s: int,
+    def mask(self, bucket: Site, receiver: int, n: int, s: int,
              self_index: int | None = None) -> torch.Tensor:
-        """Receiver's ``(n, s)`` fp32 arrival mask for the bucket's stage-1
-        exchange, drawn under the receiver's id; row ``self_index`` (the
-        receiver's own, unless a degraded round schedule indexes rows by
-        virtual position) all ones."""
+        """Receiver's ``(n, s)`` fp32 arrival mask for the site's stage-1
+        exchange, drawn under the receiver's data-axis id; row
+        ``self_index`` (the receiver's own, unless a degraded round
+        schedule indexes rows by virtual position) all ones."""
 
-    def noise(self, bucket: int, salt: int,
+    def noise(self, bucket: Site, salt: int,
               shape: tuple[int, ...]) -> torch.Tensor:
-        """Uniform [0, 1) fp32 stochastic-rounding noise of the bucket's
-        quantizer ``salt`` (3: stage 1, 4: stage 2), one copy shared by
-        every peer."""
+        """Uniform [0, 1) fp32 stochastic-rounding noise of the site's
+        quantizer ``salt`` (3: stage 1, 4: stage 2, 9: the FSDP
+        reduce-scatter), one copy shared by every peer."""
 
 
 @dataclasses.dataclass(frozen=True)
 class GeneratorDraws:
     """The default provider: ``torch.Generator``s seeded from the key path
-    of the reference — sign from the bucket key ``fold_in(key, b)``, a
-    receiver's mask from ``fold_in(bucket_key, receiver)``, a quantizer's
-    noise from ``fold_in(bucket_key, salt)``."""
-    key: Key                              # the sync key of this step
+    of the reference — sign from the site key (``fold_in(key, b)`` for
+    bucket b, ``key`` folded with each element of a path), a receiver's
+    mask from ``fold_in(site_key, receiver)``, a quantizer's noise from
+    ``fold_in(site_key, salt)``. ``key`` is the step's sync key for bucket
+    draws, the step key for FSDP gather sites."""
+    key: Key
     cfg: OptiReduceConfig
     device: torch.device
 
-    def sign(self, bucket: int, block: int) -> torch.Tensor:
-        return rademacher_sign(
-            generator(fold_in(self.key, bucket), self.device), block)
+    def _site(self, bucket: Site) -> Key:
+        path = bucket if isinstance(bucket, tuple) else (bucket,)
+        k = self.key
+        for d in path:
+            k = fold_in(k, d)
+        return k
 
-    def mask(self, bucket: int, receiver: int, n: int, s: int,
+    def sign(self, bucket: Site, block: int) -> torch.Tensor:
+        return rademacher_sign(generator(self._site(bucket), self.device),
+                               block)
+
+    def mask(self, bucket: Site, receiver: int, n: int, s: int,
              self_index: int | None = None) -> torch.Tensor:
-        gen = generator(fold_in(fold_in(self.key, bucket), receiver),
-                        self.device)
+        gen = generator(fold_in(self._site(bucket), receiver), self.device)
         return drops_lib.make_mask(self.cfg.drop_pattern, gen, n, s,
                                    rate=self.cfg.drop_rate,
                                    packet_elems=self.cfg.packet_elems,
                                    self_index=receiver if self_index is None
                                    else self_index)
 
-    def noise(self, bucket: int, salt: int,
+    def noise(self, bucket: Site, salt: int,
               shape: tuple[int, ...]) -> torch.Tensor:
-        gen = generator(fold_in(fold_in(self.key, bucket), salt), self.device)
+        gen = generator(fold_in(self._site(bucket), salt), self.device)
         return torch.rand(shape, generator=gen, device=self.device)
 
 
@@ -145,18 +159,36 @@ class GeneratorDraws:
 class SyncContext:
     """Per-step (and, inside the engine, per-bucket) context. ``stale`` is
     the bucket's previous decoded value ``(L,)``, set by the sync engine
-    when a stale-fill recovery codec is armed (None otherwise)."""
+    when a stale-fill recovery codec is armed (None otherwise). ``pods`` is
+    the pod-axis size G of the peer grid (the reference reads it from its
+    mesh): the stacks' P peers are G pods of N, pod-major."""
     cfg: OptiReduceConfig
     draws: Draws
-    bucket: int = 0
+    bucket: Site = 0
     stats: dict = dataclasses.field(default_factory=dict)
     stale: torch.Tensor | None = None
+    pods: int = 1
 
-    def for_bucket(self, bucket: int,
+    def __post_init__(self):
+        if self.pods < 1:
+            raise ValueError(f"pods must be positive, got {self.pods}")
+        if self.pods > 1 and self.cfg.pod_axis is None:
+            raise ValueError(f"a grid of {self.pods} pods needs "
+                             "cfg.pod_axis set")
+
+    def for_bucket(self, bucket: Site,
                    stale: torch.Tensor | None = None) -> "SyncContext":
-        """This step's context for one bucket (stats shared)."""
+        """This step's context for one bucket or gather site (stats
+        shared)."""
         return SyncContext(cfg=self.cfg, draws=self.draws, bucket=bucket,
-                           stats=self.stats, stale=stale)
+                           stats=self.stats, stale=stale, pods=self.pods)
+
+    def data_axes(self):
+        """The axes of the data-parallel group, as collective axes: the
+        pod axis joins the data axis when one is configured."""
+        if self.cfg.pod_axis is not None:
+            return collectives.BOTH
+        return collectives.DATA
 
     def sign(self, block: int) -> torch.Tensor:
         return self.draws.sign(self.bucket, block)
@@ -166,7 +198,9 @@ class SyncContext:
 
     def loss_fraction(self) -> torch.Tensor:
         """Observed entry-loss fraction this step, averaged over receivers
-        (the reference's ``pmean`` of dropped/total)."""
+        (the reference's ``pmean`` of dropped/total over ``data_axes()``:
+        every pod draws the data axis's masks alike, so the mean over the N
+        receivers is the mean over both axes)."""
         if "total" not in self.stats:
             return torch.zeros(())
         frac = self.stats["dropped"] / max(self.stats["total"], 1.0)
@@ -288,10 +322,13 @@ class Hadamard(Codec):
     decode_values = decode_gathered
 
 
-_STAGE1_SALT = 3     # stage-1 stochastic-rounding noise
-_STAGE2_SALT = 4     # stage-2 (broadcast) noise
+def shared_amax(amax: torch.Tensor, ctx: SyncContext) -> torch.Tensor:
+    """The grids' amax shared by the whole data-parallel group: the max of
+    every peer's ``(P, L / block)`` over both axes, ``(L / block,)``."""
+    return collectives.pmax(amax, ctx.pods, ctx.data_axes())[0]
 
 
+@dataclasses.dataclass(frozen=True)
 class HTQuant(Codec):
     """Hadamard rotation + THC-style shared-grid uniform stochastic
     quantization (the reference's beyond-paper ``optireduce_q``).
@@ -305,15 +342,19 @@ class HTQuant(Codec):
     (kernel B5), the aggregated shard is re-quantized for stage 2 (kernel
     B6), and :meth:`decode_gathered` dequantizes and decodes (kernel B1).
     Both noises are one copy shared by every peer, drawn under
-    ``_STAGE1_SALT`` and ``_STAGE2_SALT`` (the reference's ``fold_in(key,
-    3)`` and ``fold_in(key, 4)``). The code width is ``cfg.quant_bits``.
+    ``noise_salt`` and ``stage2_salt`` (the reference's ``fold_in(key, 3)``
+    and ``fold_in(key, 4)``); the grids are shared by every peer of both
+    axes. The code width is ``bits``, or ``cfg.quant_bits`` when None
+    (``core.allreduce.rs_spec`` passes ``cfg.rs_wire_bits`` and salt 9).
     Not ``linear``: a ring cannot average its codes.
     """
+    bits: int | None = None
+    noise_salt: int = 3        # stage-1 stochastic-rounding noise
+    stage2_salt: int = 4       # stage-2 (broadcast) noise
     linear = False
 
-    @staticmethod
-    def _bits(cfg: OptiReduceConfig) -> int:
-        bits = cfg.quant_bits
+    def _bits(self, cfg: OptiReduceConfig) -> int:
+        bits = cfg.quant_bits if self.bits is None else self.bits
         if not 1 <= bits <= 8:
             raise ValueError(f"uint8 codes hold 1..8 bits, got {bits}")
         return bits
@@ -352,14 +393,14 @@ class HTQuant(Codec):
         # as a multiply by its reciprocal, one ulp off for some amax
         step = 2.0 * amax / torch.full_like(amax, levels)
         lo = -amax
-        noise = ctx.noise(_STAGE1_SALT, (x.shape[-1] // block, block))
+        noise = ctx.noise(self.noise_salt, (x.shape[-1] // block, block))
         codes = ht_encode_quant(x, ctx.sign(block), noise, lo, step,
                                 block=block, bits=bits)
         return Encoded(codes, lo=lo, step=step)
 
     def encode(self, x, ctx):
         x1, amax = self.local_amax(x, ctx)
-        return self.encode_given_amax(x1, collectives.pmax(amax)[0], ctx)
+        return self.encode_given_amax(x1, shared_amax(amax, ctx), ctx)
 
     def reduce(self, received, mask, enc, ctx, shard_index=None):
         block = ctx.cfg.hadamard_block
@@ -370,7 +411,7 @@ class HTQuant(Codec):
         block = ctx.cfg.hadamard_block
         n, s = own.shape
         lo, step = self._grids(enc, s // block, shard_index)
-        noise = ctx.noise(_STAGE2_SALT, (s // block, block))
+        noise = ctx.noise(self.stage2_salt, (s // block, block))
         # row i of the (n * s / block) rows reads grid i: receiver r's rows
         # its own shard's grids
         codes = grid_quant(own.reshape(-1, block), noise, lo.reshape(-1),
@@ -404,11 +445,15 @@ class Reliable:
 
 class Lossy(Reliable):
     """UBT best-effort delivery: the drop model (core/drops.py) decides each
-    receiver's arrivals, ``(P, n, S)`` with receiver r in row r, and the
-    loss counts feed ``ctx.loss_fraction``. ``self_index``, one row per
-    receiver, names the row each receiver never drops when it is not the
-    receiver's id (a degraded round schedule's virtual positions); the
-    draws stay keyed on the receiver's id either way."""
+    receiver's arrivals, ``(n, n, S)`` with the receiver of axis index r in
+    row r, and the loss counts feed ``ctx.loss_fraction``. A receiver's
+    mask is drawn under its index on the exchange's axis, so over the data
+    axis every pod drops the same spans (the reference keys it on
+    ``axis_index(axis)``); the topology lays the rows onto the peer grid
+    (``collectives.on_grid``). ``self_index``, one entry per receiver,
+    names the row each receiver never drops when it is not the receiver's
+    id (a degraded round schedule's virtual positions); the draws stay
+    keyed on the receiver's id either way."""
 
     def arrival_mask(self, ctx, n, s, self_index=None):
         if ctx.cfg.drop_rate <= 0.0:
@@ -522,7 +567,7 @@ class Topology:
 
 
 class PsumTopology(Topology):
-    """The native all-reduce: a mean over the peer axis."""
+    """The native all-reduce: a mean over every peer of both axes."""
 
     def validate(self, transport, codec):
         if not isinstance(codec, Identity) or isinstance(transport, Lossy):
@@ -530,7 +575,7 @@ class PsumTopology(Topology):
                              "drops (use a TAR topology)")
 
     def encode_stage(self, bucket, transport, codec, ctx):
-        cfg, n = ctx.cfg, collectives.axis_size(bucket)
+        cfg, n = ctx.cfg, collectives.axis_size(bucket, ctx.pods)
         if active_subset(cfg, n) is not None:
             raise ValueError(
                 "psum cannot exclude peers: degraded participation needs a "
@@ -542,7 +587,7 @@ class PsumTopology(Topology):
         return (bucket,)
 
     def exchange_stage(self, state, transport, codec, ctx):
-        return (collectives.pmean(state[0]),)
+        return (collectives.pmean(state[0], ctx.pods, ctx.data_axes()),)
 
     def decode_stage(self, state, length, transport, codec, ctx):
         return state[0]
@@ -553,7 +598,7 @@ class RingTopology(Topology):
     """Baseline schedules that reduce internally: Gloo Ring, recursive
     halving-doubling ("NCCL Tree"), Gloo BCube. They compose with a
     *linear* codec (decode commutes with the internal averaging) and a
-    reliable transport."""
+    reliable transport; a pod axis is folded in with a pmean."""
     kind: str = "ring"                   # ring | tree | bcube
 
     def __post_init__(self):
@@ -600,27 +645,33 @@ class RingTopology(Topology):
         return n if order is None else len(order)
 
     def encode_stage(self, bucket, transport, codec, ctx):
-        n = collectives.axis_size(bucket)
+        n = collectives.axis_size(bucket, ctx.pods)
         x, _ = tar_lib.pad_for_tar(bucket, self._pad_n(ctx.cfg, n),
                                    codec.block(ctx.cfg))
         return (codec.encode(x, ctx).data,)
 
     def exchange_stage(self, state, transport, codec, ctx):
         (data,) = state
-        n = collectives.axis_size(data)
+        pods = ctx.pods
+        n = collectives.axis_size(data, pods)
         active, order, weights = self._geometry(ctx.cfg, n)
         if order is not None:
             # the virtual ring of active peers in link-avoiding order; the
-            # graft replaces the ejected peers' garbage
-            out = ring_lib.ring_allreduce(data, active=order, weights=weights)
+            # graft replaces the ejected peers' garbage before the pod
+            # reduction can see it
+            out = ring_lib.ring_allreduce(data, active=order, weights=weights,
+                                          pods=pods)
             if active is not None:
-                out = tar_lib.graft_inactive(out, active)
+                out = tar_lib.graft_inactive(out, active, pods)
         elif self.kind == "ring":
-            out = ring_lib.ring_allreduce(data)
+            out = ring_lib.ring_allreduce(data, pods=pods)
         elif self.kind == "tree":
-            out = ring_lib.tree_allreduce(data)
+            out = ring_lib.tree_allreduce(data, pods)
         else:
-            out = ring_lib.bcube_allreduce(data, base=4 if n % 4 == 0 else 2)
+            out = ring_lib.bcube_allreduce(data, base=4 if n % 4 == 0 else 2,
+                                           pods=pods)
+        if pods > 1:
+            out = collectives.pmean(out, pods, collectives.POD)
         return (out,)
 
     def decode_stage(self, state, length, transport, codec, ctx):
@@ -636,9 +687,11 @@ class TarTopology(Topology):
     ``schedule``: ``'a2a'`` runs the stages as ``collectives.all_to_all``
     and ``all_gather`` views; ``'rounds'`` runs the paper's explicit
     2 * ceil((N-1)/I) round schedule of ``collectives.ppermute`` calls,
-    taking I from the transport. ``outer`` says how a pod axis would join
-    (``'tar'`` or ``'pmean'``); the pod axis itself waits for ROADMAP A15,
-    so here it only names the reference's composition.
+    taking I from the transport. ``outer`` says how a pod axis joins
+    between the stages: ``'tar'`` nests a TAR over the pods (§3.1.2
+    hierarchical 2D; a pmean where the shard does not cut into G parts),
+    ``'pmean'`` folds them with a plain pmean (what a quantizing codec
+    needs: values, not codes, cross the pods).
 
     Degraded participation (``cfg.active_peers`` a proper subset): the
     rounds schedule is regenerated over the virtual ring of active peers
@@ -656,6 +709,16 @@ class TarTopology(Topology):
             raise ValueError(f"unknown TAR schedule {self.schedule!r}")
         if self.outer not in ("tar", "pmean"):
             raise ValueError(f"unknown TAR outer mode {self.outer!r}")
+
+    def _outer_reduce(self, own: torch.Tensor,
+                      ctx: SyncContext) -> torch.Tensor:
+        """Join each data index's G pod replicas of its reduced shard."""
+        g = ctx.pods
+        if g <= 1:
+            return own
+        if self.outer == "tar" and own.shape[-1] % g == 0:
+            return tar_lib.tar_allreduce(own, pods=g, axis=collectives.POD)
+        return collectives.pmean(own, g, collectives.POD)
 
     def _participation(self, cfg: OptiReduceConfig, n: int):
         """(active, n_shards, weights, dead): the rounds schedule shards
@@ -688,7 +751,7 @@ class TarTopology(Topology):
 
     def encode_stage(self, bucket, transport, codec, ctx):
         cfg = ctx.cfg
-        n = collectives.axis_size(bucket)
+        n = collectives.axis_size(bucket, ctx.pods)
         _, n_shards, weights, _ = self._participation(cfg, n)
         if weights is not None:
             self._check_weighted(cfg, codec)
@@ -709,15 +772,15 @@ class TarTopology(Topology):
     def exchange_stage(self, state, transport, codec, ctx):
         data, amax, stale = state
         cfg = ctx.cfg
+        pods = ctx.pods
         lo = step = None
         if amax is not None:
             # deferred half of the split encode: share the grids over the
-            # peers, then quantize
-            enc = codec.encode_given_amax(data, collectives.pmax(amax)[0],
-                                          ctx)
+            # whole group, then quantize
+            enc = codec.encode_given_amax(data, shared_amax(amax, ctx), ctx)
             data, lo, step = enc.data, enc.lo, enc.step
         enc = Encoded(data, lo=lo, step=step, stale=stale)
-        n = collectives.axis_size(data)
+        n = collectives.axis_size(data, pods)
         active, n_shards, weights, dead = self._participation(cfg, n)
         rounds = self.schedule == "rounds"
         if weights is not None:
@@ -731,20 +794,23 @@ class TarTopology(Topology):
             shards = tar_lib.weighted_rows(data, plan)
         else:
             plan = None
-            shards = data.view(n, n_shards, -1)
+            shards = data.view(data.shape[0], n_shards, -1)
         s = shards.shape[-1]
         if rounds:
             received = tar_lib.tar_exchange_rounds(
                 shards, incast=transport.incast(ctx), active=active,
-                dead_links=dead)
+                dead_links=dead, pods=pods)
         else:
-            received = collectives.all_to_all(shards)
-        shard_index = None
+            received = collectives.all_to_all(shards, pods)
+        # receiver p reduces shard p (None), or its data index's shard over
+        # pods, or its virtual position's on a degraded round schedule
+        shard_index = None if pods == 1 else collectives.axis_index(data,
+                                                                    pods)
         if rounds and active is not None:
             # rows are in virtual-ring order; so are shard ownership and the
             # self row of the drop mask
             vpos, _ = tar_lib.peer_lookup(active, n)
-            shard_index = collectives.index(vpos, data.device)
+            shard_index = collectives.per_peer(vpos, data.device, pods)
             mask = transport.arrival_mask(ctx, n_shards, s, self_index=vpos)
         else:
             mask = transport.arrival_mask(ctx, n_shards, s)
@@ -757,16 +823,19 @@ class TarTopology(Topology):
                                          data.device).to(torch.float32)
                 rows = rows[:, None]
                 mask = rows.expand(n, n, s) if mask is None else mask * rows
+        if mask is not None:
+            mask = collectives.on_grid(mask, data, pods)
         own = codec.reduce(received, mask, enc, ctx, shard_index=shard_index)
+        own = self._outer_reduce(own, ctx)
         wire = codec.encode_shard(own, enc, ctx, shard_index=shard_index)
         if rounds:
             gathered = tar_lib.tar_broadcast_rounds(
                 wire, incast=transport.incast(ctx), active=active,
-                dead_links=dead, plan=plan)
+                dead_links=dead, plan=plan, pods=pods)
             if active is not None:
-                gathered = tar_lib.graft_inactive(gathered, active)
+                gathered = tar_lib.graft_inactive(gathered, active, pods)
         else:
-            gathered = collectives.all_gather(wire)
+            gathered = collectives.all_gather(wire, pods)
         return (gathered, lo, step)         # stale consumed in the reduce
 
     def decode_stage(self, state, length, transport, codec, ctx):
@@ -775,6 +844,56 @@ class TarTopology(Topology):
         out = codec.decode_gathered(gathered, Encoded(None, lo=lo, step=step),
                                     ctx)
         return out[..., :length]
+
+    def reduce_scatter(self, g: torch.Tensor, axis, dim: int,
+                       transport: Reliable, codec: Codec,
+                       ctx: SyncContext) -> torch.Tensor:
+        """TAR stage 1 + the compensated reduce on one tensor, scattering
+        ``dim`` over ``axis`` (``collectives.DATA`` or ``POD``): the FSDP
+        gradient reduction, whose deferred stage 2 is the next use's
+        gather. ``g``: ``(P, *shape)``, each peer's full tensor; returns
+        ``(P, *shard)``, peer p's reduced slice of ``dim`` (its index on
+        ``axis``). A Hadamard or quantizing codec rotates in fp32 (the sign
+        promotes a bf16 gradient, as jnp does); Identity keeps the wire
+        dtype. The caller casts back."""
+        cfg, pods, p = ctx.cfg, ctx.pods, g.shape[0]
+        n = collectives.axis_size(g, pods, axis)
+        active = active_subset(cfg, n)
+        part_n = n if active is None else len(active)
+        if weights_subset(cfg, part_n) is not None or dead_link_set(cfg, n):
+            raise ValueError(
+                "reduce_scatter runs as an all_to_all (the FSDP a2a form): "
+                "shard_weights / dead_links need the rounds schedule")
+        g2 = g.movedim(dim + 1, 1)
+        lead, rest = g2.shape[1], g2.shape[2:]
+        if lead % n:
+            raise ValueError(f"dim {dim} of length {lead} does not split "
+                             f"over {n} peers")
+        rows = g2.reshape(p, n, -1)                    # row j -> shard j
+        row_len = rows.shape[-1]
+        pad = (-row_len) % codec.block(cfg)
+        if not isinstance(codec, Identity):
+            rows = rows.to(torch.float32)
+        if pad:
+            rows = F.pad(rows, (0, pad))
+        enc = codec.encode(rows.reshape(p, -1), ctx)
+        shards = enc.data.view(p, n, -1)
+        received = collectives.all_to_all(shards, pods, axis)
+        s = received.shape[-1]
+        mask = transport.arrival_mask(ctx, n, s)
+        if active is not None:           # the same a2a exclusion as TAR
+            _, is_active = tar_lib.peer_lookup(active, n)
+            on = collectives.index(tuple(int(v) for v in is_active),
+                                   g.device).to(torch.float32)[:, None]
+            mask = on.expand(n, n, s) if mask is None else mask * on
+        if mask is not None:
+            mask = collectives.on_grid(mask, g, pods, axis)
+        shard_index = (None if n == p
+                       else collectives.axis_index(g, pods, axis))
+        own = codec.reduce(received, mask, enc, ctx, shard_index=shard_index)
+        own = codec.decode_values(own, enc, ctx)[..., :row_len]
+        out = own.reshape(p, lead // n, *rest)
+        return out.movedim(1, dim + 1)
 
 
 # ------------------------------------------------------------ spec + registry
@@ -808,11 +927,15 @@ class CollectiveSpec:
         return self.topology.decode_stage(state, length, self.transport,
                                           self.codec, ctx)
 
+    def reduce_scatter(self, g: torch.Tensor, axis, dim: int,
+                       ctx: SyncContext) -> torch.Tensor:
+        """Scatter ``dim`` of each peer's ``(P, *shape)`` tensor over
+        ``axis``, returning each peer's reduced shard (the FSDP form)."""
+        return self.topology.reduce_scatter(g, axis, dim, self.transport,
+                                            self.codec, ctx)
+
 
 _REGISTRY: dict[str, Callable[[OptiReduceConfig], CollectiveSpec]] = {}
-
-# reference strategies that wait for a later slice, with their ROADMAP item
-_NOT_PORTED = {"optireduce_2d": "A15"}
 
 
 def _recovered(codec: Codec, cfg: OptiReduceConfig):
@@ -845,10 +968,6 @@ def resolve_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
     cfg.check()
     factory = _REGISTRY.get(cfg.strategy)
     if factory is None:
-        item = _NOT_PORTED.get(cfg.strategy)
-        if item is not None:
-            raise NotImplementedError(f"strategy {cfg.strategy!r} is not "
-                                      f"ported yet: ROADMAP {item}")
         raise ValueError(f"unknown strategy {cfg.strategy!r}; one of "
                          f"{strategy_names()}")
     return factory(cfg)
@@ -871,6 +990,7 @@ register_strategy("tar_rounds",
 
 
 @register_strategy("optireduce")
+@register_strategy("optireduce_2d")   # cfg.pod_axis drives the 2D path
 def _optireduce_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
     codec = Hadamard() if cfg.use_hadamard else Identity()
     return CollectiveSpec(TarTopology(), Lossy(), _recovered(codec, cfg))
@@ -882,10 +1002,11 @@ def _optireduce_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
 # "it does" as the reference's does (ROADMAP C).
 @register_strategy("optireduce_q")
 def _optireduce_q_spec(cfg: OptiReduceConfig) -> CollectiveSpec:
-    """The quantized exchange: TAR x Lossy x HTQuant (the reference's
-    TarTopology(outer="pmean"); the pod axis it names is not ported)."""
+    """The quantized exchange: TAR x Lossy x HTQuant; values, not codes,
+    cross the pods."""
     # _recovered rejects recovery over quantized codes
-    return CollectiveSpec(TarTopology(), Lossy(), _recovered(HTQuant(), cfg))
+    return CollectiveSpec(TarTopology(outer="pmean"), Lossy(),
+                          _recovered(HTQuant(), cfg))
 
 
 @register_strategy("optireduce_rounds")

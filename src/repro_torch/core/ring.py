@@ -11,6 +11,8 @@ dropped hop loses the accumulated partial sum, §5.3) is in the dataflow.
 Divisions by the peer count round as the reference's XLA rounds them
 (``collectives.mean_of``). Where N is not a power of 2 (tree) or of the
 base (BCube), both fall back to the plain mean, as the reference does.
+On a ``(pod, data)`` grid (``pods`` > 1) every schedule runs over the data
+axis of all pods at once (``core/collectives.py``).
 """
 from __future__ import annotations
 
@@ -22,14 +24,15 @@ from .tar import (_ring_perms, peer_lookup, shard_plan, weighted_flat,
                   weighted_rows)
 
 
-def psum_mean(x: torch.Tensor) -> torch.Tensor:
-    return collectives.pmean(x)
+def psum_mean(x: torch.Tensor, pods: int = 1) -> torch.Tensor:
+    return collectives.pmean(x, pods)
 
 
 def ring_allreduce(x: torch.Tensor, *,
                    hop_masks: torch.Tensor | None = None,
                    active: tuple[int, ...] | None = None,
-                   weights: tuple[int, ...] | None = None) -> torch.Tensor:
+                   weights: tuple[int, ...] | None = None,
+                   pods: int = 1) -> torch.Tensor:
     """Bandwidth-optimal ring allreduce (Patarasuk-Yuan): N-1
     reduce-scatter hops, then N-1 all-gather hops over the ring i -> i+1.
 
@@ -44,7 +47,7 @@ def ring_allreduce(x: torch.Tensor, *,
     ``sum(weights)``, into ``tar.shard_plan`` slices that ride the ring
     zero-padded to the widest.
     """
-    p = x.shape[0]
+    p = collectives.axis_size(x, pods)
     if active is None and weights is not None:
         active = tuple(range(p))
     if active is None:
@@ -65,7 +68,7 @@ def ring_allreduce(x: torch.Tensor, *,
         chunks = weighted_rows(x, plan)
     else:
         plan = None
-        chunks = x.reshape(p, ring_n, x.shape[-1] // ring_n)
+        chunks = x.reshape(x.shape[0], ring_n, x.shape[-1] // ring_n)
 
     def at(shift: int) -> tuple[int, ...]:
         return tuple((kp + shift) % ring_n for kp in k)
@@ -73,39 +76,41 @@ def ring_allreduce(x: torch.Tensor, *,
     acc = chunks.clone()   # acc[p, c]: peer p's running partial sum of c
     # reduce-scatter: after N-1 hops peer k holds the sum of chunk (k+1)%n
     for h in range(ring_n - 1):
-        recv = collectives.ppermute(take_rows(acc, at(-h)), perm)
+        recv = collectives.ppermute(take_rows(acc, at(-h), pods), perm, pods)
         if hop_masks is not None:
             recv = recv * hop_masks[:, h]
-        put_rows(acc, at(-h - 1), take_rows(acc, at(-h - 1)) + recv)
-    own = collectives.mean_of(take_rows(acc, at(1)), ring_n)
+        put_rows(acc, at(-h - 1), take_rows(acc, at(-h - 1), pods) + recv,
+                 pods)
+    own = collectives.mean_of(take_rows(acc, at(1), pods), ring_n)
 
     # all-gather ring
     out = torch.zeros_like(chunks)
-    put_rows(out, at(1), own)
+    put_rows(out, at(1), own, pods)
     cur = own
     for h in range(ring_n - 1):
-        cur = collectives.ppermute(cur, perm)
+        cur = collectives.ppermute(cur, perm, pods)
         if hop_masks is not None:
             cur = cur * hop_masks[:, ring_n - 1 + h]
-        put_rows(out, at(-h), cur)
+        put_rows(out, at(-h), cur, pods)
     if plan is not None:
         return weighted_flat(out, plan)
-    return out.reshape(p, -1)
+    return out.reshape(x.shape[0], -1)
 
 
-def tree_allreduce(x: torch.Tensor) -> torch.Tensor:
+def tree_allreduce(x: torch.Tensor, pods: int = 1) -> torch.Tensor:
     """Recursive halving-doubling (the classic log-round tree allreduce,
     standing in for NCCL Tree): log2 N reduce-scatter + log2 N all-gather
     hops. After halving, peer i owns segment i; doubling reassembles them
     in order. ``(P, L)`` -> ``(P, L)``."""
-    n = x.shape[0]
+    n = collectives.axis_size(x, pods)
     if n & (n - 1):
-        return collectives.pmean(x)
+        return collectives.pmean(x, pods)
     upper = {}
     for d in (1 << t for t in range(n.bit_length() - 1)):
         # each peer's side of the pair exchanging at distance d
-        upper[d] = collectives.index(tuple(int(j & d != 0) for j in range(n)),
-                                     x.device).bool()[:, None]
+        upper[d] = collectives.per_peer(
+            tuple(int(j & d != 0) for j in range(n)), x.device,
+            pods).bool()[:, None]
     buf = x
     d = n // 2
     while d >= 1:
@@ -114,29 +119,31 @@ def tree_allreduce(x: torch.Tensor) -> torch.Tensor:
         lo, hi = buf[:, :half], buf[:, half:]
         mine = torch.where(upper[d], hi, lo)      # half this peer reduces
         theirs = torch.where(upper[d], lo, hi)    # half its partner owns
-        buf = mine + collectives.ppermute(theirs, perm)
+        buf = mine + collectives.ppermute(theirs, perm, pods)
         d //= 2
     own = collectives.mean_of(buf, n)             # (P, L/N): segment i
     d = 1
     while d < n:
-        recv = collectives.ppermute(own, [(j, j ^ d) for j in range(n)])
+        recv = collectives.ppermute(own, [(j, j ^ d) for j in range(n)],
+                                    pods)
         own = torch.where(upper[d], torch.cat([recv, own], dim=-1),
                           torch.cat([own, recv], dim=-1))
         d *= 2
     return own
 
 
-def bcube_allreduce(x: torch.Tensor, *, base: int = 4) -> torch.Tensor:
+def bcube_allreduce(x: torch.Tensor, *, base: int = 4,
+                    pods: int = 1) -> torch.Tensor:
     """Gloo-style BCube: k = log_base(N) stages. In each reduce stage the
     ``base`` peers of a group (peers differing in one base-``base`` digit)
     split their buffer into ``base`` parts and exchange, so each reduces
     the part of its digit; the all-gather mirrors the stages in reverse.
     base=2 is recursive halving-doubling. ``(P, L)`` -> ``(P, L)``."""
-    n = x.shape[0]
+    n = collectives.axis_size(x, pods)
     k, m = 0, n
     while m > 1:
         if m % base:
-            return collectives.pmean(x)           # N not a power of base
+            return collectives.pmean(x, pods)     # N not a power of base
         m //= base
         k += 1
     strides = [base ** t for t in range(k)]
@@ -154,21 +161,23 @@ def bcube_allreduce(x: torch.Tensor, *, base: int = 4) -> torch.Tensor:
 
     buf = x
     for stride in strides:                        # reduce-scatter stages
-        parts = buf.reshape(n, base, -1)
-        acc = take_rows(parts, digits(stride, 0))   # my digit's part, own
+        parts = buf.reshape(x.shape[0], base, -1)
+        acc = take_rows(parts, digits(stride, 0), pods)   # my digit's part
         for o in range(1, base):
-            send = take_rows(parts, digits(stride, o))
-            acc = acc + collectives.ppermute(send, group_perm(stride, o))
+            send = take_rows(parts, digits(stride, o), pods)
+            acc = acc + collectives.ppermute(send, group_perm(stride, o),
+                                             pods)
         buf = acc
     own = collectives.mean_of(buf, n)
 
     for stride in reversed(strides):              # all-gather stages
-        ordered = torch.empty((n, base, own.shape[-1]), dtype=own.dtype,
-                              device=own.device)
-        put_rows(ordered, digits(stride, 0), own)
+        ordered = torch.empty((x.shape[0], base, own.shape[-1]),
+                              dtype=own.dtype, device=own.device)
+        put_rows(ordered, digits(stride, 0), own, pods)
         for o in range(1, base):
             # the chunk of the peer whose digit is mine - o
             put_rows(ordered, digits(stride, -o),
-                     collectives.ppermute(own, group_perm(stride, o)))
-        own = ordered.reshape(n, -1)
+                     collectives.ppermute(own, group_perm(stride, o), pods),
+                     pods)
+        own = ordered.reshape(x.shape[0], -1)
     return own

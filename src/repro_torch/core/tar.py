@@ -1,10 +1,13 @@
 """Transpose AllReduce (TAR, §3.1) over the peer axis.
 
-Counterpart of ``src/repro/core/tar.py`` up to line 445 (the hierarchical
-2D form waits for ROADMAP A15). Stage mapping (DESIGN §2): stage 1 (shard
-exchange) -> ``collectives.all_to_all``; reduce -> the drop-compensated
-masked mean (kernel B2 on the card); stage 2 (broadcast) ->
-``collectives.all_gather``. Buckets are ``(P, L)`` stacks, one row per peer.
+Counterpart of ``src/repro/core/tar.py`` up to line 445. Stage mapping
+(DESIGN §2): stage 1 (shard exchange) -> ``collectives.all_to_all``;
+reduce -> the drop-compensated masked mean (kernel B2 on the card); stage 2
+(broadcast) -> ``collectives.all_gather``. Buckets are ``(P, L)`` stacks,
+one row per peer. On a ``(pod, data)`` grid (``pods`` > 1, see
+``core/collectives.py``) every schedule runs over the data axis in all pods
+at once, and :func:`tar_allreduce` over the pod axis is the hierarchical 2D
+form's outer reduce (§3.1.2).
 
 The paper's explicit round schedule (Fig 5b) runs rounds r = 1..N-1 as
 ``collectives.ppermute`` calls, each over all P peers at once, issued in
@@ -50,30 +53,40 @@ def masked_mean(received: torch.Tensor,
     the compensated mean (one kernel launch for all receivers on the
     card)."""
     if mask is None:
-        total = received[..., 0, :]
-        for i in range(1, received.shape[-2]):
-            total = total + received[..., i, :]
-        return collectives.mean_of(total, received.shape[-2])
+        # jnp.mean's arithmetic: a bf16 stack (the FSDP reduce-scatter's
+        # Identity wire) accumulates in fp32 and rounds once
+        x = received.to(torch.float32)
+        total = x[..., 0, :]
+        for i in range(1, x.shape[-2]):
+            total = total + x[..., i, :]
+        return collectives.mean_of(total, x.shape[-2]).to(received.dtype)
+    if received.dtype != torch.float32:
+        # the kernel takes fp32; a bf16 wire computes in fp32 and rounds
+        # once, as the plain version does
+        return _masked_mean_kernel(received.to(torch.float32),
+                                   mask).to(received.dtype)
     return _masked_mean_kernel(received, mask)
 
 
 def tar_reduce_scatter(x: torch.Tensor, *,
-                       mask: torch.Tensor | None = None) -> torch.Tensor:
-    """TAR stage 1 + reduce: ``(P, L)`` -> each peer's aggregated shard
-    ``(P, S)``. mask: ``(P, N, S)``, receiver r's arrivals in row r (its own
-    row always 1; see drops.make_mask)."""
-    p = collectives.axis_size(x)
-    s = x.shape[-1] // p
-    received = collectives.all_to_all(x.reshape(p, p, s))
+                       mask: torch.Tensor | None = None, pods: int = 1,
+                       axis=collectives.DATA) -> torch.Tensor:
+    """TAR stage 1 + reduce over ``axis`` (n peers): ``(P, L)`` -> each
+    peer's aggregated shard ``(P, L / n)``. mask: ``(P, n, S)``, receiver
+    r's arrivals in row r (its own row always 1; see drops.make_mask)."""
+    n = collectives.axis_size(x, pods, axis)
+    s = x.shape[-1] // n
+    received = collectives.all_to_all(x.reshape(x.shape[0], n, s), pods,
+                                      axis)
     return masked_mean(received, mask)
 
 
-def tar_allreduce(x: torch.Tensor, *,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Full TAR: all_to_all -> compensated reduce -> all_gather.
-    ``(P, L)`` -> ``(P, L)``."""
-    own = tar_reduce_scatter(x, mask=mask)
-    return collectives.all_gather(own)
+def tar_allreduce(x: torch.Tensor, *, mask: torch.Tensor | None = None,
+                  pods: int = 1, axis=collectives.DATA) -> torch.Tensor:
+    """Full TAR over ``axis``: all_to_all -> compensated reduce ->
+    all_gather. ``(P, L)`` -> ``(P, L)``."""
+    own = tar_reduce_scatter(x, mask=mask, pods=pods, axis=axis)
+    return collectives.all_gather(own, pods, axis)
 
 
 def relay_via(src: int, dst: int, participants: Sequence[int],
@@ -96,7 +109,7 @@ def relay_via(src: int, dst: int, participants: Sequence[int],
 
 def _grouped_rounds(n: int, incast: int, send_for_round,
                     perm_for_round=None, dead_links=(),
-                    participants=None) -> list[torch.Tensor]:
+                    participants=None, pods: int = 1) -> list[torch.Tensor]:
     """Run rounds 1..n-1, ``incast`` of them to a group; returns each
     round's ``(P, ...)`` receive, round r at index r-1.
 
@@ -123,13 +136,13 @@ def _grouped_rounds(n: int, incast: int, send_for_round,
                           if p[0] != p[1] and (p[0], p[1]) in dead]
             live = [p for p in perm if p not in dead_pairs]
             send = send_for_round(r)
-            recv = collectives.ppermute(send, live)
+            recv = collectives.ppermute(send, live, pods)
             for (src, dst) in dead_pairs:
                 m = relay_via(src, dst, participants
                               if participants is not None else range(n),
                               dead)
-                mid = collectives.ppermute(send, [(src, m)])
-                recv = recv + collectives.ppermute(mid, [(m, dst)])
+                mid = collectives.ppermute(send, [(src, m)], pods)
+                recv = recv + collectives.ppermute(mid, [(m, dst)], pods)
             rows.append(recv)
     return rows
 
@@ -259,8 +272,8 @@ def ring_order(active: tuple[int, ...], dead_links) -> tuple[int, ...]:
     return tuple(order)
 
 
-def graft_inactive(full: torch.Tensor,
-                   active: tuple[int, ...]) -> torch.Tensor:
+def graft_inactive(full: torch.Tensor, active: tuple[int, ...],
+                   pods: int = 1) -> torch.Tensor:
     """Deliver the assembled ``(P, L)`` result to ejected peers.
 
     A degraded schedule assembles the reduced bucket only on active peers;
@@ -269,7 +282,7 @@ def graft_inactive(full: torch.Tensor,
     rounds are summed (unnamed destinations receive zeros), then a select
     keeps the active peers' own bytes, as in the reference.
     """
-    n = full.shape[0]
+    n = collectives.axis_size(full, pods)
     ejected = [p for p in range(n) if p not in set(active)]
     if not ejected:
         return full
@@ -278,8 +291,9 @@ def graft_inactive(full: torch.Tensor,
     got = torch.zeros_like(full)
     for t in range(0, len(ejected), a):
         pairs = [(active[j], e) for j, e in enumerate(ejected[t:t + a])]
-        got = got + collectives.ppermute(full, pairs)
-    keep = collectives.index(tuple(int(v) for v in is_active), full.device)
+        got = got + collectives.ppermute(full, pairs, pods)
+    keep = collectives.per_peer(tuple(int(v) for v in is_active),
+                                full.device, pods)
     return torch.where(keep.view(-1, *([1] * (full.dim() - 1))) > 0, full,
                        got)
 
@@ -294,7 +308,7 @@ def _schedule(active: tuple[int, ...] | None, n: int):
 
 
 def _by_sender(rows: list[torch.Tensor], own: torch.Tensor,
-               k: tuple[int, ...], a: int) -> torch.Tensor:
+               k: tuple[int, ...], a: int, pods: int = 1) -> torch.Tensor:
     """Place each round's receive at its sender's row: ``(P, a, ...)``,
     row q of peer p from virtual sender q. Round r reached peer p from
     position (k[p] - r) % a; ``own`` (round 0) is p's own row. Each round is
@@ -303,13 +317,14 @@ def _by_sender(rows: list[torch.Tensor], own: torch.Tensor,
     out = torch.empty((own.shape[0], a, *own.shape[1:]), dtype=own.dtype,
                       device=own.device)
     for r, recv in enumerate([own, *rows]):
-        collectives.put_rows(out, tuple((kp - r) % a for kp in k), recv)
+        collectives.put_rows(out, tuple((kp - r) % a for kp in k), recv,
+                             pods)
     return out
 
 
 def tar_exchange_rounds(shards: torch.Tensor, *, incast: int = 1,
                         active: tuple[int, ...] | None = None,
-                        dead_links=()) -> torch.Tensor:
+                        dead_links=(), pods: int = 1) -> torch.Tensor:
     """Stage-1 shard exchange on the explicit round schedule (Fig 5b).
 
     shards: ``(P, N, S)``, peer p's row j = its contribution to shard j.
@@ -322,24 +337,25 @@ def tar_exchange_rounds(shards: torch.Tensor, *, incast: int = 1,
     after stage 2). Weighted shards are only rows of the matrix
     (:func:`weighted_rows`); ``dead_links`` relays around failed edges.
     """
-    p = shards.shape[0]
-    a, k, perm_for_round, participants = _schedule(active, p)
+    n = collectives.axis_size(shards, pods)
+    a, k, perm_for_round, participants = _schedule(active, n)
     if shards.shape[1] != a:
         raise ValueError(f"the round schedule over {a} positions needs {a} "
                          f"shards a peer, got {shards.shape[1]}")
 
     def take(r: int) -> torch.Tensor:
-        return collectives.take_rows(shards, tuple((kp + r) % a for kp in k))
+        return collectives.take_rows(shards, tuple((kp + r) % a for kp in k),
+                                     pods)
 
     rows = _grouped_rounds(a, max(1, int(incast)), take, perm_for_round,
-                           dead_links, participants)
-    return _by_sender(rows, take(0), k, a)
+                           dead_links, participants, pods)
+    return _by_sender(rows, take(0), k, a, pods)
 
 
 def tar_broadcast_rounds(own: torch.Tensor, *, incast: int = 1,
                          active: tuple[int, ...] | None = None,
-                         dead_links=(),
-                         plan: ShardPlan | None = None) -> torch.Tensor:
+                         dead_links=(), plan: ShardPlan | None = None,
+                         pods: int = 1) -> torch.Tensor:
     """Stage-2 broadcast of each peer's aggregated ``(P, S)`` shard on the
     mirrored round schedule. Returns the reassembled ``(P, N*S)`` bucket,
     the layout ``collectives.all_gather`` gives; over the virtual ring of
@@ -347,14 +363,14 @@ def tar_broadcast_rounds(own: torch.Tensor, *, incast: int = 1,
     ejected peers with :func:`graft_inactive`). With a weighted ``plan``
     each row is zero-padded to ``s_max`` and the reassembly concatenates
     each position's valid slice (:func:`weighted_flat`)."""
-    p = own.shape[0]
-    a, k, perm_for_round, participants = _schedule(active, p)
+    a, k, perm_for_round, participants = _schedule(
+        active, collectives.axis_size(own, pods))
     rows = _grouped_rounds(a, max(1, int(incast)), lambda r: own,
-                           perm_for_round, dead_links, participants)
-    out = _by_sender(rows, own, k, a)
+                           perm_for_round, dead_links, participants, pods)
+    out = _by_sender(rows, own, k, a, pods)
     if plan is not None:
         return weighted_flat(out, plan)
-    return out.reshape(p, a * own.shape[-1])
+    return out.reshape(own.shape[0], a * own.shape[-1])
 
 
 def tar_allreduce_rounds(x: torch.Tensor, *, incast: int = 1,

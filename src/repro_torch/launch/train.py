@@ -3,7 +3,9 @@ with the P peers on one card.
 
 Counterpart of ``src/repro/launch/train.py``. It takes the reference's
 flags; the values this slice does not run (wire transports, tensor
-parallelism, FSDP, ...) raise, naming their ROADMAP item. ``--recovery
+parallelism) raise, naming their ROADMAP item. ``--dp-mode fsdp`` trains
+ZeRO-3 style: the sharded weights' gradients are reduced by OptiReduce's
+reduce-scatter (``train/trainer.py``). ``--recovery
 stale|ef|ef+budget`` arms the loss-recovery codec (core/recovery.py) and
 threads its state through the steps; ``ef+budget`` adds the control plane's
 phase-aware ``LossBudget``, its phase fed from the step count and the loss.
@@ -41,6 +43,8 @@ Example:
       --incast 2
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 2 --dp-mode fsdp --drop-rate 0.05
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 6 --adaptive --drop-rate 0.002 --trace build/trace
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
@@ -155,9 +159,8 @@ _NOT_PORTED = (
     ("transport", "lossy", "--transport inproc|udp (wire): ROADMAP A18"),
     ("wire_deadline", None, "--wire-deadline: ROADMAP A18"),
     ("rendezvous", None, "--rendezvous: ROADMAP A18"),
-    ("tp", 1, "--tp > 1 (tensor parallelism): ROADMAP A15"),
-    ("production_mesh", False, "--production-mesh: ROADMAP A15"),
-    ("dp_mode", "replicated", "--dp-mode fsdp: ROADMAP A15"),
+    ("tp", 1, "--tp > 1 (tensor parallelism): ROADMAP A15b"),
+    ("production_mesh", False, "--production-mesh: ROADMAP A15b"),
 )
 
 
@@ -194,7 +197,8 @@ def run(argv=None) -> list[dict]:
                               incast=args.incast, recovery=args.recovery,
                               hadamard_block=1024),
         optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr),
-        microbatch=args.microbatch, sync_mode=args.sync_mode,
+        dp_mode=args.dp_mode, microbatch=args.microbatch,
+        sync_mode=args.sync_mode,
         kernel_mode=args.kernel_mode, seq_chunk=min(512, args.seq_len))
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq_len,

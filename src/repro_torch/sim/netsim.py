@@ -625,12 +625,6 @@ _NATIVE_TIMING = ("optireduce", "tar_tcp", "gloo_ring", "ring", "nccl_ring",
                   "nccl_tree", "tree", "bcube", "ps")
 
 
-# The family the reference's registry gives a strategy the port registers
-# only in a later slice: optireduce_2d is TAR x Lossy over a second (pod)
-# axis, ROADMAP A15.
-_PENDING_FAMILY = {"optireduce_2d": "optireduce"}
-
-
 def timing_family(strategy: str) -> str:
     """Map a strategy name to this simulator's timing family.
 
@@ -647,8 +641,6 @@ def timing_family(strategy: str) -> str:
     try:                                 # lazy: keeps numpy-only imports fast
         from repro_torch.core import pipeline as pl
         spec = pl.resolve_spec(pl.OptiReduceConfig(strategy=strategy))
-    except NotImplementedError:          # a name of pipeline._NOT_PORTED
-        return _PENDING_FAMILY.get(strategy, strategy)
     except Exception:
         return strategy                  # unknown: let the caller's table err
     topo = spec.topology

@@ -17,11 +17,11 @@ from repro.core.safeguards import LossMonitor as JMonitor  # noqa: E402
 from repro.core.safeguards import guard_scale as jguard  # noqa: E402
 from repro_torch.core import collectives  # noqa: E402
 from repro_torch.core.allreduce import (OptiReduceConfig,  # noqa: E402
-                                        sync_pytree)
+                                        rs_spec, sync_pytree)
 from repro_torch.core.bucket_plan import BucketPlan, bucket_keys  # noqa: E402
 from repro_torch.core.keys import fold_in, generator, seed_of  # noqa: E402
 from repro_torch.core.pipeline import (CollectiveSpec, GeneratorDraws,  # noqa: E402
-                                       Hadamard, Lossy, PsumTopology,
+                                       Hadamard, HTQuant, Lossy, PsumTopology,
                                        SyncContext, TarTopology,
                                        resolve_spec)
 from repro_torch.core.safeguards import (LossMonitor, guard_scale,  # noqa: E402
@@ -140,18 +140,19 @@ def test_collectives_on_the_peer_axis():
     ("dead_links", ((0, 1),), "A14"), ("recovery", "ef", "A16"),
 ])
 def test_unported_config_values_raise(field, value, item):
-    """The pod axis and FSDP still raise naming their item; the
-    participation policies of A14 and loss recovery (A16), both ported,
-    resolve (their semantics are held against the reference in
+    """Every field value of the reference now resolves: the pod axis and
+    the FSDP wire width (A15), the participation policies of A14 and loss
+    recovery (A16) (their semantics are held against the reference in
+    tests/test_torch_pod.py, tests/test_torch_fsdp.py,
     tests/test_torch_rounds_sync.py and tests/test_torch_recovery.py)."""
     cfg = OptiReduceConfig(strategy="optireduce_rounds", **{field: value})
-    if item in ("A14", "A16"):
-        spec = resolve_spec(cfg)
-        assert getattr(spec.topology, "schedule") == "rounds"
-        assert (type(spec.codec).__name__ == "StaleFill") == (item == "A16")
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        resolve_spec(cfg)
+    spec = resolve_spec(cfg)
+    assert getattr(spec.topology, "schedule") == "rounds"
+    assert (type(spec.codec).__name__ == "StaleFill") == (item == "A16")
+    if field == "rs_wire_bits":
+        codec = rs_spec(cfg).codec
+        assert isinstance(codec, HTQuant) and codec.bits == value
+        assert codec.noise_salt == 9
 
 
 def test_registry_and_validation():
@@ -165,8 +166,13 @@ def test_registry_and_validation():
     assert TarTopology(schedule="rounds").schedule == "rounds"
     with pytest.raises(ValueError, match="schedule"):
         TarTopology(schedule="nope")
-    with pytest.raises(NotImplementedError, match="A15"):
-        resolve_spec(OptiReduceConfig(strategy="optireduce_2d"))
+    spec2d = resolve_spec(OptiReduceConfig(strategy="optireduce_2d",
+                                           pod_axis="pod"))
+    assert spec2d.topology == TarTopology(outer="tar")
+    assert isinstance(spec2d.transport, Lossy)
+    assert isinstance(spec2d.codec, Hadamard)
+    assert resolve_spec(OptiReduceConfig(
+        strategy="optireduce_q")).topology.outer == "pmean"
 
 
 def test_use_kernels_demands_the_card():

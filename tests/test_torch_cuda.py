@@ -352,6 +352,67 @@ def test_sync_packed_on_card_matches_cpu(dev, mode, strategy):
     torch.testing.assert_close(got.cpu(), want, atol=ROT_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("codec", ["hadamard", "identity", "quant"])
+def test_fsdp_reduce_scatter_on_card_matches_cpu(dev, codec):
+    """The FSDP reduce-scatter of the embedding's gradient at gpt2-paper's
+    width (bf16 (4, 50,257, 768), dim 1, tail drops 0.01, blocks of 1024:
+    B1 encodes (4, 37,696, 1024) and B2 on a (4, 4, 9,650,176) view; with
+    the rotation off, B2 on the bf16 wire widened to fp32; or B3, B4, B5
+    with the 8-bit wire): the card's kernels against the plain versions on
+    the CPU, with the same draws."""
+    from repro_torch.core import collectives
+    from repro_torch.core.allreduce import reduce_scatter_axis
+    bits = 8 if codec == "quant" else 0
+    cfg = OptiReduceConfig(drop_rate=0.01, hadamard_block=1024,
+                           rs_wire_bits=bits,
+                           use_hadamard=codec != "identity")
+    g = torch.randn((4, 50_257, 768), generator=torch.Generator()
+                    .manual_seed(1)).to(torch.bfloat16)
+    want = reduce_scatter_axis(g, collectives.DATA, 1, SyncContext(
+        cfg=cfg, draws=_HostDraws(cfg, torch.device("cpu")), bucket=()))
+    launched = fwht_ops.launches, mm_ops.launches
+    got = reduce_scatter_axis(g.to(dev), collectives.DATA, 1, SyncContext(
+        cfg=cfg, draws=_HostDraws(cfg, dev), bucket=()))
+    assert (fwht_ops.launches - launched[0], mm_ops.launches - launched[1]) \
+        == {"hadamard": (2, 1), "identity": (0, 1), "quant": (1, 0)}[codec]
+    assert got.shape == (4, 50_257, 192)
+    assert got.dtype == (torch.bfloat16 if codec == "identity"
+                         else torch.float32)
+    if codec == "identity":
+        # fp32 sums within MEAN_TOL may round to neighbouring bf16 values
+        tol = 2.0 ** -7 * float(want.abs().max().float())
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=tol, rtol=0)
+        return
+    if codec == "hadamard":
+        torch.testing.assert_close(got.cpu(), want, atol=ROT_TOL, rtol=0)
+        return
+    # B3/B4 codes equal the plain version's on one device; across devices
+    # a code on a floor boundary may move its block by a grid step
+    err = (got.cpu() - want).abs()
+    assert float((err > ROT_TOL).float().mean()) <= 1e-3
+    assert float(err.max()) <= 2 * float(want.abs().max()) / 255 + ROT_TOL
+
+
+@pytest.mark.parametrize("strategy", ["optireduce_2d", "optireduce_q"])
+def test_pod_grid_sync_on_card_matches_cpu(dev, strategy):
+    """``sync_packed`` on a (2 pods x 4) grid: one kernel launch a bucket
+    for both pods, the card against the CPU, every peer the same bits."""
+    cfg = OptiReduceConfig(strategy=strategy, drop_rate=0.05,
+                           hadamard_block=1024, pod_axis="pod")
+    arena = torch.randn((8, 3, 16_384), generator=torch.Generator()
+                        .manual_seed(2))
+    want = sync_packed(arena, SyncContext(
+        cfg=cfg, draws=_HostDraws(cfg, torch.device("cpu")), pods=2))
+    launched = fwht_ops.launches
+    got = sync_packed(arena.to(dev), SyncContext(
+        cfg=cfg, draws=_HostDraws(cfg, dev), pods=2))
+    assert fwht_ops.launches - launched == (6 if strategy == "optireduce_2d"
+                                            else 3)
+    torch.testing.assert_close(got.cpu(), want, atol=ROT_TOL, rtol=0)
+    assert all(torch.equal(got[p], got[0]) for p in range(1, 8))
+
+
 class _HostDraws:
     """The CPU provider's draws, served on the card: both runs of a
     comparison see the same signs, masks and noises."""

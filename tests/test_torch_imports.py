@@ -35,7 +35,8 @@ def test_scan_sees_the_package():
     for path in ("sim/__init__.py", "sim/tta.py", "core/compression.py",
                  "core/ring.py", "core/ubt.py", "sim/netsim.py",
                  "obs/trace.py", "obs/report.py", "runtime/control.py",
-                 "core/recovery.py", "train/checkpoint.py"):
+                 "core/recovery.py", "train/checkpoint.py",
+                 "models/parallel.py", "launch/mesh.py"):
         assert pkg / path in FILES
     assert "torch" in _imported(ROOT / "src" / "repro_torch" / "kernels"
                                 / "fwht" / "ops.py")

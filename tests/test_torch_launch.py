@@ -45,12 +45,15 @@ def test_main_returns_zero_with_scan_and_microbatches():
 def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
     """Flags of later slices raise naming their item; those of the ported
     items train one step: the round schedule and the ring baselines (A14),
-    the control plane (A17), the tracer (A19, writing into the working
-    directory), loss recovery (A16) and checkpoints (A12, a ``--resume``
-    with nothing to resume starting at step 0)."""
+    FSDP and ``optireduce_2d`` (A15; on one pod the 2D strategy runs as
+    ``optireduce``), the control plane (A17), the tracer (A19, writing into
+    the working directory), loss recovery (A16) and checkpoints (A12, a
+    ``--resume`` with nothing to resume starting at step 0). ``--tp``
+    still raises (A15b, see below)."""
     monkeypatch.chdir(tmp_path)
     argv = ["--smoke", "--device", "cpu", "--steps", "1", *flags]
-    if item in ("A12", "A14", "A16", "A17", "A19"):
+    if item in ("A12", "A14", "A16", "A17", "A19") or (
+            item == "A15" and "--tp" not in flags):
         records = train.run([*argv, "--seq-len", "16"])
         assert len(records) == 1 and math.isfinite(records[0]["loss"])
         assert (tmp_path / "trace_rank00.json").exists() == (item == "A19")
@@ -60,6 +63,33 @@ def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
         return
     with pytest.raises(NotImplementedError, match=item):
         train.run(argv)
+
+
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--production-mesh"]])
+def test_tensor_parallel_flags_name_a15b(flags):
+    with pytest.raises(NotImplementedError, match="A15b"):
+        train.run(["--smoke", "--device", "cpu", "--steps", "1", *flags])
+
+
+def test_fsdp_launch_two_steps_on_cpu(capsys):
+    """``--dp-mode fsdp`` through the launcher: the reduce-scatter reduces
+    the sharded weights, the norms' bucket gives ``loss_frac``."""
+    records = train.run(["--smoke", "--device", "cpu", "--steps", "2",
+                         "--seq-len", "32", "--dp-mode", "fsdp",
+                         "--drop-rate", "0.01", "--microbatch", "1",
+                         "--log-every", "1"])
+    assert len(records) == 2
+    for rec in records:
+        assert math.isfinite(rec["loss"]) and rec["loss"] > 0
+        assert math.isfinite(rec["grad_norm"])
+    assert "done" in capsys.readouterr().out
+
+
+def test_fsdp_with_recovery_raises():
+    with pytest.raises(ValueError, match="dp_mode='replicated'"):
+        train.run(["--smoke", "--device", "cpu", "--steps", "1",
+                   "--seq-len", "16", "--dp-mode", "fsdp", "--recovery",
+                   "stale"])
 
 
 def test_recovery_over_quantized_codes_raises():
