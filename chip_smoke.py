@@ -160,6 +160,24 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 32. ``profile`` of one ``--dp-mode fsdp`` step as in 9., with its peak
     memory.
 
+33. ``tp_shapes``: B1-B6 at the shapes of the ``(data 4, model 2)`` grid
+    (one bucket of the ``(8, 12, 6,553,600)`` arena, both tp groups in one
+    launch) against their plain versions, as 3.-5. (B3, B4, B6 bitwise; B4
+    with one set of grids a tp group), timed with their bounds;
+34. ``tp_main``, ``tp_q``, ``tp_fsdp``: the launcher with ``--tp 2`` beside
+    the 4 data peers at 6.'s full width, 4 steps each: each tp rank's local
+    leaves (75,941,376 entries) in 12 buckets, so 24 B1 and 12 B2 a step;
+    ``optireduce_q`` 12 each of B1 and B3-B6; FSDP x TP 174 B1 and 87 B2
+    (86 gather sites and the norms' bucket, each over both tp groups at
+    once);
+35. ``tp_prod``: ``--production-mesh --smoke --global-batch 16``, 2 steps:
+    256 peers (16 x 16) on gpt2-smoke, heads padded 4 -> 16, one KV head a
+    shard, vocab 512 / 16; one bucket, 2 B1 and 1 B2 a step;
+36. ``tp_check``: gpt2-smoke at ``(data 2, model 2)`` on the card against
+    the CPU as 31., replicated, FSDP x TP and ``seq_parallel``, 2 steps
+    each;
+37. ``profile`` of one ``--tp 2`` step as in 9.
+
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
 Without CUDA, or without the repository around it, it prints no result and
@@ -400,6 +418,11 @@ def main() -> int:
     a15_paths(dev, counters)
     check_a15_against_cpu(dev)
 
+    # 33.-36. tensor parallelism (ROADMAP A15b)
+    check_tp_shapes(dev, gen)
+    tp_paths(counters)
+    check_tp_against_cpu(dev)
+
     # 21.-23. loss recovery through the launcher at full width; 24. the
     # budget's report; 25. card against CPU; 26. checkpoints and resume
     recovery_paths(counters)
@@ -427,6 +450,7 @@ def main() -> int:
         profile_step(dev, strategy)
     profile_step(dev, "optireduce", recovery="ef", pattern="burst")
     profile_step(dev, "optireduce", dp_mode="fsdp")
+    profile_step(dev, "optireduce", tp=TP)
 
     # 10. B7, THC's quantizer, at the THC path's full-width shape
     b7 = check_uniform_quant(dev, gen)
@@ -545,7 +569,7 @@ def sweep_ht_kernels(dev, gen, regs: dict) -> None:
                      hq_ref.ht_amax_flops(rows, n)),
                     ("ht_quant", lambda: hq_ops.ht_quant_launch(
                         x, sign, noise, lo, step, bits=8),
-                     hq_ref.ht_quant_bytes(rows, n, per_peer),
+                     hq_ref.ht_quant_bytes(rows, n, per_peer, per_peer),
                      hq_ref.ht_quant_flops(rows, n))):
                 ms = time_ms(fn)
                 b_ms, b_by = bound(nbytes, flops)
@@ -628,7 +652,7 @@ def check_quant_kernels(dev, gen, regs: dict) -> dict:
                                                   bits=8)),
            time_ms(lambda: hq_ref.ht_quant_ref(x, sign, noise, lo, step,
                                                bits=8), reps=5),
-           hq_ref.ht_quant_bytes(rows, BLOCK, PEER_BLOCKS),
+           hq_ref.ht_quant_bytes(rows, BLOCK, PEER_BLOCKS, PEER_BLOCKS),
            hq_ref.ht_quant_flops(rows, BLOCK), shape=list(x.shape),
            mismatched_codes=mismatched,
            registers=ht_registers(regs, BLOCK, True))
@@ -1005,7 +1029,8 @@ def train_main_path(strategy: str, steps: int, counters: dict, *,
                  f"{rec['filled']} entries")
     emit({"phase": phase, "strategy": strategy, "recovery": recovery,
           "drop_pattern": pattern, "arch": "gpt2-paper",
-          "peers": PEERS, "steps": steps, "peak_mem_bytes": peak,
+          "peers": PEERS, "flags": list(extra), "steps": steps,
+          "peak_mem_bytes": peak,
           "launches": counts,
           "per_step": {k: v / steps for k, v in counts.items()}})
     return counts, records
@@ -1048,8 +1073,8 @@ class _StepWatch:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        def build(cfg, tc, **kw):
-            step_fn, opt = build_train_step(cfg, tc, **kw)
+        def build(cfg, tc, *args, **kw):
+            step_fn, opt = build_train_step(cfg, tc, *args, **kw)
             self.builds.append(tc.sync)
 
             def watched(*args, **kwargs):
@@ -1787,13 +1812,15 @@ def check_step_against_cpu(dev, strategy: str) -> None:
 
 
 def profile_step(dev, strategy: str, *, recovery: str = "none",
-                 pattern: str = "tail", dp_mode: str = "replicated") -> None:
+                 pattern: str = "tail", dp_mode: str = "replicated",
+                 tp: int = 1) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core import recovery as recovery_lib
     from repro_torch.core.allreduce import OptiReduceConfig
     from repro_torch.core.bucket_plan import BucketPlan
     from repro_torch.core.keys import generator, key
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import init_params
     from repro_torch.train.trainer import TrainConfig, build_train_step
 
@@ -1805,8 +1832,9 @@ def profile_step(dev, strategy: str, *, recovery: str = "none",
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
                                   global_batch=8, seed=0))
     k = key(0)
-    params = init_params(generator(k, dev), cfg, device=dev)
-    step_fn, opt = build_train_step(cfg, tc, peers=4, device=dev)
+    params = init_params(generator(k, dev), cfg, device=dev, tp=tp)
+    step_fn, opt = build_train_step(cfg, tc, make_host_mesh(PEERS, tp),
+                                    device=dev)
     state = opt.init(params)
     plan = BucketPlan.for_tree(params, tc.bucket_elems)
     rec = recovery_lib.init_state(recovery_lib.parse(recovery),
@@ -1825,6 +1853,8 @@ def profile_step(dev, strategy: str, *, recovery: str = "none",
     label = {"strategy": strategy, "arch": cfg.name, "peers": PEERS}
     if dp_mode != "replicated":
         label.update(dp_mode=dp_mode)
+    if tp > 1:
+        label.update(tp=tp)
     if recovery != "none":
         label.update(recovery=recovery, drop_pattern=pattern)
     profile_third_step(one, label)
@@ -1911,8 +1941,8 @@ def check_a15_shapes(dev, gen) -> None:
                 PEERS, PEERS, EMBED_ROW)),
             ("pod_bucket", torch.randn((2 * PEERS, PEERS, SHARD),
                                        generator=gen, device=dev))):
-        pods = 1 if site == "embed" else 2
-        received = collectives.all_to_all(shards, pods)
+        grid = collectives.Grid(pods=1 if site == "embed" else 2)
+        received = collectives.all_to_all(shards, grid)
         mask = (torch.rand(received.shape, generator=gen, device=dev)
                 < 0.99).to(torch.float32)
         got = mm_ops.masked_mean_launch(received, mask)
@@ -1960,7 +1990,7 @@ def check_a15_shapes(dev, gen) -> None:
                                                bits=8), reps=10),
         time_ms(lambda: hq_ref.ht_quant_ref(x, sign, noise, lo, step,
                                             bits=8), reps=2, warmup=1),
-        hq_ref.ht_quant_bytes(PEERS * rows, BLOCK, rows),
+        hq_ref.ht_quant_bytes(PEERS * rows, BLOCK, rows, rows),
         hq_ref.ht_quant_flops(PEERS * rows, BLOCK))
     del x, want, noise
     received = codes.view(PEERS, PEERS, EMBED_ROW).transpose(0, 1)
@@ -2107,6 +2137,23 @@ def check_a15_against_cpu(dev) -> None:
     bucket draws and the gather sites' draws, both made on the CPU):
     metrics, parameters and both AdamW moments within ``STEP_TOL``, the
     card's B1 and B2 launches exact."""
+    # 16 gather sites (2 layers x 7, the embedding twice) of 2 B1 + 1 B2,
+    # and the norms' bucket; the pod grid's 8 buckets of 2 B1 + 1 B2
+    cpu_cases(dev, {
+        "fsdp_check": ("optireduce", "fsdp", False, None, (PEERS,), 2,
+                       (34, 17)),
+        "fsdp_check_micro2": ("optireduce", "fsdp", False, 1, (PEERS,), 1,
+                              (2 * 32 + 2, 2 * 16 + 1)),
+        "pod_check": ("optireduce_2d", "replicated", True, None, (PEERS, 2),
+                      2, (16, 8))})
+
+
+def cpu_cases(dev, cases: dict, seq_parallel: bool = False) -> None:
+    """gpt2-smoke steps on the card against the plain versions on the CPU
+    for each case ``phase: (strategy, dp_mode, pure_dp, microbatch, mesh,
+    steps, (B1, B2) launches a step)``: same parameters (at the mesh's tp
+    degree unless ``pure_dp``) and draws, metrics, parameters and both
+    AdamW moments within ``STEP_TOL``, the card's launches exact."""
     import torch
     from repro_torch.configs import get_smoke
     from repro_torch.core.allreduce import OptiReduceConfig
@@ -2127,24 +2174,18 @@ def check_a15_against_cpu(dev) -> None:
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                                   global_batch=8, seed=0))
     k = key(0)
-    base = init_params(generator(k), cfg, device="cpu")
-    # 16 gather sites (2 layers x 7, the embedding twice) of 2 B1 + 1 B2,
-    # and the norms' bucket; the pod grid's 8 buckets of 2 B1 + 1 B2
-    cases = {"fsdp_check": ("optireduce", "fsdp", False, None, (PEERS,), 2,
-                            (34, 17)),
-             "fsdp_check_micro2": ("optireduce", "fsdp", False, 1, (PEERS,),
-                                   1, (2 * 32 + 2, 2 * 16 + 1)),
-             "pod_check": ("optireduce_2d", "replicated", True, None,
-                           (PEERS, 2), 2, (16, 8))}
     for phase, (strategy, mode, pure, micro, mesh, steps, per_step) in \
             cases.items():
+        tp = 1 if pure or len(mesh) == 1 else mesh[1]
+        base = init_params(generator(k), cfg, device="cpu", tp=tp)
         sync = OptiReduceConfig(strategy=strategy, drop_rate=0.05,
                                 drop_pattern="tail", hadamard_block=256,
                                 skip_threshold=0.9,
                                 pod_axis="model" if pure else None)
         tc = TrainConfig(sync=sync, optimizer=OptimizerConfig(lr=1e-2),
                          bucket_elems=16_384, seq_chunk=32, dp_mode=mode,
-                         pure_dp=pure, microbatch=micro)
+                         pure_dp=pure, microbatch=micro,
+                         seq_parallel=seq_parallel)
         devices = {"cpu": torch.device("cpu"), "cuda": dev}
         fns, params, states, metrics = {}, {}, {}, {}
         for name, device in devices.items():
@@ -2183,6 +2224,7 @@ def check_a15_against_cpu(dev) -> None:
         emit({"phase": phase, "arch": cfg.name, "steps": steps,
               "strategy": strategy, "dp_mode": mode, "pure_dp": pure,
               "microbatch": micro, "mesh": list(mesh),
+              "seq_parallel": seq_parallel,
               "max_abs_diff": diffs, "tolerance": STEP_TOL,
               "card_launches_b1_b2": list(launched),
               "cpu": metrics["cpu"], "gpu": metrics["cuda"]})
@@ -2190,6 +2232,219 @@ def check_a15_against_cpu(dev) -> None:
                 and launched == want):
             fail(f"{phase}: card vs CPU {diffs}, launches {launched} "
                  f"(expected {want})")
+
+
+# ------------------------------------------------ tensor parallelism (A15b)
+TP = 2
+# gpt2-paper's local leaves a tp rank at tp = 2: half the padded embedding
+# (50,258 / 2 x 768), 12 layers x 4,718,592, 19,200 of norms
+TP_LOCAL = 19_299_072 + 12 * 4_718_592 + 19_200
+TP_BUCKETS = -(-TP_LOCAL // BUCKET)                       # 12
+# per-step launches of the tensor-parallel paths (see the docstring)
+TP_PER_STEP = {
+    "tp_main": {"fwht": 2 * TP_BUCKETS, "masked_mean": TP_BUCKETS},
+    "tp_q": {"fwht": TP_BUCKETS, "ht_amax": TP_BUCKETS,
+             "ht_quant": TP_BUCKETS, "dequant_mean": TP_BUCKETS,
+             "grid_quant": TP_BUCKETS},
+    "tp_fsdp": {"fwht": 174, "masked_mean": 87},
+    "tp_prod": {"fwht": 2, "masked_mean": 1},
+}
+
+
+def tp_paths(counters: dict) -> None:
+    """Phases ``tp_main``, ``tp_q``, ``tp_fsdp`` (the launcher at full width
+    with ``--tp 2`` beside the 4 data peers, 4 steps each) and ``tp_prod``
+    (``--production-mesh --smoke --global-batch 16``, 2 steps): launches
+    held exactly to ``TP_PER_STEP``."""
+    runs = (("tp_main", "optireduce", 4, ("--tp", str(TP))),
+            ("tp_q", "optireduce_q", 4, ("--tp", str(TP))),
+            ("tp_fsdp", "optireduce", 4, ("--tp", str(TP), "--dp-mode",
+                                          "fsdp")),
+            ("tp_prod", "optireduce", 2, ("--production-mesh", "--smoke",
+                                          "--global-batch", "16")))
+    for phase, strategy, steps, extra in runs:
+        counts, _ = train_main_path(strategy, steps, counters, phase=phase,
+                                    extra=extra,
+                                    loss_seen=phase != "tp_fsdp")
+        want = {n: 0 for n in counters}
+        want.update({n: v * steps for n, v in TP_PER_STEP[phase].items()})
+        if counts != want:
+            fail(f"{phase}: launch counts {counts} over {steps} steps, "
+                 f"expected {want}")
+
+
+def check_tp_against_cpu(dev) -> None:
+    """Phase ``tp_check``: gpt2-smoke at ``(data 2, model 2)`` on the card
+    against the CPU, replicated, FSDP x TP and under ``seq_parallel``, 2
+    steps each, as ``fsdp_check``. gpt2-smoke's local leaves at tp = 2 are
+    57,664 entries, 4 buckets of 16,384 (2 B1 + 1 B2 each); FSDP x TP has
+    the 16 gather sites and the norms' bucket of ``fsdp_check``."""
+    cpu_cases(dev, {
+        "tp_check": ("optireduce", "replicated", False, None, (2, TP), 2,
+                     (8, 4)),
+        "tp_check_fsdp": ("optireduce", "fsdp", False, None, (2, TP), 2,
+                          (34, 17))})
+    cpu_cases(dev, {"tp_check_sp": ("optireduce", "replicated", False, None,
+                                    (2, TP), 2, (8, 4))}, seq_parallel=True)
+
+
+def check_tp_shapes(dev, gen) -> None:
+    """Phase ``tp_shapes``: B1-B6 at the shapes the ``(data 4, model 2)``
+    grid gives them, against their plain versions (tolerances of 3.-5.:
+    B3, B4, B6 bitwise), timed with their bounds: one bucket of the
+    ``(8, 12, 6,553,600)`` arena, its 8 peers (both tp groups) in one
+    launch: B1's encode on the strided arena slice and its decode on the
+    gathered copy, B2 on the tp grid's all_to_all copy, B3 and B4 (one set
+    of grids a tp group), B5 on the codes' all_to_all copy with each
+    receiver's group grids, B6 on the reduced shards."""
+    import torch
+    from repro_torch.core import collectives
+    from repro_torch.kernels.dequant_reduce import ops as dq_ops
+    from repro_torch.kernels.dequant_reduce import ref as dq_ref
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.fwht import ref as fwht_ref
+    from repro_torch.kernels.ht_quant import ops as hq_ops
+    from repro_torch.kernels.ht_quant import ref as hq_ref
+    from repro_torch.kernels.masked_sum import ops as mm_ops
+    from repro_torch.kernels.masked_sum import ref as mm_ref
+    from repro_torch.kernels.quant import ops as gq_ops
+    from repro_torch.kernels.quant import ref as gq_ref
+
+    p = TP * PEERS
+
+    def row(kernel, what, shape, err, fn, plain, nbytes, flops, **kw):
+        ms = time_ms(fn, reps=10)
+        plain_ms = time_ms(plain, reps=2, warmup=1)
+        b_ms, b_by = bound(nbytes, flops)
+        emit({"phase": "tp_shapes", "kernel": kernel, "what": what,
+              "shape": list(shape), "max_abs_err": err, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "share_of_bound": b_ms / ms, **kw})
+
+    def check(name, err, tol):
+        if not math.isfinite(err) or err > tol:
+            fail(f"tp_shapes {name}: max abs err {err} > {tol}")
+
+    sign = torch.where(torch.rand((BLOCK,), generator=gen, device=dev) < 0.5,
+                       1.0, -1.0)
+    arena = torch.randn((p, 2, BUCKET), generator=gen, device=dev)
+    x = arena[:, 1].view(p, PEER_BLOCKS, BLOCK)          # strided slice
+    rows = p * PEER_BLOCKS
+    # B1 encode, then the stage-2 gather's copy and its decode
+    got = fwht_ops.fwht_launch(x, sign, "pre")
+    want = fwht_ref.randomized_fwht_ref(x, sign, mode="encode")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check("fwht encode", err, FWHT_TOL)
+    row("fwht", "encode", x.shape, err,
+        lambda: fwht_ops.fwht_launch(x, sign, "pre"),
+        lambda: fwht_ref.randomized_fwht_ref(x, sign, mode="encode"),
+        fwht_ref.fwht_bytes(rows, BLOCK), fwht_ref.fwht_flops(rows, BLOCK))
+    shards = got.view(p, PEERS, SHARD)
+    gathered = collectives.all_gather(shards[:, 0],
+                                      collectives.Grid(tp=TP)).view(p, PEER_BLOCKS, BLOCK)
+    got = fwht_ops.fwht_launch(gathered, sign, "post")
+    want = fwht_ref.randomized_fwht_ref(gathered, sign, mode="decode")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check("fwht decode", err, FWHT_TOL)
+    row("fwht", "decode", gathered.shape, err,
+        lambda: fwht_ops.fwht_launch(gathered, sign, "post"),
+        lambda: fwht_ref.randomized_fwht_ref(gathered, sign, mode="decode"),
+        fwht_ref.fwht_bytes(rows, BLOCK), fwht_ref.fwht_flops(rows, BLOCK))
+    del got, want, gathered
+    # B2 on the tp grid's received stack
+    received = collectives.all_to_all(shards, collectives.Grid(tp=TP))
+    mask = (torch.rand(received.shape, generator=gen, device=dev)
+            < 0.99).to(torch.float32)
+    got = mm_ops.masked_mean_launch(received, mask)
+    want = mm_ref.masked_mean_ref(received, mask)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check("masked_mean", err, MEAN_TOL)
+    row("masked_mean", "stage-1 reduce", received.shape, err,
+        lambda: mm_ops.masked_mean_launch(received, mask),
+        lambda: mm_ref.masked_mean_ref(received, mask),
+        mm_ref.masked_mean_bytes(p, PEERS, SHARD),
+        mm_ref.masked_mean_flops(p, PEERS, SHARD))
+    del shards, received, got, want
+    # B3, then B4 on each tp group's grids
+    amax = hq_ops.ht_amax_launch(x, sign)
+    want = hq_ref.ht_amax_ref(x, sign)
+    torch.cuda.synchronize()
+    err = float((amax - want).abs().max())
+    check("ht_amax", err, 0.0)
+    row("ht_amax", "encode amax", x.shape, err,
+        lambda: hq_ops.ht_amax_launch(x, sign),
+        lambda: hq_ref.ht_amax_ref(x, sign),
+        hq_ref.ht_amax_bytes(rows, BLOCK), hq_ref.ht_amax_flops(rows, BLOCK))
+    shared = torch.clamp(amax.view(TP, PEERS, PEER_BLOCKS).amax(1),
+                         min=1e-12)                       # (T, blocks)
+    lo = -shared
+    step = 2.0 * shared / torch.full_like(shared, 255.0)
+    noise = torch.rand((PEER_BLOCKS, BLOCK), generator=gen, device=dev)
+    codes = hq_ops.ht_quant_launch(x, sign, noise, lo, step, bits=8)
+    want = hq_ref.ht_quant_ref(x, sign, noise, lo, step, bits=8)
+    torch.cuda.synchronize()
+    mismatched = int((codes != want).sum())
+    if mismatched:
+        fail(f"tp_shapes ht_quant: {mismatched} codes differ")
+    row("ht_quant", "encode codes, grids a tp group", x.shape, 0.0,
+        lambda: hq_ops.ht_quant_launch(x, sign, noise, lo, step, bits=8),
+        lambda: hq_ref.ht_quant_ref(x, sign, noise, lo, step, bits=8),
+        hq_ref.ht_quant_bytes(rows, BLOCK, PEER_BLOCKS,
+                              TP * PEER_BLOCKS),
+        hq_ref.ht_quant_flops(rows, BLOCK))
+    del want, amax, arena, x
+    # B5: each receiver reads its tp group's grids for its shard
+    received = collectives.all_to_all(codes.view(p, PEERS, SHARD),
+                                      collectives.Grid(tp=TP))
+    nblk = SHARD // BLOCK
+    shard_of = torch.arange(p, device=dev) % PEERS
+    group_of = torch.arange(p, device=dev) // PEERS
+    lo_r = lo.view(TP, PEERS, nblk)[group_of, shard_of]     # (P, nblk)
+    step_r = step.view(TP, PEERS, nblk)[group_of, shard_of]
+    mask = (torch.rand(received.shape, generator=gen, device=dev)
+            < 0.99).to(torch.float32)
+    got = dq_ops.dequant_mean_launch(received, lo_r, step_r, mask,
+                                     block=BLOCK)
+    want = dq_ref.dequant_masked_mean_ref(
+        received, lo_r.repeat_interleave(BLOCK, dim=-1),
+        step_r.repeat_interleave(BLOCK, dim=-1), mask)
+    torch.cuda.synchronize()
+    tol = DEQ_ULPS * 2.0 ** -23 * float(shared.max())
+    err = float((got - want).abs().max())
+    check("dequant_mean", err, tol)
+    row("dequant_mean", "stage-1 dequant + reduce", received.shape, err,
+        lambda: dq_ops.dequant_mean_launch(received, lo_r, step_r, mask,
+                                           block=BLOCK),
+        lambda: dq_ref.dequant_masked_mean_ref(
+            received, lo_r.repeat_interleave(BLOCK, dim=-1),
+            step_r.repeat_interleave(BLOCK, dim=-1), mask),
+        dq_ref.dequant_mean_bytes(p, PEERS, SHARD, BLOCK, masked=True),
+        dq_ref.dequant_mean_flops(p, PEERS, SHARD, masked=True),
+        tolerance=tol)
+    del received, mask, want, codes
+    # B6: the reduced shards onto their receivers' grids
+    own = got.reshape(-1, BLOCK)
+    noise2 = torch.rand((nblk, BLOCK), generator=gen, device=dev)
+    codes2 = gq_ops.grid_quant_launch(own, noise2, lo_r.reshape(-1),
+                                      step_r.reshape(-1), bits=8)
+    want = gq_ref.grid_quant_ref(own, noise2, lo_r.reshape(-1),
+                                 step_r.reshape(-1), bits=8)
+    torch.cuda.synchronize()
+    mismatched = int((codes2 != want).sum())
+    if mismatched:
+        fail(f"tp_shapes grid_quant: {mismatched} codes differ")
+    n_rows = own.shape[0]
+    row("grid_quant", "stage-2 codes", own.shape, 0.0,
+        lambda: gq_ops.grid_quant_launch(own, noise2, lo_r.reshape(-1),
+                                         step_r.reshape(-1), bits=8),
+        lambda: gq_ref.grid_quant_ref(own, noise2, lo_r.reshape(-1),
+                                      step_r.reshape(-1), bits=8),
+        gq_ref.grid_quant_bytes(n_rows, BLOCK, nblk, n_rows),
+        gq_ref.grid_quant_flops(n_rows, BLOCK))
+    del own, noise2, codes2, want, got
 
 
 # the port's kernel functions, as the profiler names them

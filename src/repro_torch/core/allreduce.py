@@ -5,7 +5,7 @@ through the resolved spec), ``sync_packed`` (the engine core on a packed
 ``(P, B, bucket_elems)`` arena, one ``(B, bucket_elems)`` arena per peer),
 ``sync_pytree`` (pack -> ``sync_packed`` -> unpack) and
 ``reduce_scatter_axis`` (the FSDP gradient reduction through ``rs_spec``).
-On a ``(pod, data)`` grid ``ctx.pods`` gives the pod count G of the
+On a ``(pod, data)`` grid ``ctx.grid.pods`` gives the pod count G of the
 arena's P = G * N peers (``core/collectives.py``).
 
 Modes of ``sync_packed``:
@@ -79,7 +79,7 @@ def sync_packed(batch: torch.Tensor, ctx: SyncContext, *,
     if stale is not None and tuple(stale.shape) != (nbuckets, length):
         raise ValueError(f"stale cache of shape {tuple(stale.shape)} for a "
                          f"({nbuckets}, {length}) arena a peer")
-    if stale is not None and ctx.pods > 1:
+    if stale is not None and ctx.grid.pods > 1:
         raise ValueError("recovery does not compose with the 2D (pod, data) "
                          "hierarchy: the stale wire layout assumes one flat "
                          "TAR shard order")

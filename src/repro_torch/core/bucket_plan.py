@@ -78,12 +78,15 @@ class BucketPlan:
 
     def pack_into(self, arena: torch.Tensor, tree, *,
                   accumulate: bool = False) -> torch.Tensor:
-        """Pack (or, with ``accumulate``, add) ``tree`` into the contiguous
-        ``(B, bucket_elems)`` arena in place — the trainer's packed
-        gradient arena, with no per-leaf accumulator tree. Padding is left
-        as it is (zero from the arena's allocation)."""
+        """Pack (or, with ``accumulate``, add) ``tree`` into the ``(B,
+        bucket_elems)`` arena in place — the trainer's packed gradient
+        arena, with no per-leaf accumulator tree. Leading axes (a leaf's
+        ``(T, *shape)`` stack into a ``(T, B, bucket_elems)`` arena) may be
+        strided; each ``(B, bucket_elems)`` must be contiguous. Padding is
+        left as it is (zero from the arena's allocation)."""
         if arena.shape[-2:] != (self.num_buckets, self.bucket_elems) or \
-                not arena.is_contiguous():
+                arena.stride(-1) != 1 or \
+                arena.stride(-2) != self.bucket_elems:
             raise ValueError("arena must be a contiguous (B, bucket_elems) "
                              "tensor of this plan")
         self._write(arena.view(arena.shape[:-2] + (self.padded,)),

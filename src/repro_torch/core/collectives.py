@@ -3,22 +3,34 @@ the sync path uses.
 
 The reference runs its ranks as ``shard_map`` over a mesh whose data axis
 has N devices, or over a ``(pod, data)`` mesh of G x N devices for the
-hierarchical 2D TAR (§3.1.2). On one card the port runs them as a leading
-peer axis of size P = G * N on stacked tensors, pod-major: row ``p = g * N
-+ i`` of every stacked tensor is what rank (pod g, data i) holds, the order
-of ``P(('pod', 'data'))``. ``pods`` (G, 1 when there is no pod axis) is
-passed to every collective, and ``axis`` names the one it acts over:
+hierarchical 2D TAR (§3.1.2), with a ``model`` axis of T tensor-parallel
+ranks beside them. On one card the port runs them as a leading peer axis of
+size P = T * G * N on stacked tensors, ordered ``(model, pod, data)``: row
+``p = (t * G + g) * N + i`` of every stacked tensor is what rank (pod g,
+data i, model t) holds. The model axis is outermost, so each tp group is a
+contiguous copy of the pod-major ``(pod, data)`` grid, the order of
+``P(('pod', 'data'))``. A :class:`Grid` (G and T; N is what a stack's P
+leaves) is passed to every collective, and ``axis`` names the one it acts
+over, always inside each tp group (the sync never reduces the tp groups
+against each other):
 
   ``DATA``  within each pod, over its N data peers (the ring, tree and TAR
             schedules; ``ppermute`` pairs and per-peer rows are data
-            indices, applied in every pod at once);
+            indices, applied in every pod of every tp group at once);
   ``POD``   across the G pods, at a fixed data index (the outer reduce);
-  ``BOTH``  over all P peers (the psum topology, the quantizer's grids).
+  ``BOTH``  over the G * N peers of a tp group (the psum topology, the
+            quantizer's grids).
+
+The grid's helpers (:meth:`Grid.by_group`, :meth:`Grid.group_rows`,
+:meth:`Grid.group_offsets`) are the one place outside this module's
+collectives that knows the model axis is outermost: the trainer and the
+quantizing codec lay their per-tp-group tensors out through them.
 
 Each collective is a reindexing of the peer axis over all P peers at once,
-so one kernel launch still covers every peer of a bucket in every pod. With
-G = 1 the results are views where one exists (no copy: the kernels read the
-strided views directly); over pods the transposes are copies.
+so one kernel launch still covers every peer of a bucket in every pod and
+every tp group. With G = T = 1 the results are views where one exists (no
+copy: the kernels read the strided views directly); over pods or tp groups
+the transposes are copies.
 ``ppermute`` is one gather (or, when it names only some destinations, one
 ``index_copy_`` into zeros) over all P peers, and the module counter
 ``permutes`` counts its calls, as the reference's tests count
@@ -29,6 +41,7 @@ card, is the next multi-GPU slice (ROADMAP).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -40,6 +53,56 @@ BOTH = (POD, DATA)
 permutes = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """The layout of a stack's P peers: T tp groups (``tp``) of G pods
+    (``pods``) of N data peers, ordered ``(model, pod, data)``. N is what a
+    stack's P leaves, P / (T * G)."""
+    pods: int = 1
+    tp: int = 1
+
+    def __post_init__(self):
+        if self.pods < 1 or self.tp < 1:
+            raise ValueError(f"pods and tp must be positive, got "
+                             f"{self.pods} and {self.tp}")
+
+    @property
+    def blocks(self) -> int:
+        """The data axis's blocks of N contiguous peers: T * G."""
+        return self.tp * self.pods
+
+    def data_size(self, p: int) -> int:
+        """N, the data peers of each pod of a stack of ``p`` peers."""
+        if p % self.blocks:
+            raise ValueError(f"{p} peers do not fill {self.tp} x "
+                             f"{self.pods} pods")
+        return p // self.blocks
+
+    def by_group(self, x: torch.Tensor) -> torch.Tensor:
+        """A ``(P, ...)`` stack as ``(T, G * N, ...)``, a tp group a row (a
+        view)."""
+        return x.view(self.tp, -1, *x.shape[1:])
+
+    def group_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """One row of each tp group of a ``(P, ...)`` stack whose rows are
+        equal within each group (a pmax over ``BOTH``): ``(...)`` when
+        T = 1, else ``(T, ...)``."""
+        if self.tp == 1:
+            return x[0]
+        return x[::x.shape[0] // self.tp]
+
+    def group_offsets(self, p: int, stride: int,
+                      device: torch.device) -> torch.Tensor:
+        """``(P,)``: each of ``p`` peers' tp group times ``stride``, where
+        its group's rows start in a ``(T * stride, ...)`` table."""
+        per_group = p // self.tp
+        return index(tuple(q // per_group * stride for q in range(p)),
+                     device)
+
+
+ONE = Grid()
+
+
 @functools.lru_cache(maxsize=512)
 def index(values: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """A constant int64 index tensor on ``device``, made once: the schedules'
@@ -49,10 +112,11 @@ def index(values: tuple[int, ...], device: torch.device) -> torch.Tensor:
 
 
 def per_peer(values: tuple[int, ...], device: torch.device,
-             pods: int = 1) -> torch.Tensor:
+             grid: Grid = ONE) -> torch.Tensor:
     """``(P,)`` index tensor of a per-data-index table ``values`` (length
-    N): peer ``g * N + i`` reads ``values[i]`` in every pod."""
-    return index(tuple(values) * pods, device)
+    N): peer ``b * N + i`` reads ``values[i]`` in every block b of the
+    grid."""
+    return index(tuple(values) * grid.blocks, device)
 
 
 def _check_axis(axis) -> None:
@@ -61,70 +125,77 @@ def _check_axis(axis) -> None:
                          f"{DATA!r}, {POD!r}, {BOTH!r}")
 
 
-def axis_size(x: torch.Tensor, pods: int = 1, axis=DATA) -> int:
-    """The size of ``axis`` on the grid of ``x``'s P peers: N, G or P."""
+def axis_size(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> int:
+    """The size of ``axis`` on the grid of ``x``'s P peers: N, G or G * N."""
     _check_axis(axis)
-    p = x.shape[0]
-    if p % pods:
-        raise ValueError(f"{p} peers do not fill {pods} pods")
-    return {DATA: p // pods, POD: pods, BOTH: p}[axis]
+    n = grid.data_size(x.shape[0])
+    return {DATA: n, POD: grid.pods, BOTH: grid.pods * n}[axis]
 
 
-def axis_index(x: torch.Tensor, pods: int = 1, axis=DATA) -> torch.Tensor:
+def axis_index(x: torch.Tensor, grid: Grid = ONE,
+               axis=DATA) -> torch.Tensor:
     """Each peer's own index on ``axis``, ``(P,)``."""
-    n = axis_size(x, pods)
+    n = axis_size(x, grid)
     peers = torch.arange(x.shape[0], device=x.device)
-    return {DATA: peers % n, POD: peers // n, BOTH: peers}[axis]
+    return {DATA: peers % n, POD: (peers // n) % grid.pods,
+            BOTH: peers % (grid.pods * n)}[axis]
 
 
-def on_grid(rows: torch.Tensor, x: torch.Tensor, pods: int = 1,
+def on_grid(rows: torch.Tensor, x: torch.Tensor, grid: Grid = ONE,
             axis=DATA) -> torch.Tensor:
     """Lay per-axis-index rows ``(n, ...)`` onto ``x``'s P peers: peer p
-    takes the row of its index on ``axis`` (every pod the same rows over
-    the data axis). ``rows`` itself when the axis spans every peer."""
+    takes the row of its index on ``axis`` (every pod and tp group the same
+    rows over the data axis). ``rows`` itself when the axis spans every
+    peer."""
     if rows.shape[0] == x.shape[0]:
         return rows
-    return rows.index_select(0, axis_index(x, pods, axis))
+    return rows.index_select(0, axis_index(x, grid, axis))
 
 
-def all_to_all(x: torch.Tensor, pods: int = 1, axis=DATA) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
     """Tiled all_to_all over ``axis``: ``(P, n, S)`` sender-major (row p =
     what peer p sends to each of the axis's n peers) -> receiver-major
     ``(P, n, S)`` (row q = the shards peer q received, one per sender, in
     the senders' axis order)."""
-    n = axis_size(x, pods, axis)
+    n = axis_size(x, grid, axis)
     if x.shape[1] != n:
         raise ValueError(f"all_to_all over {n} peers needs {n} shards each, "
                          f"got {x.shape[1]}")
-    if axis == BOTH or (axis == DATA and pods == 1):
+    s, tp, pods = x.shape[2], grid.tp, grid.pods
+    if axis == POD:                   # (t, h, i, g) -> (t, g, i, h)
+        if pods == 1:
+            return x
+        m = grid.data_size(x.shape[0])
+        y = x.reshape(tp, pods, m, pods, s).permute(0, 3, 2, 1, 4)
+        return y.reshape(x.shape)
+    blocks = grid.blocks if axis == DATA else tp
+    if blocks == 1:
         return x.transpose(0, 1)
-    if axis == POD and pods == 1:
-        return x
-    g, m, s = pods, x.shape[0] // pods, x.shape[2]
-    if axis == DATA:                  # (g, i, j) -> (g, j, i)
-        y = x.reshape(g, m, m, s).transpose(1, 2)
-    else:                             # (h, i, g) -> (g, i, h)
-        y = x.reshape(g, m, g, s).permute(2, 1, 0, 3)
-    return y.reshape(x.shape)
+    # within each block of n peers: (b, i, j) -> (b, j, i)
+    return x.reshape(blocks, n, n, s).transpose(1, 2).reshape(x.shape)
 
 
-def all_gather(own: torch.Tensor, pods: int = 1, axis=DATA) -> torch.Tensor:
+def all_gather(own: torch.Tensor, grid: Grid = ONE,
+               axis=DATA) -> torch.Tensor:
     """Tiled all_gather over ``axis``: ``(P, S)`` -> ``(P, n*S)``, every
     peer holding the concatenation of its axis peers' shards in axis order
     (a broadcast view when the axis spans every peer)."""
-    p = own.shape[0]
-    n = axis_size(own, pods, axis)
-    if axis == BOTH or (axis == DATA and pods == 1):
+    p, tp, pods = own.shape[0], grid.tp, grid.pods
+    n = axis_size(own, grid, axis)
+    if axis == POD:
+        if pods == 1:
+            return own
+        m = grid.data_size(p)
+        # the G shards at data index i, for each pod of each tp group
+        rows = own.reshape(tp, pods, m, -1).transpose(1, 2).reshape(
+            tp, 1, m, -1)
+        return rows.expand(tp, pods, m, -1).reshape(p, n * own.shape[-1])
+    blocks = grid.blocks if axis == DATA else tp
+    if blocks == 1:
         return own.reshape(1, -1).expand(p, -1)
-    if axis == POD and pods == 1:
-        return own
-    m = p // pods
-    if axis == DATA:                  # pod g's N shards, for each of its N
-        rows = own.reshape(pods, 1, m * own.shape[-1])
-        return rows.expand(pods, m, -1).reshape(p, n * own.shape[-1])
-    # the G shards at data index i, for each pod
-    rows = own.reshape(pods, m, -1).transpose(0, 1).reshape(1, m, -1)
-    return rows.expand(pods, m, -1).reshape(p, n * own.shape[-1])
+    # each block's n shards, for each of its n peers
+    rows = own.reshape(blocks, 1, n * own.shape[-1])
+    return rows.expand(blocks, n, -1).reshape(p, n * own.shape[-1])
 
 
 def mean_of(total: torch.Tensor, n: int) -> torch.Tensor:
@@ -134,54 +205,58 @@ def mean_of(total: torch.Tensor, n: int) -> torch.Tensor:
     return total * (1.0 / n)
 
 
-def _grouped(x: torch.Tensor, pods: int, axis) -> tuple[torch.Tensor, int]:
-    """``x`` as ``(G, N, ...)`` and the dim of ``axis`` in it."""
-    m = x.shape[0] // pods
-    return x.reshape(pods, m, *x.shape[1:]), (1 if axis == DATA else 0)
+def _grouped(x: torch.Tensor, grid: Grid, axis) -> torch.Tensor:
+    """``x`` with the peers of each ``axis`` group on dim 1."""
+    n = grid.data_size(x.shape[0])
+    if axis == DATA:
+        return x.reshape(grid.blocks, n, *x.shape[1:])
+    if axis == POD:
+        return x.reshape(grid.tp, grid.pods, n, *x.shape[1:])
+    return x.reshape(grid.tp, grid.pods * n, *x.shape[1:])
 
 
-def pmean(x: torch.Tensor, pods: int = 1, axis=DATA) -> torch.Tensor:
+def pmean(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
     """Mean over ``axis``, held by every peer on it: ``(P, ...)`` ->
     ``(P, ...)``."""
-    n = axis_size(x, pods, axis)
+    n = axis_size(x, grid, axis)
     if n == x.shape[0]:
         return mean_of(x.sum(dim=0, keepdim=True), n).expand_as(x)
-    xs, d = _grouped(x, pods, axis)
-    return mean_of(xs.sum(dim=d, keepdim=True), n).expand_as(xs) \
+    xs = _grouped(x, grid, axis)
+    return mean_of(xs.sum(dim=1, keepdim=True), n).expand_as(xs) \
         .reshape(x.shape)
 
 
-def pmax(x: torch.Tensor, pods: int = 1, axis=DATA) -> torch.Tensor:
-    n = axis_size(x, pods, axis)
+def pmax(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
+    n = axis_size(x, grid, axis)
     if n == x.shape[0]:
         return x.amax(dim=0, keepdim=True).expand_as(x)
-    xs, d = _grouped(x, pods, axis)
-    return xs.amax(dim=d, keepdim=True).expand_as(xs).reshape(x.shape)
+    xs = _grouped(x, grid, axis)
+    return xs.amax(dim=1, keepdim=True).expand_as(xs).reshape(x.shape)
 
 
 def take_rows(x: torch.Tensor, rows: tuple[int, ...],
-              pods: int = 1) -> torch.Tensor:
+              grid: Grid = ONE) -> torch.Tensor:
     """Row ``rows[i]`` of each peer's ``(P, R, ...)`` stack, ``(P, ...)``,
     ``i`` the peer's data index: the reference's ``jnp.take(x, i)`` with a
     per-device index, for all peers in one indexed read."""
     peers = index(tuple(range(x.shape[0])), x.device)
-    return x[peers, per_peer(rows, x.device, pods)]
+    return x[peers, per_peer(rows, x.device, grid)]
 
 
 def put_rows(x: torch.Tensor, rows: tuple[int, ...], value: torch.Tensor,
-             pods: int = 1) -> None:
+             grid: Grid = ONE) -> None:
     """``x[p, rows[i]] = value[p]`` for every peer, in one indexed write."""
     peers = index(tuple(range(x.shape[0])), x.device)
-    x[peers, per_peer(rows, x.device, pods)] = value
+    x[peers, per_peer(rows, x.device, grid)] = value
 
 
-def ppermute(x: torch.Tensor, perm, pods: int = 1) -> torch.Tensor:
+def ppermute(x: torch.Tensor, perm, grid: Grid = ONE) -> torch.Tensor:
     """``jax.lax.ppermute`` over the data axis: ``out[dst] = x[src]`` for
-    each ``(src, dst)`` pair of data indices, in every pod; a destination no
-    pair names receives zeros (the reference's relays and grafts add such
-    results)."""
+    each ``(src, dst)`` pair of data indices, in every pod and tp group; a
+    destination no pair names receives zeros (the reference's relays and
+    grafts add such results)."""
     global permutes
-    n = axis_size(x, pods)
+    n = axis_size(x, grid)
     pairs = [(int(s), int(d)) for s, d in perm]
     dsts = [d for _, d in pairs]
     if len(set(dsts)) != len(dsts) or len({s for s, _ in pairs}) != len(pairs):
@@ -190,7 +265,8 @@ def ppermute(x: torch.Tensor, perm, pods: int = 1) -> torch.Tensor:
     if any(not (0 <= i < n) for pair in pairs for i in pair):
         raise ValueError(f"ppermute pairs {pairs} outside the {n}-peer axis")
     permutes += 1
-    lifted = [(g * n + s, g * n + d) for g in range(pods) for s, d in pairs]
+    lifted = [(b * n + s, b * n + d) for b in range(grid.blocks)
+              for s, d in pairs]
     if len(pairs) == n:                     # every peer receives: one gather
         src_of = [0] * x.shape[0]
         for s, d in lifted:

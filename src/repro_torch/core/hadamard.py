@@ -65,7 +65,8 @@ def ht_encode_quant(x: torch.Tensor, sign: torch.Tensor, noise: torch.Tensor,
                     block: int = 4096, bits: int = 8) -> torch.Tensor:
     """Fused ``ht_encode`` + shared-grid stochastic quantization.
     x: ``(..., L)`` block-aligned; noise ``(L / block, block)`` and lo/step
-    ``(L / block,)``, one copy shared by every peer. Returns ``(..., L)``
-    uint8 codes."""
+    ``(L / block,)``, one copy shared by every peer, or ``(T, L / block)``,
+    one copy a tp group of a ``(P, L)`` stack. Returns ``(..., L)`` uint8
+    codes."""
     codes = ht_quant(_blocks(x, block), sign, noise, lo, step, bits=bits)
     return codes.reshape(x.shape)

@@ -15,11 +15,14 @@ transport waits for a later slice.
 The reference runs one rank per device inside ``shard_map``; here every
 stage works on ``(P, ...)`` stacks over the peer grid
 (``core/collectives.py``), so one kernel launch serves all P peers of a
-bucket. With a pod axis (``cfg.pod_axis`` and ``SyncContext.pods`` = G >
-1) the P = G * N peers are pod-major and the schedules run over the data
+bucket. With a pod axis (``cfg.pod_axis`` and ``SyncContext.grid.pods`` =
+G > 1) the P = G * N peers are pod-major and the schedules run over the data
 axis in every pod at once; a TAR topology joins the pods between its two
 stages (``outer``: the hierarchical 2D TAR of §3.1.2, or a pmean), a ring
 folds them with a pmean after its own reduce, psum averages over both axes.
+With T tensor-parallel groups (``SyncContext.grid.tp``) P = T * G * N,
+model-major: every tp group syncs its own peers in the same call (one
+kernel launch a bucket for all of them), and the groups never mix.
 :meth:`CollectiveSpec.reduce_scatter` is TAR stage 1 on one tensor over one
 axis, the FSDP gradient reduction (``core/allreduce.reduce_scatter_axis``).
 The randomness the reference draws from keys inside the stages (the
@@ -159,21 +162,19 @@ class GeneratorDraws:
 class SyncContext:
     """Per-step (and, inside the engine, per-bucket) context. ``stale`` is
     the bucket's previous decoded value ``(L,)``, set by the sync engine
-    when a stale-fill recovery codec is armed (None otherwise). ``pods`` is
-    the pod-axis size G of the peer grid (the reference reads it from its
-    mesh): the stacks' P peers are G pods of N, pod-major."""
+    when a stale-fill recovery codec is armed (None otherwise). ``grid``
+    lays out the stacks' P peers (``collectives.Grid``: T tp groups of G
+    pods of N, the sizes the reference reads from its mesh)."""
     cfg: OptiReduceConfig
     draws: Draws
     bucket: Site = 0
     stats: dict = dataclasses.field(default_factory=dict)
     stale: torch.Tensor | None = None
-    pods: int = 1
+    grid: collectives.Grid = collectives.ONE
 
     def __post_init__(self):
-        if self.pods < 1:
-            raise ValueError(f"pods must be positive, got {self.pods}")
-        if self.pods > 1 and self.cfg.pod_axis is None:
-            raise ValueError(f"a grid of {self.pods} pods needs "
+        if self.grid.pods > 1 and self.cfg.pod_axis is None:
+            raise ValueError(f"a grid of {self.grid.pods} pods needs "
                              "cfg.pod_axis set")
 
     def for_bucket(self, bucket: Site,
@@ -181,7 +182,7 @@ class SyncContext:
         """This step's context for one bucket or gather site (stats
         shared)."""
         return SyncContext(cfg=self.cfg, draws=self.draws, bucket=bucket,
-                           stats=self.stats, stale=stale, pods=self.pods)
+                           stats=self.stats, stale=stale, grid=self.grid)
 
     def data_axes(self):
         """The axes of the data-parallel group, as collective axes: the
@@ -254,7 +255,8 @@ class Encoded:
     """A codec's wire form of one ``(P, L)`` bucket stack: ``data`` is what
     travels (fp32 values or uint8 codes); ``lo`` / ``step`` are a
     quantizing codec's per-Hadamard-block grids, ``(L / block,)``, one copy
-    shared by every peer (None otherwise); ``stale`` is the previous step's
+    shared by every peer, or ``(T, L / block)``, one copy a tp group (None
+    otherwise); ``stale`` is the previous step's
     bucket encoded under this step's sign, ``(1, L)``, the prediction a
     :class:`~repro_torch.core.recovery.StaleFill` codec puts in lost
     entries (None without recovery)."""
@@ -324,8 +326,11 @@ class Hadamard(Codec):
 
 def shared_amax(amax: torch.Tensor, ctx: SyncContext) -> torch.Tensor:
     """The grids' amax shared by the whole data-parallel group: the max of
-    every peer's ``(P, L / block)`` over both axes, ``(L / block,)``."""
-    return collectives.pmax(amax, ctx.pods, ctx.data_axes())[0]
+    every peer's ``(P, L / block)`` over both axes, ``(L / block,)``; with
+    T tp groups one row a group, ``(T, L / block)`` (each tp rank's grids
+    come from its own data-parallel group, as in the reference)."""
+    return ctx.grid.group_rows(collectives.pmax(amax, ctx.grid,
+                                                ctx.data_axes()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,14 +368,20 @@ class HTQuant(Codec):
         return cfg.hadamard_block
 
     @staticmethod
-    def _grids(enc: Encoded, nblk: int, shard_index: torch.Tensor | None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+    def _grids(enc: Encoded, nblk: int, shard_index: torch.Tensor | None,
+               grid: collectives.Grid) -> tuple[torch.Tensor, torch.Tensor]:
         """Each receiver's slice of the bucket's grids, ``(P, nblk)`` (the
         reference's ``_grids(enc, shard_index, nblk)``, all receivers at
-        once): receiver r's is shard r's, or shard ``shard_index[r]``'s."""
+        once): receiver r's is shard r's, or shard ``shard_index[r]``'s
+        of its tp group's grids."""
         lo, step = enc.lo.view(-1, nblk), enc.step.view(-1, nblk)
         if shard_index is None:
             return lo, step
+        if grid.tp > 1:
+            # receiver r of tp group t reads row t * n + shard_index[r]
+            shard_index = shard_index + grid.group_offsets(
+                shard_index.shape[0], lo.shape[0] // grid.tp,
+                shard_index.device)
         return lo[shard_index], step[shard_index]
 
     def local_amax(self, x: torch.Tensor,
@@ -404,13 +415,14 @@ class HTQuant(Codec):
 
     def reduce(self, received, mask, enc, ctx, shard_index=None):
         block = ctx.cfg.hadamard_block
-        lo, step = self._grids(enc, received.shape[-1] // block, shard_index)
+        lo, step = self._grids(enc, received.shape[-1] // block, shard_index,
+                               ctx.grid)
         return dequant_masked_mean(received, lo, step, mask, block=block)
 
     def encode_shard(self, own, enc, ctx, shard_index=None):
         block = ctx.cfg.hadamard_block
         n, s = own.shape
-        lo, step = self._grids(enc, s // block, shard_index)
+        lo, step = self._grids(enc, s // block, shard_index, ctx.grid)
         noise = ctx.noise(self.stage2_salt, (s // block, block))
         # row i of the (n * s / block) rows reads grid i: receiver r's rows
         # its own shard's grids
@@ -421,8 +433,12 @@ class HTQuant(Codec):
     def decode_gathered(self, gathered, enc, ctx):
         block = ctx.cfg.hadamard_block
         shape = gathered.shape
-        vals = (gathered.reshape(*shape[:-1], -1, block).to(torch.float32)
-                * enc.step[:, None] + enc.lo[:, None]).reshape(shape)
+        # each tp group's peers read their group's grids
+        groups, nblk = ctx.grid.tp, enc.lo.shape[-1]
+        step = enc.step.view(groups, 1, nblk, 1)
+        lo = enc.lo.view(groups, 1, nblk, 1)
+        vals = (gathered.reshape(groups, -1, nblk, block).to(torch.float32)
+                * step + lo).reshape(shape)
         return ht_decode(vals, ctx.sign(block), block=block)
 
     # a value-domain shard decodes as the rotation alone
@@ -575,7 +591,7 @@ class PsumTopology(Topology):
                              "drops (use a TAR topology)")
 
     def encode_stage(self, bucket, transport, codec, ctx):
-        cfg, n = ctx.cfg, collectives.axis_size(bucket, ctx.pods)
+        cfg, n = ctx.cfg, collectives.axis_size(bucket, ctx.grid)
         if active_subset(cfg, n) is not None:
             raise ValueError(
                 "psum cannot exclude peers: degraded participation needs a "
@@ -587,7 +603,7 @@ class PsumTopology(Topology):
         return (bucket,)
 
     def exchange_stage(self, state, transport, codec, ctx):
-        return (collectives.pmean(state[0], ctx.pods, ctx.data_axes()),)
+        return (collectives.pmean(state[0], ctx.grid, ctx.data_axes()),)
 
     def decode_stage(self, state, length, transport, codec, ctx):
         return state[0]
@@ -645,33 +661,33 @@ class RingTopology(Topology):
         return n if order is None else len(order)
 
     def encode_stage(self, bucket, transport, codec, ctx):
-        n = collectives.axis_size(bucket, ctx.pods)
+        n = collectives.axis_size(bucket, ctx.grid)
         x, _ = tar_lib.pad_for_tar(bucket, self._pad_n(ctx.cfg, n),
                                    codec.block(ctx.cfg))
         return (codec.encode(x, ctx).data,)
 
     def exchange_stage(self, state, transport, codec, ctx):
         (data,) = state
-        pods = ctx.pods
-        n = collectives.axis_size(data, pods)
+        grid = ctx.grid
+        n = collectives.axis_size(data, grid)
         active, order, weights = self._geometry(ctx.cfg, n)
         if order is not None:
             # the virtual ring of active peers in link-avoiding order; the
             # graft replaces the ejected peers' garbage before the pod
             # reduction can see it
             out = ring_lib.ring_allreduce(data, active=order, weights=weights,
-                                          pods=pods)
+                                          grid=grid)
             if active is not None:
-                out = tar_lib.graft_inactive(out, active, pods)
+                out = tar_lib.graft_inactive(out, active, grid)
         elif self.kind == "ring":
-            out = ring_lib.ring_allreduce(data, pods=pods)
+            out = ring_lib.ring_allreduce(data, grid=grid)
         elif self.kind == "tree":
-            out = ring_lib.tree_allreduce(data, pods)
+            out = ring_lib.tree_allreduce(data, grid)
         else:
             out = ring_lib.bcube_allreduce(data, base=4 if n % 4 == 0 else 2,
-                                           pods=pods)
-        if pods > 1:
-            out = collectives.pmean(out, pods, collectives.POD)
+                                           grid=grid)
+        if grid.pods > 1:
+            out = collectives.pmean(out, grid, collectives.POD)
         return (out,)
 
     def decode_stage(self, state, length, transport, codec, ctx):
@@ -713,12 +729,13 @@ class TarTopology(Topology):
     def _outer_reduce(self, own: torch.Tensor,
                       ctx: SyncContext) -> torch.Tensor:
         """Join each data index's G pod replicas of its reduced shard."""
-        g = ctx.pods
+        g = ctx.grid.pods
         if g <= 1:
             return own
         if self.outer == "tar" and own.shape[-1] % g == 0:
-            return tar_lib.tar_allreduce(own, pods=g, axis=collectives.POD)
-        return collectives.pmean(own, g, collectives.POD)
+            return tar_lib.tar_allreduce(own, grid=ctx.grid,
+                                         axis=collectives.POD)
+        return collectives.pmean(own, ctx.grid, collectives.POD)
 
     def _participation(self, cfg: OptiReduceConfig, n: int):
         """(active, n_shards, weights, dead): the rounds schedule shards
@@ -751,7 +768,7 @@ class TarTopology(Topology):
 
     def encode_stage(self, bucket, transport, codec, ctx):
         cfg = ctx.cfg
-        n = collectives.axis_size(bucket, ctx.pods)
+        n = collectives.axis_size(bucket, ctx.grid)
         _, n_shards, weights, _ = self._participation(cfg, n)
         if weights is not None:
             self._check_weighted(cfg, codec)
@@ -772,7 +789,7 @@ class TarTopology(Topology):
     def exchange_stage(self, state, transport, codec, ctx):
         data, amax, stale = state
         cfg = ctx.cfg
-        pods = ctx.pods
+        grid = ctx.grid
         lo = step = None
         if amax is not None:
             # deferred half of the split encode: share the grids over the
@@ -780,7 +797,7 @@ class TarTopology(Topology):
             enc = codec.encode_given_amax(data, shared_amax(amax, ctx), ctx)
             data, lo, step = enc.data, enc.lo, enc.step
         enc = Encoded(data, lo=lo, step=step, stale=stale)
-        n = collectives.axis_size(data, pods)
+        n = collectives.axis_size(data, grid)
         active, n_shards, weights, dead = self._participation(cfg, n)
         rounds = self.schedule == "rounds"
         if weights is not None:
@@ -799,18 +816,19 @@ class TarTopology(Topology):
         if rounds:
             received = tar_lib.tar_exchange_rounds(
                 shards, incast=transport.incast(ctx), active=active,
-                dead_links=dead, pods=pods)
+                dead_links=dead, grid=grid)
         else:
-            received = collectives.all_to_all(shards, pods)
+            received = collectives.all_to_all(shards, grid)
         # receiver p reduces shard p (None), or its data index's shard over
-        # pods, or its virtual position's on a degraded round schedule
-        shard_index = None if pods == 1 else collectives.axis_index(data,
-                                                                    pods)
+        # pods and tp groups, or its virtual position's on a degraded round
+        # schedule
+        shard_index = (None if grid.blocks == 1
+                       else collectives.axis_index(data, grid))
         if rounds and active is not None:
             # rows are in virtual-ring order; so are shard ownership and the
             # self row of the drop mask
             vpos, _ = tar_lib.peer_lookup(active, n)
-            shard_index = collectives.per_peer(vpos, data.device, pods)
+            shard_index = collectives.per_peer(vpos, data.device, grid)
             mask = transport.arrival_mask(ctx, n_shards, s, self_index=vpos)
         else:
             mask = transport.arrival_mask(ctx, n_shards, s)
@@ -824,18 +842,18 @@ class TarTopology(Topology):
                 rows = rows[:, None]
                 mask = rows.expand(n, n, s) if mask is None else mask * rows
         if mask is not None:
-            mask = collectives.on_grid(mask, data, pods)
+            mask = collectives.on_grid(mask, data, grid)
         own = codec.reduce(received, mask, enc, ctx, shard_index=shard_index)
         own = self._outer_reduce(own, ctx)
         wire = codec.encode_shard(own, enc, ctx, shard_index=shard_index)
         if rounds:
             gathered = tar_lib.tar_broadcast_rounds(
                 wire, incast=transport.incast(ctx), active=active,
-                dead_links=dead, plan=plan, pods=pods)
+                dead_links=dead, plan=plan, grid=grid)
             if active is not None:
-                gathered = tar_lib.graft_inactive(gathered, active, pods)
+                gathered = tar_lib.graft_inactive(gathered, active, grid)
         else:
-            gathered = collectives.all_gather(wire, pods)
+            gathered = collectives.all_gather(wire, grid)
         return (gathered, lo, step)         # stale consumed in the reduce
 
     def decode_stage(self, state, length, transport, codec, ctx):
@@ -856,8 +874,8 @@ class TarTopology(Topology):
         ``axis``). A Hadamard or quantizing codec rotates in fp32 (the sign
         promotes a bf16 gradient, as jnp does); Identity keeps the wire
         dtype. The caller casts back."""
-        cfg, pods, p = ctx.cfg, ctx.pods, g.shape[0]
-        n = collectives.axis_size(g, pods, axis)
+        cfg, grid, p = ctx.cfg, ctx.grid, g.shape[0]
+        n = collectives.axis_size(g, grid, axis)
         active = active_subset(cfg, n)
         part_n = n if active is None else len(active)
         if weights_subset(cfg, part_n) is not None or dead_link_set(cfg, n):
@@ -878,7 +896,7 @@ class TarTopology(Topology):
             rows = F.pad(rows, (0, pad))
         enc = codec.encode(rows.reshape(p, -1), ctx)
         shards = enc.data.view(p, n, -1)
-        received = collectives.all_to_all(shards, pods, axis)
+        received = collectives.all_to_all(shards, grid, axis)
         s = received.shape[-1]
         mask = transport.arrival_mask(ctx, n, s)
         if active is not None:           # the same a2a exclusion as TAR
@@ -887,9 +905,9 @@ class TarTopology(Topology):
                                    g.device).to(torch.float32)[:, None]
             mask = on.expand(n, n, s) if mask is None else mask * on
         if mask is not None:
-            mask = collectives.on_grid(mask, g, pods, axis)
+            mask = collectives.on_grid(mask, g, grid, axis)
         shard_index = (None if n == p
-                       else collectives.axis_index(g, pods, axis))
+                       else collectives.axis_index(g, grid, axis))
         own = codec.reduce(received, mask, enc, ctx, shard_index=shard_index)
         own = codec.decode_values(own, enc, ctx)[..., :row_len]
         out = own.reshape(p, lead // n, *rest)

@@ -11,28 +11,29 @@ dropped hop loses the accumulated partial sum, §5.3) is in the dataflow.
 Divisions by the peer count round as the reference's XLA rounds them
 (``collectives.mean_of``). Where N is not a power of 2 (tree) or of the
 base (BCube), both fall back to the plain mean, as the reference does.
-On a ``(pod, data)`` grid (``pods`` > 1) every schedule runs over the data
-axis of all pods at once (``core/collectives.py``).
+On a grid of pods or tp groups (``grid``, a ``collectives.Grid``) every
+schedule runs over the data axis of every pod and tp group at once
+(``core/collectives.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import collectives
-from .collectives import put_rows, take_rows
+from .collectives import ONE, Grid, put_rows, take_rows
 from .tar import (_ring_perms, peer_lookup, shard_plan, weighted_flat,
                   weighted_rows)
 
 
-def psum_mean(x: torch.Tensor, pods: int = 1) -> torch.Tensor:
-    return collectives.pmean(x, pods)
+def psum_mean(x: torch.Tensor, grid: Grid = ONE) -> torch.Tensor:
+    return collectives.pmean(x, grid)
 
 
 def ring_allreduce(x: torch.Tensor, *,
                    hop_masks: torch.Tensor | None = None,
                    active: tuple[int, ...] | None = None,
                    weights: tuple[int, ...] | None = None,
-                   pods: int = 1) -> torch.Tensor:
+                   grid: Grid = ONE) -> torch.Tensor:
     """Bandwidth-optimal ring allreduce (Patarasuk-Yuan): N-1
     reduce-scatter hops, then N-1 all-gather hops over the ring i -> i+1.
 
@@ -47,7 +48,7 @@ def ring_allreduce(x: torch.Tensor, *,
     ``sum(weights)``, into ``tar.shard_plan`` slices that ride the ring
     zero-padded to the widest.
     """
-    p = collectives.axis_size(x, pods)
+    p = collectives.axis_size(x, grid)
     if active is None and weights is not None:
         active = tuple(range(p))
     if active is None:
@@ -76,41 +77,41 @@ def ring_allreduce(x: torch.Tensor, *,
     acc = chunks.clone()   # acc[p, c]: peer p's running partial sum of c
     # reduce-scatter: after N-1 hops peer k holds the sum of chunk (k+1)%n
     for h in range(ring_n - 1):
-        recv = collectives.ppermute(take_rows(acc, at(-h), pods), perm, pods)
+        recv = collectives.ppermute(take_rows(acc, at(-h), grid), perm, grid)
         if hop_masks is not None:
             recv = recv * hop_masks[:, h]
-        put_rows(acc, at(-h - 1), take_rows(acc, at(-h - 1), pods) + recv,
-                 pods)
-    own = collectives.mean_of(take_rows(acc, at(1), pods), ring_n)
+        put_rows(acc, at(-h - 1), take_rows(acc, at(-h - 1), grid) + recv,
+                 grid)
+    own = collectives.mean_of(take_rows(acc, at(1), grid), ring_n)
 
     # all-gather ring
     out = torch.zeros_like(chunks)
-    put_rows(out, at(1), own, pods)
+    put_rows(out, at(1), own, grid)
     cur = own
     for h in range(ring_n - 1):
-        cur = collectives.ppermute(cur, perm, pods)
+        cur = collectives.ppermute(cur, perm, grid)
         if hop_masks is not None:
             cur = cur * hop_masks[:, ring_n - 1 + h]
-        put_rows(out, at(-h), cur, pods)
+        put_rows(out, at(-h), cur, grid)
     if plan is not None:
         return weighted_flat(out, plan)
     return out.reshape(x.shape[0], -1)
 
 
-def tree_allreduce(x: torch.Tensor, pods: int = 1) -> torch.Tensor:
+def tree_allreduce(x: torch.Tensor, grid: Grid = ONE) -> torch.Tensor:
     """Recursive halving-doubling (the classic log-round tree allreduce,
     standing in for NCCL Tree): log2 N reduce-scatter + log2 N all-gather
     hops. After halving, peer i owns segment i; doubling reassembles them
     in order. ``(P, L)`` -> ``(P, L)``."""
-    n = collectives.axis_size(x, pods)
+    n = collectives.axis_size(x, grid)
     if n & (n - 1):
-        return collectives.pmean(x, pods)
+        return collectives.pmean(x, grid)
     upper = {}
     for d in (1 << t for t in range(n.bit_length() - 1)):
         # each peer's side of the pair exchanging at distance d
         upper[d] = collectives.per_peer(
             tuple(int(j & d != 0) for j in range(n)), x.device,
-            pods).bool()[:, None]
+            grid).bool()[:, None]
     buf = x
     d = n // 2
     while d >= 1:
@@ -119,13 +120,13 @@ def tree_allreduce(x: torch.Tensor, pods: int = 1) -> torch.Tensor:
         lo, hi = buf[:, :half], buf[:, half:]
         mine = torch.where(upper[d], hi, lo)      # half this peer reduces
         theirs = torch.where(upper[d], lo, hi)    # half its partner owns
-        buf = mine + collectives.ppermute(theirs, perm, pods)
+        buf = mine + collectives.ppermute(theirs, perm, grid)
         d //= 2
     own = collectives.mean_of(buf, n)             # (P, L/N): segment i
     d = 1
     while d < n:
         recv = collectives.ppermute(own, [(j, j ^ d) for j in range(n)],
-                                    pods)
+                                    grid)
         own = torch.where(upper[d], torch.cat([recv, own], dim=-1),
                           torch.cat([own, recv], dim=-1))
         d *= 2
@@ -133,17 +134,17 @@ def tree_allreduce(x: torch.Tensor, pods: int = 1) -> torch.Tensor:
 
 
 def bcube_allreduce(x: torch.Tensor, *, base: int = 4,
-                    pods: int = 1) -> torch.Tensor:
+                    grid: Grid = ONE) -> torch.Tensor:
     """Gloo-style BCube: k = log_base(N) stages. In each reduce stage the
     ``base`` peers of a group (peers differing in one base-``base`` digit)
     split their buffer into ``base`` parts and exchange, so each reduces
     the part of its digit; the all-gather mirrors the stages in reverse.
     base=2 is recursive halving-doubling. ``(P, L)`` -> ``(P, L)``."""
-    n = collectives.axis_size(x, pods)
+    n = collectives.axis_size(x, grid)
     k, m = 0, n
     while m > 1:
         if m % base:
-            return collectives.pmean(x, pods)     # N not a power of base
+            return collectives.pmean(x, grid)     # N not a power of base
         m //= base
         k += 1
     strides = [base ** t for t in range(k)]
@@ -162,22 +163,22 @@ def bcube_allreduce(x: torch.Tensor, *, base: int = 4,
     buf = x
     for stride in strides:                        # reduce-scatter stages
         parts = buf.reshape(x.shape[0], base, -1)
-        acc = take_rows(parts, digits(stride, 0), pods)   # my digit's part
+        acc = take_rows(parts, digits(stride, 0), grid)   # my digit's part
         for o in range(1, base):
-            send = take_rows(parts, digits(stride, o), pods)
+            send = take_rows(parts, digits(stride, o), grid)
             acc = acc + collectives.ppermute(send, group_perm(stride, o),
-                                             pods)
+                                             grid)
         buf = acc
     own = collectives.mean_of(buf, n)
 
     for stride in reversed(strides):              # all-gather stages
         ordered = torch.empty((x.shape[0], base, own.shape[-1]),
                               dtype=own.dtype, device=own.device)
-        put_rows(ordered, digits(stride, 0), own, pods)
+        put_rows(ordered, digits(stride, 0), own, grid)
         for o in range(1, base):
             # the chunk of the peer whose digit is mine - o
             put_rows(ordered, digits(stride, -o),
-                     collectives.ppermute(own, group_perm(stride, o), pods),
-                     pods)
+                     collectives.ppermute(own, group_perm(stride, o), grid),
+                     grid)
         own = ordered.reshape(x.shape[0], -1)
     return own

@@ -4,10 +4,10 @@ Counterpart of ``src/repro/core/tar.py`` up to line 445. Stage mapping
 (DESIGN §2): stage 1 (shard exchange) -> ``collectives.all_to_all``;
 reduce -> the drop-compensated masked mean (kernel B2 on the card); stage 2
 (broadcast) -> ``collectives.all_gather``. Buckets are ``(P, L)`` stacks,
-one row per peer. On a ``(pod, data)`` grid (``pods`` > 1, see
-``core/collectives.py``) every schedule runs over the data axis in all pods
-at once, and :func:`tar_allreduce` over the pod axis is the hierarchical 2D
-form's outer reduce (§3.1.2).
+one row per peer. On a grid of pods or tp groups (``grid``, a
+``collectives.Grid``) every schedule runs over the data axis in every pod
+and tp group at once, and :func:`tar_allreduce` over the pod axis is the
+hierarchical 2D form's outer reduce (§3.1.2).
 
 The paper's explicit round schedule (Fig 5b) runs rounds r = 1..N-1 as
 ``collectives.ppermute`` calls, each over all P peers at once, issued in
@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.masked_sum import masked_mean as _masked_mean_kernel
 
 from . import collectives
+from .collectives import ONE, Grid
 
 round_groups = 0
 
@@ -69,24 +70,24 @@ def masked_mean(received: torch.Tensor,
 
 
 def tar_reduce_scatter(x: torch.Tensor, *,
-                       mask: torch.Tensor | None = None, pods: int = 1,
+                       mask: torch.Tensor | None = None, grid: Grid = ONE,
                        axis=collectives.DATA) -> torch.Tensor:
     """TAR stage 1 + reduce over ``axis`` (n peers): ``(P, L)`` -> each
     peer's aggregated shard ``(P, L / n)``. mask: ``(P, n, S)``, receiver
     r's arrivals in row r (its own row always 1; see drops.make_mask)."""
-    n = collectives.axis_size(x, pods, axis)
+    n = collectives.axis_size(x, grid, axis)
     s = x.shape[-1] // n
-    received = collectives.all_to_all(x.reshape(x.shape[0], n, s), pods,
+    received = collectives.all_to_all(x.reshape(x.shape[0], n, s), grid,
                                       axis)
     return masked_mean(received, mask)
 
 
 def tar_allreduce(x: torch.Tensor, *, mask: torch.Tensor | None = None,
-                  pods: int = 1, axis=collectives.DATA) -> torch.Tensor:
+                  grid: Grid = ONE, axis=collectives.DATA) -> torch.Tensor:
     """Full TAR over ``axis``: all_to_all -> compensated reduce ->
     all_gather. ``(P, L)`` -> ``(P, L)``."""
-    own = tar_reduce_scatter(x, mask=mask, pods=pods, axis=axis)
-    return collectives.all_gather(own, pods, axis)
+    own = tar_reduce_scatter(x, mask=mask, grid=grid, axis=axis)
+    return collectives.all_gather(own, grid, axis)
 
 
 def relay_via(src: int, dst: int, participants: Sequence[int],
@@ -109,7 +110,8 @@ def relay_via(src: int, dst: int, participants: Sequence[int],
 
 def _grouped_rounds(n: int, incast: int, send_for_round,
                     perm_for_round=None, dead_links=(),
-                    participants=None, pods: int = 1) -> list[torch.Tensor]:
+                    participants=None,
+                    grid: Grid = ONE) -> list[torch.Tensor]:
     """Run rounds 1..n-1, ``incast`` of them to a group; returns each
     round's ``(P, ...)`` receive, round r at index r-1.
 
@@ -136,13 +138,13 @@ def _grouped_rounds(n: int, incast: int, send_for_round,
                           if p[0] != p[1] and (p[0], p[1]) in dead]
             live = [p for p in perm if p not in dead_pairs]
             send = send_for_round(r)
-            recv = collectives.ppermute(send, live, pods)
+            recv = collectives.ppermute(send, live, grid)
             for (src, dst) in dead_pairs:
                 m = relay_via(src, dst, participants
                               if participants is not None else range(n),
                               dead)
-                mid = collectives.ppermute(send, [(src, m)], pods)
-                recv = recv + collectives.ppermute(mid, [(m, dst)], pods)
+                mid = collectives.ppermute(send, [(src, m)], grid)
+                recv = recv + collectives.ppermute(mid, [(m, dst)], grid)
             rows.append(recv)
     return rows
 
@@ -273,7 +275,7 @@ def ring_order(active: tuple[int, ...], dead_links) -> tuple[int, ...]:
 
 
 def graft_inactive(full: torch.Tensor, active: tuple[int, ...],
-                   pods: int = 1) -> torch.Tensor:
+                   grid: Grid = ONE) -> torch.Tensor:
     """Deliver the assembled ``(P, L)`` result to ejected peers.
 
     A degraded schedule assembles the reduced bucket only on active peers;
@@ -282,7 +284,7 @@ def graft_inactive(full: torch.Tensor, active: tuple[int, ...],
     rounds are summed (unnamed destinations receive zeros), then a select
     keeps the active peers' own bytes, as in the reference.
     """
-    n = collectives.axis_size(full, pods)
+    n = collectives.axis_size(full, grid)
     ejected = [p for p in range(n) if p not in set(active)]
     if not ejected:
         return full
@@ -291,9 +293,9 @@ def graft_inactive(full: torch.Tensor, active: tuple[int, ...],
     got = torch.zeros_like(full)
     for t in range(0, len(ejected), a):
         pairs = [(active[j], e) for j, e in enumerate(ejected[t:t + a])]
-        got = got + collectives.ppermute(full, pairs, pods)
+        got = got + collectives.ppermute(full, pairs, grid)
     keep = collectives.per_peer(tuple(int(v) for v in is_active),
-                                full.device, pods)
+                                full.device, grid)
     return torch.where(keep.view(-1, *([1] * (full.dim() - 1))) > 0, full,
                        got)
 
@@ -308,7 +310,7 @@ def _schedule(active: tuple[int, ...] | None, n: int):
 
 
 def _by_sender(rows: list[torch.Tensor], own: torch.Tensor,
-               k: tuple[int, ...], a: int, pods: int = 1) -> torch.Tensor:
+               k: tuple[int, ...], a: int, grid: Grid = ONE) -> torch.Tensor:
     """Place each round's receive at its sender's row: ``(P, a, ...)``,
     row q of peer p from virtual sender q. Round r reached peer p from
     position (k[p] - r) % a; ``own`` (round 0) is p's own row. Each round is
@@ -318,13 +320,13 @@ def _by_sender(rows: list[torch.Tensor], own: torch.Tensor,
                       device=own.device)
     for r, recv in enumerate([own, *rows]):
         collectives.put_rows(out, tuple((kp - r) % a for kp in k), recv,
-                             pods)
+                             grid)
     return out
 
 
 def tar_exchange_rounds(shards: torch.Tensor, *, incast: int = 1,
                         active: tuple[int, ...] | None = None,
-                        dead_links=(), pods: int = 1) -> torch.Tensor:
+                        dead_links=(), grid: Grid = ONE) -> torch.Tensor:
     """Stage-1 shard exchange on the explicit round schedule (Fig 5b).
 
     shards: ``(P, N, S)``, peer p's row j = its contribution to shard j.
@@ -337,7 +339,7 @@ def tar_exchange_rounds(shards: torch.Tensor, *, incast: int = 1,
     after stage 2). Weighted shards are only rows of the matrix
     (:func:`weighted_rows`); ``dead_links`` relays around failed edges.
     """
-    n = collectives.axis_size(shards, pods)
+    n = collectives.axis_size(shards, grid)
     a, k, perm_for_round, participants = _schedule(active, n)
     if shards.shape[1] != a:
         raise ValueError(f"the round schedule over {a} positions needs {a} "
@@ -345,17 +347,17 @@ def tar_exchange_rounds(shards: torch.Tensor, *, incast: int = 1,
 
     def take(r: int) -> torch.Tensor:
         return collectives.take_rows(shards, tuple((kp + r) % a for kp in k),
-                                     pods)
+                                     grid)
 
     rows = _grouped_rounds(a, max(1, int(incast)), take, perm_for_round,
-                           dead_links, participants, pods)
-    return _by_sender(rows, take(0), k, a, pods)
+                           dead_links, participants, grid)
+    return _by_sender(rows, take(0), k, a, grid)
 
 
 def tar_broadcast_rounds(own: torch.Tensor, *, incast: int = 1,
                          active: tuple[int, ...] | None = None,
                          dead_links=(), plan: ShardPlan | None = None,
-                         pods: int = 1) -> torch.Tensor:
+                         grid: Grid = ONE) -> torch.Tensor:
     """Stage-2 broadcast of each peer's aggregated ``(P, S)`` shard on the
     mirrored round schedule. Returns the reassembled ``(P, N*S)`` bucket,
     the layout ``collectives.all_gather`` gives; over the virtual ring of
@@ -364,10 +366,10 @@ def tar_broadcast_rounds(own: torch.Tensor, *, incast: int = 1,
     each row is zero-padded to ``s_max`` and the reassembly concatenates
     each position's valid slice (:func:`weighted_flat`)."""
     a, k, perm_for_round, participants = _schedule(
-        active, collectives.axis_size(own, pods))
+        active, collectives.axis_size(own, grid))
     rows = _grouped_rounds(a, max(1, int(incast)), lambda r: own,
-                           perm_for_round, dead_links, participants, pods)
-    out = _by_sender(rows, own, k, a, pods)
+                           perm_for_round, dead_links, participants, grid)
+    out = _by_sender(rows, own, k, a, grid)
     if plan is not None:
         return weighted_flat(out, plan)
     return out.reshape(own.shape[0], a * own.shape[-1])

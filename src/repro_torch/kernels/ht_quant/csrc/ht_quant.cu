@@ -3,8 +3,9 @@
 // TPU kernels src/repro/kernels/ht_quant/ht_quant.py:
 //   ht_amax_f32   <- ht_amax_pallas  (body _ht_amax_kernel): per-row
 //                    max |H (d * x)|, the rotated block never written;
-//   ht_quant_f32  <- ht_quant_pallas (body _ht_quant_kernel): uint8 codes
-//                    clip(floor((H (d * x) - lo_r) / step_r + u), 0, levels).
+//   ht_quant_grouped_f32 <- ht_quant_pallas (body _ht_quant_kernel): uint8
+//                    codes clip(floor((H (d * x) - lo_r) / step_r + u), 0,
+//                    levels).
 //
 // What bounds them on an H100. The byte bound: ht_amax reads each fp32 of x
 // once and writes one fp32 a row; ht_quant reads x and one shared noise copy
@@ -52,8 +53,11 @@
 //     them for 16-byte stores measured slower.
 //   * Row, peer and grid indices divide by a multiply and a shift (FastDiv):
 //     64-bit division is a long software routine.
-// The grids and the noise are shared by every peer: one copy of (G,) lo and
-// step and of (G, n) noise serves all rows, as the sign is one copy of (n,).
+// The noise is shared by every peer: one copy of (G, n) serves all rows, as
+// the sign is one copy of (n,). So are the grids, one copy of (G,) lo and
+// step, or one copy a group where the rows fall in T contiguous groups with
+// grids of their own (the tp groups of the peer grid): (T, G), row i of
+// group i / (rows / T) reading grid row i % G of its group.
 #include <limits.h>
 
 #include "../../fwht/csrc/butterfly.cuh"
@@ -113,6 +117,7 @@ struct Walk {
   unsigned rows, grid_rows;
   FastDiv rep, per_peer;
   int noise_rows;          // noise rows a stage holds (ht_quant)
+  FastDiv group_rows;      // rows a grid group holds (ht_quant)
 
   __device__ __forceinline__ unsigned grid(unsigned j) const {
     return rep.div(j);
@@ -273,8 +278,9 @@ ht_kernel(Walk w, const float* __restrict__ sign,
     if constexpr (QUANT) {
       if (active) {
         const unsigned g = w.grid(j);
-        const float l = __ldg(lo + g);
-        const float st = __ldg(step + g);
+        const unsigned grid = w.group_rows.div(w.row(j)) * w.grid_rows + g;
+        const float l = __ldg(lo + grid);
+        const float st = __ldg(step + grid);
         const float* u =
             stage + P::ROWS * P::XROW + (g - w.grid(tile * P::ROWS)) * N + t;
         uint8_t* dst = codes_out + (long long)w.row(j) * N + t;
@@ -394,7 +400,7 @@ extern "C" int ht_amax_f32(const void* x, const void* sign, void* out,
     return cudaErrorInvalidValue;
   const Walk w{static_cast<const float*>(x), peer_stride, (unsigned)rows,
                (unsigned)rows, FastDiv::of(1),
-               FastDiv::of((unsigned)rows_per_peer), 0};
+               FastDiv::of((unsigned)rows_per_peer), 0, FastDiv::of(1)};
 #define AMAX_CALL(L) \
   launch<L, false>(w, sg, nullptr, nullptr, nullptr, os, nullptr, 0.f, st)
   BUTTERFLY_DISPATCH(n, AMAX_CALL)
@@ -402,14 +408,18 @@ extern "C" int ht_amax_f32(const void* x, const void* sign, void* out,
 }
 
 // x, sign: as ht_amax_f32. noise: contiguous (grid_rows, n) fp32, 16-byte
-// aligned; lo, step: (grid_rows,) fp32; row i reads noise, lo and step row
-// i % grid_rows, grid_rows dividing rows_per_peer. out: contiguous (rows, n)
-// uint8. bits: 1..8.
-extern "C" int ht_quant_f32(const void* x, const void* sign, const void* noise,
-                            const void* lo, const void* step, void* out,
-                            long long rows, int n, long long rows_per_peer,
-                            long long peer_stride, long long grid_rows,
-                            int bits, void* stream) {
+// aligned; lo, step: (groups, grid_rows) fp32; row i reads noise row i %
+// grid_rows and the lo and step of that grid row in group i / (rows /
+// groups), grid_rows dividing rows_per_peer and rows / groups. out:
+// contiguous (rows, n) uint8. bits: 1..8.
+extern "C" int ht_quant_grouped_f32(const void* x, const void* sign,
+                                    const void* noise, const void* lo,
+                                    const void* step, void* out,
+                                    long long rows, int n,
+                                    long long rows_per_peer,
+                                    long long peer_stride,
+                                    long long grid_rows, long long groups,
+                                    int bits, void* stream) {
   const float* sg = static_cast<const float*>(sign);
   const float* ns = static_cast<const float*>(noise);
   const float* ls = static_cast<const float*>(lo);
@@ -418,12 +428,14 @@ extern "C" int ht_quant_f32(const void* x, const void* sign, const void* noise,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows == 0) return cudaSuccess;
   if (rows < 0 || rows > INT_MAX || rows_per_peer <= 0 || grid_rows <= 0 ||
-      rows_per_peer % grid_rows || bits < 1 || bits > 8 || sg == nullptr ||
-      reinterpret_cast<uintptr_t>(noise) % 16)
+      groups <= 0 || rows % groups || rows_per_peer % grid_rows ||
+      (rows / groups) % grid_rows || bits < 1 || bits > 8 ||
+      sg == nullptr || reinterpret_cast<uintptr_t>(noise) % 16)
     return cudaErrorInvalidValue;
   const Walk w{static_cast<const float*>(x), peer_stride, (unsigned)rows,
                (unsigned)grid_rows, FastDiv::of((unsigned)(rows / grid_rows)),
-               FastDiv::of((unsigned)rows_per_peer), 0};
+               FastDiv::of((unsigned)rows_per_peer), 0,
+               FastDiv::of((unsigned)(rows / groups))};
   const float levels = (float)((1 << bits) - 1);
 #define QUANT_CALL(L) \
   launch<L, true>(w, sg, ns, ls, ss, nullptr, os, levels, st)

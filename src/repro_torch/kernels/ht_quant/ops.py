@@ -31,8 +31,9 @@ _ARGTYPES = {
                                             ctypes.c_longlong,
                                             ctypes.c_longlong,
                                             ctypes.c_void_p],
-    "ht_quant_f32": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int]
-    + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p],
+    "ht_quant_grouped_f32": [ctypes.c_void_p] * 6
+    + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 4
+    + [ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -79,15 +80,22 @@ def ht_quant_launch(x: torch.Tensor, sign: torch.Tensor, noise: torch.Tensor,
                     lo: torch.Tensor, step: torch.Tensor, *,
                     bits: int) -> torch.Tensor:
     """Launch B4 on CUDA fp32 rows ``(..., n)`` with ``(G, n)`` noise and
-    ``(G,)`` grids (row i reads row ``i % G``) -> uint8 of x's shape."""
+    ``(G,)`` grids (row i reads row ``i % G``), or ``(T, G)`` grids, one
+    set for each of T contiguous groups of the rows (the tp groups of a
+    peer stack) -> uint8 of x's shape."""
     global quant_launches
     n = x.shape[-1]
     sign, xv, rows, per_peer, stride = _check_rows(x, sign, "ht_quant")
-    g = lo.shape[0]
-    if noise.shape != (g, n) or lo.shape != (g,) or step.shape != (g,):
-        raise ValueError(f"noise must be (G, {n}) and lo, step (G,), got "
-                         f"{tuple(noise.shape)}, {tuple(lo.shape)}, "
+    groups = lo.shape[0] if lo.dim() == 2 else 1
+    g = lo.shape[-1]
+    grids = (groups, g) if lo.dim() == 2 else (g,)
+    if noise.shape != (g, n) or lo.shape != grids or step.shape != grids:
+        raise ValueError(f"noise must be (G, {n}) and lo, step (G,) or (T, "
+                         f"G), got {tuple(noise.shape)}, {tuple(lo.shape)}, "
                          f"{tuple(step.shape)}")
+    if rows % groups or (rows // groups) % g:
+        raise ValueError(f"{groups} grid groups of {g} rows must divide the "
+                         f"{rows} rows")
     if any(t.dtype != torch.float32 or t.device != x.device
            for t in (noise, lo, step)):
         raise ValueError("noise and grids must be float32 on x's device")
@@ -98,11 +106,11 @@ def ht_quant_launch(x: torch.Tensor, sign: torch.Tensor, noise: torch.Tensor,
         raise ValueError(f"uint8 codes hold 1..8 bits, got {bits}")
     noise, lo, step = noise.contiguous(), lo.contiguous(), step.contiguous()
     out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-    err = _kernel("ht_quant_f32")(
+    err = _kernel("ht_quant_grouped_f32")(
         xv.data_ptr(), sign.data_ptr(), noise.data_ptr(), lo.data_ptr(),
-        step.data_ptr(), out.data_ptr(), rows, n, per_peer, stride, g, bits,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "ht_quant_f32")
+        step.data_ptr(), out.data_ptr(), rows, n, per_peer, stride, g,
+        groups, bits, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "ht_quant_grouped_f32")
     quant_launches += 1
     return out
 
@@ -119,7 +127,8 @@ def ht_quant(x: torch.Tensor, sign: torch.Tensor, noise: torch.Tensor,
              lo: torch.Tensor, step: torch.Tensor, *,
              bits: int = 8) -> torch.Tensor:
     """Fused sign-flip + FWHT + stochastic uniform quantization onto the
-    shared grids: ``(..., n)`` -> uint8 codes of the same shape."""
+    shared grids (``(T, G)`` grids: one set a group of T contiguous row
+    groups): ``(..., n)`` -> uint8 codes of the same shape."""
     if runtime.use_kernel(x, "ht_quant"):
         return ht_quant_launch(x, sign, noise, lo, step, bits=bits)
     return ht_quant_ref(x, sign, noise, lo, step, bits=bits)

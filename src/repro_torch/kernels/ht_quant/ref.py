@@ -8,7 +8,8 @@ Kronecker form instead (``fwht_mxu_ref``); the two differ by fp32 rounding.
 
 Rows are Hadamard blocks. Leading axes (the peer axis) ride along. The
 grids and the noise are one copy shared by every peer: row i of the
-flattened rows reads noise and grid row ``i % G``.
+flattened rows reads noise and grid row ``i % G`` (with ``(T, G)`` grids,
+grid row ``i % G`` of its group of rows, one group a tp group).
 """
 from __future__ import annotations
 
@@ -35,10 +36,15 @@ def ht_quant_ref(x: torch.Tensor, sign: torch.Tensor, noise: torch.Tensor,
                  bits: int) -> torch.Tensor:
     """Rotate, then quantize onto per-block ``[lo, lo + levels*step]``
     grids. x: ``(..., n)``; noise ``(G, n)``; lo/step ``(G,)``, already
-    pmax-shared across peers. Returns uint8 codes of x's shape."""
+    pmax-shared across peers, or ``(T, G)``: the rows in T contiguous
+    groups, each with its own grids. Returns uint8 codes of x's shape."""
     n = x.shape[-1]
-    y = ht_rotate_ref(x, sign).reshape(-1, n)
-    return grid_quant_ref(y, noise, lo, step, bits=bits).view(x.shape)
+    groups = lo.shape[0] if lo.dim() == 2 else 1
+    y = ht_rotate_ref(x, sign).reshape(groups, -1, n)
+    lo, step = lo.reshape(groups, -1), step.reshape(groups, -1)
+    return torch.stack([grid_quant_ref(y[t], noise, lo[t], step[t],
+                                       bits=bits)
+                        for t in range(groups)]).view(x.shape)
 
 
 def ht_amax_bytes(rows: int, n: int) -> int:
@@ -51,10 +57,13 @@ def ht_amax_flops(rows: int, n: int) -> int:
     return rows * n * (int(math.log2(n)) + 3)
 
 
-def ht_quant_bytes(rows: int, n: int, grid_rows: int) -> int:
-    """x read once (fp32), one shared copy of the noise and the grids, the
-    sign, and one uint8 code written an element."""
-    return 4 * rows * n + 4 * grid_rows * n + 8 * grid_rows + 4 * n \
+def ht_quant_bytes(rows: int, n: int, noise_rows: int,
+                   grid_rows: int) -> int:
+    """x read once (fp32), one shared copy of the noise (``noise_rows``
+    rows of n) and of the grids (``grid_rows`` lo/step pairs: T times the
+    noise's rows with a tp group's own grids), the sign, and one uint8 code
+    written an element."""
+    return 4 * rows * n + 4 * noise_rows * n + 8 * grid_rows + 4 * n \
         + rows * n
 
 

@@ -4,9 +4,10 @@
 The reference builds a ``jax.sharding.Mesh`` over devices; the port runs
 every peer on one card, so its mesh is the grid alone: the axis names and
 their sizes. ``make_host_mesh(dp, tp)`` gives the reference's ``('data',
-'model')`` grid; the trainer runs a ``model`` axis of size > 1 only as the
-second data level of ``TrainConfig.pure_dp`` (tensor parallelism is ROADMAP
-A15b).
+'model')`` grid (a ``model`` axis of size > 1 is tensor parallelism, or the
+second data level under ``TrainConfig.pure_dp``); ``make_production_mesh``
+the reference's production grids: 16 x 16 ``(data, model)``, or 2 x 16 x 16
+``(pod, data, model)`` with ``multi_pod``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ def make_host_mesh(dp: int = 1, tp: int = 1) -> HostMesh:
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
-    raise NotImplementedError("the production mesh (16 x 16 data x model, "
-                              "tensor parallel) is not ported yet: ROADMAP "
-                              "A15b")
+    """The reference's production grid: one pod of 16 x 16 ``(data,
+    model)`` ranks, or two such pods with a leading ``pod`` axis."""
+    if multi_pod:
+        return HostMesh(("pod", "data", "model"), (2, 16, 16))
+    return HostMesh(("data", "model"), (16, 16))

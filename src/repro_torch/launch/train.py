@@ -2,8 +2,10 @@
 with the P peers on one card.
 
 Counterpart of ``src/repro/launch/train.py``. It takes the reference's
-flags; the values this slice does not run (wire transports, tensor
-parallelism) raise, naming their ROADMAP item. ``--dp-mode fsdp`` trains
+flags; the values this slice does not run (the wire transports) raise,
+naming their ROADMAP item. ``--tp T`` trains with T tensor-parallel ranks
+beside the ``--dp`` data peers (``train/trainer.py``), ``--production-mesh``
+on the reference's 16 x 16 ``(data, model)`` grid. ``--dp-mode fsdp`` trains
 ZeRO-3 style: the sharded weights' gradients are reduced by OptiReduce's
 reduce-scatter (``train/trainer.py``). ``--recovery
 stale|ef|ef+budget`` arms the loss-recovery codec (core/recovery.py) and
@@ -46,6 +48,10 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 2 --dp-mode fsdp --drop-rate 0.05
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 2 --dp 2 --tp 2 --drop-rate 0.05
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 1 --production-mesh --global-batch 16
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 6 --adaptive --drop-rate 0.002 --trace build/trace
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 2 --recovery ef --drop-pattern burst --drop-rate 0.05 \\
@@ -73,6 +79,7 @@ from repro_torch.core.safeguards import LossMonitor
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels.runtime import MODES as KERNEL_MODES
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import init_params
 from repro_torch.optim.optimizers import OptimizerConfig
 from repro_torch.runtime import (ControlPlane, PolicyStepCache, StepTelemetry,
@@ -159,8 +166,6 @@ _NOT_PORTED = (
     ("transport", "lossy", "--transport inproc|udp (wire): ROADMAP A18"),
     ("wire_deadline", None, "--wire-deadline: ROADMAP A18"),
     ("rendezvous", None, "--rendezvous: ROADMAP A18"),
-    ("tp", 1, "--tp > 1 (tensor parallelism): ROADMAP A15b"),
-    ("production_mesh", False, "--production-mesh: ROADMAP A15b"),
 )
 
 
@@ -170,12 +175,22 @@ def run(argv=None) -> list[dict]:
     host seconds to the step's last result)."""
     ap = parser()
     args = ap.parse_args(argv)
+    mesh = (make_production_mesh() if args.production_mesh
+            else make_host_mesh(dp=args.dp, tp=args.tp))
+    tp = mesh.shape.get("model", 1)
+    n_data = mesh.shape.get("data", 1)
+    if args.transport != "lossy" and tp != 1:
+        ap.error("--transport needs --tp=1: with model parallelism every tp "
+                 "sibling of a data rank would run the io_callback, "
+                 "advancing the ring's per-rank exchange counter tp times "
+                 "per bucket and pairing deposits from different buckets "
+                 "into one wire exchange")
     for name, default, what in _NOT_PORTED:
         if getattr(args, name) != default:
             raise NotImplementedError(f"not ported yet: {what}")
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    print(f"arch={cfg.name} peers={args.dp} device={device} "
+    print(f"arch={cfg.name} mesh={mesh.shape} device={device} "
           f"strategy={args.strategy} drop_rate={args.drop_rate}", flush=True)
 
     tracer = None
@@ -185,7 +200,7 @@ def run(argv=None) -> list[dict]:
     control = None
     with_budget = args.recovery == "ef+budget"
     if args.adaptive or args.report or with_budget:
-        control = ControlPlane.create(n_nodes=args.dp,
+        control = ControlPlane.create(n_nodes=n_data,
                                       rebalance=args.rebalance,
                                       **({"budget": {}} if with_budget
                                          else {}))
@@ -205,15 +220,15 @@ def run(argv=None) -> list[dict]:
                                   global_batch=args.global_batch,
                                   seed=args.seed))
     key = make_key(args.seed)
-    params = init_params(generator(key, device), cfg, device=device)
-    step_fn, opt = build_train_step(cfg, tc, peers=args.dp, device=device)
+    params = init_params(generator(key, device), cfg, device=device, tp=tp)
+    step_fn, opt = build_train_step(cfg, tc, mesh, device=device)
     opt_state = opt.init(params)
     rec_state = None
     if args.recovery != "none":
         plan = BucketPlan.for_tree(params, tc.bucket_elems)
         rec_state = recovery_lib.init_state(
             recovery_lib.parse(args.recovery), plan.num_buckets,
-            plan.bucket_elems, peers=args.dp, device=device)
+            plan.bucket_elems, peers=n_data, device=device)
 
     def ckpt_tree():
         return ((params, opt_state) if rec_state is None
@@ -332,7 +347,7 @@ def run(argv=None) -> list[dict]:
                 if step_fn is not None:
                     how = "cached step reused"
                 else:
-                    step_fn, _ = build_train_step(cfg, tc, peers=args.dp,
+                    step_fn, _ = build_train_step(cfg, tc, mesh,
                                                   device=device)
                     step_cache.put(_policy_of(new_sync), step_fn)
                     how = "step rebuilt"

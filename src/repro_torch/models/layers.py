@@ -4,8 +4,15 @@ Counterpart of the dense-training part of ``src/repro/models/layers.py``,
 with the reference's numerics: norms and softmax statistics in fp32 and cast
 back, attention logits accumulated in fp32 (``preferred_element_type``), the
 tanh GELU of ``jax.nn.gelu``, RoPE on split halves, and masking with -1e30.
-Tensor parallelism (``ParallelCtx``) waits for a later slice: every function
-here runs on one device, as the reference does with ``tp_axis=None``.
+Under tensor parallelism (``pctx`` with a ``tp_axis`` of T ranks) the
+weights are the global, padded ones (``models/transformer.py``): the
+column-parallel products run as one GEMM over the global weight, each q
+head attends with the K / V head ``kv_heads`` names (the reference's
+``kv_select`` / ``kv_map`` of its shard, on the global heads), and the
+row-parallel products (``wo``, ``w_down``) are T partial products over the
+weights' T row chunks, each rounded to the activation dtype, reduced by
+``pctx.reduce_output`` (a psum in rank order, scattered over the sequence
+under SP).
 """
 from __future__ import annotations
 
@@ -13,6 +20,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .parallel import ParallelCtx
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
@@ -52,12 +61,30 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, h * n_rep, d)
 
 
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 pctx: ParallelCtx) -> torch.Tensor:
+    """``x @ w`` with ``w`` row-parallel over the tp ranks: rank t's
+    partial product of its chunk of x's last dim and w's rows, rounded to
+    x's dtype, ``(T, B, S, D)``, then ``pctx.reduce_output``."""
+    t = pctx.tp_size()
+    b, s, k = x.shape
+    parts = torch.matmul(x.reshape(b * s, t, k // t).transpose(0, 1),
+                         w.to(x.dtype).reshape(t, k // t, w.shape[-1]))
+    return pctx.reduce_output(parts.view(t, b, s, w.shape[-1]))
+
+
+def _tp(pctx: ParallelCtx | None) -> bool:
+    return pctx is not None and pctx.tp_size() > 1
+
+
 def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
-                    rope_theta: float = 10000.0,
-                    causal: bool = True) -> torch.Tensor:
+                    rope_theta: float = 10000.0, causal: bool = True,
+                    pctx: ParallelCtx | None = None,
+                    kv_heads: torch.Tensor | None = None) -> torch.Tensor:
     """Full causal attention for training. x: (B, S, D); w holds wq
     (D, Hq*dh), wk/wv (D, Hkv*dh), wo (Hq*dh, D), ``head_dim`` and
-    ``attn_chunk``."""
+    ``attn_chunk``. Under tensor parallelism ``kv_heads`` (int64 ``(Hq,)``)
+    gives each q head's K / V head, and ``wo`` is row-parallel."""
     b, s, _ = x.shape
     dh = w["head_dim"]
     attn_chunk = w.get("attn_chunk", 0)
@@ -72,8 +99,11 @@ def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
     q = apply_rope(q.reshape(b, s, hq, dh), positions, theta=rope_theta)
     k = apply_rope(k.reshape(b, s, hkv, dh), positions, theta=rope_theta)
     v = v.reshape(b, s, hkv, dh)
-    k = _repeat_kv(k, hq // hkv)
-    v = _repeat_kv(v, hq // hkv)
+    if kv_heads is None:
+        k = _repeat_kv(k, hq // hkv)
+        v = _repeat_kv(v, hq // hkv)
+    else:
+        k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
     scale = 1.0 / math.sqrt(dh)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
@@ -82,12 +112,15 @@ def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
         logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, hq * dh)
+    if _tp(pctx):
+        return row_parallel(ctx, w["wo"], pctx)
     return ctx @ w["wo"].to(x.dtype)
 
 
-def gated_mlp(x: torch.Tensor, w: dict, *,
-              activation: str = "silu") -> torch.Tensor:
-    """SwiGLU (or GELU-gated) MLP."""
+def gated_mlp(x: torch.Tensor, w: dict, *, activation: str = "silu",
+              pctx: ParallelCtx | None = None) -> torch.Tensor:
+    """SwiGLU (or GELU-gated) MLP; under tensor parallelism ``w_gate`` and
+    ``w_up`` column-parallel, ``w_down`` row-parallel."""
     if activation == "silu":
         act = F.silu
     elif activation == "gelu":
@@ -97,4 +130,6 @@ def gated_mlp(x: torch.Tensor, w: dict, *,
         raise ValueError(f"unknown activation {activation!r}")
     g = x @ w["w_gate"].to(x.dtype)
     u = x @ w["w_up"].to(x.dtype)
+    if _tp(pctx):
+        return row_parallel(act(g) * u, w["w_down"], pctx)
     return (act(g) * u) @ w["w_down"].to(x.dtype)

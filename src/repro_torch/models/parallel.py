@@ -1,4 +1,4 @@
-"""Parallelism context of the model code: the data-parallel half.
+"""Parallelism context of the model code.
 
 Counterpart of ``src/repro/models/parallel.py``. The reference's model code
 runs inside a ``shard_map`` body and ``ParallelCtx`` carries the mesh axis
@@ -11,8 +11,27 @@ reference becomes a ``(P, ...)`` stack and each collective reindexes it.
 name) -> w_full``, whose gradient the trainer reduces with OptiReduce's
 reduce-scatter. On one card a parameter is stored whole, so the gather
 hands back the full weight; ``name`` tells apart two call sites that share
-a key (the embedding lookup and the tied head). Tensor parallelism
-(``tp_axis``) is ROADMAP A15b.
+a key (the embedding lookup and the tied head).
+
+Tensor parallelism (``tp_axis``, T = ``sizes[tp_axis]`` ranks). The model
+code runs one data peer at a time and keeps **one** activation for the
+whole tp group, the value every tp rank of the reference holds between its
+sublayers (replicated over tp). Where the tp ranks differ, the value is a
+``(T, ...)`` stack over the tp dim, rank order: the row-parallel partial
+products, the vocab-sharded logits' statistics. ``psum_tp`` and
+``pmax_tp`` reduce such a stack to the one value every rank holds:
+``psum_tp`` adds the T rows in rank order in the stack's dtype, so its
+autograd is the correct one (the gradient of a sum is a broadcast), and a
+replicated activation that feeds a column-parallel product gets the sum of
+every shard's contribution in the backward pass (Megatron's "f") by
+construction, from the one activation. ``tp_index`` is the ``(T,)`` rank
+index of the stack.
+
+Sequence parallelism (``sp``, Megatron-SP): the residual stream between
+sublayers is sharded over tp along the sequence, a ``(T, B, S/T, D)`` stack
+of the ranks' slices. ``gather_seq`` puts the slices back together at a
+sublayer's input, and ``reduce_output`` sums the row-parallel partials and
+scatters the sum over the sequence (the reference's ``psum_scatter``).
 """
 from __future__ import annotations
 
@@ -25,18 +44,62 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    tp_axis: str | None = None      # 'model' (ROADMAP A15b)
+    tp_axis: str | None = None      # 'model'
     dp_axis: str | None = None      # 'data'  (fsdp gathers + grad sync)
     pod_axis: str | None = None     # 'pod', or 'model' under pure_dp
     fsdp: bool = False              # weights sharded over the dp axes
     gather: Callable | None = None  # (w, dim, key, name) -> w_full
     sizes: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    sp: bool = False                # sequence parallelism over tp
 
-    def __post_init__(self):
-        if self.tp_axis is not None:
-            raise NotImplementedError(
-                f"tensor parallelism (tp_axis={self.tp_axis!r}) is not "
-                "ported yet: ROADMAP A15b")
+    def tp_size(self) -> int:
+        return self.sizes.get(self.tp_axis, 1) if self.tp_axis else 1
+
+    def tp_index(self, device=None) -> torch.Tensor:
+        """The tp ranks of a ``(T, ...)`` stack, ``(T,)``."""
+        return torch.arange(self.tp_size(), device=device)
+
+    def psum_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of a ``(T, ...)`` stack over the tp ranks, in rank order and
+        in its dtype (each add rounded, as a psum of that dtype rounds):
+        the one value every rank holds."""
+        if not self.tp_axis:
+            return x
+        out = x[0]
+        for t in range(1, x.shape[0]):
+            out = out + x[t]
+        return out
+
+    def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Max of a ``(T, ...)`` stack over the tp ranks."""
+        if not self.tp_axis:
+            return x
+        return x.amax(dim=0)
+
+    def seq_sharded(self) -> bool:
+        """Whether the residual stream runs as sequence slices (SP over
+        more than one tp rank)."""
+        return self.sp and self.tp_size() > 1
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """``(T, B, S/T, D)`` -> ``(B, S, D)`` at a sublayer's input (SP);
+        the identity otherwise."""
+        if not self.seq_sharded():
+            return x
+        return torch.cat(x.unbind(0), dim=1)
+
+    def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, S, D)`` -> the ranks' sequence slices ``(T, B, S/T, D)``
+        (SP); the identity otherwise."""
+        if not self.seq_sharded():
+            return x
+        return torch.stack(x.chunk(self.tp_size(), dim=1))
+
+    def reduce_output(self, parts: torch.Tensor) -> torch.Tensor:
+        """Row-parallel output reduction of the ``(T, B, S, D)`` partial
+        products: ``psum_tp``, then under SP each rank's sequence slice of
+        the sum (the reference's ``psum_scatter``)."""
+        return self.scatter_seq(self.psum_tp(parts))
 
     def dp_axes(self) -> tuple[str, ...]:
         return tuple(a for a in (self.pod_axis, self.dp_axis) if a)

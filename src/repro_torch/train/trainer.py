@@ -46,8 +46,33 @@ the reference's does (its gather VJP's stats are thrown away; ROADMAP C).
 
 The pod axis: a mesh with a ``pod`` axis, or ``pure_dp`` on the
 ``(data, model)`` host mesh, which takes the ``model`` axis as the pod axis
-(the second level of the hierarchical 2D TAR). Tensor parallelism is ROADMAP
-A15b.
+(the second level of the hierarchical 2D TAR).
+
+Tensor parallelism: a ``model`` axis of T > 1 without ``pure_dp``. The
+parameters are the reference's global, padded arrays
+(``param_table(cfg, tp=T)``), stored once; tp rank t's local leaf is the
+t-th of T contiguous chunks of the leaf's tp dim (the whole leaf when it is
+replicated over tp). Each data peer runs the forward and backward pass of
+its whole tp group at once (``models/parallel.py``: one activation, the
+row-parallel partial products summed by ``psum_tp``), which gives the
+gradient of every global leaf: the correct one, where the reference's
+``check_vma=False`` step scales its sharded leaves' gradients by T and
+leaves partial sums in its replicated ones (ROADMAP C). The peer grid gains
+the model axis, outermost (``core/collectives.py``): rank (t, p) packs its
+*local* gradients into row ``t * P + p`` of a ``(T * P, B, bucket_elems)``
+arena whose ``BucketPlan`` is made from the local shapes, as the
+reference's body sees them, and ``sync_packed`` syncs over ``data`` within
+each tp group (the same draws in every group: the reference's sync key is
+the same on every tp rank), all groups in one launch a bucket. After the
+sync each tp rank's synced slice goes back into its chunk of the global
+gradient, and the replicated leaves take tp rank 0's synced values, which
+is what the reference's global array reads back as. The global norm sums
+one partial sum a shard over exactly each leaf's sharded axes, a replicated
+leaf counted once. Under FSDP x TP each gather site's gradient is cut into
+its T tp shards, stacked ``(T * P, *local)``, and reduce-scattered over the
+dp axes within each tp group. ``seq_parallel`` runs the residual stream as
+sequence slices (Megatron-SP), the same values. Recovery does not compose
+with tp > 1, as the reference's launcher fails on it (ROADMAP C).
 
 With ``sync.recovery`` armed (DESIGN §8, core/recovery.py; replicated, one
 pod) the step also threads the recovery state: the carried error-feedback
@@ -80,7 +105,7 @@ from repro_torch.kernels import runtime as kernel_runtime
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm_loss, param_specs, param_table
 from repro_torch.models.parallel import ParallelCtx
-from repro_torch.models.transformer import _map_table
+from repro_torch.models.transformer import _map_table, tp_dims
 from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -100,6 +125,9 @@ class TrainConfig:
     # pure data parallelism on a single-pod mesh: the 'model' axis is a
     # second data level (hierarchical 2D TAR over (model, data))
     pure_dp: bool = False
+    # sequence parallelism (Megatron-SP) over the tp ranks; needs
+    # seq_len % tp == 0
+    seq_parallel: bool = False
     # a transport that replaces the resolved spec's (replicated DP only)
     transport_override: Any = None
     kernel_mode: str | None = None       # kernels/runtime mode, None = as is
@@ -155,19 +183,19 @@ def _psum_group_total(groups) -> torch.Tensor:
 
 def _shard_sumsq(g: torch.Tensor, spec, sizes) -> torch.Tensor:
     """Sum of squares of a leaf in fp32: a scalar when replicated, else
-    ``(k,)``, one partial sum per shard of its sharded dim (k the product
-    of the dim's axis sizes, pod-major), as each rank of the reference
-    sums its own shard."""
+    one partial sum per shard, ``(k,)`` (k the product of the sharded
+    dims' axis sizes: ``model`` on the tp dim, the fsdp axes pod-major on
+    another), as each rank of the reference sums its own shard."""
     g = g.to(torch.float32)
     dims = [(d, e) for d, e in enumerate(spec) if e is not None]
     if not dims:
         return torch.sum(g * g)
-    if len(dims) > 1:
-        raise NotImplementedError("a leaf sharded on two dims needs tensor "
-                                  "parallelism: ROADMAP A15b")
-    d, entry = dims[0]
-    k = math.prod(sizes[a] for a in _spec_axes((entry,)))
-    parts = g.unflatten(d, (k, -1)).movedim(d, 0).reshape(k, -1)
+    # cut every sharded dim into its shards, moved to the front
+    parts = g
+    for i, (d, entry) in enumerate(dims):
+        k = math.prod(sizes[a] for a in _spec_axes((entry,)))
+        parts = parts.unflatten(d + i, (k, -1)).movedim(d + i, i)
+    parts = parts.reshape(math.prod(parts.shape[:len(dims)]), -1)
     return torch.sum(parts * parts, dim=1)
 
 
@@ -192,29 +220,30 @@ def _spec_leaves(specs) -> list[tuple]:
     return [specs]
 
 
-def packed_global_norm(batch: torch.Tensor, plan: BucketPlan,
-                       specs=None) -> torch.Tensor:
-    """:func:`sharded_global_norm` over one peer's packed ``(B,
-    bucket_elems)`` arena, over its ``plan.total`` real entries (the
-    zero-padded tail excluded). Adjacent leaves of one sharded-axes set
-    coalesce into one contiguous run, one sum of squares a run; an
-    all-replicated tree (``specs`` None) is one sum over the stream. The
-    arena holds full tensors on one card, so a sharded run's sum is already
-    its sum over the shards."""
-    flat = batch.reshape(-1)
-    s_leaves = (_spec_leaves(specs) if specs is not None
-                else [()] * len(plan.sizes))
-    runs: list[tuple[tuple[str, ...], int, int]] = []
-    for off, size, s in zip(plan.offsets, plan.sizes, s_leaves):
-        axes = tuple(sorted(_spec_axes(s)))
-        if runs and runs[-1][0] == axes and runs[-1][2] == off:
-            runs[-1] = (axes, runs[-1][1], off + size)
+def packed_global_norm(ranks: torch.Tensor, plan: BucketPlan,
+                       specs) -> torch.Tensor:
+    """:func:`sharded_global_norm` over the T tp ranks' packed ``(T, B,
+    bucket_elems)`` arenas of one data peer (T = 1 without tensor
+    parallelism), over their ``plan.total`` real entries (the zero-padded
+    tail excluded). Adjacent leaves that are both sharded over ``model``,
+    or both not, coalesce into one contiguous run, one sum of squares a
+    run: a run sharded over ``model`` sums every tp rank's arena (one
+    partial sum a shard); any other run is read once, from tp rank 0's.
+    The data axes shard nothing here: the arena holds full tensors."""
+    flat = ranks.reshape(ranks.shape[0], -1)
+    runs: list[tuple[bool, int, int]] = []
+    for off, size, s in zip(plan.offsets, plan.sizes, _spec_leaves(specs)):
+        on_tp = "model" in _spec_axes(s)
+        if runs and runs[-1][0] == on_tp and runs[-1][2] == off:
+            runs[-1] = (on_tp, runs[-1][1], off + size)
         else:
-            runs.append((axes, off, off + size))
-    groups = _summed_groups(
-        (axes, torch.sum(torch.square(flat[a:b].to(torch.float32))))
-        for axes, a, b in runs)
-    return torch.sqrt(_psum_group_total(groups))
+            runs.append((on_tp, off, off + size))
+    total = None
+    for on_tp, a, b in runs:
+        rows = flat[:, a:b] if on_tp else flat[0, a:b]
+        ss = torch.sum(torch.square(rows.to(torch.float32)))
+        total = ss if total is None else total + ss
+    return torch.sqrt(total)
 
 
 def _local(batch: dict, rows: slice, device: torch.device) -> dict:
@@ -234,12 +263,19 @@ class FsdpGather:
     ``reduce`` runs each stack's reduce-scatter over all peers, one hop a
     fsdp axis, outer first, under the site's own draws, and yields the view
     ``w`` with the reduced gradient of the full weight (the peers' slices,
-    pod-major), in the gradient's dtype."""
+    pod-major), in the gradient's dtype. With T tp ranks a peer's gradient
+    enters the stack as its T tp shards (rows ``t * P + p``), each tp group
+    reduce-scatters its own, and the reduced shards go back into the
+    global weight's tp chunks (tp rank 0's for a weight replicated over
+    tp)."""
 
-    def __init__(self, cfg: OptiReduceConfig, hops, pods: int):
-        self.cfg, self.hops, self.pods = cfg, hops, pods
+    def __init__(self, cfg: OptiReduceConfig, hops,
+                 grid: collectives.Grid = collectives.ONE,
+                 tp_dims: dict | None = None):
+        self.cfg, self.hops, self.grid = cfg, hops, grid
+        self.tp_dims = tp_dims or {}  # site name -> the weight's tp dim
         self.taken: dict = {}     # this forward: site -> (leaf, dim, view)
-        self.stacks: dict = {}    # site -> ((P, *shape) stack, dim, view)
+        self.stacks: dict = {}    # site -> ((T*P, *local) stack, dim, view)
 
     def gather(self, w: torch.Tensor, dim: int, key: Key,
                name: str) -> torch.Tensor:
@@ -259,10 +295,12 @@ class FsdpGather:
         grads = torch.autograd.grad(
             loss, [self.taken[site][0] for site in order] + list(inputs))
         for site, g in zip(order, grads):
+            local = to_tp(g, self.tp_dims.get(site[0]), self.grid.tp)
             if site not in self.stacks:
                 _, dim, w = self.taken[site]
-                self.stacks[site] = (g.new_empty((peers, *g.shape)), dim, w)
-            self.stacks[site][0][peer] = g
+                self.stacks[site] = (g.new_empty((self.grid.tp * peers,
+                                                  *local.shape[1:])), dim, w)
+            self.grid.by_group(self.stacks[site][0])[:, peer] = local
         self.taken = {}
         return grads[len(order):]
 
@@ -272,22 +310,57 @@ class FsdpGather:
         stacks, self.stacks = self.stacks, {}
         for (name, key), (stack, dim, w) in stacks.items():
             ctx = SyncContext(cfg=self.cfg, draws=draws,
-                              bucket=key[len(skey):], pods=self.pods)
+                              bucket=key[len(skey):], grid=self.grid)
             g = stack
             for axis, hop in self.hops:
                 g = hop.reduce_scatter(g, axis, dim, ctx)
-            yield w, torch.cat(g.unbind(0), dim=dim).to(stack.dtype)
+            local = torch.stack([torch.cat(r.unbind(0), dim=dim)
+                                 for r in self.grid.by_group(g).unbind(0)])
+            yield w, from_tp(local, self.tp_dims.get(name)).to(stack.dtype)
 
 
 def make_fsdp_gather(sync_cfg: OptiReduceConfig, fsdp_axes, data_axis: str,
-                     pods: int) -> FsdpGather:
+                     grid: collectives.Grid = collectives.ONE,
+                     tp_dims: dict | None = None) -> FsdpGather:
     """The gather over ``fsdp_axes`` (outer first) with one reduce-scatter
     spec an axis: drops are modelled only on the data axis, the pod hop is
-    the reliable inter-pod aggregation."""
+    the reliable inter-pod aggregation. ``tp_dims`` gives each site name's
+    tp dim in the gathered weight (None or absent: replicated over tp)."""
     hops = [(collectives.DATA if ax == data_axis else collectives.POD,
              rs_spec(sync_cfg, with_drops=ax == data_axis))
             for ax in fsdp_axes]
-    return FsdpGather(sync_cfg, hops, pods)
+    return FsdpGather(sync_cfg, hops, grid, tp_dims)
+
+
+def to_tp(g: torch.Tensor, dim: int | None, tp: int) -> torch.Tensor:
+    """A global tensor as its T tp ranks' local tensors, ``(T, *local)``:
+    the T contiguous chunks of ``dim`` (views), or T views of the whole
+    tensor when it is replicated over tp (``dim`` None)."""
+    if dim is None:
+        return g.expand(tp, *g.shape)
+    return g.unflatten(dim, (tp, -1)).movedim(dim, 0)
+
+
+def from_tp(local: torch.Tensor, dim: int | None) -> torch.Tensor:
+    """Inverse of :func:`to_tp` on synced values: the T chunks put back
+    along ``dim``, or tp rank 0's tensor for a replicated one."""
+    if dim is None:
+        return local[0]
+    return local.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _site_tp_dims(cfg: ModelConfig, tp: int) -> dict[str, int | None]:
+    """The tp dim of every gather site's weight: a layer's leaves without
+    their stack dim, the embedding (and its tied head) on the vocab."""
+    if tp == 1:
+        return {}
+    table = param_table(cfg, tp=tp)
+    dims = {k: (v.tp_dim - 1 if v.tp_dim is not None else None)
+            for k, v in table["stages"][0].items()}
+    dims["embed"] = dims["head"] = table["embed"].tp_dim
+    if "lm_head" in table:
+        dims["lm_head"] = table["lm_head"].tp_dim
+    return dims
 
 
 def _grad_view(w: torch.Tensor, owners: dict) -> torch.Tensor:
@@ -332,16 +405,15 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
             raise ValueError("pure_dp is a single-pod remap")
         data_axis, pod_axis = "data", "model"   # second data level
         dp_axes = ("model", "data")
+        tp = 1
     else:
-        if shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                "tensor parallelism over the 'model' axis is not ported "
-                "yet: ROADMAP A15b (pure_dp takes it as a pod axis)")
         dp_axes = dp_axes_of(mesh)
         data_axis = "data" if "data" in names else None
         pod_axis = "pod" if "pod" in names else None
+        tp = shape.get("model", 1)
     pods = shape[pod_axis] if pod_axis else 1
     peers = pods * (shape[data_axis] if data_axis else 1)
+    grid = collectives.Grid(pods, tp)
     fsdp = tc.dp_mode == "fsdp"
     fsdp_axes = dp_axes if fsdp else None
 
@@ -360,6 +432,13 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                 "recovery does not compose with the 2D (pod, data) "
                 "hierarchy yet: the stale/EF wire-space layout assumes a "
                 "single flat TAR shard order")
+        if tp > 1:
+            raise ValueError(
+                "recovery does not compose with tensor parallelism: the "
+                "reference's launcher sizes the recovery state from the "
+                "global parameters while its trainer packs each tp rank's "
+                "local ones, and fails ('stale cache ... longer than the "
+                "padded bucket'; ROADMAP C)")
         if rec_policy.ef and tc.transport_override is not None:
             raise ValueError(
                 "recovery='ef'/'ef+budget' reconstructs sender-arrival masks "
@@ -371,11 +450,14 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                              "path; fsdp grads reduce through rs_spec")
         spec = dataclasses.replace(spec, transport=tc.transport_override)
     opt = make_optimizer(tc.optimizer)
-    p_specs = param_specs(cfg, fsdp_axes=fsdp_axes)
+    p_specs = param_specs(cfg, tp=tp, fsdp_axes=fsdp_axes)
+    leaf_tp = tp_dims(cfg, tp)
+    pctx = ParallelCtx(tp_axis="model" if tp > 1 else None,
+                       dp_axis=data_axis, pod_axis=pod_axis, fsdp=fsdp,
+                       sizes=shape, sp=tc.seq_parallel and tp > 1)
     if fsdp:
         fsdp_mask = _fsdp_leaf_mask(cfg, fsdp_axes)
-        pctx = ParallelCtx(dp_axis=data_axis, pod_axis=pod_axis, fsdp=True,
-                           sizes=shape)
+        site_tp = _site_tp_dims(cfg, tp)
 
     def split(batch):
         gb = len(batch["tokens"])
@@ -391,10 +473,14 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        plan = BucketPlan.for_tree(params, tc.bucket_elems)
+        # the plan of one tp rank's local leaves (the whole tree at tp = 1)
+        local_like = [to_tp(p, d, tp)[0] for p, d in zip(leaves, leaf_tp)]
+        plan = BucketPlan.for_tree(tree_unflatten(params, local_like),
+                                   tc.bucket_elems)
         arena_dtype = torch.float32 if n_micro == 1 else tc.accum_dtype
-        arena = torch.zeros((peers, plan.num_buckets, plan.bucket_elems),
+        arena = torch.zeros((tp * peers, plan.num_buckets, plan.bucket_elems),
                             dtype=arena_dtype, device=device)
+        ranks = grid.by_group(arena)
         losses = []
         for peer in range(peers):
             loss_p = torch.zeros((), device=device)
@@ -402,9 +488,11 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                 lo = peer * b_local + i * mb
                 mbatch = _local(batch, slice(lo, lo + mb), device)
                 loss = lm_loss(params, mbatch, cfg, seq_chunk=tc.seq_chunk,
-                               remat=tc.remat)
+                               remat=tc.remat, pctx=pctx)
                 grads = torch.autograd.grad(loss, leaves)
-                plan.pack_into(arena[peer], tree_unflatten(params, grads),
+                # each tp rank's local gradients into its own row
+                grads = [to_tp(g, d, tp) for g, d in zip(grads, leaf_tp)]
+                plan.pack_into(ranks[:, peer], tree_unflatten(params, grads),
                                accumulate=i > 0)
                 loss_p = loss_p + loss.detach()
             losses.append(loss_p / n_micro)
@@ -431,7 +519,9 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                     arena, ctx, stale=rec_state["stale"])
         del arena
 
-        g = synced[0]          # every peer holds the same synced arena
+        # every peer of a tp group holds the same synced arena: peer 0's,
+        # one (B, E) arena a tp rank
+        g = grid.by_group(synced)[:, 0]
         if tc.guard:
             gscale, skipped = guard_scale(
                 loss_frac, skip_threshold=sync_cfg.skip_threshold)
@@ -442,18 +532,24 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         gnorm = gscale * packed_global_norm(g, plan, p_specs)
         clip = torch.clamp(tc.optimizer.grad_clip
                            / torch.clamp(gnorm, min=1e-9), max=1.0)
-        grads = plan.unpack(g * (gscale * clip))
+        # each tp rank's synced slice into its chunk of the global
+        # gradient; the replicated leaves read tp rank 0's
+        grads = tree_unflatten(params, [
+            from_tp(x, d) for x, d in zip(
+                tree_leaves(plan.unpack(g * (gscale * clip))), leaf_tp)])
         return grads, losses, loss_frac, gnorm, skipped, new_rec
 
     def fsdp_grads(params, batch, b_local, mb, n_micro, ctx, skey,
                    site_draws):
         leaves = tree_leaves(params)
         small = [p for p, m in zip(leaves, fsdp_mask) if not m]
+        small_tp = [d for d, m in zip(leaf_tp, fsdp_mask) if not m]
         for p in small:
             p.requires_grad_(True)
         owners = {p.untyped_storage().data_ptr(): j
                   for j, (p, m) in enumerate(zip(leaves, fsdp_mask)) if m}
-        gather = make_fsdp_gather(sync_cfg, fsdp_axes, data_axis, pods)
+        gather = make_fsdp_gather(sync_cfg, fsdp_axes, data_axis, grid,
+                                  site_tp)
         step_pctx = dataclasses.replace(pctx, gather=gather.gather)
         acc = small_acc = None
         loss_p = torch.zeros(peers, device=device)
@@ -464,16 +560,17 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
             grad = [torch.zeros_like(p) if m else None
                     for p, m in zip(leaves, fsdp_mask)]
             bufs = {ptr: (leaves[j], grad[j]) for ptr, j in owners.items()}
-            small_g = [torch.empty((peers, *p.shape), dtype=p.dtype,
-                                   device=device) for p in small]
+            small_g = [torch.empty((tp * peers, *to_tp(p, d, tp).shape[1:]),
+                                   dtype=p.dtype, device=device)
+                       for p, d in zip(small, small_tp)]
             for peer in range(peers):
                 lo = peer * b_local + i * mb
                 mbatch = _local(batch, slice(lo, lo + mb), device)
                 loss = lm_loss(params, mbatch, cfg, seq_chunk=tc.seq_chunk,
                                remat=tc.remat, pctx=step_pctx, key=skey)
-                for stack, g in zip(small_g, gather.backward(loss, peer,
-                                                             peers, small)):
-                    stack[peer] = g
+                for stack, g, d in zip(small_g, gather.backward(
+                        loss, peer, peers, small), small_tp):
+                    grid.by_group(stack)[:, peer] = to_tp(g, d, tp)
                 loss_p[peer] += loss.detach()
             # the deferred VJP over all peers; sites sharing a leaf add
             for w, g in gather.reduce(site_draws, skey):
@@ -497,7 +594,9 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         if small:
             synced = sync_pytree(small_acc, ctx, bucket_elems=tc.bucket_elems,
                                  mode=tc.sync_mode, spec=spec)
-            it = iter(s[0] for s in synced)
+            # each tp group's peer 0, put back together over tp
+            it = iter(from_tp(grid.by_group(x)[:, 0], d)
+                      for x, d in zip(synced, small_tp))
             acc = [next(it) if a is None else a for a in acc]
         grads = tree_unflatten(params, acc)
         loss_frac = ctx.loss_fraction().to(device)
@@ -523,7 +622,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         skey = fold_in(key, step)
         b_local, mb, n_micro = split(batch)
         ctx = SyncContext(cfg=sync_cfg, draws=draws or GeneratorDraws(
-            key=fold_in(skey, 7), cfg=sync_cfg, device=device), pods=pods)
+            key=fold_in(skey, 7), cfg=sync_cfg, device=device), grid=grid)
         new_rec = None
         if fsdp:
             grads, losses, loss_frac, gnorm, skipped = fsdp_grads(

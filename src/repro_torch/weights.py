@@ -7,10 +7,12 @@ from identical values and compute the same thing. The optimizer state is
 AdamW's ``AdamState(m, v)`` or momentum SGD's tree of ``m``. bfloat16 arrays
 (numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.
 
-FSDP and ``pure_dp`` trees carry across the same way: ``np.asarray`` of the
-reference's sharded arrays assembles their global shapes, and on one card
-the port stores every parameter and optimizer leaf whole at its global
-shape (``train/trainer.py``), so the same leaves fit either mode.
+FSDP, ``pure_dp`` and tensor-parallel trees carry across the same way:
+``np.asarray`` of the reference's sharded arrays assembles their global
+shapes (padded for ``tp``: ``init_params(key, cfg, tp=T)`` on the
+reference's side, ``param_table(cfg, tp=T)`` on the port's), and on one
+card the port stores every parameter and optimizer leaf whole at its global
+shape (``train/trainer.py``), so the same leaves fit every mode.
 """
 from __future__ import annotations
 

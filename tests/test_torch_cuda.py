@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed
+from repro_torch.core import collectives
 from repro_torch.core.compression import thc_compress
 from repro_torch.core.pipeline import GeneratorDraws, SyncContext
 from repro_torch.kernels.dequant_reduce import dequant_masked_mean
@@ -360,7 +361,6 @@ def test_fsdp_reduce_scatter_on_card_matches_cpu(dev, codec):
     the rotation off, B2 on the bf16 wire widened to fp32; or B3, B4, B5
     with the 8-bit wire): the card's kernels against the plain versions on
     the CPU, with the same draws."""
-    from repro_torch.core import collectives
     from repro_torch.core.allreduce import reduce_scatter_axis
     bits = 8 if codec == "quant" else 0
     cfg = OptiReduceConfig(drop_rate=0.01, hadamard_block=1024,
@@ -403,10 +403,11 @@ def test_pod_grid_sync_on_card_matches_cpu(dev, strategy):
     arena = torch.randn((8, 3, 16_384), generator=torch.Generator()
                         .manual_seed(2))
     want = sync_packed(arena, SyncContext(
-        cfg=cfg, draws=_HostDraws(cfg, torch.device("cpu")), pods=2))
+        cfg=cfg, draws=_HostDraws(cfg, torch.device("cpu")),
+        grid=collectives.Grid(pods=2)))
     launched = fwht_ops.launches
     got = sync_packed(arena.to(dev), SyncContext(
-        cfg=cfg, draws=_HostDraws(cfg, dev), pods=2))
+        cfg=cfg, draws=_HostDraws(cfg, dev), grid=collectives.Grid(pods=2)))
     assert fwht_ops.launches - launched == (6 if strategy == "optireduce_2d"
                                             else 3)
     torch.testing.assert_close(got.cpu(), want, atol=ROT_TOL, rtol=0)
@@ -521,3 +522,70 @@ def test_async_checkpoint_of_card_tensors(dev, tmp_path):
     for a, b in zip(got, want):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+def test_ht_quant_kernel_takes_tp_group_grids(dev):
+    """B4 with one set of grids a tp group (``(T, G)`` lo/step, the rows in
+    T contiguous groups, one shared noise copy) equals its plain version
+    bitwise, on a peer view of 2 groups of 2 peers."""
+    g = _gen(dev, 7)
+    n, rows = 1024, 6
+    x = torch.randn((4, rows, n), generator=g, device=dev)
+    x[2:] *= 3.0
+    sign = torch.where(torch.rand(n, generator=g, device=dev) < 0.5,
+                       -1.0, 1.0)
+    noise = torch.rand((rows, n), generator=g, device=dev)
+    amax = hq_ref.ht_amax_ref(x, sign).view(2, 2, rows).amax(dim=1)
+    lo, step = _grids(amax)
+    codes = hq_ops.ht_quant_launch(x, sign, noise, lo, step, bits=8)
+    assert torch.equal(codes, hq_ref.ht_quant_ref(x, sign, noise, lo, step,
+                                                  bits=8))
+    # each group on its own grids: the groups' codes are the one-group ones
+    for t in range(2):
+        one = hq_ops.ht_quant_launch(x[2 * t:2 * t + 2], sign, noise, lo[t],
+                                     step[t], bits=8)
+        assert torch.equal(codes[2 * t:2 * t + 2], one)
+
+
+@pytest.mark.parametrize("mode,strategy", [("replicated", "optireduce"),
+                                           ("replicated", "optireduce_q"),
+                                           ("fsdp", "optireduce")])
+def test_tp_step_on_card_matches_cpu(dev, mode, strategy):
+    """Two steps of ``gpt2-smoke`` at ``(data 2, model 2)`` (tensor
+    parallelism, drops 0.05) on the card against the same steps on the CPU,
+    with the same draws: loss and grad_norm within ``chip_smoke.py``'s
+    STEP_TOL (2e-3), loss_frac equal."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train.trainer import TrainConfig, build_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke("gpt2-paper")
+    tc = TrainConfig(sync=OptiReduceConfig(strategy=strategy, drop_rate=0.05,
+                                           hadamard_block=1024,
+                                           skip_threshold=0.9),
+                     dp_mode=mode, seq_chunk=32)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=4, seed=0))
+    params0 = init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu", tp=2)
+    runs = []
+    for device in (torch.device("cpu"), dev):
+        step_fn, opt = build_train_step(cfg, tc, make_host_mesh(2, 2),
+                                        device=device)
+        params = tree_map(lambda p: p.detach().clone().to(device), params0)
+        state = opt.init(params)
+        draws = _HostDraws(tc.sync, device)
+        out = []
+        for step in range(2):
+            params, state, m = step_fn(params, state,
+                                       data.host_batch(step, 0, 1), step,
+                                       (0,), draws=draws, site_draws=draws)
+            out.append({k: float(v) for k, v in m.items()})
+        runs.append(out)
+    for cpu, card in zip(*runs):
+        assert abs(cpu["loss"] - card["loss"]) <= 2e-3
+        assert abs(cpu["grad_norm"] - card["grad_norm"]) <= 2e-3
+        assert cpu["loss_frac"] == card["loss_frac"]

@@ -282,7 +282,7 @@ def _port_rs(ref, case):
                            rs_wire_bits=bits, use_hadamard=ht,
                            pod_axis="pod" if g > 1 else None)
     ctx = SyncContext(cfg=cfg, draws=JaxDraws((1,), cfg), bucket=(),
-                      pods=g)
+                      grid=collectives.Grid(pods=g))
     out = _rs_input(ref["x"], g, n, inp, dtype)
     for ax in hops:
         axis = collectives.DATA if ax == "data" else collectives.POD
@@ -331,8 +331,8 @@ def test_parallel_ctx_dp_half_matches_reference(ref):
                                rtol=0)
     np.testing.assert_array_equal(pctx.all_gather_dp(local, 1).numpy(),
                                   ref["pctx/gather"])
-    with pytest.raises(NotImplementedError, match="A15b"):
-        ParallelCtx(tp_axis="model")
+    # the tp half rides along: no tp axis, no tp collective
+    assert pctx.tp_size() == 1 and pctx.psum_tp(local) is local
 
 
 def test_reduce_scatter_2d_replica_consistent(ref):
@@ -498,6 +498,20 @@ def test_reference_refusals(what):
 
 
 def test_tensor_parallel_mesh_names_a15b():
-    with pytest.raises(NotImplementedError, match="A15b"):
-        build_train_step(get_smoke("gpt2-paper"), TrainConfig(),
-                         make_host_mesh(2, 2), device="cpu")
+    """A ``model`` axis of size > 1 without ``pure_dp`` is tensor
+    parallelism (A15b): the step trains the tp-padded global parameters,
+    FSDP x TP included (``tests/test_torch_tp_step.py`` holds both to the
+    reference)."""
+    cfg = get_smoke("gpt2-paper")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                  global_batch=GLOBAL_BATCH, seed=0))
+    for mode in ("replicated", "fsdp"):
+        step_fn, opt = build_train_step(
+            cfg, _tc(mode, False, None, "optireduce"), make_host_mesh(2, 2),
+            device="cpu")
+        params = init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu", tp=2)
+        state = opt.init(params)
+        _, _, m = step_fn(params, state, data.host_batch(0, 0, 1), 0,
+                          torch_key(0))
+        assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0

@@ -47,13 +47,12 @@ def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
     items train one step: the round schedule and the ring baselines (A14),
     FSDP and ``optireduce_2d`` (A15; on one pod the 2D strategy runs as
     ``optireduce``), the control plane (A17), the tracer (A19, writing into
-    the working directory), loss recovery (A16) and checkpoints (A12, a
-    ``--resume`` with nothing to resume starting at step 0). ``--tp``
-    still raises (A15b, see below)."""
+    the working directory), loss recovery (A16), checkpoints (A12, a
+    ``--resume`` with nothing to resume starting at step 0) and tensor
+    parallelism (``--tp 2``, A15b)."""
     monkeypatch.chdir(tmp_path)
     argv = ["--smoke", "--device", "cpu", "--steps", "1", *flags]
-    if item in ("A12", "A14", "A16", "A17", "A19") or (
-            item == "A15" and "--tp" not in flags):
+    if item in ("A12", "A14", "A15", "A16", "A17", "A19"):
         records = train.run([*argv, "--seq-len", "16"])
         assert len(records) == 1 and math.isfinite(records[0]["loss"])
         assert (tmp_path / "trace_rank00.json").exists() == (item == "A19")
@@ -65,10 +64,31 @@ def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
         train.run(argv)
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--production-mesh"]])
-def test_tensor_parallel_flags_name_a15b(flags):
-    with pytest.raises(NotImplementedError, match="A15b"):
-        train.run(["--smoke", "--device", "cpu", "--steps", "1", *flags])
+@pytest.mark.parametrize("flags", [
+    ["--tp", "2", "--dp", "2"],
+    ["--production-mesh", "--global-batch", "16"],
+    ["--tp", "2", "--dp", "2", "--dp-mode", "fsdp"]])
+def test_tensor_parallel_flags_name_a15b(flags, capsys):
+    """The tensor-parallel flags of A15b train: ``--tp 2`` beside the data
+    peers, the production mesh (16 x 16 ``(data, model)``: gpt2-smoke's
+    heads padded 4 -> 16, one KV head a shard, vocab 512 / 16) and FSDP x
+    TP, one step each on the CPU."""
+    records = train.run(["--smoke", "--device", "cpu", "--steps", "1",
+                         "--seq-len", "16", "--drop-rate", "0.05", *flags])
+    assert len(records) == 1
+    assert math.isfinite(records[0]["loss"]) and records[0]["loss"] > 0
+    assert math.isfinite(records[0]["grad_norm"])
+    mesh = ("{'data': 16, 'model': 16}" if "--production-mesh" in flags
+            else "{'data': 2, 'model': 2}")
+    assert f"mesh={mesh}" in capsys.readouterr().out
+
+
+def test_transport_with_tp_refuses_as_the_reference():
+    """``--transport`` with ``--tp`` > 1 is refused before anything runs,
+    with the reference's message."""
+    with pytest.raises(SystemExit):
+        train.run(["--smoke", "--device", "cpu", "--steps", "1", "--tp",
+                   "2", "--dp", "2", "--transport", "udp"])
 
 
 def test_fsdp_launch_two_steps_on_cpu(capsys):

@@ -174,7 +174,8 @@ def _cfg(strategy, rate):
 
 
 def _run(arena, cfg, draws, pods, mode="scan", spec=None):
-    ctx = SyncContext(cfg=cfg, draws=draws, pods=pods)
+    ctx = SyncContext(cfg=cfg, draws=draws,
+                      grid=collectives.Grid(pods=pods))
     out = sync_packed(torch.as_tensor(arena), ctx, mode=mode, spec=spec)
     return out, float(ctx.loss_fraction())
 
@@ -288,4 +289,5 @@ def test_grid_needs_the_pod_axis():
     cfg = OptiReduceConfig(hadamard_block=BLOCK)
     with pytest.raises(ValueError, match="pod_axis"):
         SyncContext(cfg=cfg, draws=GeneratorDraws(
-            key=(0,), cfg=cfg, device=torch.device("cpu")), pods=2)
+            key=(0,), cfg=cfg, device=torch.device("cpu")),
+            grid=collectives.Grid(pods=2))

@@ -277,7 +277,7 @@ def test_bounds_count_each_byte_once():
     4 peers): 6,400 blocks a peer, shards of 1,600 blocks."""
     rows, n, g = 4 * 6_400, 1024, 6_400
     assert hq_ref.ht_amax_bytes(rows, n) == 4 * (rows * n + n + rows)
-    assert hq_ref.ht_quant_bytes(rows, n, g) == \
+    assert hq_ref.ht_quant_bytes(rows, n, g, g) == \
         4 * rows * n + 4 * g * n + 8 * g + 4 * n + rows * n
     s = 1_600 * 1024
     assert dq_ref.dequant_mean_bytes(4, 4, s, 1024, masked=True) == \
@@ -287,7 +287,7 @@ def test_bounds_count_each_byte_once():
     assert gq_ref.grid_quant_bytes(4 * 1_600, 1024, 1_600, 6_400) == \
         5 * 4 * s + 4 * s + 8 * 6_400
     mb = [hq_ref.ht_amax_bytes(rows, n) / 1e6,
-          hq_ref.ht_quant_bytes(rows, n, g) / 1e6,
+          hq_ref.ht_quant_bytes(rows, n, g, g) / 1e6,
           dq_ref.dequant_mean_bytes(4, 4, s, 1024, masked=True) / 1e6,
           gq_ref.grid_quant_bytes(4 * 1_600, 1024, 1_600, 6_400) / 1e6]
     assert [round(v) for v in mb] == [105, 157, 157, 39]

@@ -1,5 +1,7 @@
-"""Time the rotate kernels (B3 ``ht_amax_f32``, B4 ``ht_quant_f32`` and B1
-``fwht_f32``) of several kernel trees in turns, on one NVIDIA GPU.
+"""Time the rotate kernels (B3 ``ht_amax_f32``, B4 ``ht_quant_grouped_f32``
+and B1 ``fwht_f32``) of several kernel trees in turns, on one NVIDIA GPU.
+A tree older than the grouped entry point exports B4 as ``ht_quant_f32``,
+which takes the same arguments less ``groups``: it is timed through that.
 
     python3 tools/kernel_ab.py LABEL=ROOT ... [--reps N]
 
@@ -69,13 +71,30 @@ def build_tree(label: str, root: Path) -> dict:
     return {"libs": libs, "registers": regs}
 
 
+def _one_group(fn, *args):
+    """``ht_quant_grouped_f32`` called with the one-group arguments of the
+    older ``ht_quant_f32`` (``groups`` = 1 before ``bits``)."""
+    return fn(*args[:11], 1, *args[11:])
+
+
 def bind(libs: dict):
     from repro_torch.kernels.ht_quant.ops import _ARGTYPES
     fns = {}
-    for name in ("ht_amax_f32", "ht_quant_f32"):
-        fn = getattr(libs["ht_quant"], name)
-        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
-        fns[name] = fn
+    lib = libs["ht_quant"]
+    fn = lib.ht_amax_f32
+    fn.argtypes, fn.restype = _ARGTYPES["ht_amax_f32"], ctypes.c_int
+    fns["ht_amax_f32"] = fn
+    if hasattr(lib, "ht_quant_grouped_f32"):
+        fn = lib.ht_quant_grouped_f32
+        fn.argtypes = _ARGTYPES["ht_quant_grouped_f32"]
+        fn.restype = ctypes.c_int
+        fns["ht_quant"] = functools.partial(_one_group, fn)
+    else:
+        fn = lib.ht_quant_f32
+        grouped = _ARGTYPES["ht_quant_grouped_f32"]
+        fn.argtypes = grouped[:11] + grouped[12:]
+        fn.restype = ctypes.c_int
+        fns["ht_quant"] = fn
     fn = libs["fwht"].fwht_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_longlong,
@@ -138,7 +157,7 @@ def main() -> int:
         bounds[f"ht_amax@{n}"] = bound(hq_ref.ht_amax_bytes(rows, n),
                                        hq_ref.ht_amax_flops(rows, n))[0]
         bounds[f"ht_quant@{n}"] = bound(
-            hq_ref.ht_quant_bytes(rows, n, per_peer),
+            hq_ref.ht_quant_bytes(rows, n, per_peer, per_peer),
             hq_ref.ht_quant_flops(rows, n))[0]
     frows = PEERS * PEER_BLOCKS
     xf = torch.randn((frows, BLOCK), generator=gen, device=dev)
@@ -157,7 +176,7 @@ def main() -> int:
                 c["amax"].data_ptr(), c["rows"], n, c["per_peer"],
                 x.stride(0), stream)
             out[f"ht_quant@{n}"] = functools.partial(
-                fns["ht_quant_f32"], x.data_ptr(), c["sign"].data_ptr(),
+                fns["ht_quant"], x.data_ptr(), c["sign"].data_ptr(),
                 c["noise"].data_ptr(), c["lo"].data_ptr(),
                 c["step"].data_ptr(), c["codes"].data_ptr(), c["rows"], n,
                 c["per_peer"], x.stride(0), c["per_peer"], 8, stream)
