@@ -178,6 +178,34 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     each;
 37. ``profile`` of one ``--tp 2`` step as in 9.
 
+38. ``wire_ring``: one full-width bucket, (4, 6,553,600) fp32, through
+    ``HostRing.allreduce`` over the inproc wire backend, each peer's stage
+    functions on the card, the wire scripted to lose the packets of the
+    engine's tail masks at 0.01: bitwise ``sync_packed`` under ``Lossy`` on
+    the same draws, for optireduce (8 B1 + 4 B2 launches: each peer's
+    encode, decode and compensated mean) and optireduce_q (4 each of B1,
+    B3-B6); the datagrams and bytes of each kind and the host seconds;
+39. ``wire_main``, ``wire_q``: the launcher at 6.'s full width with
+    ``--transport inproc`` (3 and 2 steps): 48 B1 + 24 B2, and 24 each of
+    B1, B3-B6 a step, as on the lossy path; no bridge miss or error; one
+    ``wire[inproc]`` line a step with 4 peers; the wire's loss_frac within
+    0.0075 +- 0.002 (0.01 x 3/4: a receiver's own row never crosses the
+    wire); per step the datagrams and bytes of each kind, the bridge's
+    device-to-host and host-to-device bytes, the host seconds the bridge
+    held the training thread and the flush at the step's end;
+40. ``wire_udp``: the same with ``--transport udp --rendezvous auto
+    --wire-deadline 0.02``, 1 step (its loss is the same every step: what
+    the receive buffers hold of a bucket): the rendezvous line, no miss, one
+    ``wire[udp]`` line a step, the kernel's ``rmem_max``, the socket's
+    effective ``SO_RCVBUF``, the observed loss and the steps the 0.10
+    guard skipped (recorded, not failed);
+41. ``wire_check``: gpt2-smoke over the inproc wire (loss 0.05), 2 steps on
+    the card against the CPU, same parameters and draws: metrics and
+    parameters within ``STEP_TOL``, every bridge mask equal; then 2 steps
+    over UDP on the card: loss at most 0.07, no step skipped;
+42. ``profile`` of ``wire_main``'s last step as in 9.;
+43. ``seconds``: the script's wall clock, whole and by group of phases.
+
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
 Without CUDA, or without the repository around it, it prints no result and
@@ -277,6 +305,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    marks = [time.perf_counter()]
+    laps = {}
+
+    def lap(name):
+        marks.append(time.perf_counter())
+        laps[name] = marks[-1] - marks[-2]
 
     # 1. the card
     smi = subprocess.run(
@@ -373,6 +407,7 @@ def main() -> int:
     # 5. B3-B6, the quantized exchange's kernels
     quant = check_quant_kernels(dev, gen, regs)
     sweep_ht_kernels(dev, gen, regs)
+    lap("build_and_kernels")
 
     # 6., 7., 14. the main paths, through the launcher; each counts its own
     # kernel launches and peer-axis permutes
@@ -412,37 +447,52 @@ def main() -> int:
             if groups != 24 * 2 * 2:
                 fail(f"optireduce_rounds: {groups} round groups a step, "
                      "expected 96")
+    lap("main_paths")
 
     # 26.-31. the pod axis and FSDP (ROADMAP A15)
     check_a15_shapes(dev, gen)
     a15_paths(dev, counters)
     check_a15_against_cpu(dev)
+    lap("pod_fsdp")
 
     # 33.-36. tensor parallelism (ROADMAP A15b)
     check_tp_shapes(dev, gen)
     tp_paths(counters)
     check_tp_against_cpu(dev)
+    lap("tp")
+
+    # 38.-41. the host wire (ROADMAP A18, first half)
+    wire_ring_phase(dev, counters)
+    lap("wire_ring")
+    wire_paths(counters)
+    lap("wire_main_q_udp")
+    check_wire_against_cpu(dev)
+    lap("wire_check")
 
     # 21.-23. loss recovery through the launcher at full width; 24. the
     # budget's report; 25. card against CPU; 26. checkpoints and resume
     recovery_paths(counters)
     check_recovery_against_cpu(dev)
     checkpoint_phase(dev)
+    lap("recovery_checkpoint")
 
     # 18., 19. the launcher with the control plane in the loop; 20. the
     # network simulator
     adaptive_runs(counters)
     run_netsim()
+    lap("adaptive_netsim")
 
     # 15., 16. every ported strategy, and the participation policies, on one
     # full-width arena
     sync_strategies(dev, counters)
+    lap("strategies")
 
     # 8., 17. the same trainer on the card and on the CPU, same params and
     # draws
     for strategy in ("optireduce", "optireduce_q", "optireduce_rounds",
                      "tar_rounds_q"):
         check_step_against_cpu(dev, strategy)
+    lap("card_vs_cpu")
 
     # 9. where one step of each main path's time goes (21.: and with
     # error feedback under burst drops)
@@ -451,6 +501,7 @@ def main() -> int:
     profile_step(dev, "optireduce", recovery="ef", pattern="burst")
     profile_step(dev, "optireduce", dp_mode="fsdp")
     profile_step(dev, "optireduce", tp=TP)
+    lap("profiles")
 
     # 10. B7, THC's quantizer, at the THC path's full-width shape
     b7 = check_uniform_quant(dev, gen)
@@ -471,6 +522,9 @@ def main() -> int:
     # 12., 13. the harness's other paths; THC on the card against the CPU
     tta_paths(dev)
     check_thc_against_cpu(dev)
+    lap("thc_tta")
+    emit({"phase": "seconds", "total": marks[-1] - marks[0],
+          "by_group": laps})
 
     kernels.append({
         "name": "fwht", "route": "cuda",
@@ -2448,6 +2502,347 @@ def check_tp_shapes(dev, gen) -> None:
 
 
 # the port's kernel functions, as the profiler names them
+# ------------------------------------------------- the host wire (A18)
+WIRE_PER_STEP = {
+    # the lossy path's launches: the wire's mask is never None, so every
+    # bucket's compensated mean is a B2 (or B5) launch
+    "wire_main": ("optireduce", 3, {"fwht": 48, "masked_mean": 24}),
+    "wire_q": ("optireduce_q", 2, {"fwht": 24, "ht_amax": 24, "ht_quant": 24,
+                                   "dequant_mean": 24, "grid_quant": 24}),
+    "wire_udp": ("optireduce", 1, {"fwht": 48, "masked_mean": 24}),
+}
+WIRE_UDP_DEADLINE = "0.02"     # s a round: bounds the wait on lost packets
+KIND_NAMES = {1: "data1", 2: "data2", 3: "ctrl", 4: "relay"}
+
+
+class _WireStats:
+    """Counts what crosses a HostRing: datagrams and bytes of each kind
+    (wrapping its backend's ``send``), the bridge's device-to-host and
+    host-to-device bytes and the host seconds its calls held the training
+    thread; and the UDP receive buffer a socket really got."""
+
+    def __init__(self):
+        import threading
+        self.lock = threading.Lock()
+        self.rings = []
+        self.rcvbuf = None
+        self.reset()
+
+    def reset(self):
+        self.datagrams = {k: 0 for k in KIND_NAMES.values()}
+        self.bytes = {k: 0 for k in KIND_NAMES.values()}
+        self.d2h = self.h2d = self.calls = 0
+        self.bridge_s = 0.0
+
+    def snapshot(self) -> dict:
+        return {"datagrams": dict(self.datagrams), "bytes": dict(self.bytes),
+                "bridge_calls": self.calls, "d2h_bytes": self.d2h,
+                "h2d_bytes": self.h2d, "bridge_host_s": self.bridge_s}
+
+    def watch(self, ring):
+        import socket
+        from repro_torch.net import UdpBackend
+        self.rings.append(ring)
+        be = ring.backend
+        send = be.send
+
+        def counted(src, dst, dgram):
+            kind = KIND_NAMES.get(dgram[1], "relay")
+            with self.lock:
+                self.datagrams[kind] += 1
+                self.bytes[kind] += len(dgram)
+            send(src, dst, dgram)
+        be.send = counted
+        if isinstance(be, UdpBackend):
+            self.rcvbuf = be._socks[0].getsockopt(socket.SOL_SOCKET,
+                                                  socket.SO_RCVBUF)
+        exchange = ring.bridge_exchange
+
+        def bridged(shards):
+            t0 = time.perf_counter()
+            out = exchange(shards)
+            self.bridge_s += time.perf_counter() - t0
+            self.calls += 1
+            self.d2h += shards.numel() * shards.element_size()
+            self.h2d += out.numel() * out.element_size()
+            return out
+        ring.bridge_exchange = bridged
+        return ring
+
+
+def rmem_max():
+    try:
+        with open("/proc/sys/net/core/rmem_max") as f:
+            return int(f.read())
+    except OSError:
+        return "not readable"
+
+
+def wire_ring_phase(dev, counters: dict) -> None:
+    """Phase ``wire_ring``: one full-width bucket, (4, 6,553,600) fp32,
+    through ``HostRing.allreduce`` over inproc, each peer's stage functions
+    on the card, the wire scripted to lose exactly the packets of the
+    engine's tail masks at 0.01. Bitwise ``sync_packed`` under ``Lossy``
+    on the same draws; launches 8 B1 + 4 B2 (optireduce), 4 each of B1,
+    B3-B6 (optireduce_q): one a peer, each on a one-row stack."""
+    import torch
+    from repro_torch.core.allreduce import OptiReduceConfig, sync_packed
+    from repro_torch.core.keys import key
+    from repro_torch.core.pipeline import GeneratorDraws, SyncContext
+    from repro_torch.net import HostRing, InprocBackend, mask_scripted_drops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    x = torch.randn((PEERS, BUCKET), generator=gen, device=dev)
+    none = {k: 0 for k in counters}
+    want_counts = {
+        "optireduce": {**none, "fwht": 8, "masked_mean": 4},
+        "optireduce_q": {**none, "fwht": 4, "ht_amax": 4, "ht_quant": 4,
+                         "dequant_mean": 4, "grid_quant": 4}}
+    for strategy, want_c in want_counts.items():
+        cfg = OptiReduceConfig(strategy=strategy, drop_rate=0.01,
+                               hadamard_block=BLOCK)
+        draws = GeneratorDraws(key(0), cfg, dev)
+        ctx = SyncContext(cfg=cfg, draws=draws)
+        want = sync_packed(x[:, None], ctx)[:, 0]
+        lossy_frac = float(ctx.loss_fraction())
+        masks = {r: draws.mask(0, r, PEERS, SHARD).cpu().numpy()
+                 for r in range(PEERS)}
+        stats = _WireStats()
+        ring = stats.watch(HostRing(PEERS, cfg, backend=InprocBackend(
+            PEERS, drop_fn=mask_scripted_drops(masks, cfg.packet_elems)),
+            device=dev))
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        out, tel = ring.allreduce(x, draws)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        counts = {n: getattr(mod, attr) for n, (mod, attr) in
+                  counters.items()}
+        ring.close()
+        bitwise = bool(torch.equal(out, want))
+        emit({"phase": "wire_ring", "strategy": strategy,
+              "shape": [PEERS, BUCKET], "backend": "inproc",
+              "bitwise_equal_sync_packed": bitwise,
+              "loss_frac": tel.loss_frac, "lossy_loss_frac": lossy_frac,
+              "host_s": host_s, "launches": counts,
+              "sent": ring.backend.sent, "dropped": ring.backend.dropped,
+              **stats.snapshot(),
+              "peer_stage_times": list(tel.peer_stage_times)})
+        if not bitwise:
+            err = float((out - want).abs().max())
+            fail(f"wire_ring {strategy}: not bitwise sync_packed (max abs "
+                 f"diff {err})")
+        if abs(tel.loss_frac - lossy_frac) > 1e-7:
+            fail(f"wire_ring {strategy}: loss_frac {tel.loss_frac} vs "
+                 f"{lossy_frac}")
+        if counts != want_c:
+            fail(f"wire_ring {strategy}: launches {counts}, expected "
+                 f"{want_c}")
+        del out, want, masks
+
+
+@contextlib.contextmanager
+def _watched_launcher(stats: _WireStats):
+    """The launcher with its HostRing counted and a snapshot of the counts
+    taken at every step's end (after the step's exchanges landed)."""
+    from repro_torch.launch import train as launch_train
+    ring_cls, step_end = launch_train.HostRing, launch_train._wire_step_end
+    steps = []
+
+    def make_ring(*args, **kw):
+        return stats.watch(ring_cls(*args, **kw))
+
+    def end(ring, transport, step, m):
+        wire_t = step_end(ring, transport, step, m)
+        steps.append({**stats.snapshot(), "wire_t": wire_t})
+        stats.reset()
+        return wire_t
+    launch_train.HostRing, launch_train._wire_step_end = make_ring, end
+    try:
+        yield steps
+    finally:
+        launch_train.HostRing = ring_cls
+        launch_train._wire_step_end = step_end
+
+
+def wire_paths(counters: dict) -> None:
+    """Phases ``wire_main``, ``wire_q`` and ``wire_udp``: the launcher on
+    gpt2-paper at full width with ``--transport inproc`` (``--drop-rate
+    0.01`` becomes i.i.d. wire loss of stage-1 packets) and ``--transport
+    udp --rendezvous auto`` (real localhost sockets; a short
+    ``--wire-deadline`` bounds the wait on what the receive buffers lost).
+    Launches exact, as on the lossy path; no bridge miss or worker error;
+    one ``wire[...]`` line a step with 4 peers. The inproc wire's
+    ``loss_frac`` must sit at 0.0075 +- 0.002 (0.01 x 3/4: a receiver's own
+    row never crosses the wire); UDP's is recorded with the kernel's
+    ``rmem_max``, the socket's effective ``SO_RCVBUF`` and the steps the
+    0.10 guard skipped. ``wire_main``'s last step runs under
+    ``torch.profiler`` (phase ``profile``, ``"transport": "inproc"``): a
+    wire step is ~50 s of host time, so it is profiled in this run rather
+    than in three more steps of its own."""
+    import torch
+    from repro_torch.launch import train as launch_train
+
+    for phase, (strategy, steps, per_step) in WIRE_PER_STEP.items():
+        udp = phase == "wire_udp"
+        extra = (("--transport", "udp", "--rendezvous", "auto",
+                  "--wire-deadline", WIRE_UDP_DEADLINE) if udp
+                 else ("--transport", "inproc"))
+        stats = _WireStats()
+        out = io.StringIO()
+        watch = _StepWatch(counters, profile_steps=(
+            (steps - 1,) if phase == "wire_main" else ()))
+        build = launch_train.build_train_step
+        launch_train.build_train_step = watch.wrap(build)
+        try:
+            with _watched_launcher(stats) as step_stats, \
+                    contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+                counts, records = train_main_path(strategy, steps, counters,
+                                                  phase=phase, extra=extra)
+        finally:
+            launch_train.build_train_step = build
+        prof = watch.steps[-1]["prof"]
+        if prof is not None:
+            emit_profile(prof, {"strategy": strategy, "arch": "gpt2-paper",
+                                "peers": PEERS, "transport": "inproc"},
+                         records[-2]["step_s"] * 1e3,
+                         records[-1]["step_s"] * 1e3,
+                         torch.cuda.max_memory_allocated(), 0)
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("wire[")]
+        ring = stats.rings[0]
+        want = {k: 0 for k in counters}
+        want.update({k: v * steps for k, v in per_step.items()})
+        for i, (rec, st) in enumerate(zip(records, step_stats)):
+            tel = st.pop("wire_t")
+            emit({"phase": f"{phase}_wire_step", "step": i,
+                  "step_ms": rec["step_s"] * 1e3,
+                  "flush_ms": rec["wire_flush_s"] * 1e3,
+                  "engine_loss_frac": rec["loss_frac"],
+                  "wire_loss_frac": rec["wire_loss_frac"],
+                  "skipped": rec["skipped"],
+                  "peer_stage_times": list(tel.peer_stage_times or ()),
+                  "rounds_timed_out": sum(tel.round_timed_out),
+                  "rounds": len(tel.round_timed_out), **st})
+        summary = {"phase": phase, "strategy": strategy, "steps": steps,
+                   "transport": "udp" if udp else "inproc",
+                   "bridge_misses": ring.bridge_misses,
+                   "bridge_timeout_s": ring.bridge_timeout,
+                   "wire_lines": len(lines), "launches": counts,
+                   "skipped_steps": sum(r["skipped"] > 0 for r in records),
+                   "wire_loss_frac": [r["wire_loss_frac"] for r in records]}
+        if udp:
+            summary.update(rmem_max=rmem_max(), so_rcvbuf=stats.rcvbuf,
+                           so_rcvbuf_requested=1 << 22,
+                           rendezvous=any(ln.startswith("rendezvous:")
+                                          for ln in out.getvalue()
+                                          .splitlines()))
+        emit(summary)
+        if counts != want:
+            fail(f"{phase}: launch counts {counts} over {steps} steps, "
+                 f"expected {want}")
+        if ring.bridge_misses or any(r["wire_error"] for r in records):
+            fail(f"{phase}: {ring.bridge_misses} bridge misses, errors "
+                 f"{[r['wire_error'] for r in records]}")
+        if len(lines) != steps or not all("peers=4 " in ln for ln in lines):
+            fail(f"{phase}: wire lines {lines}")
+        if udp and not summary["rendezvous"]:
+            fail("wire_udp: no rendezvous line")
+        if not udp and not all(abs(r["wire_loss_frac"] - 0.0075) <= 0.002
+                               for r in records):
+            fail(f"{phase}: wire loss_frac {summary['wire_loss_frac']} "
+                 "outside 0.0075 +- 0.002")
+
+
+def check_wire_against_cpu(dev) -> None:
+    """Phase ``wire_check``: 2 gpt2-smoke steps of ``optireduce`` over the
+    inproc wire (i.i.d. wire loss 0.05) on the card against the CPU, same
+    parameters and draws: metrics and parameters within ``STEP_TOL``, and
+    every mask the bridge handed the engine equal on both (the wire's
+    drops hash the packet headers, not the values); then 2 steps of the
+    launcher over UDP on gpt2-smoke on the card: observed loss at most
+    0.05 + 0.02 and no step skipped."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.allreduce import OptiReduceConfig
+    from repro_torch.core.keys import fold_in, generator, key
+    from repro_torch.core.pipeline import GeneratorDraws, WireTransport
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+    from repro_torch.net import HostRing, bernoulli_drops
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train.trainer import TrainConfig, build_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    runtime.set_kernel_mode(None)       # by device: card kernels, CPU plain
+    cfg = get_smoke("gpt2-paper")
+    sync = OptiReduceConfig(strategy="optireduce", hadamard_block=256)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=8, seed=0))
+    k = key(0)
+    base = init_params(generator(k), cfg, device="cpu")
+    runs = {}
+    for name, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        ring = HostRing(PEERS, sync, drop_fn=bernoulli_drops(0.05, seed=0),
+                        device=device)
+        masks = []
+        exchange = ring.bridge_exchange
+
+        def recorded(shards, exchange=exchange, masks=masks):
+            out = exchange(shards)
+            masks.append(out.cpu())
+            return out
+        tc = TrainConfig(sync=sync, optimizer=OptimizerConfig(lr=1e-2),
+                         bucket_elems=16_384, seq_chunk=32,
+                         transport_override=WireTransport(recorded))
+        fn, opt = build_train_step(cfg, tc, peers=PEERS, device=device)
+        params = tree_map(lambda p: p.clone().to(device), base)
+        state = opt.init(params)
+        metrics = []
+        for step in range(2):
+            draws = _HostDraws(GeneratorDraws(
+                key=fold_in(fold_in(k, step), 7), cfg=sync,
+                device=torch.device("cpu")), device)
+            params, state, m = fn(params, state, data.host_batch(step, 0, 1),
+                                  step, k, draws=draws)
+            metrics.append({n: float(v) for n, v in m.items()})
+            ring.flush()
+        runs[name] = (metrics, params, masks, ring.bridge_misses)
+        ring.close()
+    (mc, pc, kc, _), (mg, pg, kg, misses) = runs["cpu"], runs["cuda"]
+    worst = max(abs(a[n] - b[n]) for a, b in zip(mc, mg) for n in a)
+    p_err = max(float((a.detach() - b.detach().cpu()).abs().max())
+                for a, b in zip(tree_leaves(pc), tree_leaves(pg)))
+    same_masks = len(kc) == len(kg) and all(torch.equal(a, b)
+                                            for a, b in zip(kc, kg))
+    emit({"phase": "wire_check", "transport": "inproc", "arch": cfg.name,
+          "steps": 2, "bucket_exchanges": len(kg),
+          "metrics_max_abs_diff": worst, "params_max_abs_diff": p_err,
+          "tolerance": STEP_TOL, "masks_equal": same_masks,
+          "bridge_misses": misses, "cpu": mc, "gpu": mg})
+    if not (worst <= STEP_TOL and p_err <= STEP_TOL and same_masks
+            and misses == 0 and mc[1]["loss_frac"] > 0):
+        fail(f"wire_check: metrics {worst}, params {p_err}, masks equal "
+             f"{same_masks}, misses {misses}, {mc} vs {mg}")
+    records = launch_train.run(["--smoke", "--device", "cuda", "--steps",
+                                "2", "--seq-len", "32", "--transport", "udp",
+                                "--drop-rate", "0.05", "--wire-deadline",
+                                "0.05", "--log-every", "1"])
+    emit({"phase": "wire_check", "transport": "udp", "arch": cfg.name,
+          "wire_loss_frac": [r["wire_loss_frac"] for r in records],
+          "skipped": [r["skipped"] for r in records],
+          "bridge_misses": [r["wire_misses"] for r in records]})
+    if not all(r["wire_loss_frac"] <= 0.07 and r["skipped"] == 0
+               and r["wire_misses"] == 0 and r["wire_error"] == 0
+               for r in records):
+        fail(f"wire_check udp: {records}")
+
+
 PORTED_KERNELS = ("fwht_rows_kernel", "masked_mean_vec4", "ht_kernel",
                   "dequant_mean_kernel", "grid_quant_kernel",
                   "uniform_quant_kernel")
@@ -2492,6 +2887,14 @@ def profile_third_step(one, label: dict) -> None:
         prof_wall = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated()
     permutes = collectives.permutes - permutes
+    emit_profile(prof, label, wall[-1], prof_wall, peak, permutes)
+
+
+def emit_profile(prof, label: dict, wall_ms: float, prof_wall_ms: float,
+                 peak: int, permutes: int) -> None:
+    """The ``profile`` row of one profiled step: ``wall_ms`` is the
+    unprofiled step before it, ``prof_wall_ms`` the profiled step's host
+    time."""
     rows = prof.key_averages()
     on_dev = _device_rows(rows)
     busy_ms = sum(_dev_us(r) for r in on_dev) / 1e3
@@ -2512,14 +2915,14 @@ def profile_third_step(one, label: dict) -> None:
                           if "elementwise" in r.key.lower()),
                          key=_dev_us, reverse=True)
     emit({"phase": "profile", **label,
-          "step_ms_unprofiled": wall[-1], "step_ms_profiled": prof_wall,
+          "step_ms_unprofiled": wall_ms, "step_ms_profiled": prof_wall_ms,
           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
           # busy over the profiled step's wall time; the second share
           # divides the same busy time by the unprofiled step before it,
           # which runs the same kernels without the profiler's host cost
-          "device_idle_share_of_profiled_step": (1 - busy_ms / prof_wall)
+          "device_idle_share_of_profiled_step": (1 - busy_ms / prof_wall_ms)
           if busy_ms > 0 else "not measured",
-          "device_idle_share_of_unprofiled_step": (1 - busy_ms / wall[-1])
+          "device_idle_share_of_unprofiled_step": (1 - busy_ms / wall_ms)
           if busy_ms > 0 else "not measured",
           "kernel_launches": launches,
           "peak_mem_bytes": peak,

@@ -9,8 +9,9 @@ Codec (:class:`Identity`, :class:`Hadamard`, :class:`HTQuant`). A strategy
 name resolves through the registry, every name of the reference among them.
 The participation policies (``active_peers``, ``shard_weights``,
 ``dead_links``, on the data axis) and the loss-recovery codec
-(``cfg.recovery``, core/recovery.py) run as in the reference; the wire
-transport waits for a later slice.
+(``cfg.recovery``, core/recovery.py) run as in the reference, and so does
+:class:`WireTransport`, whose masks are observed on a host wire
+(``repro_torch/net``).
 
 The reference runs one rank per device inside ``shard_map``; here every
 stage works on ``(P, ...)`` stacks over the peer grid
@@ -448,10 +449,17 @@ class HTQuant(Codec):
 # --------------------------------------------------------------- transports
 class Reliable:
     """Everything arrives (TCP-class transports): no mask, no loss stats.
-    ``incast`` is the round schedules' I."""
+    ``incast`` is the round schedules' I.
+
+    ``payload``, when the topology can offer it, is the stage-1 wire state:
+    the ``(P, n, S)`` shard stack about to be exchanged (row p: what peer p
+    sends, one shard a receiver). The synthetic transports ignore it;
+    :class:`WireTransport` really sends those bytes over a host wire
+    backend and masks by what arrived."""
 
     def arrival_mask(self, ctx: SyncContext, n: int, s: int,
-                     self_index: tuple[int, ...] | None = None
+                     self_index: tuple[int, ...] | None = None,
+                     payload: torch.Tensor | None = None
                      ) -> torch.Tensor | None:
         return None
 
@@ -471,7 +479,7 @@ class Lossy(Reliable):
     id (a degraded round schedule's virtual positions); the draws stay
     keyed on the receiver's id either way."""
 
-    def arrival_mask(self, ctx, n, s, self_index=None):
+    def arrival_mask(self, ctx, n, s, self_index=None, payload=None):
         if ctx.cfg.drop_rate <= 0.0:
             return None
         if self_index is None:
@@ -548,6 +556,54 @@ class AdaptiveTransport(Lossy):
     def apply(self, cfg: OptiReduceConfig) -> OptiReduceConfig:
         """Fold the current recommendation into a sync config."""
         return self.control.apply(cfg)
+
+
+class WireTransport(Lossy):
+    """Arrival masks observed from a *real* host wire exchange (DESIGN §7).
+
+    The engine keeps its collectives (they move the authoritative data),
+    but each bucket's stage-1 shard stack is also really packetized and
+    exchanged between host peers over a ``repro_torch.net`` backend
+    (in-memory loopback or localhost UDP). ``bridge`` is
+    ``HostRing.bridge_exchange`` or any ``(n, n, S) stack -> (n, n, S)
+    mask`` callable: one call a bucket with all n peers' shards, returning
+    on the stack's device the fp32 mask observed on the *previous* exchange
+    (all-ones on the priming call; bitwise that bucket's own mask when the
+    loss schedule ignores the exchange counter, an equal-distribution
+    sample otherwise). The bytes cross the wire under the adaptive
+    per-round deadline, and the mask — missing, late, duplicated,
+    out-of-order packets already resolved — is bit-compatible with a
+    ``core/drops.py`` mask; per peer/round stage times, timeout flags and
+    received fractions accumulate on the ring for the launcher to drain
+    into ``StepTelemetry``. The loss counts are the receivers' ``(n,)``,
+    as :class:`Lossy` keeps them.
+
+    Caveats, as in the reference: only stage-1 exchanges of
+    full-participation TAR schedules over one data axis offer the payload
+    (degraded round schedules exchange over a virtual ring the bridge does
+    not model), and the calls must come one a bucket in bucket order
+    (``sync_packed``'s scan and pipelined modes).
+    """
+
+    def __init__(self, bridge):
+        self._bridge = bridge
+
+    def arrival_mask(self, ctx, n, s, self_index=None, payload=None):
+        if payload is None or self_index is not None:
+            raise NotImplementedError(
+                "WireTransport needs the stage-1 payload hook of a "
+                "full-participation TAR schedule (degraded virtual-ring "
+                "rounds are not bridged to the host wire)")
+        if tuple(payload.shape[:2]) != (n, n):
+            raise NotImplementedError(
+                f"the host wire bridges one data axis of {n} peers; got a "
+                f"{tuple(payload.shape[:2])} stack (pods or tp groups)")
+        mask = self._bridge(payload).to(device=payload.device,
+                                        dtype=torch.float32)
+        dropped = (1.0 - mask).sum(dim=(1, 2))
+        ctx.stats["dropped"] = ctx.stats.get("dropped", 0.0) + dropped
+        ctx.stats["total"] = ctx.stats.get("total", 0.0) + float(n * s)
+        return mask
 
 
 # --------------------------------------------------------------- topologies
@@ -831,7 +887,10 @@ class TarTopology(Topology):
             shard_index = collectives.per_peer(vpos, data.device, grid)
             mask = transport.arrival_mask(ctx, n_shards, s, self_index=vpos)
         else:
-            mask = transport.arrival_mask(ctx, n_shards, s)
+            # the stage-1 payload of a uniform schedule (the reference
+            # offers none under shard weights)
+            mask = transport.arrival_mask(
+                ctx, n_shards, s, payload=shards if plan is None else None)
             if active is not None:
                 # a2a: exclude ejected senders' rows at EVERY receiver (the
                 # ejected peer's own row included, so replicas agree); the
@@ -898,7 +957,7 @@ class TarTopology(Topology):
         shards = enc.data.view(p, n, -1)
         received = collectives.all_to_all(shards, grid, axis)
         s = received.shape[-1]
-        mask = transport.arrival_mask(ctx, n, s)
+        mask = transport.arrival_mask(ctx, n, s, payload=shards)
         if active is not None:           # the same a2a exclusion as TAR
             _, is_active = tar_lib.peer_lookup(active, n)
             on = collectives.index(tuple(int(v) for v in is_active),

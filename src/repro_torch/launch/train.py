@@ -1,16 +1,26 @@
 """Training launcher of the port: OptiReduce-synced data-parallel training
 with the P peers on one card.
 
-Counterpart of ``src/repro/launch/train.py``. It takes the reference's
-flags; the values this slice does not run (the wire transports) raise,
-naming their ROADMAP item. ``--tp T`` trains with T tensor-parallel ranks
-beside the ``--dp`` data peers (``train/trainer.py``), ``--production-mesh``
-on the reference's 16 x 16 ``(data, model)`` grid. ``--dp-mode fsdp`` trains
-ZeRO-3 style: the sharded weights' gradients are reduced by OptiReduce's
-reduce-scatter (``train/trainer.py``). ``--recovery
-stale|ef|ef+budget`` arms the loss-recovery codec (core/recovery.py) and
-threads its state through the steps; ``ef+budget`` adds the control plane's
-phase-aware ``LossBudget``, its phase fed from the step count and the loss.
+Counterpart of ``src/repro/launch/train.py``, with the reference's flags.
+``--transport inproc|udp`` exchanges each bucket's stage-1 shards between
+host peers over a wire backend (``repro_torch/net``: in-memory loopback,
+or localhost UDP sockets, which need an environment that lets a process
+bind them) and masks by what arrived; ``--drop-rate`` then injects i.i.d.
+wire loss (``bernoulli_drops``), ``--wire-deadline`` is the receive
+deadline before the ``AdaptiveTimeout`` is profiled, and ``--rendezvous
+auto|host:port`` (udp) joins the ring's peers through the socket
+rendezvous, whose live membership view they consume. Each step then ends
+by letting the wire's exchanges land, and its per-peer stage times,
+timeouts and received fractions feed the ``ControlPlane`` (one
+``wire[...]`` line a logged step). ``--tp T`` trains with T tensor-parallel
+ranks beside the ``--dp`` data peers (``train/trainer.py``),
+``--production-mesh`` on the reference's 16 x 16 ``(data, model)`` grid.
+``--dp-mode fsdp`` trains ZeRO-3 style: the sharded weights' gradients are
+reduced by OptiReduce's reduce-scatter (``train/trainer.py``).
+``--recovery stale|ef|ef+budget`` arms the loss-recovery codec
+(core/recovery.py) and threads its state through the steps; ``ef+budget``
+adds the control plane's phase-aware ``LossBudget``, its phase fed from the
+step count and the loss.
 ``--ckpt-dir`` saves ``(params, opt_state)`` (with ``rec_state`` under
 ``--recovery``) every ``--ckpt-every`` steps and after the last, in the
 background (``train/checkpoint.py``); ``--resume`` continues from the
@@ -59,12 +69,17 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 4 --recovery ef --drop-pattern burst --drop-rate 0.05 \\
       --ckpt-dir build/ckpt --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 3 --transport inproc --drop-rate 0.02
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 2 --transport udp --rendezvous auto --wire-deadline 0.05
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import sys
 import time
 
@@ -73,7 +88,8 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.core import recovery as recovery_lib
 from repro_torch.core.allreduce import OptiReduceConfig, strategy_names
 from repro_torch.core.bucket_plan import BucketPlan
-from repro_torch.core.pipeline import RingTopology, TarTopology, resolve_spec
+from repro_torch.core.pipeline import (RingTopology, TarTopology,
+                                       WireTransport, resolve_spec)
 from repro_torch.core.keys import generator, key as make_key
 from repro_torch.core.safeguards import LossMonitor
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -81,6 +97,8 @@ from repro_torch.kernels.runtime import MODES as KERNEL_MODES
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import init_params
+from repro_torch.net import (HostRing, RendezvousClient, RendezvousServer,
+                             bernoulli_drops)
 from repro_torch.optim.optimizers import OptimizerConfig
 from repro_torch.runtime import (ControlPlane, PolicyStepCache, StepTelemetry,
                                  SyncPolicy)
@@ -114,9 +132,25 @@ def parser() -> argparse.ArgumentParser:
                          "previous step's synced bucket; 'ef' adds "
                          "per-peer error-feedback residuals; 'ef+budget' "
                          "adds the phase-aware loss budget")
-    ap.add_argument("--transport", default="lossy")
-    ap.add_argument("--wire-deadline", type=float, default=None)
-    ap.add_argument("--rendezvous", default=None)
+    ap.add_argument("--transport", default="lossy",
+                    choices=("lossy", "inproc", "udp"),
+                    help="stage-1 arrival masks: 'lossy' = the synthetic "
+                         "drop model (core/drops.py); 'inproc'/'udp' really "
+                         "exchange the shard bytes between host peers over "
+                         "the wire backend (repro_torch/net) and mask by "
+                         "what arrived — per-peer stage times, timeout "
+                         "flags and received fractions feed the "
+                         "ControlPlane")
+    ap.add_argument("--wire-deadline", type=float, default=None,
+                    help="receive deadline before the AdaptiveTimeout is "
+                         "profiled (backend clock units)")
+    ap.add_argument("--rendezvous", default=None,
+                    help="with --transport=udp: coordinate the ring's peers "
+                         "through the socket rendezvous (repro_torch/net/"
+                         "rendezvous.py) — 'auto' starts an in-process "
+                         "coordinator, host:port joins an external one; the "
+                         "peers consume the live membership view (a rank "
+                         "that leaves or dies is skipped, not waited on)")
     ap.add_argument("--incast", type=int, default=1)
     ap.add_argument("--adaptive", action="store_true",
                     help="drive next-step Hadamard/incast/participation "
@@ -161,37 +195,46 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-# flags of the reference whose non-default values wait for later slices
-_NOT_PORTED = (
-    ("transport", "lossy", "--transport inproc|udp (wire): ROADMAP A18"),
-    ("wire_deadline", None, "--wire-deadline: ROADMAP A18"),
-    ("rendezvous", None, "--rendezvous: ROADMAP A18"),
-)
-
-
 def run(argv=None) -> list[dict]:
     """Parse ``argv``, train, and return one record per step run (loss,
     grad_norm, loss_frac, skipped, ``filled`` under ``--recovery``, step_s:
-    host seconds to the step's last result)."""
+    host seconds to the step's last result). With a wire transport each
+    record also has ``wire_loss_frac`` (the step's exchanges as the wire
+    observed them, NaN when none was drained), ``wire_flush_s`` (host
+    seconds the step's end waited for them), ``wire_misses`` (the bridge's
+    misses so far) and ``wire_error`` (1 when the bridge worker failed since
+    the last step)."""
     ap = parser()
     args = ap.parse_args(argv)
     mesh = (make_production_mesh() if args.production_mesh
             else make_host_mesh(dp=args.dp, tp=args.tp))
     tp = mesh.shape.get("model", 1)
     n_data = mesh.shape.get("data", 1)
-    if args.transport != "lossy" and tp != 1:
-        ap.error("--transport needs --tp=1: with model parallelism every tp "
-                 "sibling of a data rank would run the io_callback, "
-                 "advancing the ring's per-rank exchange counter tp times "
-                 "per bucket and pairing deposits from different buckets "
-                 "into one wire exchange")
-    for name, default, what in _NOT_PORTED:
-        if getattr(args, name) != default:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if args.transport != "lossy":
+        if args.dp_mode != "replicated":
+            ap.error("--transport needs --dp-mode=replicated (fsdp grads "
+                     "reduce through rs_spec, which has no wire bridge)")
+        if args.sync_mode == "vmap":
+            ap.error("--transport bridges per-bucket io_callbacks; vmap "
+                     "would batch them (use --sync-mode pipelined or scan)")
+        if args.recovery in ("ef", "ef+budget"):
+            ap.error("--recovery=ef/ef+budget reconstructs sender-arrival "
+                     "masks from the synthetic drop model; with wire "
+                     "transports use --recovery=stale")
+        if tp != 1:
+            ap.error("--transport needs --tp=1: with model parallelism "
+                     "every tp sibling of a data rank would run the "
+                     "io_callback, advancing the ring's per-rank exchange "
+                     "counter tp times per bucket and pairing deposits "
+                     "from different buckets into one wire exchange")
+        if args.rendezvous and args.transport != "udp":
+            ap.error("--rendezvous coordinates real socket peers; it needs "
+                     "--transport=udp")
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     print(f"arch={cfg.name} mesh={mesh.shape} device={device} "
-          f"strategy={args.strategy} drop_rate={args.drop_rate}", flush=True)
+          f"strategy={args.strategy} drop_rate={args.drop_rate} "
+          f"transport={args.transport}", flush=True)
 
     tracer = None
     if args.trace is not None:
@@ -199,180 +242,238 @@ def run(argv=None) -> list[dict]:
             True, capacity=args.trace_capacity or obs.trace.DEFAULT_CAPACITY)
     control = None
     with_budget = args.recovery == "ef+budget"
-    if args.adaptive or args.report or with_budget:
+    wire = args.transport != "lossy"
+    if args.adaptive or args.report or with_budget or wire:
         control = ControlPlane.create(n_nodes=n_data,
                                       rebalance=args.rebalance,
                                       **({"budget": {}} if with_budget
                                          else {}))
+    # host wire transport (DESIGN §7): a HostRing of per-rank peers really
+    # exchanges the stage-1 shard bytes (in-memory loopback or localhost
+    # UDP); --drop-rate becomes injected *wire* loss instead of the
+    # synthetic mask model, and the ring's telemetry feeds the ControlPlane
+    # per-peer stage times
+    ring = rdv_server = None
+    rdv_clients = []
+    if wire:
+        ring, rdv_server, rdv_clients = _wire_ring(args, n_data, control,
+                                                   device)
+    try:
+        tc = TrainConfig(
+            sync=OptiReduceConfig(strategy=args.strategy,
+                                  # wire mode: drops are observed on the wire
+                                  drop_rate=0.0 if wire else args.drop_rate,
+                                  drop_pattern=args.drop_pattern,
+                                  incast=args.incast, recovery=args.recovery,
+                                  hadamard_block=1024),
+            optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr),
+            dp_mode=args.dp_mode, microbatch=args.microbatch,
+            sync_mode=args.sync_mode,
+            transport_override=(WireTransport(ring.bridge_exchange)
+                                if wire else None),
+            kernel_mode=args.kernel_mode, seq_chunk=min(512, args.seq_len))
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=args.seq_len,
+                                      global_batch=args.global_batch,
+                                      seed=args.seed))
+        key = make_key(args.seed)
+        params = init_params(generator(key, device), cfg, device=device, tp=tp)
+        step_fn, opt = build_train_step(cfg, tc, mesh, device=device)
+        opt_state = opt.init(params)
+        rec_state = None
+        if args.recovery != "none":
+            plan = BucketPlan.for_tree(params, tc.bucket_elems)
+            rec_state = recovery_lib.init_state(
+                recovery_lib.parse(args.recovery), plan.num_buckets,
+                plan.bucket_elems, peers=n_data, device=device)
 
-    tc = TrainConfig(
-        sync=OptiReduceConfig(strategy=args.strategy,
-                              drop_rate=args.drop_rate,
-                              drop_pattern=args.drop_pattern,
-                              incast=args.incast, recovery=args.recovery,
-                              hadamard_block=1024),
-        optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr),
-        dp_mode=args.dp_mode, microbatch=args.microbatch,
-        sync_mode=args.sync_mode,
-        kernel_mode=args.kernel_mode, seq_chunk=min(512, args.seq_len))
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=args.seq_len,
-                                  global_batch=args.global_batch,
-                                  seed=args.seed))
-    key = make_key(args.seed)
-    params = init_params(generator(key, device), cfg, device=device, tp=tp)
-    step_fn, opt = build_train_step(cfg, tc, mesh, device=device)
-    opt_state = opt.init(params)
-    rec_state = None
-    if args.recovery != "none":
-        plan = BucketPlan.for_tree(params, tc.bucket_elems)
-        rec_state = recovery_lib.init_state(
-            recovery_lib.parse(args.recovery), plan.num_buckets,
-            plan.bucket_elems, peers=n_data, device=device)
+        def ckpt_tree():
+            return ((params, opt_state) if rec_state is None
+                    else (params, opt_state, rec_state))
 
-    def ckpt_tree():
-        return ((params, opt_state) if rec_state is None
-                else (params, opt_state, rec_state))
-
-    start_step = 0
-    ckpt = ckpt_lib.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
-    if args.resume and args.ckpt_dir:
-        try:
-            start_step, restored, _ = ckpt_lib.restore(
-                args.ckpt_dir, ckpt_tree(), device=device)
-            if rec_state is None:
-                params, opt_state = restored
-            else:
-                params, opt_state, rec_state = restored
-            print(f"resumed from step {start_step}", flush=True)
-        except FileNotFoundError:
-            pass
-
-    if args.adaptive:
-        # start from the configured codec so step 0 never rebuilds, and learn
-        # which knobs this spec can observe, by the reference's rules:
-        # incast only lowers rounds schedules; use_hadamard matters when
-        # toggling it resolves to another spec object (every factory-
-        # registered name); degraded participation needs a mask-capable or
-        # reschedulable topology, weights and dead links a resizable one
-        control.use_hadamard = tc.sync.use_hadamard
-        topo = resolve_spec(tc.sync).topology
-        rounds = isinstance(topo, TarTopology) and topo.schedule == "rounds"
-        ring = isinstance(topo, RingTopology) and topo.kind == "ring"
-        incast_matters = rounds
-        ht_matters = (resolve_spec(dataclasses.replace(
-            tc.sync, use_hadamard=True)) is not resolve_spec(
-                dataclasses.replace(tc.sync, use_hadamard=False)))
-        participation_matters = isinstance(topo, TarTopology) or ring
-        rebalance_matters = args.rebalance and (rounds or ring)
-        deadlink_matters = rounds or ring
-        step_cache = PolicyStepCache(maxsize=max(1, args.policy_cache))
-        step_cache.put(_policy_of(tc.sync), step_fn)
-        stable_rec, stable_for = None, 0
-
-    monitor = LossMonitor(skip_threshold=tc.sync.skip_threshold)
-    records, report_rows = [], []
-    t0 = time.perf_counter()
-    for step in range(start_step, args.steps):
-        batch = data.host_batch(step, 0, 1)
-        st0 = tracer.now() if tracer is not None else 0.0
-        t_step = time.perf_counter()
-        if rec_state is None:
-            params, opt_state, metrics = step_fn(params, opt_state, batch,
-                                                 step, key)
-        else:
-            params, opt_state, rec_state, metrics = step_fn(
-                params, opt_state, batch, step, key, rec_state=rec_state)
-        m = {k: float(v) for k, v in metrics.items()}  # waits for the step
-        m["step_s"] = time.perf_counter() - t_step
-        records.append(m)
-        if with_budget:
-            # the phase follows the run's progress and the loss curve; the
-            # loss EMA is fed through control.observe below
-            control.state.budget.update_phase(
-                progress=(step + 1) / max(args.steps, 1),
-                train_loss=m["loss"])
-        if step % args.log_every == 0 or step == args.steps - 1:
-            rate = (step - start_step + 1) / (time.perf_counter() - t0)
-            print(f"step {step:5d} loss {m['loss']:.4f} "
-                  f"gnorm {m['grad_norm']:.3f} "
-                  f"loss_frac {m['loss_frac']:.5f} "
-                  f"skipped {int(m['skipped'])} ({rate:.2f} it/s)",
-                  flush=True)
-        if control is not None:
-            control.observe(StepTelemetry(step=step, loss_frac=m["loss_frac"],
-                                          step_time=m["step_s"]))
-            if args.report:
-                det = control.detector
-                report_rows.append({
-                    "step": step,
-                    "scores": [float(x) for x in det.scores()],
-                    "weights": [int(w) for w in det.weights()],
-                    "active": [int(p) for p in det.active_peers()],
-                    "dead_links": [list(link)
-                                   for link in control.dead_links()],
-                    "dead_link_events": []})     # wire only (A18)
-                if with_budget:
-                    budget = control.state.budget
-                    report_rows[-1]["budget"] = {
-                        "phase": budget.phase, "loss_ema": budget.loss_ema,
-                        "budget": budget.budget(),
-                        "deadline_factor": budget.deadline_factor()}
-        if args.adaptive:
-            new_sync = control.apply(tc.sync)
-            if not incast_matters:
-                new_sync = dataclasses.replace(new_sync,
-                                               incast=tc.sync.incast)
-            if not ht_matters:
-                new_sync = dataclasses.replace(
-                    new_sync, use_hadamard=tc.sync.use_hadamard)
-            if not participation_matters:
-                new_sync = dataclasses.replace(
-                    new_sync, active_peers=tc.sync.active_peers)
-            if not rebalance_matters:
-                new_sync = dataclasses.replace(new_sync, shard_weights=None)
-            if not deadlink_matters:
-                new_sync = dataclasses.replace(new_sync, dead_links=())
-            # debounce: a growing incast ramps one step at a time, so wait
-            # for the controller to settle; a codec flip, an ejection and a
-            # link failure switch at once
-            stable_for = stable_for + 1 if new_sync == stable_rec else 1
-            stable_rec = new_sync
-            urgent = (new_sync.use_hadamard != tc.sync.use_hadamard or
-                      new_sync.active_peers != tc.sync.active_peers or
-                      new_sync.dead_links != tc.sync.dead_links)
-            if new_sync != tc.sync and (urgent or stable_for >= 3):
-                tc = dataclasses.replace(tc, sync=new_sync)
-                step_fn = step_cache.get(_policy_of(new_sync))
-                if step_fn is not None:
-                    how = "cached step reused"
+        start_step = 0
+        ckpt = (ckpt_lib.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir
+                else None)
+        if args.resume and args.ckpt_dir:
+            try:
+                start_step, restored, _ = ckpt_lib.restore(
+                    args.ckpt_dir, ckpt_tree(), device=device)
+                if rec_state is None:
+                    params, opt_state = restored
                 else:
-                    step_fn, _ = build_train_step(cfg, tc, mesh,
-                                                  device=device)
-                    step_cache.put(_policy_of(new_sync), step_fn)
-                    how = "step rebuilt"
-                print(f"adaptive: use_hadamard={new_sync.use_hadamard} "
-                      f"incast={new_sync.incast} "
-                      f"active={new_sync.active_peers} "
-                      f"weights={new_sync.shard_weights} "
-                      f"dead={new_sync.dead_links} ({how})", flush=True)
-        if tracer is not None:
-            tracer.complete("step", "trainer", ts=st0,
-                            dur=tracer.now() - st0,
-                            args={"step": step,
-                                  "loss_frac": round(m["loss_frac"], 6)})
-            tracer.counter("loss_frac", m["loss_frac"])
-        monitor.observe(step, m["loss_frac"], m["skipped"] > 0)
-        if monitor.halted:
-            print("HALT: excessive gradient loss (§3.4); rolling back")
-            rb = monitor.rollback()
-            if rb is not None:
-                _, params = rb
-        if ckpt and step > 0 and step % args.ckpt_every == 0:
-            ckpt.save(step, ckpt_tree())
-    if ckpt:
-        ckpt.save(args.steps, ckpt_tree())
-        ckpt.wait()
+                    params, opt_state, rec_state = restored
+                print(f"resumed from step {start_step}", flush=True)
+            except FileNotFoundError:
+                pass
+
+        if args.adaptive:
+            # start from the configured codec so step 0 never rebuilds, and
+            # learn which knobs this spec can observe, by the reference's
+            # rules: incast only lowers rounds schedules; use_hadamard
+            # matters when toggling it resolves to another spec object
+            # (every factory-registered name); degraded participation needs
+            # a mask-capable or reschedulable topology, weights and dead
+            # links a resizable one
+            control.use_hadamard = tc.sync.use_hadamard
+            topo = resolve_spec(tc.sync).topology
+            rounds = (isinstance(topo, TarTopology)
+                      and topo.schedule == "rounds")
+            true_ring = (isinstance(topo, RingTopology)
+                         and topo.kind == "ring")
+            incast_matters = rounds
+            ht_matters = (resolve_spec(dataclasses.replace(
+                tc.sync, use_hadamard=True)) is not resolve_spec(
+                    dataclasses.replace(tc.sync, use_hadamard=False)))
+            # degraded rounds schedules exchange over a virtual ring the wire
+            # bridge does not model (WireTransport raises): over a wire they
+            # hold full participation while the detector keeps observing
+            participation_matters = ((isinstance(topo, TarTopology)
+                                      and not (wire and rounds)) or true_ring)
+            # weighted shards and dead-link rewiring need a resizable schedule
+            # and the synthetic transport (the bridge's geometry is fixed)
+            rebalance_matters = (args.rebalance and (rounds or true_ring)
+                                 and not wire)
+            deadlink_matters = (rounds or true_ring) and not wire
+            step_cache = PolicyStepCache(maxsize=max(1, args.policy_cache))
+            step_cache.put(_policy_of(tc.sync), step_fn)
+            stable_rec, stable_for = None, 0
+
+        monitor = LossMonitor(skip_threshold=tc.sync.skip_threshold)
+        records, report_rows = [], []
+        t0 = time.perf_counter()
+        for step in range(start_step, args.steps):
+            batch = data.host_batch(step, 0, 1)
+            st0 = tracer.now() if tracer is not None else 0.0
+            t_step = time.perf_counter()
+            if rec_state is None:
+                params, opt_state, metrics = step_fn(params, opt_state, batch,
+                                                     step, key)
+            else:
+                params, opt_state, rec_state, metrics = step_fn(
+                    params, opt_state, batch, step, key, rec_state=rec_state)
+            m = {k: float(v) for k, v in metrics.items()}  # waits for the step
+            m["step_s"] = time.perf_counter() - t_step
+            records.append(m)
+            logged = step % args.log_every == 0 or step == args.steps - 1
+            if with_budget:
+                # the phase follows the run's progress and the loss curve; the
+                # loss EMA is fed through control.observe below
+                control.state.budget.update_phase(
+                    progress=(step + 1) / max(args.steps, 1),
+                    train_loss=m["loss"])
+            if logged:
+                rate = (step - start_step + 1) / (time.perf_counter() - t0)
+                print(f"step {step:5d} loss {m['loss']:.4f} "
+                      f"gnorm {m['grad_norm']:.3f} "
+                      f"loss_frac {m['loss_frac']:.5f} "
+                      f"skipped {int(m['skipped'])} ({rate:.2f} it/s)",
+                      flush=True)
+            wire_t = None
+            if ring is not None:
+                wire_t = _wire_step_end(ring, args.transport, step, m)
+            if control is not None:
+                if wire_t is not None:
+                    # per-peer stage times, per-round deadlines, timeouts and
+                    # received fractions, observed on the wire
+                    control.observe(wire_t)
+                    if logged:
+                        pst = ", ".join(f"{t:.3g}" for t
+                                        in (wire_t.peer_stage_times or ()))
+                        print(f"wire[{args.transport}] peers="
+                              f"{len(wire_t.peer_stage_times or ())} "
+                              f"stage_times=[{pst}] "
+                              f"loss_frac={wire_t.loss_frac:.5f} "
+                              f"deadline={ring.peers[0].round_deadline():.4g}"
+                              + (f" misses={ring.bridge_misses}"
+                                 if ring.bridge_misses else ""), flush=True)
+                elif ring is None:
+                    # wall-clock only for the synthetic transport: a wire-fed
+                    # AdaptiveTimeout is profiled in the backend's clock units
+                    control.observe(StepTelemetry(step=step,
+                                                  loss_frac=m["loss_frac"],
+                                                  step_time=m["step_s"]))
+                if args.report:
+                    det = control.detector
+                    report_rows.append({
+                        "step": step,
+                        "scores": [float(x) for x in det.scores()],
+                        "weights": [int(w) for w in det.weights()],
+                        "active": [int(p) for p in det.active_peers()],
+                        "dead_links": [list(link)
+                                       for link in control.dead_links()],
+                        "dead_link_events": [
+                            list(link) for link in
+                            ((wire_t.dead_link_events or ())
+                             if wire_t is not None else ())]})
+                    if with_budget:
+                        budget = control.state.budget
+                        report_rows[-1]["budget"] = {
+                            "phase": budget.phase, "loss_ema": budget.loss_ema,
+                            "budget": budget.budget(),
+                            "deadline_factor": budget.deadline_factor()}
+            if args.adaptive:
+                new_sync = control.apply(tc.sync)
+                if not incast_matters:
+                    new_sync = dataclasses.replace(new_sync,
+                                                   incast=tc.sync.incast)
+                if not ht_matters:
+                    new_sync = dataclasses.replace(
+                        new_sync, use_hadamard=tc.sync.use_hadamard)
+                if not participation_matters:
+                    new_sync = dataclasses.replace(
+                        new_sync, active_peers=tc.sync.active_peers)
+                if not rebalance_matters:
+                    new_sync = dataclasses.replace(new_sync,
+                                                   shard_weights=None)
+                if not deadlink_matters:
+                    new_sync = dataclasses.replace(new_sync, dead_links=())
+                # debounce: a growing incast ramps one step at a time, so wait
+                # for the controller to settle; a codec flip, an ejection and a
+                # link failure switch at once
+                stable_for = stable_for + 1 if new_sync == stable_rec else 1
+                stable_rec = new_sync
+                urgent = (new_sync.use_hadamard != tc.sync.use_hadamard or
+                          new_sync.active_peers != tc.sync.active_peers or
+                          new_sync.dead_links != tc.sync.dead_links)
+                if new_sync != tc.sync and (urgent or stable_for >= 3):
+                    tc = dataclasses.replace(tc, sync=new_sync)
+                    step_fn = step_cache.get(_policy_of(new_sync))
+                    if step_fn is not None:
+                        how = "cached step reused"
+                    else:
+                        step_fn, _ = build_train_step(cfg, tc, mesh,
+                                                      device=device)
+                        step_cache.put(_policy_of(new_sync), step_fn)
+                        how = "step rebuilt"
+                    print(f"adaptive: use_hadamard={new_sync.use_hadamard} "
+                          f"incast={new_sync.incast} "
+                          f"active={new_sync.active_peers} "
+                          f"weights={new_sync.shard_weights} "
+                          f"dead={new_sync.dead_links} ({how})", flush=True)
+            if tracer is not None:
+                tracer.complete("step", "trainer", ts=st0,
+                                dur=tracer.now() - st0,
+                                args={"step": step,
+                                      "loss_frac": round(m["loss_frac"], 6)})
+                tracer.counter("loss_frac", m["loss_frac"])
+            monitor.observe(step, m["loss_frac"], m["skipped"] > 0)
+            if monitor.halted:
+                print("HALT: excessive gradient loss (§3.4); rolling back")
+                rb = monitor.rollback()
+                if rb is not None:
+                    _, params = rb
+            if ckpt and step > 0 and step % args.ckpt_every == 0:
+                ckpt.save(step, ckpt_tree())
+        if ckpt:
+            ckpt.save(args.steps, ckpt_tree())
+            ckpt.wait()
+    finally:
+        if ring is not None:
+            ring.close()          # UDP sockets + the bridge worker
+        for c in rdv_clients:
+            c.leave()
+        if rdv_server is not None:
+            rdv_server.close()
     if args.report:
         with open(args.report, "w") as f:
             json.dump({"n_peers": control.detector.n_peers,
@@ -389,6 +490,65 @@ def run(argv=None) -> list[dict]:
         obs.configure(False)
     print("done", flush=True)
     return records
+
+
+def _wire_ring(args, n_data: int, control: ControlPlane, device):
+    """The launcher's HostRing (and its rendezvous server and clients under
+    ``--rendezvous``): the reference's, its peers on ``device``."""
+    membership = rdv_server = None
+    rdv_clients = []
+    if args.rendezvous:
+        if args.rendezvous == "auto":
+            rdv_server = RendezvousServer(n_data)
+            rdv_addr = rdv_server.addr
+        else:
+            host, _, port = args.rendezvous.rpartition(":")
+            rdv_addr = (host or "127.0.0.1", int(port))
+        # one client per ring peer; joins are sequential so rank i is peer
+        # i, and every client heartbeats — the shared membership view is
+        # live, not a snapshot
+        for uid in range(n_data):
+            c = RendezvousClient(rdv_addr, uid=uid)
+            c.join()
+            rdv_clients.append(c)
+        membership = rdv_clients[0]
+        print(f"rendezvous: {n_data} peers joined at "
+              f"{rdv_addr[0]}:{rdv_addr[1]} "
+              f"generation={membership.generation}", flush=True)
+    ring = HostRing(
+        n_data,
+        OptiReduceConfig(strategy=args.strategy, incast=args.incast,
+                         hadamard_block=1024),
+        backend=args.transport, timeout=control.state.timeout,
+        default_deadline=args.wire_deadline, budget=control.state.budget,
+        drop_fn=(bernoulli_drops(args.drop_rate, seed=args.seed)
+                 if args.drop_rate > 0 else None),
+        membership=membership, device=device)
+    return ring, rdv_server, rdv_clients
+
+
+def _wire_step_end(ring: HostRing, transport: str, step: int,
+                   m: dict) -> StepTelemetry | None:
+    """Let the step's exchanges land, surface a failed bridge worker, and
+    drain the step's wire telemetry; records the wire fields in ``m``."""
+    t0 = time.perf_counter()
+    if not ring.flush():
+        print(f"wire[{transport}] WARNING: exchanges still in flight at "
+              f"step {step} (flush timed out)", flush=True)
+    m["wire_flush_s"] = time.perf_counter() - t0
+    m["wire_error"] = float(ring.bridge_error is not None)
+    if ring.bridge_error is not None:
+        # a wedged or dead wire layer must be loud, not silently degrade
+        # to all-ones masks
+        print(f"wire[{transport}] ERROR: bridge worker died: "
+              f"{ring.bridge_error!r} — masks degrade to all-ones and "
+              "telemetry stops", flush=True)
+        ring.bridge_error = None
+    wire_t = ring.drain_telemetry(step)
+    m["wire_loss_frac"] = (wire_t.loss_frac if wire_t is not None
+                           else math.nan)
+    m["wire_misses"] = float(ring.bridge_misses)
+    return wire_t
 
 
 def _policy_of(sync: OptiReduceConfig) -> SyncPolicy:

@@ -81,7 +81,10 @@ stale cache ``stale`` ``(B, E)`` feeds the fill, and the step returns the
 next state (this step's synced arena as the cache, the new residuals).
 
 The loss metric is the mean over peers; ``loss_frac`` the mean over
-receivers. The wire transports (ROADMAP A18) wait for a later slice.
+receivers. ``tc.transport_override`` swaps the spec's transport for the
+bucketed sync (the launcher's ``WireTransport``, whose masks a host wire
+observes: replicated, one bucket exchange a call; error feedback refuses
+it, its masks being irreproducible at the sender).
 """
 from __future__ import annotations
 

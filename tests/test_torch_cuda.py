@@ -14,6 +14,8 @@ plain version's reduction may pick another order: within 8 ulp of amax.
 Non-finite input keeps the plain versions' semantics exactly: B3 passes
 NaN through as ``torch.amax`` does, and a NaN quotient gives code 0.
 """
+import dataclasses
+
 import pytest
 import torch
 import torch.nn.functional as F
@@ -36,6 +38,8 @@ from repro_torch.kernels.masked_sum.ref import masked_mean_ref
 from repro_torch.kernels.quant import grid_quant, uniform_quant
 from repro_torch.kernels.quant import ops as gq_ops
 from repro_torch.kernels.quant.ref import grid_quant_ref, uniform_quant_ref
+from repro_torch.net import (HostPeer, HostRing, InprocBackend,
+                             mask_scripted_drops, wire_spec)
 from repro_torch.sim.tta import KeyDraws, TrainRunConfig, _aggregate
 
 ROT_TOL = 1e-5
@@ -589,3 +593,74 @@ def test_tp_step_on_card_matches_cpu(dev, mode, strategy):
         assert abs(cpu["loss"] - card["loss"]) <= 2e-3
         assert abs(cpu["grad_norm"] - card["grad_norm"]) <= 2e-3
         assert cpu["loss_frac"] == card["loss_frac"]
+
+
+@pytest.mark.parametrize("strategy", ["optireduce", "optireduce_q"])
+def test_host_peers_on_card_match_cpu_and_sync_packed(dev, strategy):
+    """``HostRing.allreduce`` with its peers' stage functions on the card:
+    bitwise the card's ``sync_packed`` under ``Lossy`` with the same masks
+    (one-row launches compute each row as the stacked ones do), and within
+    the rotation's tolerance of the same ring on the CPU; each peer
+    launches its own kernels (2 B1 + 1 B2, or one each of B1, B3-B6)."""
+    cfg = OptiReduceConfig(strategy=strategy, drop_rate=0.05,
+                           hadamard_block=1024)
+    x = torch.randn((4, 20_000), generator=torch.Generator().manual_seed(0))
+    draws = _HostDraws(cfg, dev)
+    ctx = SyncContext(cfg=cfg, draws=draws)
+    want = sync_packed(x.to(dev)[:, None], ctx)[:, 0]
+    s = 20_480 // 4
+    masks = {r: draws.inner.mask(0, r, 4, s).numpy() for r in range(4)}
+    outs = []
+    for device, d in ((dev, draws), (torch.device("cpu"), draws.inner)):
+        before = (fwht_ops.launches, mm_ops.launches, hq_ops.quant_launches)
+        ring = HostRing(4, cfg, backend=InprocBackend(
+            4, drop_fn=mask_scripted_drops(masks, cfg.packet_elems)),
+            device=device)
+        out, tel = ring.allreduce(x, d)
+        outs.append(out)
+        launched = (fwht_ops.launches - before[0],
+                    mm_ops.launches - before[1],
+                    hq_ops.quant_launches - before[2])
+        on_card = device.type == "cuda"
+        if strategy == "optireduce":
+            assert launched == ((8, 4, 0) if on_card else (0, 0, 0))
+        else:
+            assert launched == ((4, 0, 4) if on_card else (0, 0, 0))
+        assert tel.loss_frac == pytest.approx(float(ctx.loss_fraction()),
+                                              abs=1e-7)
+    assert outs[0].is_cuda and torch.equal(outs[0], want)
+    torch.testing.assert_close(outs[0].cpu(), outs[1], atol=ROT_TOL, rtol=0)
+
+
+def test_host_entry_points_default_to_the_card(dev):
+    """A peer or a ring built without a device runs on the card."""
+    cfg = OptiReduceConfig(strategy="optireduce", hadamard_block=1024)
+    assert HostPeer(0, InprocBackend(4), cfg).device.type == "cuda"
+    ring = HostRing(4, cfg)
+    assert ring.device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in ring.peers)
+    ring.close()
+
+
+def test_wire_bridge_on_card_tensors(dev):
+    """The bridge takes the engine's CUDA shard stack (a device-to-host
+    copy) and hands the observed mask back on the card: after the priming
+    call, the wire-fed sync on the card is bitwise the ``Lossy`` one."""
+    cfg = OptiReduceConfig(strategy="optireduce", drop_rate=0.05,
+                           hadamard_block=1024)
+    arena = torch.randn((4, 1, 16_384),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    draws = _HostDraws(cfg, dev)
+    want = sync_packed(arena, SyncContext(cfg=cfg, draws=draws))
+    masks = {r: draws.inner.mask(0, r, 4, 4096).numpy() for r in range(4)}
+    cfg_w = dataclasses.replace(cfg, drop_rate=0.0)
+    ring = HostRing(4, cfg_w, backend=InprocBackend(
+        4, drop_fn=mask_scripted_drops(masks, cfg.packet_elems)), device=dev)
+    spec = wire_spec(cfg_w, ring)
+    sync_packed(arena, SyncContext(cfg=cfg_w, draws=draws), spec=spec)
+    assert ring.flush()
+    ctx = SyncContext(cfg=cfg_w, draws=draws)
+    got = sync_packed(arena, ctx, spec=spec)
+    assert got.is_cuda and torch.equal(got, want)
+    assert ctx.stats["dropped"].is_cuda and ring.bridge_misses == 0
+    ring.close()

@@ -1,6 +1,5 @@
 """The port's launcher end to end on the CPU (the plain versions of the
-kernels), and its refusal of the reference's flags the port does not run
-yet.
+kernels), and each ROADMAP item's flags training through it.
 """
 import math
 
@@ -28,7 +27,7 @@ def test_main_returns_zero_with_scan_and_microbatches():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--transport", "udp"], "A18"),
+    (["--transport", "inproc"], "A18"),
     (["--recovery", "ef"], "A16"),
     (["--adaptive"], "A17"),
     (["--tp", "2"], "A15"),
@@ -48,15 +47,17 @@ def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
     FSDP and ``optireduce_2d`` (A15; on one pod the 2D strategy runs as
     ``optireduce``), the control plane (A17), the tracer (A19, writing into
     the working directory), loss recovery (A16), checkpoints (A12, a
-    ``--resume`` with nothing to resume starting at step 0) and tensor
-    parallelism (``--tp 2``, A15b)."""
+    ``--resume`` with nothing to resume starting at step 0), the host wire
+    (A18: ``tests/test_torch_net_launch.py`` holds it to the reference)
+    and tensor parallelism (``--tp 2``, A15b)."""
     monkeypatch.chdir(tmp_path)
     argv = ["--smoke", "--device", "cpu", "--steps", "1", *flags]
-    if item in ("A12", "A14", "A15", "A16", "A17", "A19"):
+    if item in ("A12", "A14", "A15", "A16", "A17", "A18", "A19"):
         records = train.run([*argv, "--seq-len", "16"])
         assert len(records) == 1 and math.isfinite(records[0]["loss"])
         assert (tmp_path / "trace_rank00.json").exists() == (item == "A19")
         assert ("filled" in records[0]) == (item == "A16")
+        assert ("wire_loss_frac" in records[0]) == (item == "A18")
         assert (tmp_path / "ck" / "step_00000001").exists() == \
             ("--ckpt-dir" in flags)
         return
