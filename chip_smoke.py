@@ -185,8 +185,9 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     the same draws, for optireduce (8 B1 + 4 B2 launches: each peer's
     encode, decode and compensated mean) and optireduce_q (4 each of B1,
     B3-B6); the datagrams and bytes of each kind and the host seconds;
-39. ``wire_main``, ``wire_q``: the launcher at 6.'s full width with
-    ``--transport inproc`` (3 and 2 steps): 48 B1 + 24 B2, and 24 each of
+39. ``wire_main``, ``wire_q``: the launcher at 6.'s full width, gpt2-paper
+    cut to 4 of its 12 layers (12 buckets of 6,553,600), with
+    ``--transport inproc`` (2 and 1 steps): 24 B1 + 12 B2, and 12 each of
     B1, B3-B6 a step, as on the lossy path; no bridge miss or error; one
     ``wire[inproc]`` line a step with 4 peers; the wire's loss_frac within
     0.0075 +- 0.002 (0.01 x 3/4: a receiver's own row never crosses the
@@ -204,7 +205,28 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     parameters within ``STEP_TOL``, every bridge mask equal; then 2 steps
     over UDP on the card: loss at most 0.07, no step skipped;
 42. ``profile`` of ``wire_main``'s last step as in 9.;
-43. ``seconds``: the script's wall clock, whole and by group of phases.
+43. ``multiproc_inproc``: ``repro_torch.launch.multiproc --backend
+    inproc`` on the card, 4 rank-threads each exchanging one gpt2-paper
+    bucket (``--elems 6553600 --hadamard-block 1024 --packet-elems 256``)
+    at wire loss 0.01, 2 steps each of optireduce and optireduce_q: every
+    rank's output checksums equal a ``HostRing``'s on the card (same data,
+    keys and header-hashed drops); launches exact, 8 B1 + 4 B2 (4 each of
+    B1, B3-B6) a step and as many again for the warm-up before the first
+    fence; host s a step, start s, loss_frac within 0.0075 +- 0.002;
+44. ``multiproc_udp``: 4 worker processes on the card, one UDP socket and
+    CUDA context each, ranks from the TCP rendezvous: at 4096 elements (loss
+    0.05, deadline 1 s) bitwise the ``HostRing``; at full width one step:
+    every report written, the loss, the start-up s (import, CUDA context,
+    kernel libraries, warm-up) and the step s of each rank;
+45. ``multiproc_kill``: UDP, ``--kill-rank 1 --kill-step 1 --restart
+    --step-sleep 3``, 8 steps of 1024 elements: the rank SIGKILLs itself,
+    the survivors complete the step degraded and eject it, the respawned
+    process resumes from step 0's checkpoint and is readmitted through
+    PROBATION;
+46. ``elastic``: gpt2-paper's 151,862,784 parameters on the card through
+    ``train/elastic.py``, 4 shards -> gather -> 2 shards -> gather, both
+    gathers bitwise the parameters, ms of each call three times;
+47. ``seconds``: the script's wall clock, whole and by group of phases.
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -468,6 +490,12 @@ def main() -> int:
     lap("wire_main_q_udp")
     check_wire_against_cpu(dev)
     lap("wire_check")
+
+    # 43.-46. the multi-process peer runtime (A18, second half) and
+    # elastic resharding
+    multiproc_paths(dev, counters)
+    elastic_phase(dev)
+    lap("multiproc")
 
     # 21.-23. loss recovery through the launcher at full width; 24. the
     # budget's report; 25. card against CPU; 26. checkpoints and resume
@@ -2503,14 +2531,18 @@ def check_tp_shapes(dev, gen) -> None:
 
 # the port's kernel functions, as the profiler names them
 # ------------------------------------------------- the host wire (A18)
-WIRE_PER_STEP = {
+WIRE_PER_BUCKET = {
     # the lossy path's launches: the wire's mask is never None, so every
     # bucket's compensated mean is a B2 (or B5) launch
-    "wire_main": ("optireduce", 3, {"fwht": 48, "masked_mean": 24}),
-    "wire_q": ("optireduce_q", 2, {"fwht": 24, "ht_amax": 24, "ht_quant": 24,
-                                   "dequant_mean": 24, "grid_quant": 24}),
-    "wire_udp": ("optireduce", 1, {"fwht": 48, "masked_mean": 24}),
+    "wire_main": ("optireduce", 2, {"fwht": 2, "masked_mean": 1}),
+    "wire_q": ("optireduce_q", 1, {"fwht": 1, "ht_amax": 1, "ht_quant": 1,
+                                   "dequant_mean": 1, "grid_quant": 1}),
+    "wire_udp": ("optireduce", 1, {"fwht": 2, "masked_mean": 1}),
 }
+# the launcher's wire phases run gpt2-paper at full width with its depth
+# cut to 4 of 12 layers: 12 buckets of 6,553,600 a step instead of 24 (a
+# wire step is host Python, ~2.2 s a bucket)
+WIRE_LAYERS = 4
 WIRE_UDP_DEADLINE = "0.02"     # s a round: bounds the wait on lost packets
 KIND_NAMES = {1: "data1", 2: "data2", 3: "ctrl", 4: "relay"}
 
@@ -2682,11 +2714,19 @@ def wire_paths(counters: dict) -> None:
     0.10 guard skipped. ``wire_main``'s last step runs under
     ``torch.profiler`` (phase ``profile``, ``"transport": "inproc"``): a
     wire step is ~50 s of host time, so it is profiled in this run rather
-    than in three more steps of its own."""
-    import torch
-    from repro_torch.launch import train as launch_train
+    than in three more steps of its own. The model is gpt2-paper cut to
+    ``WIRE_LAYERS`` layers (width, buckets and per-bucket work unchanged);
+    launches are exact for its bucket count."""
+    import dataclasses
 
-    for phase, (strategy, steps, per_step) in WIRE_PER_STEP.items():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import count_params
+
+    cfg = dataclasses.replace(get_config("gpt2-paper"), n_layers=WIRE_LAYERS)
+    buckets = -(-count_params(cfg) // BUCKET)
+    for phase, (strategy, steps, per_bucket) in WIRE_PER_BUCKET.items():
         udp = phase == "wire_udp"
         extra = (("--transport", "udp", "--rendezvous", "auto",
                   "--wire-deadline", WIRE_UDP_DEADLINE) if udp
@@ -2697,6 +2737,8 @@ def wire_paths(counters: dict) -> None:
             (steps - 1,) if phase == "wire_main" else ()))
         build = launch_train.build_train_step
         launch_train.build_train_step = watch.wrap(build)
+        full_config = launch_train.get_config
+        launch_train.get_config = lambda name: cfg
         try:
             with _watched_launcher(stats) as step_stats, \
                     contextlib.redirect_stdout(_Tee(sys.stdout, out)):
@@ -2704,9 +2746,11 @@ def wire_paths(counters: dict) -> None:
                                                   phase=phase, extra=extra)
         finally:
             launch_train.build_train_step = build
+            launch_train.get_config = full_config
         prof = watch.steps[-1]["prof"]
         if prof is not None:
             emit_profile(prof, {"strategy": strategy, "arch": "gpt2-paper",
+                                "layers": WIRE_LAYERS, "buckets": buckets,
                                 "peers": PEERS, "transport": "inproc"},
                          records[-2]["step_s"] * 1e3,
                          records[-1]["step_s"] * 1e3,
@@ -2715,7 +2759,7 @@ def wire_paths(counters: dict) -> None:
                  if ln.startswith("wire[")]
         ring = stats.rings[0]
         want = {k: 0 for k in counters}
-        want.update({k: v * steps for k, v in per_step.items()})
+        want.update({k: v * buckets * steps for k, v in per_bucket.items()})
         for i, (rec, st) in enumerate(zip(records, step_stats)):
             tel = st.pop("wire_t")
             emit({"phase": f"{phase}_wire_step", "step": i,
@@ -2728,6 +2772,7 @@ def wire_paths(counters: dict) -> None:
                   "rounds_timed_out": sum(tel.round_timed_out),
                   "rounds": len(tel.round_timed_out), **st})
         summary = {"phase": phase, "strategy": strategy, "steps": steps,
+                   "layers": WIRE_LAYERS, "buckets": buckets,
                    "transport": "udp" if udp else "inproc",
                    "bridge_misses": ring.bridge_misses,
                    "bridge_timeout_s": ring.bridge_timeout,
@@ -2841,6 +2886,275 @@ def check_wire_against_cpu(dev) -> None:
                and r["wire_misses"] == 0 and r["wire_error"] == 0
                for r in records):
         fail(f"wire_check udp: {records}")
+
+
+# ---------------------------------- the multi-process peer runtime (A18)
+# one gpt2-paper bucket a rank, as the launcher packs it
+MP_FULL = ("--nprocs", str(PEERS), "--elems", str(BUCKET),
+           "--hadamard-block", str(BLOCK), "--packet-elems", "256")
+MP_STEPS = 2
+MP_RATE = 0.01                 # i.i.d. wire loss of every datagram
+MP_DROP = ("--drop-rate", str(MP_RATE), "--drop-seed", "3")
+# a step's launches over the 4 ranks (one row each); the warm-up before
+# the first fence runs every stage function once more
+MP_PER_STEP = {
+    "optireduce": {"fwht": 8, "masked_mean": 4},
+    "optireduce_q": {"fwht": 4, "ht_amax": 4, "ht_quant": 4,
+                     "dequant_mean": 4, "grid_quant": 4}}
+MP_UDP_CHECK = ("--elems", "4096", "--drop-rate", "0.05", "--drop-seed",
+                "3", "--deadline", "1.0")
+MP_KILL_STEPS = 8
+# s before each step's fence: a respawned worker takes ~7 s to start on the
+# card (interpreter, torch, CUDA context, warm-up), and the parent respawns
+# it at the third step's fence; at 2 s it rejoined only at the last step
+MP_KILL_SLEEP = "3"
+
+
+def _mp_digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def _hostring_digests(dev, strategy: str, elems: int, block: int,
+                      steps: int, rate: float) -> tuple[dict, float]:
+    """Each rank's output digest per step from one ``HostRing`` on the
+    card under the launcher's scripted wire (``bernoulli_drops(rate,
+    seed=3)``), data and keys (``fold_in(key(0), step)``); and its host
+    seconds."""
+    import numpy as np
+    from repro_torch.core.allreduce import OptiReduceConfig
+    from repro_torch.core.keys import fold_in, key
+    from repro_torch.net import HostRing, bernoulli_drops
+
+    cfg = OptiReduceConfig(strategy=strategy, drop_rate=0.0,
+                           hadamard_block=block, packet_elems=256)
+    ring = HostRing(PEERS, cfg, backend="inproc", device=dev,
+                    drop_fn=bernoulli_drops(rate, seed=3))
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        for step in range(steps):
+            data = np.random.default_rng(step).standard_normal(
+                (PEERS, elems)).astype(np.float32)
+            res, _ = ring.allreduce(data, fold_in(key(0), step), step=step,
+                                    bucket=0)
+            out[step] = [_mp_digest(res[r]) for r in range(PEERS)]
+    finally:
+        ring.close()
+    return out, time.perf_counter() - t0
+
+
+def _mp_ranks(report) -> dict:
+    return {w["rank"]: w for w in report["workers"] if "steps" in w}
+
+
+def _mp_digests_equal(report, want: dict) -> bool:
+    ranks = _mp_ranks(report)
+    return sorted(ranks) == list(range(PEERS)) and all(
+        [ranks[r]["steps"][s]["checksum"] for r in range(PEERS)] == want[s]
+        for s in want)
+
+
+def _mp_udp(argv: list, timeout: float = 400.0) -> dict:
+    """``python -m repro_torch.launch.multiproc --backend udp --device cuda
+    ...`` as its own process, as a user runs it: the parent (and its
+    rendezvous server) shares nothing with this script's heap and threads.
+    Returns the merged report; a non-zero exit fails with its stderr."""
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in env.get("PYTHONPATH", "")
+                               .split(os.pathsep) if p])
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "report.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.multiproc", "--backend",
+             "udp", "--device", "cuda", "--report", path, *argv],
+            env=env, capture_output=True, text=True, timeout=timeout)
+        if proc.returncode != 0:
+            fail(f"multiproc {argv}: exit {proc.returncode}\n"
+                 f"{proc.stderr[-4000:]}")
+        with open(path) as f:
+            return json.load(f)
+
+
+def multiproc_paths(dev, counters: dict) -> None:
+    """Phases ``multiproc_inproc``, ``multiproc_udp`` and ``multiproc_kill``:
+    ``repro_torch.launch.multiproc`` on the card (the module docstring's
+    items 43-45). Each counter is set to 0 just before an inproc launch and
+    read just after; the ``HostRing`` it is held against runs after."""
+    import tempfile
+
+    import torch
+    from repro_torch.launch import multiproc as mp
+
+    for strategy, per_step in MP_PER_STEP.items():
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        report = mp.main(["--backend", "inproc", "--device", "cuda",
+                          "--steps", str(MP_STEPS), "--strategy", strategy,
+                          *MP_DROP, *MP_FULL])
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        counts = {n: getattr(mod, attr) for n, (mod, attr) in
+                  counters.items()}
+        want_c = {k: per_step.get(k, 0) * (MP_STEPS + 1) for k in counters}
+        want, ring_s = _hostring_digests(dev, strategy, BUCKET, BLOCK,
+                                         MP_STEPS, MP_RATE)
+        ranks = _mp_ranks(report)
+        bitwise = _mp_digests_equal(report, want)
+        loss = [[ranks[r]["steps"][s]["loss_frac"] for r in sorted(ranks)]
+                for s in range(MP_STEPS)]
+        emit({"phase": "multiproc_inproc", "strategy": strategy,
+              "ranks": PEERS, "elems": BUCKET, "steps": MP_STEPS,
+              "host_s": host_s,
+              "step_s": [max(w["steps"][s]["step_s"] for w in ranks.values())
+                         for s in range(MP_STEPS)],
+              "start_s": max(w["start_s"] for w in ranks.values()),
+              "launches": counts,
+              "launches_per_step": {k: (v - want_c[k] // (MP_STEPS + 1))
+                                    / MP_STEPS for k, v in counts.items()},
+              "loss_frac": loss,
+              "stage2_dropped": [[ranks[r]["steps"][s]["stage2_dropped"]
+                                  for r in sorted(ranks)]
+                                 for s in range(MP_STEPS)],
+              "bitwise_equal_hostring": bitwise, "hostring_host_s": ring_s})
+        if counts != want_c:
+            fail(f"multiproc_inproc {strategy}: launches {counts}, expected "
+                 f"{want_c} ({MP_STEPS} steps and the warm-up)")
+        if not bitwise:
+            fail(f"multiproc_inproc {strategy}: checksums differ from "
+                 "HostRing's on the card")
+        # a receiver's own row never crosses the wire: 3/4 of the rate
+        if not all(abs(x - 0.75 * MP_RATE) <= 0.002 for row in loss
+                   for x in row):
+            fail(f"multiproc_inproc {strategy}: loss_frac {loss} outside "
+                 f"{0.75 * MP_RATE} +- 0.002")
+
+    # 4 processes on the card: bitwise at 4096 elements, then full width
+    want, _ = _hostring_digests(dev, "optireduce", 4096, 256, 2, 0.05)
+    t0 = time.perf_counter()
+    report = _mp_udp(["--steps", "2", "--timeout", "300", *MP_UDP_CHECK])
+    check_s = time.perf_counter() - t0
+    ranks = _mp_ranks(report)
+    bitwise = _mp_digests_equal(report, want)
+    emit({"phase": "multiproc_udp", "elems": 4096, "steps": 2,
+          "host_s": check_s, "bitwise_equal_hostring": bitwise,
+          "start_s": [ranks[r]["start_s"] for r in sorted(ranks)],
+          "loss_frac": [[s["loss_frac"] for s in ranks[r]["steps"]]
+                        for r in sorted(ranks)]})
+    if not bitwise:
+        fail("multiproc_udp: 4096 elements not bitwise HostRing's")
+    t0 = time.perf_counter()
+    report = _mp_udp(["--steps", "1", "--timeout", "300", *MP_DROP,
+                      *MP_FULL])
+    host_s = time.perf_counter() - t0
+    ranks = _mp_ranks(report)
+    emit({"phase": "multiproc_udp", "elems": BUCKET, "steps": 1,
+          "host_s": host_s, "reports": len(ranks),
+          "start_s": [ranks[r]["start_s"] for r in sorted(ranks)],
+          "step_s": [ranks[r]["steps"][0]["step_s"] for r in sorted(ranks)],
+          "loss_frac": [ranks[r]["steps"][0]["loss_frac"]
+                        for r in sorted(ranks)],
+          "stage2_dropped_frac": [ranks[r]["steps"][0]["stage2_dropped"]
+                                  / (PEERS * SHARD) for r in sorted(ranks)],
+          "timed_out": [ranks[r]["steps"][0]["timed_out"]
+                        for r in sorted(ranks)],
+          "rmem_max": rmem_max()})
+    if sorted(ranks) != list(range(PEERS)) or not all(
+            len(w["steps"]) == 1 and w["exit"] == "ok"
+            for w in ranks.values()):
+        fail(f"multiproc_udp: reports {report['workers']}")
+
+    # a real SIGKILL, ejection, and the respawned rank's readmission
+    kill_rank, kill_step = 1, 1
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        report = _mp_udp(["--steps", str(MP_KILL_STEPS), "--elems", "1024",
+                          "--deadline", "1.0", "--step-sleep", MP_KILL_SLEEP,
+                          "--kill-rank", str(kill_rank), "--kill-step",
+                          str(kill_step), "--restart", "--ckpt-dir", ckpt,
+                          "--timeout", "300"])
+        host_s = time.perf_counter() - t0
+    ranks = _mp_ranks(report)
+    killed = [w for w in report["workers"] if w.get("exit") == "killed"]
+    rejoiner = ranks.get(kill_rank, {})
+    trails = {r: [s["statuses"][kill_rank] for s in w["steps"]]
+              for r, w in ranks.items() if r != kill_rank}
+    emit({"phase": "multiproc_kill", "steps": MP_KILL_STEPS,
+          "host_s": host_s, "killed": len(killed),
+          "rejoiner": {k: rejoiner.get(k) for k in
+                       ("resumed_from", "start_step", "start_s")},
+          "rejoiner_steps": [s["step"] for s in rejoiner.get("steps", [])],
+          "survivor_trails": trails,
+          "skipped_after_kill": {r: ranks[r]["steps"][kill_step + 1]
+                                 ["skipped"] for r in trails}})
+    ok = (len(killed) == 1 and sorted(ranks) == list(range(PEERS))
+          and rejoiner.get("resumed_from") == kill_step - 1
+          and rejoiner["start_step"] > kill_step
+          and rejoiner["steps"]
+          and rejoiner["steps"][-1]["step"] == MP_KILL_STEPS - 1
+          and all("ejected" in t[kill_step:] for t in trails.values())
+          and any("probation" in t[t.index("ejected"):]
+                  for t in trails.values() if "ejected" in t))
+    if not ok:
+        fail(f"multiproc_kill: {report}")
+
+
+def elastic_phase(dev) -> None:
+    """Phase ``elastic``: gpt2-paper's parameters on the card, resharded
+    over 4 workers, gathered, resharded over 2 and gathered again; both
+    gathers bitwise the original, every shard a quarter (half) of its
+    leaf's fsdp dim; host ms of each call (synchronised), three times."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.keys import generator, key
+    from repro_torch.models import init_params
+    from repro_torch.train.elastic import _fsdp_dims, gather_shards, reshard
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("gpt2-paper")
+    params = init_params(generator(key(0), dev), cfg, device=dev)
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    dims = _fsdp_dims(cfg, 1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    rounds = []
+    ok = True
+    for _ in range(3):
+        shards4, r4 = timed(lambda: reshard(params, cfg, 4))
+        full4, g4 = timed(lambda: gather_shards(shards4, cfg))
+        shards2, r2 = timed(lambda: reshard(full4, cfg, 2))
+        full2, g2 = timed(lambda: gather_shards(shards2, cfg))
+        for n, shards in ((4, shards4), (2, shards2)):
+            for leaf, dim, *parts in zip(leaves, dims,
+                                         *map(tree_leaves, shards)):
+                ok &= all(p.shape[dim] * n == leaf.shape[dim]
+                          if dim is not None else p is leaf for p in parts)
+        ok &= all(torch.equal(a, b) for full in (full4, full2)
+                  for a, b in zip(tree_leaves(full), leaves))
+        rounds.append({"reshard4_ms": r4, "gather4_ms": g4,
+                       "reshard2_ms": r2, "gather2_ms": g2})
+        del shards4, full4, shards2, full2
+    sharded = sum(t.numel() * t.element_size()
+                  for t, d in zip(leaves, dims) if d is not None)
+    emit({"phase": "elastic", "arch": cfg.name, "params": n_params,
+          "bytes": nbytes, "sharded_bytes": sharded,
+          "gather_bound_ms": 2 * sharded / HBM_BYTES_PER_S * 1e3,
+          "rounds": rounds, "bitwise": ok})
+    if n_params != 151_862_784 or not ok:
+        fail(f"elastic: {n_params} params, round trip bitwise {ok}")
 
 
 PORTED_KERNELS = ("fwht_rows_kernel", "masked_mean_vec4", "ht_kernel",

@@ -22,7 +22,7 @@ subsystem:
 See ``repro_torch.core.pipeline.WireTransport`` for the sync engine's side
 of the bridge and ``launch/train.py --transport={lossy,inproc,udp}`` for
 the launcher integration. The multi-process peer runtime on top of the
-rendezvous is ROADMAP A18's second half.
+rendezvous is ``repro_torch/launch/multiproc.py``.
 """
 from .backend import Backend
 from .host_ring import HostRing, aggregate_reports, make_backend, wire_spec

@@ -51,6 +51,7 @@ from repro_torch.core.pipeline import (GeneratorDraws,  # noqa: E402
                                        OptiReduceConfig, SyncContext,
                                        WireTransport, resolve_spec)
 from repro_torch.core.ubt import AdaptiveTimeout  # noqa: E402
+from repro_torch.launch import multiproc  # noqa: E402
 from repro_torch.net import (HostPeer, HostRing,  # noqa: E402
                              InprocBackend, bernoulli_drops, mask_scripted_drops,
                              peer_factor_delays, udp_available, wire_spec)
@@ -347,17 +348,21 @@ def test_refusals():
     ring.close()
 
 
-@pytest.mark.parametrize("entry", ["HostPeer", "HostRing"])
+@pytest.mark.parametrize("entry", ["HostPeer", "HostRing", "multiproc"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Built without a device, a peer or a ring runs its stage functions on
     the card, and raises where there is none instead of falling back to
-    the CPU's plain versions."""
+    the CPU's plain versions; so does the multi-process launcher without
+    ``--device``, before it starts a worker."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "HostPeer":
             HostPeer(0, InprocBackend(N), _cfg())
-        else:
+        elif entry == "HostRing":
             HostRing(N, _cfg())
+        else:
+            multiproc.main(["--backend", "inproc", "--steps", "1",
+                            "--elems", "256"])
     peer = HostPeer(0, InprocBackend(N), _cfg(), device="cpu")
     assert peer.device == CPU
 
