@@ -226,7 +226,24 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 46. ``elastic``: gpt2-paper's 151,862,784 parameters on the card through
     ``train/elastic.py``, 4 shards -> gather -> 2 shards -> gather, both
     gathers bitwise the parameters, ms of each call three times;
-47. ``seconds``: the script's wall clock, whole and by group of phases.
+47. ``families_main``: the launcher (``--arch``) at full width, 4 peers,
+    optireduce, tail drops 0.01, seq 128, global batch 8, AdamW, 2 steps
+    each, on smollm-360m (32 layers, 361,821,120 params, 56 buckets),
+    qwen2-moe-a2.7b (60 experts top-4 and 4 shared, cut to 1 of 24 layers:
+    881,719,296 params, 135 buckets) and mamba2-1.3b (48 layers,
+    1,343,286,272 params, 205 buckets): loss, loss_frac, step ms, peak
+    bytes; launches exactly 2 B1 and 1 B2 a bucket a step;
+48. ``hybrid_fwd``: jamba-v0.1-52b at full width, one period (8 of 32
+    layers, 12,997,268,800 params), a bf16 ``lm_loss`` under
+    ``torch.no_grad`` on (8, 128): the loss (finite), ms, peak;
+49. ``families_check``: every architecture's smoke config, 2 steps on the
+    card against 2 on the CPU (as ``fsdp_check``, replicated), launches
+    exact; ``prefix_check``: llava-smoke's and musicgen-smoke's loss and
+    gradients with a prefix, card vs CPU;
+50. ``profile`` of one step of qwen2-moe-a2.7b (1 layer) and of
+    mamba2-1.3b (24 of 48 layers, 111 buckets), as in 9.; the MoE
+    dispatch's scatter and gathers are among the index kernels;
+51. ``seconds``: the script's wall clock, whole and by group of phases.
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -530,6 +547,19 @@ def main() -> int:
     profile_step(dev, "optireduce", dp_mode="fsdp")
     profile_step(dev, "optireduce", tp=TP)
     lap("profiles")
+
+    # 47.-50. the model families (A21): the launcher on a dense, an MoE
+    # and an SSM model at full width, the hybrid's forward, every smoke
+    # config card vs CPU, a profiled step of the MoE and the SSM model
+    families_paths(counters)
+    hybrid_forward(dev)
+    check_families_against_cpu(dev)
+    profile_step(dev, "optireduce", arch="qwen2-moe-a2.7b", layers=1)
+    free_card()
+    profile_step(dev, "optireduce", arch="mamba2-1.3b",
+                 layers=SSM_PROFILE_LAYERS)
+    free_card()
+    lap("families")
 
     # 10. B7, THC's quantizer, at the THC path's full-width shape
     b7 = check_uniform_quant(dev, gen)
@@ -1064,9 +1094,9 @@ def _thc_code_sum(run, step: int):
 
 
 def train_argv(strategy: str, pattern: str = "tail",
-               recovery: str = "none") -> list[str]:
+               recovery: str = "none", arch: str = "gpt2-paper") -> list[str]:
     """The launcher's flags of a main path at full width."""
-    return ["--arch", "gpt2-paper", "--dp", str(PEERS), "--strategy",
+    return ["--arch", arch, "--dp", str(PEERS), "--strategy",
             strategy, "--drop-rate", "0.01", "--drop-pattern", pattern,
             "--recovery", recovery, "--seq-len", "128", "--global-batch",
             "8", "--optimizer", "adamw", "--device", "cuda", "--kernel-mode",
@@ -1076,11 +1106,13 @@ def train_argv(strategy: str, pattern: str = "tail",
 def train_main_path(strategy: str, steps: int, counters: dict, *,
                     pattern: str = "tail", recovery: str = "none",
                     phase: str = "train", extra=(),
-                    loss_seen: bool = True) -> tuple[dict, list]:
+                    loss_seen: bool = True, arch: str = "gpt2-paper",
+                    label: dict | None = None) -> tuple[dict, list]:
     """One main path through the launcher at full width; returns each
     kernel's launches in this run alone, and the step records. Each step's
     loss_frac must be positive unless ``loss_seen`` is off (under FSDP it
-    counts the small replicated bucket alone)."""
+    counts the small replicated bucket alone). ``label`` joins the run's
+    summary row."""
     import torch
     from repro_torch.launch import train as launch_train
 
@@ -1088,7 +1120,8 @@ def train_main_path(strategy: str, steps: int, counters: dict, *,
     torch.cuda.reset_peak_memory_stats()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    records = launch_train.run([*train_argv(strategy, pattern, recovery),
+    records = launch_train.run([*train_argv(strategy, pattern, recovery,
+                                            arch),
                                 "--steps", str(steps), *extra])
     torch.cuda.synchronize()
     counts = {name: getattr(mod, attr)
@@ -1096,6 +1129,7 @@ def train_main_path(strategy: str, steps: int, counters: dict, *,
     peak = torch.cuda.max_memory_allocated()
     for i, rec in enumerate(records):
         row = {"phase": f"{phase}_step", "strategy": strategy, "step": i,
+               **({"arch": arch} if arch != "gpt2-paper" else {}),
                "loss": rec["loss"], "loss_frac": rec["loss_frac"],
                "grad_norm": rec["grad_norm"], "step_ms": rec["step_s"] * 1e3}
         if recovery != "none":
@@ -1110,7 +1144,7 @@ def train_main_path(strategy: str, steps: int, counters: dict, *,
             fail(f"{phase} step {i}: the stale cache filled "
                  f"{rec['filled']} entries")
     emit({"phase": phase, "strategy": strategy, "recovery": recovery,
-          "drop_pattern": pattern, "arch": "gpt2-paper",
+          "drop_pattern": pattern, "arch": arch, **(label or {}),
           "peers": PEERS, "flags": list(extra), "steps": steps,
           "peak_mem_bytes": peak,
           "launches": counts,
@@ -1895,8 +1929,8 @@ def check_step_against_cpu(dev, strategy: str) -> None:
 
 def profile_step(dev, strategy: str, *, recovery: str = "none",
                  pattern: str = "tail", dp_mode: str = "replicated",
-                 tp: int = 1) -> None:
-    from repro_torch.configs import get_config
+                 tp: int = 1, arch: str = "gpt2-paper",
+                 layers: int | None = None) -> None:
     from repro_torch.core import recovery as recovery_lib
     from repro_torch.core.allreduce import OptiReduceConfig
     from repro_torch.core.bucket_plan import BucketPlan
@@ -1906,7 +1940,7 @@ def profile_step(dev, strategy: str, *, recovery: str = "none",
     from repro_torch.models import init_params
     from repro_torch.train.trainer import TrainConfig, build_train_step
 
-    cfg = get_config("gpt2-paper")
+    cfg = full_width(arch, layers)
     sync = OptiReduceConfig(strategy=strategy, drop_rate=0.01,
                             drop_pattern=pattern, hadamard_block=BLOCK,
                             incast=ROUNDS_INCAST, recovery=recovery)
@@ -1933,6 +1967,8 @@ def profile_step(dev, strategy: str, *, recovery: str = "none",
                                             rec_state=rec)
         float(m["loss"])
     label = {"strategy": strategy, "arch": cfg.name, "peers": PEERS}
+    if arch != "gpt2-paper":
+        label.update(layers=cfg.n_layers, buckets=plan.num_buckets)
     if dp_mode != "replicated":
         label.update(dp_mode=dp_mode)
     if tp > 1:
@@ -2230,10 +2266,11 @@ def check_a15_against_cpu(dev) -> None:
                       2, (16, 8))})
 
 
-def cpu_cases(dev, cases: dict, seq_parallel: bool = False) -> None:
-    """gpt2-smoke steps on the card against the plain versions on the CPU
-    for each case ``phase: (strategy, dp_mode, pure_dp, microbatch, mesh,
-    steps, (B1, B2) launches a step)``: same parameters (at the mesh's tp
+def cpu_cases(dev, cases: dict, seq_parallel: bool = False,
+              arch: str = "gpt2-paper") -> None:
+    """``arch``'s smoke steps on the card against the plain versions on the
+    CPU for each case ``phase: (strategy, dp_mode, pure_dp, microbatch,
+    mesh, steps, (B1, B2) launches a step)``: same parameters (at the mesh's tp
     degree unless ``pure_dp``) and draws, metrics, parameters and both
     AdamW moments within ``STEP_TOL``, the card's launches exact."""
     import torch
@@ -2252,7 +2289,7 @@ def cpu_cases(dev, cases: dict, seq_parallel: bool = False) -> None:
     from repro_torch.tree import tree_leaves, tree_map
 
     runtime.set_kernel_mode(None)       # by device: card kernels, CPU plain
-    cfg = get_smoke("gpt2-paper")
+    cfg = get_smoke(arch)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                                   global_batch=8, seed=0))
     k = key(0)
@@ -3155,6 +3192,170 @@ def elastic_phase(dev) -> None:
           "rounds": rounds, "bitwise": ok})
     if n_params != 151_862_784 or not ok:
         fail(f"elastic: {n_params} params, round trip bitwise {ok}")
+
+
+# ------------------------------------------- the model families (A21)
+# families_main: (arch, layers) through the launcher at full width; the
+# depth is cut only where 4 peers' training state would not fit the card
+# (PERF.md section 4): qwen2-moe-a2.7b to 1 of 24 layers (60 experts of
+# 3 x 2048 x 1408 a layer)
+FAMILIES_MAIN = (("smollm-360m", None), ("qwen2-moe-a2.7b", 1),
+                 ("mamba2-1.3b", None))
+FAMILIES_STEPS = 2
+HYBRID_LAYERS = 8          # one period of jamba-v0.1-52b (32 layers)
+# the profiled mamba2-1.3b step: 24 of 48 layers (111 buckets); at full
+# depth the profiler's analysis of ~76,000 launches costs over a minute
+SSM_PROFILE_LAYERS = 24
+PREFIX_TOL = 1e-5          # card vs CPU lm_loss with a prefix, relative
+PREFIX_GRAD_TOL = 1e-4     # ... its gradients, of each leaf's largest
+
+
+def full_width(arch: str, layers: int | None = None):
+    """``arch``'s published config, its depth cut to ``layers``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def free_card() -> None:
+    """Return what the last phase left to the allocator's cache."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def families_paths(counters: dict) -> None:
+    """Phase ``families_main``: the launcher (``--arch``) on each
+    ``FAMILIES_MAIN`` model at full width, 4 peers, ``optireduce``, tail
+    drops 0.01, seq 128, global batch 8, AdamW, ``FAMILIES_STEPS`` steps:
+    loss, loss_frac, step ms and peak bytes; B1 and B2 launches exactly 2
+    and 1 a bucket a step, none of the others."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import count_params
+
+    for arch, layers in FAMILIES_MAIN:
+        cfg = full_width(arch, layers)
+        n = count_params(cfg)
+        buckets = -(-n // BUCKET)
+        free_card()
+        full_config = launch_train.get_config
+        launch_train.get_config = lambda name: cfg
+        try:
+            counts, _ = train_main_path(
+                "optireduce", FAMILIES_STEPS, counters,
+                phase="families_main", arch=arch,
+                label={"family": cfg.family, "layers": cfg.n_layers,
+                       "params": n, "buckets": buckets})
+        finally:
+            launch_train.get_config = full_config
+        want = {k: 0 for k in counters}
+        want.update(fwht=2 * buckets * FAMILIES_STEPS,
+                    masked_mean=buckets * FAMILIES_STEPS)
+        if counts != want:
+            fail(f"families_main {arch}: launch counts {counts} over "
+                 f"{FAMILIES_STEPS} steps, expected {want}")
+    free_card()
+
+
+def hybrid_forward(dev) -> None:
+    """Phase ``hybrid_fwd``: jamba-v0.1-52b at full width, one period
+    (``HYBRID_LAYERS`` of 32 layers: Mamba-2 and attention 7:1, MoE every
+    other layer), bf16 parameters from seed 0, ``lm_loss`` under
+    ``torch.no_grad`` on a (8, 128) batch: the loss (finite, beside ln V),
+    the first call's and the mean of 3 more calls' device ms, the peak."""
+    import torch
+    from repro_torch.core.keys import generator, key
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import count_params
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = full_width("jamba-v0.1-52b", HYBRID_LAYERS)
+    params = init_params(generator(key(0), dev), cfg, device=dev)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                  global_batch=8, seed=0))
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in data.host_batch(0, 0, 1).items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = []
+    with torch.no_grad():
+        for _ in range(4):
+            start.record()
+            loss = lm_loss(params, batch, cfg, seq_chunk=128, remat=False)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+    loss = float(loss)
+    emit({"phase": "hybrid_fwd", "arch": cfg.name, "layers": cfg.n_layers,
+          "params": count_params(cfg), "dtype": str(cfg.param_dtype),
+          "batch": [8, 128], "loss": loss,
+          "ln_vocab": math.log(cfg.vocab_size), "first_ms": ms[0],
+          "ms": sum(ms[1:]) / 3,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    if not (math.isfinite(loss) and loss > 0):
+        fail(f"hybrid_fwd: loss {loss}")
+    del params, batch
+    free_card()
+
+
+def check_families_against_cpu(dev) -> None:
+    """Phase ``families_check``: every architecture's smoke config, 2
+    steps on the card against 2 on the CPU, same parameters and draws, as
+    ``fsdp_check`` (replicated, tail drops 0.05, buckets of 16,384: 2 B1 +
+    1 B2 a bucket on the card); then ``prefix_check``: llava-smoke's and
+    musicgen-smoke's ``lm_loss`` with an 8-position ``prefix_embeds`` on
+    the card against the CPU, loss within ``PREFIX_TOL`` relative,
+    gradients within ``PREFIX_GRAD_TOL`` of each leaf's largest."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.core.keys import generator, key
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.models.transformer import count_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    for arch in (*ARCHS, "gpt2-paper"):
+        b = -(-count_params(get_smoke(arch)) // 16_384)
+        cpu_cases(dev, {"families_check": (
+            "optireduce", "replicated", False, None, (PEERS,), 2,
+            (2 * b, b))}, arch=arch)
+    for arch in ("llava-next-mistral-7b", "musicgen-medium"):
+        cfg = get_smoke(arch)
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab_size, size=(2, 17))
+        batch = {"tokens": torch.as_tensor(toks[:, :-1]),
+                 "labels": torch.as_tensor(toks[:, 1:]),
+                 "prefix_embeds": torch.as_tensor(rng.standard_normal(
+                     (2, 8, cfg.frontend_dim)).astype(np.float32))}
+        base = init_params(generator(key(0)), cfg, device="cpu")
+        res = {}
+        for name, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            params = tree_map(lambda p: p.clone().to(device), base)
+            leaves = tree_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            loss = lm_loss(params, {k: v.to(device) for k, v in
+                                    batch.items()}, cfg, seq_chunk=8)
+            grads = torch.autograd.grad(loss, leaves)
+            res[name] = (float(loss.detach()),
+                         [g.detach().cpu() for g in grads])
+        rel = abs(res["cpu"][0] - res["cuda"][0]) / abs(res["cpu"][0])
+        g_rel = max(float((a - b).abs().max()) / max(float(a.abs().max()),
+                                                     1e-30)
+                    for a, b in zip(res["cpu"][1], res["cuda"][1]))
+        emit({"phase": "prefix_check", "arch": cfg.name, "prefix": 8,
+              "loss_cpu": res["cpu"][0], "loss_gpu": res["cuda"][0],
+              "loss_rel_diff": rel, "grad_rel_diff": g_rel,
+              "tolerance": [PREFIX_TOL, PREFIX_GRAD_TOL]})
+        if not (rel <= PREFIX_TOL and g_rel <= PREFIX_GRAD_TOL):
+            fail(f"prefix_check {arch}: loss {rel}, grads {g_rel}")
 
 
 PORTED_KERNELS = ("fwht_rows_kernel", "masked_mean_vec4", "ht_kernel",

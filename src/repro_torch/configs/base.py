@@ -3,12 +3,14 @@
 Counterpart of ``src/repro/configs/base.py``: the same ``ModelConfig``
 fields (``param_dtype`` is a ``torch.dtype``). Every architecture provides a
 ``CONFIG`` (the published numbers) and a ``SMOKE`` (a reduced same-family
-config for CPU tests). The run shapes (``ShapeConfig``, ``SHAPES``) come
-with the dry-run tools (ROADMAP A21).
+config for CPU tests). Shapes are the four assignment-wide cells;
+``input_specs`` builds ``device="meta"`` tensors as stand-ins for a cell's
+inputs (no allocation).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -61,3 +63,77 @@ class ModelConfig:
     @property
     def dh(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    def is_attn_layer(self, layer: int) -> bool:
+        if self.family == "ssm":
+            return False
+        if self.attn_every:
+            return layer % self.attn_every == self.attn_offset
+        return True
+
+    def is_moe_layer(self, layer: int) -> bool:
+        if not self.n_experts:
+            return False
+        return layer % self.moe_every == self.moe_offset
+
+    def sub_quadratic(self) -> bool:
+        """True when the arch can decode 500k context (SSM/hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Assignment rules: long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic():
+        return False, ("pure full-attention arch: 500k-token decode needs "
+                       "sub-quadratic attention (skip per assignment; see "
+                       "DESIGN.md)")
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                *, batch_override: int | None = None) -> dict[str, Any]:
+    """Meta-device stand-ins for every model input of this cell.
+
+    train/prefill: full sequences (tokens + labels for train). The frontend
+    stub supplies precomputed patch/frame embeddings as a prefix.
+    decode: one new token per sequence (the KV cache / SSM state belongs to
+    the serving state).
+    """
+    b = batch_override or shape.global_batch
+    s = shape.seq_len
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        p = min(cfg.prefix_len, s // 2) if cfg.frontend else 0
+        specs: dict[str, Any] = {"tokens": spec((b, s - p), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = spec((b, s - p), torch.int32)
+        if p:
+            specs["prefix_embeds"] = spec((b, p, cfg.frontend_dim),
+                                          torch.float32)
+        return specs
+
+    # decode: one token against existing state
+    return {"tokens": spec((b, 1), torch.int32)}

@@ -117,17 +117,20 @@ def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
     return ctx @ w["wo"].to(x.dtype)
 
 
+def activation_fn(activation: str):
+    """``silu``, or ``gelu`` in the tanh form of ``jax.nn.gelu``."""
+    if activation == "silu":
+        return F.silu
+    if activation == "gelu":
+        return lambda t: F.gelu(t, approximate="tanh")
+    raise ValueError(f"unknown activation {activation!r}")
+
+
 def gated_mlp(x: torch.Tensor, w: dict, *, activation: str = "silu",
               pctx: ParallelCtx | None = None) -> torch.Tensor:
     """SwiGLU (or GELU-gated) MLP; under tensor parallelism ``w_gate`` and
     ``w_up`` column-parallel, ``w_down`` row-parallel."""
-    if activation == "silu":
-        act = F.silu
-    elif activation == "gelu":
-        def act(t):
-            return F.gelu(t, approximate="tanh")
-    else:
-        raise ValueError(f"unknown activation {activation!r}")
+    act = activation_fn(activation)
     g = x @ w["w_gate"].to(x.dtype)
     u = x @ w["w_up"].to(x.dtype)
     if _tp(pctx):

@@ -1,29 +1,44 @@
-"""Decoder-only transformer, dense family.
+"""Decoder-only transformer family covering every architecture of the
+reference: dense (GQA), MoE (top-k, shared experts, dense residual), SSM
+(Mamba-2), the hybrid interleave (Jamba) and the frontend-stubbed VLM and
+audio variants.
 
-Counterpart of the dense family of ``src/repro/models/transformer.py``
-(``TpLayout``, ``param_table``, ``init_params``, ``forward_hidden``,
-``lm_loss``). The port keeps the reference's parameter tree, so parameters
-carry over leaf for leaf (``weights.params_from_jax``) and the gradient
-arena has the same layout::
+Counterpart of ``src/repro/models/transformer.py`` (``TpLayout``,
+``param_table``, ``init_params``, ``count_params``, ``active_params``,
+``abstract_params``, ``forward_hidden``, ``lm_loss``). The port keeps the
+reference's parameter tree, so parameters carry over leaf for leaf
+(``weights.params_from_jax``) and the gradient arena has the same layout.
+Layers are organised in a repeating *period* (1 for homogeneous stacks, 8
+for Jamba's attention every 8 and MoE every 2), one dict of leaves a period
+position, each leaf stacked over the period's repeats::
 
-    {"embed": (V, D), "final_ln": (D,),
-     "stages": [{"ln1", "wq", "wk", "wv", "wo", "ln2",
-                 "w_gate", "w_up", "w_down"}]}     # leaves stacked (L, ...)
+    {"embed": (V, D), "final_ln": (D,), ["lm_head": (D, V),]
+     ["frontend_proj": (F, D),]
+     "stages": [{"ln1", attention: "wq", "wk", "wv", "wo" | Mamba-2: "wx",
+                 "wz", "wB", "wC", "wdt", "dt_bias", "conv_w", "a_log",
+                 "d_skip", "out_proj"; "ln2" unless pure SSM, MLP: "w_gate",
+                 "w_up", "w_down" | MoE: "router", "we_gate", "we_up",
+                 "we_down" (+ "ws_*" shared experts, + the MLP for a dense
+                 residual)} for each period position]}
 
-The head is tied (``embed.T``) unless ``tie_embeddings`` is off. The loss is
-the mean next-token cross-entropy, chunked over the sequence with weight
-``labels >= 0``, logits in fp32.
+The tree order is the sorted dict keys, the positions in order. The head
+is tied (``embed.T``) unless ``tie_embeddings`` is off. A frontend family's
+batch may carry ``prefix_embeds`` (B, P, F): projected by
+``frontend_proj`` and put before the tokens; the loss skips the prefix
+positions. The loss is the mean next-token cross-entropy, chunked over the
+sequence with weight ``labels >= 0``, logits in fp32.
 
-Tensor parallelism (``param_table(cfg, tp=T)``, ``pctx.tp_axis``): the
-shapes are the reference's global, padded ones (``TpLayout``: heads, KV
-heads and vocab padded to multiples of T; the KV projections replicated
-when there are fewer KV heads than ranks), and a leaf's ``tp_dim`` is the
-dim the reference shards over ``model``: ``wq``, ``w_gate``, ``w_up`` (and
-``wk``, ``wv`` unless replicated) column-parallel on their output dim,
-``wo`` and ``w_down`` row-parallel on their input dim, ``embed`` on the
-vocab. The weights stay stored once, global: tp rank t's shard is the t-th
-of T contiguous chunks of the tp dim, a view (``P(..., "model")``'s cut).
-A column-parallel product runs as one GEMM over the global weight (no
+Tensor parallelism (dense family; the other families over tp are ROADMAP
+A21c) (``param_table(cfg, tp=T)``, ``pctx.tp_axis``): the shapes are the
+reference's global, padded ones (``TpLayout``: heads, KV heads and vocab
+padded to multiples of T; the KV projections replicated when there are
+fewer KV heads than ranks), and a leaf's ``tp_dim`` is the dim the
+reference shards over ``model``: ``wq``, ``w_gate``, ``w_up`` (and ``wk``,
+``wv`` unless replicated) column-parallel on their output dim, ``wo`` and
+``w_down`` row-parallel on their input dim, ``embed`` on the vocab. The
+weights stay stored once, global: tp rank t's shard is the t-th of T
+contiguous chunks of the tp dim, a view (``P(..., "model")``'s cut). A
+column-parallel product runs as one GEMM over the global weight (no
 shard's output depends on another's); a row-parallel product is T partial
 products, each rounded to the activation dtype, summed by ``psum_tp`` in
 rank order, as the reference's ranks compute and psum them. The embedding
@@ -34,15 +49,18 @@ a ``(T, B, S/T, D)`` stack of sequence slices between the sublayers
 (``models/parallel.py``). At T = 1 every product is the plain one.
 
 FSDP (``param_table(cfg, fsdp_axes=...)``): a leaf's ``fsdp_dim`` is the dim
-the reference shards over the fsdp axes: ``embed`` on dim 1, the attention
-and MLP weights on their input dim (``wo`` and ``w_down`` on their output
-dim), the norms replicated. The forward pass gathers each sharded weight
-through ``pctx.gather`` at the reference's call sites and keys: ``embed``
-with ``key`` for the lookup and again for the tied head, layer l's weights
-with ``fold_in(key, l)``; under tensor parallelism a leaf is sharded on
-both dims and the gather hands over the global weight, the trainer cutting
-its gradient per tp shard. MoE, SSM, hybrid and frontend families and
-serving wait for later slices (ROADMAP A21).
+the reference shards over the fsdp axes: ``embed`` on dim 1, the
+projections on their input dim (``wo``, ``w_down``, ``out_proj`` and the
+down projections of the experts on their output dim), ``frontend_proj`` on
+dim 0; the norms and Mamba-2's ``dt_bias``, ``conv_w``, ``a_log`` and
+``d_skip`` replicated. The forward pass gathers each sharded weight through
+``pctx.gather`` at the reference's call sites and keys: ``embed`` with
+``key`` for the lookup and again for the tied head, ``frontend_proj`` with
+``key`` (only when the batch has a prefix), layer l's weights with
+``fold_in(key, l)``; under tensor parallelism a leaf is sharded on both
+dims and the gather hands over the global weight, the trainer cutting its
+gradient per tp shard. Serving (``prefill_step``, ``decode_step``, the KV
+cache) is the next slice (ROADMAP A21, serving).
 """
 from __future__ import annotations
 
@@ -57,7 +75,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.keys import Key, fold_in
 
 from .layers import attention_train, gated_mlp, rms_norm
+from .moe import moe_block
 from .parallel import SINGLE, ParallelCtx
+from .ssm import mamba2_forward
 
 
 def _ceil_to(x: int, q: int) -> int:
@@ -143,55 +163,112 @@ class TpLayout:
 
 class Leaf(NamedTuple):
     shape: tuple
-    init: str                      # 'normal' | 'ones'
+    init: str                      # normal | zeros | ones | alog | conv
     fsdp_dim: int | None = None    # dim sharded over the fsdp axes
     tp_dim: int | None = None      # dim sharded over 'model' (tp > 1)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.n_experts or cfg.attn_every
-            or cfg.frontend):
+def _period(cfg: ModelConfig) -> int:
+    """Layers of one repeating unit: 1 for homogeneous stacks, lcm of the
+    attention and MoE periods otherwise (8 for Jamba)."""
+    p = cfg.attn_every or 1
+    if cfg.n_experts and cfg.moe_every > 1:
+        p = math.lcm(p, cfg.moe_every)
+    return p
+
+
+def _check_tp(cfg: ModelConfig, tp: int) -> None:
+    if tp > 1 and cfg.family != "dense":
         raise NotImplementedError(
-            f"model family {cfg.family!r} of {cfg.name!r} is not ported yet: "
-            "ROADMAP A21 (the port's transformer is the dense family)")
+            f"tensor parallelism of the {cfg.family!r} family "
+            f"({cfg.name!r}): experts over tp, SSM heads over tp and the "
+            "frontend prefix under tp are ROADMAP A21c")
+
+
+def _layer_leaves(cfg: ModelConfig, lay: TpLayout, pos: int, n_repeat: int,
+                  w) -> dict[str, Leaf]:
+    """The leaves of one period position, stacked over its ``n_repeat``
+    layers: the reference's ``_layer_leaves``."""
+    d, dh, L = cfg.d_model, cfg.dh, n_repeat
+    is_moe = cfg.is_moe_layer(pos)
+    leaves: dict[str, Leaf] = {"ln1": w((L, d), init="ones")}
+    if cfg.is_attn_layer(pos):
+        kv_tp = None if lay.kv_replicated else 2
+        leaves["wq"] = w((L, d, lay.heads_pad * dh), tp_dim=2, fsdp_dim=1)
+        leaves["wk"] = w((L, d, lay.kv_pad * dh), tp_dim=kv_tp, fsdp_dim=1)
+        leaves["wv"] = w((L, d, lay.kv_pad * dh), tp_dim=kv_tp, fsdp_dim=1)
+        leaves["wo"] = w((L, lay.heads_pad * dh, d), tp_dim=1, fsdp_dim=2)
+    else:
+        di = cfg.d_inner
+        h = lay.ssm_heads_pad or cfg.ssm_heads
+        gn = cfg.ssm_state                   # one group
+        leaves["wx"] = w((L, d, di), tp_dim=2, fsdp_dim=1)
+        leaves["wz"] = w((L, d, di), tp_dim=2, fsdp_dim=1)
+        leaves["wB"] = w((L, d, gn), fsdp_dim=1)
+        leaves["wC"] = w((L, d, gn), fsdp_dim=1)
+        leaves["wdt"] = w((L, d, h), tp_dim=2, fsdp_dim=1)
+        leaves["dt_bias"] = w((L, h), tp_dim=1, init="zeros")
+        leaves["conv_w"] = w((L, cfg.ssm_conv_k, di), tp_dim=2, init="conv")
+        leaves["a_log"] = w((L, h), tp_dim=1, init="alog")
+        leaves["d_skip"] = w((L, h), tp_dim=1, init="ones")
+        leaves["out_proj"] = w((L, di, d), tp_dim=1, fsdp_dim=2)
+    # the FFN position: MLP or MoE (both for arctic's dense residual);
+    # pure-SSM layers (d_ff 0, no MoE) have no FFN sublayer at all
+    needs_dense = (not is_moe) or cfg.dense_residual
+    if (needs_dense and cfg.d_ff) or is_moe:
+        leaves["ln2"] = w((L, d), init="ones")
+    if needs_dense and cfg.d_ff:
+        leaves["w_gate"] = w((L, d, cfg.d_ff), tp_dim=2, fsdp_dim=1)
+        leaves["w_up"] = w((L, d, cfg.d_ff), tp_dim=2, fsdp_dim=1)
+        leaves["w_down"] = w((L, cfg.d_ff, d), tp_dim=1, fsdp_dim=2)
+    if is_moe:
+        e, f = lay.experts_pad, cfg.d_ff
+        leaves["router"] = w((L, d, e), fsdp_dim=1)
+        leaves["we_gate"] = w((L, e, d, f), tp_dim=1, fsdp_dim=2)
+        leaves["we_up"] = w((L, e, d, f), tp_dim=1, fsdp_dim=2)
+        leaves["we_down"] = w((L, e, f, d), tp_dim=1, fsdp_dim=3)
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * cfg.d_ff
+            leaves["ws_gate"] = w((L, d, fs), tp_dim=2, fsdp_dim=1)
+            leaves["ws_up"] = w((L, d, fs), tp_dim=2, fsdp_dim=1)
+            leaves["ws_down"] = w((L, fs, d), tp_dim=1, fsdp_dim=2)
+    return leaves
 
 
 def param_table(cfg: ModelConfig, *, tp: int = 1,
                 fsdp_axes: tuple[str, ...] | None = None) -> dict[str, Any]:
-    """The leaf table of the dense family. Shapes are global and padded
-    for ``tp`` (the stored shapes on one card); with ``tp`` > 1 each
-    tp-sharded leaf carries its ``tp_dim``, with ``fsdp_axes`` each
-    sharded leaf its ``fsdp_dim`` (stack dim counted)."""
-    _check_dense(cfg)
+    """The complete leaf table, ``{"embed", "final_ln", "stages": [one dict
+    a period position], "lm_head" (untied), "frontend_proj" (frontend
+    families)}``, each stage leaf stacked over the period's repeats. Shapes
+    are global and padded for ``tp`` (the stored shapes on one card); with
+    ``tp`` > 1 each tp-sharded leaf carries its ``tp_dim``, with
+    ``fsdp_axes`` each sharded leaf its ``fsdp_dim`` (stack dim counted)."""
+    _check_tp(cfg, tp)
     lay = TpLayout.build(cfg, tp)
-    d, dh, f, L = cfg.d_model, cfg.dh, cfg.d_ff, cfg.n_layers
-    if f % tp:
-        raise ValueError(f"d_ff {f} does not split over {tp} tp ranks")
+    period = _period(cfg)
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole "
+                         f"periods of {period}")
+    if cfg.d_ff % tp:
+        raise ValueError(f"d_ff {cfg.d_ff} does not split over {tp} tp "
+                         "ranks")
 
     def w(shape, tp_dim=None, fsdp_dim=None, init="normal"):
         return Leaf(tuple(shape), init,
                     fsdp_dim if fsdp_axes is not None else None,
                     tp_dim if tp > 1 else None)
 
-    kv_tp = None if lay.kv_replicated else 2
-    stage = {
-        "ln1": w((L, d), init="ones"),
-        "wq": w((L, d, lay.heads_pad * dh), tp_dim=2, fsdp_dim=1),
-        "wk": w((L, d, lay.kv_pad * dh), tp_dim=kv_tp, fsdp_dim=1),
-        "wv": w((L, d, lay.kv_pad * dh), tp_dim=kv_tp, fsdp_dim=1),
-        "wo": w((L, lay.heads_pad * dh, d), tp_dim=1, fsdp_dim=2),
-        "ln2": w((L, d), init="ones"),
-        "w_gate": w((L, d, f), tp_dim=2, fsdp_dim=1),
-        "w_up": w((L, d, f), tp_dim=2, fsdp_dim=1),
-        "w_down": w((L, f, d), tp_dim=1, fsdp_dim=2),
-    }
+    d = cfg.d_model
     table: dict[str, Any] = {
         "embed": w((lay.vocab_pad, d), tp_dim=0, fsdp_dim=1),
         "final_ln": w((d,), init="ones"),
-        "stages": [stage],
+        "stages": [_layer_leaves(cfg, lay, pos, cfg.n_layers // period, w)
+                   for pos in range(period)],
     }
     if not cfg.tie_embeddings:
         table["lm_head"] = w((d, lay.vocab_pad), tp_dim=1, fsdp_dim=0)
+    if cfg.frontend:
+        table["frontend_proj"] = w((cfg.frontend_dim, d), fsdp_dim=0)
     return table
 
 
@@ -219,11 +296,12 @@ def tp_dims(cfg: ModelConfig, tp: int) -> list[int | None]:
     return out
 
 
-def _layer_fsdp_dims(cfg: ModelConfig) -> dict[str, int | None]:
-    """A layer slice's sharded dims (the stack dim removed)."""
-    stage = param_table(cfg, fsdp_axes=("data",))["stages"][0]
-    return {k: (v.fsdp_dim - 1 if v.fsdp_dim is not None else None)
-            for k, v in stage.items()}
+def _layer_fsdp_dims(cfg: ModelConfig) -> list[dict[str, int | None]]:
+    """Each period position's layer slice's sharded dims (the stack dim
+    removed)."""
+    return [{k: (v.fsdp_dim - 1 if v.fsdp_dim is not None else None)
+             for k, v in stage.items()}
+            for stage in param_table(cfg, fsdp_axes=("data",))["stages"]]
 
 
 def _maybe_gather(pctx: ParallelCtx, w: torch.Tensor, dim: int | None,
@@ -253,43 +331,112 @@ def count_params(cfg: ModelConfig) -> int:
     return total
 
 
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top_k of n_experts of each
+    routed expert leaf)."""
+    table = param_table(cfg)
+    total = 0
+    for name, leaf in _walk(table):
+        n = math.prod(leaf.shape)
+        if cfg.n_experts and name.startswith("we_"):
+            n = n * cfg.top_k // max(cfg.n_experts, 1)
+        total += n
+    return total
+
+
+def _walk(table, name: str = ""):
+    """(leaf name, leaf) pairs in tree order."""
+    if isinstance(table, Leaf):
+        yield name, table
+    elif isinstance(table, dict):
+        for k in sorted(table):
+            yield from _walk(table[k], k)
+    else:
+        for v in table:
+            yield from _walk(v, name)
+
+
+def abstract_params(cfg: ModelConfig, *, tp: int = 1,
+                    fsdp_axes: tuple[str, ...] | None = None):
+    """The parameter tree as ``device="meta"`` tensors (no allocation)."""
+    return _map_table(
+        lambda leaf: torch.empty(leaf.shape, dtype=cfg.param_dtype,
+                                 device="meta"),
+        param_table(cfg, tp=tp, fsdp_axes=fsdp_axes))
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig, *,
                 device: torch.device | str, tp: int = 1,
                 scale: float = 0.02):
     """Materialize parameters in ``cfg.param_dtype`` on ``device``, at the
-    global padded shapes of ``tp``: normal leaves have std min(scale,
-    1/sqrt(fan_in)) (the padding rows too, as in the reference), norms are
-    ones. The values come from ``gen``, not from the reference's threefry
-    stream; carry the reference's parameters over with
-    ``weights.params_from_jax``."""
+    global padded shapes of ``tp``, with the reference's inits: normal
+    leaves std min(scale, 1/sqrt(fan_in)) (the padding rows too), norms
+    and ``d_skip`` ones, ``dt_bias`` zeros, ``a_log`` the log of U[1, 16)
+    (Mamba-2's A), ``conv_w`` normal / sqrt(kernel width). The values come
+    from ``gen``, not from the reference's threefry stream; carry the
+    reference's parameters over with ``weights.params_from_jax``."""
+    def draw(shape, uniform=False):
+        fn = torch.rand if uniform else torch.randn
+        return fn(shape, generator=gen, dtype=torch.float32,
+                  device=gen.device)
+
     def make(leaf: Leaf) -> torch.Tensor:
-        if leaf.init == "ones":
-            return torch.ones(leaf.shape, dtype=cfg.param_dtype,
-                              device=device)
-        fan_in = leaf.shape[-2] if len(leaf.shape) >= 2 else leaf.shape[-1]
-        std = min(scale, 1.0 / math.sqrt(fan_in))
-        w = torch.randn(leaf.shape, generator=gen, dtype=torch.float32,
-                        device=gen.device) * std
+        if leaf.init in ("ones", "zeros"):
+            fill = torch.ones if leaf.init == "ones" else torch.zeros
+            return fill(leaf.shape, dtype=cfg.param_dtype, device=device)
+        if leaf.init == "alog":
+            w = torch.log(1.0 + 15.0 * draw(leaf.shape, uniform=True))
+        elif leaf.init == "conv":
+            w = draw(leaf.shape) / math.sqrt(leaf.shape[-2])
+        else:
+            fan_in = (leaf.shape[-2] if len(leaf.shape) >= 2
+                      else leaf.shape[-1])
+            w = draw(leaf.shape) * min(scale, 1.0 / math.sqrt(fan_in))
         return w.to(device=device, dtype=cfg.param_dtype)
 
     return _map_table(make, param_table(cfg, tp=tp))
 
 
 def _layer(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
-           names: tuple[str, ...], pctx: ParallelCtx,
+           pos: int, names: tuple[str, ...], pctx: ParallelCtx,
            kv_heads: torch.Tensor | None, *weights: torch.Tensor
            ) -> torch.Tensor:
-    """One pre-norm residual block (under SP, ``x`` is the ``(T, B, S/T,
-    D)`` stack of sequence slices; the norms are per token)."""
+    """One pre-norm residual block at period position ``pos``: attention or
+    Mamba-2, then the FFN position (gated MLP, MoE, both for a dense
+    residual, plus the shared experts; none on a pure-SSM layer). Under SP
+    ``x`` is the ``(T, B, S/T, D)`` stack of sequence slices (dense family
+    only; the norms are per token)."""
     lw = dict(zip(names, weights))
     h = pctx.gather_seq(rms_norm(x, lw["ln1"]))    # SP: the full sequence
-    x = x + attention_train(
-        h, {"wq": lw["wq"], "wk": lw["wk"], "wv": lw["wv"], "wo": lw["wo"],
-            "head_dim": cfg.dh, "attn_chunk": cfg.attn_chunk},
-        positions=positions, rope_theta=cfg.rope_theta, pctx=pctx,
-        kv_heads=kv_heads)
+    if cfg.is_attn_layer(pos):
+        x = x + attention_train(
+            h, {"wq": lw["wq"], "wk": lw["wk"], "wv": lw["wv"],
+                "wo": lw["wo"], "head_dim": cfg.dh,
+                "attn_chunk": cfg.attn_chunk},
+            positions=positions, rope_theta=cfg.rope_theta, pctx=pctx,
+            kv_heads=kv_heads)
+    else:
+        y, _ = mamba2_forward(h, {**lw, "d_state": cfg.ssm_state,
+                                  "n_groups": 1}, chunk=cfg.ssm_chunk)
+        x = x + y
+    if "ln2" not in lw:                    # pure-SSM layer: no FFN sublayer
+        return x
     h2 = pctx.gather_seq(rms_norm(x, lw["ln2"]))
-    return x + gated_mlp(h2, lw, activation=cfg.activation, pctx=pctx)
+    ff = None
+    if "w_gate" in lw:
+        ff = gated_mlp(h2, lw, activation=cfg.activation, pctx=pctx)
+    if cfg.is_moe_layer(pos):
+        moe = moe_block(h2, lw, top_k=cfg.top_k,
+                        n_experts=cfg.n_experts,
+                        capacity_factor=cfg.capacity_factor,
+                        activation=cfg.activation)
+        ff = moe if ff is None else ff + moe
+        if cfg.n_shared_experts:
+            ff = ff + gated_mlp(h2, {"w_gate": lw["ws_gate"],
+                                     "w_up": lw["ws_up"],
+                                     "w_down": lw["ws_down"]},
+                                activation=cfg.activation, pctx=pctx)
+    return x + ff
 
 
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
@@ -315,23 +462,32 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
 def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
                    pctx: ParallelCtx | None = None,
                    key: Key | None = None) -> torch.Tensor:
-    """Tokens -> final hidden states (B, S, D). ``remat`` recomputes each
-    layer in the backward pass (the reference's ``jax.checkpoint``). Under
-    FSDP (``pctx.fsdp``) each sharded weight is gathered before the layer
-    runs, outside the recomputed region, so a recompute gathers nothing.
-    Under tensor parallelism the parameters are the global padded ones of
-    ``param_table(cfg, tp=T)``; with ``pctx.sp`` the residual stream runs
-    as the ranks' sequence slices and is gathered back after the final
-    norm."""
-    _check_dense(cfg)
+    """Tokens (after the frontend's prefix, when the batch has
+    ``prefix_embeds``) -> final hidden states (B, S, D). The layers run in
+    the reference's order, repeat r of the period's position p being layer
+    ``r * period + p``. ``remat`` recomputes each layer in the backward pass
+    (the reference's ``jax.checkpoint``). Under FSDP (``pctx.fsdp``) each
+    sharded weight is gathered before its layer runs, outside the
+    recomputed region, so a recompute gathers nothing; layer l's weights
+    with ``fold_in(key, l)``, the embedding and the frontend projection with
+    ``key``. Under tensor parallelism the parameters are the global padded
+    ones of ``param_table(cfg, tp=T)``; with ``pctx.sp`` the residual
+    stream runs as the ranks' sequence slices and is gathered back after
+    the final norm."""
     pctx = pctx or SINGLE
+    t = pctx.tp_size()
     tokens = batch["tokens"].long()
     emb = _maybe_gather(pctx, params["embed"], 1, key, "embed")
     x = embed_tokens(emb, tokens, cfg, pctx)
-    b, s = tokens.shape
+    if cfg.frontend and "prefix_embeds" in batch:
+        proj = _maybe_gather(pctx, params["frontend_proj"], 0, key,
+                             "frontend_proj")
+        pref = batch["prefix_embeds"].to(cfg.param_dtype) @ proj.to(
+            cfg.param_dtype)
+        x = torch.cat([pref, x], dim=1)
+    b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    t = pctx.tp_size()
     kv_heads = None
     if t > 1:
         kv_heads = torch.tensor(TpLayout.build(cfg, t).kv_heads(cfg),
@@ -341,21 +497,26 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
                 raise ValueError(f"seq_parallel needs seq {s} divisible by "
                                  f"tp {t}")
             x = pctx.scatter_seq(x)
-    stage = params["stages"][0]
-    names = tuple(sorted(stage))
-    fsdp_dim = _layer_fsdp_dims(cfg)
+    stages = params["stages"]
+    period = len(stages)
+    names = [tuple(sorted(stage)) for stage in stages]
+    fsdp_dims = _layer_fsdp_dims(cfg) if pctx.fsdp else None
     # unbind: one view per layer, whose backward stacks the layer grads
-    per_layer = zip(*(stage[k].unbind(0) for k in names))
-    for layer, weights in enumerate(per_layer):
-        if pctx.fsdp:
-            lkey = fold_in(key, layer)
-            weights = [_maybe_gather(pctx, w, fsdp_dim[k], lkey, k)
-                       for k, w in zip(names, weights)]
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(_layer, x, positions, cfg, names, pctx, kv_heads,
-                           *weights, use_reentrant=False)
-        else:
-            x = _layer(x, positions, cfg, names, pctx, kv_heads, *weights)
+    per_pos = [list(zip(*(stage[k].unbind(0) for k in nm)))
+               for stage, nm in zip(stages, names)]
+    for r in range(len(per_pos[0])):
+        for pos in range(period):
+            weights = per_pos[pos][r]
+            if pctx.fsdp:
+                lkey = fold_in(key, r * period + pos)
+                weights = [_maybe_gather(pctx, w, fsdp_dims[pos][k], lkey, k)
+                           for k, w in zip(names[pos], weights)]
+            args = (x, positions, cfg, pos, names[pos], pctx, kv_heads,
+                    *weights)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(_layer, *args, use_reentrant=False)
+            else:
+                x = _layer(*args)
     return pctx.gather_seq(rms_norm(x, params["final_ln"]))
 
 
@@ -409,6 +570,9 @@ def lm_loss(params, batch, cfg: ModelConfig, *, seq_chunk: int = 1024,
     pctx = pctx or SINGLE
     x = forward_hidden(params, batch, cfg, remat=remat, pctx=pctx, key=key)
     labels = batch["labels"]
+    p = x.shape[1] - labels.shape[1]
+    if p:
+        x = x[:, p:]                      # loss only on token positions
     head = params.get("lm_head")
     if head is None:                                   # tied: (D, V)
         head = _maybe_gather(pctx, params["embed"], 1, key, "head").T

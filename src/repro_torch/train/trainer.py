@@ -353,13 +353,14 @@ def from_tp(local: torch.Tensor, dim: int | None) -> torch.Tensor:
 
 
 def _site_tp_dims(cfg: ModelConfig, tp: int) -> dict[str, int | None]:
-    """The tp dim of every gather site's weight: a layer's leaves without
-    their stack dim, the embedding (and its tied head) on the vocab."""
+    """The tp dim of every gather site's weight: the layer leaves of every
+    period position without their stack dim, the embedding (and its tied
+    head) on the vocab."""
     if tp == 1:
         return {}
     table = param_table(cfg, tp=tp)
     dims = {k: (v.tp_dim - 1 if v.tp_dim is not None else None)
-            for k, v in table["stages"][0].items()}
+            for stage in table["stages"] for k, v in stage.items()}
     dims["embed"] = dims["head"] = table["embed"].tp_dim
     if "lm_head" in table:
         dims["lm_head"] = table["lm_head"].tp_dim
@@ -492,7 +493,11 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                 mbatch = _local(batch, slice(lo, lo + mb), device)
                 loss = lm_loss(params, mbatch, cfg, seq_chunk=tc.seq_chunk,
                                remat=tc.remat, pctx=pctx)
-                grads = torch.autograd.grad(loss, leaves)
+                # a leaf the forward pass does not reach (a frontend's
+                # projection without a prefix) has a zero gradient
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves, grads)]
                 # each tp rank's local gradients into its own row
                 grads = [to_tp(g, d, tp) for g, d in zip(grads, leaf_tp)]
                 plan.pack_into(ranks[:, peer], tree_unflatten(params, grads),

@@ -183,8 +183,12 @@ def test_init_params_shapes_follow_reference_tree(smoke):
 
 
 def test_other_families_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A21"):
-        get_config("mamba2-1.3b")
+    """Every family trains at tp = 1 (``tests/test_torch_families.py``);
+    the non-dense families over tensor-parallel ranks are ROADMAP A21c."""
+    from repro_torch.models import param_table
+    assert get_config("mamba2-1.3b").family == "ssm"
+    with pytest.raises(NotImplementedError, match="A21c"):
+        param_table(get_config("mamba2-1.3b"), tp=2)
 
 
 def test_warmup_cosine_schedule_shape():
