@@ -186,14 +186,15 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     encode, decode and compensated mean) and optireduce_q (4 each of B1,
     B3-B6); the datagrams and bytes of each kind and the host seconds;
 39. ``wire_main``, ``wire_q``: the launcher at 6.'s full width, gpt2-paper
-    cut to 4 of its 12 layers (12 buckets of 6,553,600), with
-    ``--transport inproc`` (2 and 1 steps): 24 B1 + 12 B2, and 12 each of
-    B1, B3-B6 a step, as on the lossy path; no bridge miss or error; one
-    ``wire[inproc]`` line a step with 4 peers; the wire's loss_frac within
+    cut to 1 of its 12 layers (8 buckets of 6,553,600), with
+    ``--transport inproc`` (2 and 1 steps): 16 B1 + 8 B2, and 8 each of
+    B1, B3-B6 a step, as on the lossy path; no bridge miss (a call waits
+    up to ``WIRE_BRIDGE_TIMEOUT_S``) or error; one ``wire[inproc]`` line a step with 4 peers; the wire's loss_frac within
     0.0075 +- 0.002 (0.01 x 3/4: a receiver's own row never crosses the
     wire); per step the datagrams and bytes of each kind, the bridge's
     device-to-host and host-to-device bytes, the host seconds the bridge
-    held the training thread and the flush at the step's end;
+    held the training thread (and its longest call) and the flush at the
+    step's end;
 40. ``wire_udp``: the same with ``--transport udp --rendezvous auto
     --wire-deadline 0.02``, 1 step (its loss is the same every step: what
     the receive buffers hold of a bucket): the rendezvous line, no miss, one
@@ -208,7 +209,7 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 43. ``multiproc_inproc``: ``repro_torch.launch.multiproc --backend
     inproc`` on the card, 4 rank-threads each exchanging one gpt2-paper
     bucket (``--elems 6553600 --hadamard-block 1024 --packet-elems 256``)
-    at wire loss 0.01, 2 steps each of optireduce and optireduce_q: every
+    at wire loss 0.01, 1 step each of optireduce and optireduce_q: every
     rank's output checksums equal a ``HostRing``'s on the card (same data,
     keys and header-hashed drops); launches exact, 8 B1 + 4 B2 (4 each of
     B1, B3-B6) a step and as many again for the warm-up before the first
@@ -241,9 +242,38 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     exact; ``prefix_check``: llava-smoke's and musicgen-smoke's loss and
     gradients with a prefix, card vs CPU;
 50. ``profile`` of one step of qwen2-moe-a2.7b (1 layer) and of
-    mamba2-1.3b (24 of 48 layers, 111 buckets), as in 9.; the MoE
+    mamba2-1.3b (12 of 48 layers, 64 buckets), as in 9.; the MoE
     dispatch's scatter and gathers are among the index kernels;
-51. ``seconds``: the script's wall clock, whole and by group of phases.
+51. ``serve_main``: ``repro_torch.launch.serve`` (its ``main``) on the
+    card, gpt2-paper at full width, ``--batch 128 --prompt-len 896
+    --max-new 128`` (1023 decode steps, a 4.83 GB bf16 KV cache): its two
+    lines, tok/s, ms a decode step (CUDA events, median after 4), the
+    cache's and the peak bytes; the output (128, 1024) in vocab; no kernel
+    of the repo launched (serving reaches none);
+52. ``serve_families``: ``serve.generate`` at full width and depth on
+    glm4-9b (B 32, prompt 256, 64 new), qwen2-moe-a2.7b (B 32, prompt 64,
+    32 new) and mamba2-1.3b (B 32, prompt 128, 64 new), bf16: the same
+    numbers, tokens in vocab;
+53. ``serve_prefill``: ``prefill_step`` on gpt2-paper at B 32 and a
+    1024-token prompt against the teacher-forced loop: the share of first
+    tokens that agree, the fp32 logit margins, the caches within 0.05 of
+    their largest magnitude; then 32 greedy steps from the prefill's state;
+54. ``serve_grid``: ``build_serve_step`` on the peer grid, each case
+    against the same model run another way: gpt2-paper on 4 data peers at
+    B 128 (batch-sharded; bitwise the plain step), at B 1 over a 32,768-
+    token random cache (sequence-sharded; one step each side of every
+    shard boundary), at dp 1 x tp 2 (B 32; against tp 1); qwen2-moe-a2.7b
+    (24 layers) on 4 data peers, ``weight_fsdp`` + ``moe_stationary`` at
+    B 1 (against the gathered experts); written rows within 0.05 of their
+    largest magnitude, token agreement and ms a step recorded;
+55. ``profile`` of one gpt2-paper decode step at B 128 (a 1,024-token
+    cache), as in 9.;
+56. ``serve_check``: every smoke config (11 archs and gpt2-smoke) through
+    ``generate`` and each grid plan (batch- and sequence-sharded,
+    stationary for the MoE archs, dp 2 x tp 2 for the dense ones) on the
+    card against the CPU, same parameters: tokens equal, states within
+    1e-5 of each leaf's largest magnitude;
+57. ``seconds``: the script's wall clock, whole and by group of phases.
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -560,6 +590,15 @@ def main() -> int:
                  layers=SSM_PROFILE_LAYERS)
     free_card()
     lap("families")
+
+    # 51.-56. serving (A21, serving half): the launcher, the families
+    # through generate, prefill, the peer-grid plans, a profiled decode
+    # step, every smoke config card vs CPU
+    serve_main(counters)
+    serve_families(dev)
+    serve_prefill_and_grid(dev)
+    check_serving_against_cpu(dev)
+    lap("serving")
 
     # 10. B7, THC's quantizer, at the THC path's full-width shape
     b7 = check_uniform_quant(dev, gen)
@@ -2577,10 +2616,18 @@ WIRE_PER_BUCKET = {
     "wire_udp": ("optireduce", 1, {"fwht": 2, "masked_mean": 1}),
 }
 # the launcher's wire phases run gpt2-paper at full width with its depth
-# cut to 4 of 12 layers: 12 buckets of 6,553,600 a step instead of 24 (a
+# cut to 1 of 12 layers: 8 buckets of 6,553,600 a step instead of 24 (a
 # wire step is host Python, ~2.2 s a bucket)
-WIRE_LAYERS = 4
+WIRE_LAYERS = 1
 WIRE_UDP_DEADLINE = "0.02"     # s a round: bounds the wait on lost packets
+# s a bridge call may wait for the previous exchange before its mask
+# degrades to all-ones (a miss): the launcher's own bound on a step's
+# exchanges (``HostRing.flush``), not HostRing's default 10 s.  A
+# full-width bridge call waits ~2.4 s over inproc and ~4.4 s over UDP on
+# the H100's host (``bridge_host_s`` over ``bridge_calls``), and that host
+# stalls for seconds at times, so at 10 s one stall became a miss; the
+# check stays no miss at all
+WIRE_BRIDGE_TIMEOUT_S = 30.0
 KIND_NAMES = {1: "data1", 2: "data2", 3: "ctrl", 4: "relay"}
 
 
@@ -2588,7 +2635,9 @@ class _WireStats:
     """Counts what crosses a HostRing: datagrams and bytes of each kind
     (wrapping its backend's ``send``), the bridge's device-to-host and
     host-to-device bytes and the host seconds its calls held the training
-    thread; and the UDP receive buffer a socket really got."""
+    thread (in all, and the longest call); and the UDP receive buffer a
+    socket really got.  Each ring it watches waits up to
+    ``WIRE_BRIDGE_TIMEOUT_S`` for an exchange."""
 
     def __init__(self):
         import threading
@@ -2601,17 +2650,19 @@ class _WireStats:
         self.datagrams = {k: 0 for k in KIND_NAMES.values()}
         self.bytes = {k: 0 for k in KIND_NAMES.values()}
         self.d2h = self.h2d = self.calls = 0
-        self.bridge_s = 0.0
+        self.bridge_s = self.bridge_max_s = 0.0
 
     def snapshot(self) -> dict:
         return {"datagrams": dict(self.datagrams), "bytes": dict(self.bytes),
                 "bridge_calls": self.calls, "d2h_bytes": self.d2h,
-                "h2d_bytes": self.h2d, "bridge_host_s": self.bridge_s}
+                "h2d_bytes": self.h2d, "bridge_host_s": self.bridge_s,
+                "bridge_max_wait_s": self.bridge_max_s}
 
     def watch(self, ring):
         import socket
         from repro_torch.net import UdpBackend
         self.rings.append(ring)
+        ring.bridge_timeout = WIRE_BRIDGE_TIMEOUT_S
         be = ring.backend
         send = be.send
 
@@ -2630,7 +2681,9 @@ class _WireStats:
         def bridged(shards):
             t0 = time.perf_counter()
             out = exchange(shards)
-            self.bridge_s += time.perf_counter() - t0
+            waited = time.perf_counter() - t0
+            self.bridge_s += waited
+            self.bridge_max_s = max(self.bridge_max_s, waited)
             self.calls += 1
             self.d2h += shards.numel() * shards.element_size()
             self.h2d += out.numel() * out.element_size()
@@ -2743,8 +2796,8 @@ def wire_paths(counters: dict) -> None:
     0.01`` becomes i.i.d. wire loss of stage-1 packets) and ``--transport
     udp --rendezvous auto`` (real localhost sockets; a short
     ``--wire-deadline`` bounds the wait on what the receive buffers lost).
-    Launches exact, as on the lossy path; no bridge miss or worker error;
-    one ``wire[...]`` line a step with 4 peers. The inproc wire's
+    Launches exact, as on the lossy path; no bridge miss (within
+    ``WIRE_BRIDGE_TIMEOUT_S``) or worker error; one ``wire[...]`` line a step with 4 peers. The inproc wire's
     ``loss_frac`` must sit at 0.0075 +- 0.002 (0.01 x 3/4: a receiver's own
     row never crosses the wire); UDP's is recorded with the kernel's
     ``rmem_max``, the socket's effective ``SO_RCVBUF`` and the steps the
@@ -2929,7 +2982,7 @@ def check_wire_against_cpu(dev) -> None:
 # one gpt2-paper bucket a rank, as the launcher packs it
 MP_FULL = ("--nprocs", str(PEERS), "--elems", str(BUCKET),
            "--hadamard-block", str(BLOCK), "--packet-elems", "256")
-MP_STEPS = 2
+MP_STEPS = 1
 MP_RATE = 0.01                 # i.i.d. wire loss of every datagram
 MP_DROP = ("--drop-rate", str(MP_RATE), "--drop-seed", "3")
 # a step's launches over the 4 ranks (one row each); the warm-up before
@@ -3203,9 +3256,9 @@ FAMILIES_MAIN = (("smollm-360m", None), ("qwen2-moe-a2.7b", 1),
                  ("mamba2-1.3b", None))
 FAMILIES_STEPS = 2
 HYBRID_LAYERS = 8          # one period of jamba-v0.1-52b (32 layers)
-# the profiled mamba2-1.3b step: 24 of 48 layers (111 buckets); at full
+# the profiled mamba2-1.3b step: 12 of 48 layers (64 buckets); at full
 # depth the profiler's analysis of ~76,000 launches costs over a minute
-SSM_PROFILE_LAYERS = 24
+SSM_PROFILE_LAYERS = 12
 PREFIX_TOL = 1e-5          # card vs CPU lm_loss with a prefix, relative
 PREFIX_GRAD_TOL = 1e-4     # ... its gradients, of each leaf's largest
 
@@ -3356,6 +3409,593 @@ def check_families_against_cpu(dev) -> None:
               "tolerance": [PREFIX_TOL, PREFIX_GRAD_TOL]})
         if not (rel <= PREFIX_TOL and g_rel <= PREFIX_GRAD_TOL):
             fail(f"prefix_check {arch}: loss {rel}, grads {g_rel}")
+
+
+# ------------------------------------------------------ serving (A21)
+SERVE_MAIN = ("--arch", "gpt2-paper", "--batch", "128", "--prompt-len",
+              "896", "--max-new", "128")      # GPT-2's 1024-token context
+# arch -> (batch, prompt, new); each at full depth through ``generate``
+SERVE_FAMILIES = {"glm4-9b": (32, 256, 64), "qwen2-moe-a2.7b": (32, 64, 32),
+                  "mamba2-1.3b": (32, 128, 64)}
+SERVE_WARMUP = 4           # decode steps left out of the median
+PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW = 32, 1024, 32
+GRID_STEPS = 16            # teacher-forced steps of a grid plan
+LONG_SEQ = 32_768          # the sequence-sharded plan's cache, 4 x 8,192
+STATIONARY_SEQ = 4_096     # qwen2-moe's sequence-sharded cache
+SERVE_TOL = 1e-5           # card vs CPU, fp32 smoke configs: each state
+                           # leaf within this of its largest magnitude
+# bf16 at full width, the same model two ways (another summation order):
+# the written cache rows within this of their largest magnitude
+GRID_TOL = 0.05
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class _DecodeClock:
+    """Wraps ``decode_step`` where ``generate`` calls it: a CUDA event after
+    each call (no synchronisation), so the gaps between events are each
+    step's time on the card's clock, host-bound steps included."""
+
+    def __init__(self):
+        self.events = []
+        self.state_bytes = 0
+
+    @contextlib.contextmanager
+    def around(self, module):
+        import torch
+
+        from repro_torch.tree import tree_leaves
+        real = module.decode_step
+
+        def timed(params, state, *args, **kw):
+            if not self.events:
+                self.state_bytes = _nbytes(tree_leaves(state))
+            out = real(params, state, *args, **kw)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            return out
+        module.decode_step = timed
+        try:
+            yield self
+        finally:
+            module.decode_step = real
+
+    def step_ms(self) -> list:
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events,
+                                                  self.events[1:])]
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def _serve_row(clock: _DecodeClock, tokens: int, seconds: float,
+               params_bytes: int) -> dict:
+    """tok/s, ms a decode step (median after ``SERVE_WARMUP``), the
+    state's bytes, the peak, and the bytes-bound of a step (the weights and
+    the state read once)."""
+    import torch
+    ms = clock.step_ms()
+    return {"tok_per_s": tokens / seconds, "seconds": seconds,
+            "decode_steps": len(clock.events),
+            "step_ms_median": _median(ms[SERVE_WARMUP:]),
+            "step_ms_first": ms[:SERVE_WARMUP],
+            "state_bytes": clock.state_bytes,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "step_bound_ms": (params_bytes + clock.state_bytes)
+            / HBM_BYTES_PER_S * 1e3}
+
+
+def _launch_snapshot(counters: dict) -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
+def serve_main(counters: dict) -> None:
+    """Phase ``serve_main``: ``repro_torch.launch.serve.main`` on the card,
+    gpt2-paper at full width, ``SERVE_MAIN`` (1023 decode steps, the prompt
+    teacher-forced): the launcher's two lines, tok/s, ms a step, the KV
+    cache's and the peak bytes; the output (128, 1024) in vocab, no kernel
+    of the repo launched (the serving path has none)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.transformer import count_params
+    from repro_torch.serve import engine
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    before = _launch_snapshot(counters)
+    out = io.StringIO()
+    with _DecodeClock().around(engine) as clock, \
+            contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+        rc = launch_serve.main(list(SERVE_MAIN))
+    lines = out.getvalue().splitlines()
+    m = re.match(r"generated \((\d+), (\d+)\) in ([0-9.]+)s", lines[0])
+    if rc != 0 or not m or (m.group(1), m.group(2)) != ("128", "1024"):
+        fail(f"serve_main: rc {rc}, lines {lines}")
+    sample = json.loads(lines[1].removeprefix("sample: "))
+    cfg = get_config("gpt2-paper")
+    launches = {k: v - before[k] for k, v in
+                _launch_snapshot(counters).items()}
+    row = _serve_row(clock, 128 * 128, float(m.group(3)),
+                     2 * count_params(cfg))
+    emit({"phase": "serve_main", "argv": list(SERVE_MAIN), "lines": lines,
+          "launches": launches, **row})
+    if len(sample) != 128 or not all(0 <= t < cfg.vocab_size
+                                     for t in sample):
+        fail(f"serve_main: sample {sample}")
+    if len(clock.events) != 1023 or any(launches.values()):
+        fail(f"serve_main: {len(clock.events)} steps, launches {launches}")
+    free_card()
+
+
+def serve_families(dev) -> None:
+    """Phase ``serve_families``: ``generate`` at full width and depth on
+    each ``SERVE_FAMILIES`` model (bf16, random weights from seed 0): tok/s,
+    ms a step, state and peak bytes, tokens in vocab. While qwen2-moe is
+    loaded, its ``serve_grid`` plan (``weights_stationary_plan``)."""
+    import torch
+    from repro_torch.core.keys import fold_in, generator, key
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import count_params
+    from repro_torch.serve import engine
+
+    for arch, (b, prompt, new) in SERVE_FAMILIES.items():
+        free_card()
+        cfg = full_width(arch)
+        params = init_params(generator(key(0), dev), cfg, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (b, prompt),
+                                generator=generator(fold_in(key(0), 1), dev),
+                                device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _DecodeClock().around(engine) as clock:
+            out = engine.generate(params, cfg, prompts, max_new=new,
+                                  key=key(0))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = count_params(cfg)
+        emit({"phase": "serve_families", "arch": arch, "family": cfg.family,
+              "layers": cfg.n_layers, "params": n, "batch": b,
+              "prompt": prompt, "new": new,
+              **_serve_row(clock, b * new, seconds, 2 * n),
+              "sample": out[0, -8:].tolist()})
+        if (tuple(out.shape) != (b, prompt + new)
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size):
+            fail(f"serve_families {arch}: output {tuple(out.shape)}")
+        if arch == "qwen2-moe-a2.7b":
+            weights_stationary_plan(dev, cfg, params)
+        del params, prompts, out
+    free_card()
+
+
+def _grid_run(fn, params, state, toks, positions, key):
+    """Teacher-forced steps of a serve step: each step's next tokens, and
+    the step ms on the card's clock (events, no synchronisation)."""
+    import torch
+    nxt, events = [], []
+    for i, pos in enumerate(positions):
+        n, state = fn(params, state, toks[:, i:i + 1], pos, key)
+        nxt.append(n)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return torch.cat(nxt, dim=1), state, ms
+
+
+def _rows_err(a_state, b_state, positions, layers=None) -> float:
+    """Max |a - b| over the K / V rows written at ``positions`` (of every
+    layer, or of the repeats ``layers`` selects), over the largest
+    magnitude there."""
+    import torch
+
+    from repro_torch.models.layers import KVCache
+    idx = torch.tensor(positions, device=a_state[0].k.device)
+    err = scale = 0.0
+    for a, b in zip(a_state, b_state):
+        if not isinstance(a, KVCache):
+            continue
+        for x, y in zip(a, b):
+            if layers is not None:
+                x, y = x[layers], y[layers]
+            xa = x.index_select(-3, idx).float()
+            ya = y.index_select(-3, idx).float()
+            err = max(err, float((xa - ya).abs().max()))
+            scale = max(scale, float(ya.abs().max()))
+    return err / max(scale, 1e-30)
+
+
+def weights_stationary_plan(dev, cfg, params) -> None:
+    """``serve_grid`` case ``stationary``: qwen2-moe-a2.7b (all 24 layers)
+    on 4 data peers under ``weight_fsdp`` + ``moe_stationary``, B 1, the
+    sequence-sharded plan over a ``STATIONARY_SEQ`` cache, ``GRID_STEPS``
+    teacher-forced steps, against the same plan with the expert weights
+    gathered. Layer 0's attention and routing are the same in both, so the
+    rows layer 1 writes differ only by the rounding of the first MoE's
+    partial sums: within ``GRID_TOL``; deeper layers may route otherwise
+    (recorded with the token agreement)."""
+    import torch
+    from repro_torch.core.keys import fold_in, generator, key
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import build_serve_step, global_state, plan_serving
+
+    mesh = make_host_mesh(dp=PEERS)
+    plan = plan_serving(mesh, 1)
+    toks = torch.randint(0, cfg.vocab_size, (1, GRID_STEPS),
+                         generator=generator(fold_in(key(0), 2), dev),
+                         device=dev)
+    positions = list(range(GRID_STEPS))
+    runs = {}
+    for stationary in (True, False):
+        state = global_state(cfg, batch=1, max_seq=STATIONARY_SEQ,
+                             dtype=cfg.param_dtype, device=dev)
+        fn, _ = build_serve_step(cfg, mesh, plan, weight_fsdp=True,
+                                 moe_stationary=stationary)(state)
+        torch.cuda.reset_peak_memory_stats()
+        runs[stationary] = (*_grid_run(fn, params, state, toks, positions,
+                                       key(0)),
+                            torch.cuda.max_memory_allocated())
+    (got, state, ms, peak), (want, plain, ms_g, _) = runs[True], runs[False]
+    err = _rows_err(state, plain, positions, layers=1)
+    emit({"phase": "serve_grid", "case": "stationary", "arch": cfg.name,
+          "layers": cfg.n_layers, "peers": PEERS, "batch": 1,
+          "plan": "seq", "weight_fsdp": True, "moe_stationary": True,
+          "cache_len": STATIONARY_SEQ, "steps": GRID_STEPS,
+          "step_ms_median": _median(ms[SERVE_WARMUP:]),
+          "tok_per_s": 1e3 / _median(ms[SERVE_WARMUP:]),
+          "gathered_step_ms_median": _median(ms_g[SERVE_WARMUP:]),
+          "state_bytes": _nbytes([t for st in state for t in st]),
+          "peak_mem_bytes": peak,
+          "token_agreement": float((got == want).float().mean()),
+          "layer1_rows_rel_err": err,
+          "all_rows_rel_err": _rows_err(state, plain, positions),
+          "tolerance": GRID_TOL})
+    if not err <= GRID_TOL:
+        fail(f"serve_grid stationary: layer-1 rows {err} > {GRID_TOL}")
+
+
+def serve_prefill_and_grid(dev) -> None:
+    """Phases ``serve_prefill``, ``serve_grid`` (gpt2-paper cases) and
+    ``profile`` of a decode step, on one set of gpt2-paper parameters (the
+    launcher's: seed 0)."""
+    import torch
+    from repro_torch.core.keys import generator, key
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import count_params
+
+    free_card()
+    cfg = full_width("gpt2-paper")
+    params = init_params(generator(key(0), dev), cfg, device=dev)
+    pbytes = 2 * count_params(cfg)
+    serve_prefill(dev, cfg, params)
+    free_card()
+    grid_batch_plan(dev, cfg, params, pbytes)
+    free_card()
+    grid_seq_plan(dev, cfg, params)
+    free_card()
+    grid_tp_plan(dev, cfg)
+    free_card()
+    profile_decode(dev, cfg, params)
+    del params
+    free_card()
+
+
+def serve_prefill(dev, cfg, params) -> None:
+    """Phase ``serve_prefill``: ``prefill_step`` on gpt2-paper at B
+    ``PREFILL_BATCH`` and a ``PREFILL_LEN``-token prompt, against the
+    teacher-forced loop over the same prompt (``decode_step`` from the zero
+    state): the share of first tokens that agree, the fp32 logit margins
+    (top 1 - top 2) of the rows that do not, the caches' difference; then
+    ``PREFILL_NEW`` greedy steps from the prefill's state (padded to the
+    longer cache) at ms a step. bf16 at full width may flip near-ties:
+    recorded, not failed."""
+    import torch
+    from repro_torch.core.keys import fold_in, generator, key
+    from repro_torch.models import (decode_step, forward_hidden,
+                                    init_decode_state, prefill_step)
+    from repro_torch.models.layers import KVCache
+
+    b, n, new = PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW
+    prompt = torch.randint(0, cfg.vocab_size, (b, n),
+                           generator=generator(fold_in(key(0), 3), dev),
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    tok_pf, pf = prefill_step(params, {"tokens": prompt}, cfg, key=key(0))
+    end.record()
+    torch.cuda.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        x = forward_hidden(params, {"tokens": prompt}, cfg, remat=False)
+        logits = x[:, -1].float() @ params["embed"].float().T
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    del x, logits
+    state = init_decode_state(None, cfg, batch=b, max_seq=n,
+                              dtype=cfg.param_dtype, device=dev)
+    tok = prompt[:, :1]
+    for t in range(n):
+        nxt, state = decode_step(params, state, tok, t, cfg, key=key(0))
+        tok = prompt[:, t + 1:t + 2] if t + 1 < n else nxt
+    agree = (tok_pf == tok)[:, 0]
+    err = _rows_err(pf, state, list(range(0, n, 64)))
+    del state
+    # decode on from the prefill's state, its caches padded to n + new
+    cont = init_decode_state(None, cfg, batch=b, max_seq=n + new,
+                             dtype=cfg.param_dtype, device=dev)
+    for c, p in zip(cont, pf):
+        if isinstance(c, KVCache):
+            c.k[:, :, :n].copy_(p.k)
+            c.v[:, :, :n].copy_(p.v)
+    tok = tok_pf
+    nxt_ms = []
+    for t in range(n, n + new):
+        start.record()
+        tok, cont = decode_step(params, cont, tok, t, cfg, key=key(0))
+        end.record()
+        torch.cuda.synchronize()
+        nxt_ms.append(start.elapsed_time(end))
+    emit({"phase": "serve_prefill", "arch": cfg.name, "batch": b,
+          "prompt": n, "prefill_ms": prefill_ms,
+          "prefill_tok_per_s": b * n / prefill_ms * 1e3,
+          "prefill_peak_mem_bytes": prefill_peak,
+          "kv_bytes": _nbytes([t for st in pf for t in st]),
+          "first_token_agreement": float(agree.float().mean()),
+          "disagreeing_margins": [margin[i] for i in range(b)
+                                  if not bool(agree[i])],
+          "margin_min": min(margin), "margin_median": _median(margin),
+          "cache_rel_err_every_64th": err,
+          "decode_after_prefill_steps": new,
+          "decode_step_ms_median": _median(nxt_ms[SERVE_WARMUP:]),
+          "decode_tok_per_s": b * 1e3 / _median(nxt_ms[SERVE_WARMUP:]),
+          "decode_tokens_in_vocab": bool(0 <= int(tok.min())
+                                         and int(tok.max())
+                                         < cfg.vocab_size)})
+    if not (0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size):
+        fail(f"serve_prefill: token {tok.flatten().tolist()}")
+    if not err <= GRID_TOL:
+        fail(f"serve_prefill: prefill vs teacher-forced caches {err}")
+
+
+def grid_batch_plan(dev, cfg, params, pbytes: int) -> None:
+    """``serve_grid`` case ``batch``: gpt2-paper on 4 data peers at B 128,
+    the batch-sharded plan over a 1,024-token cache, ``GRID_STEPS``
+    teacher-forced steps: on a dense model the peers' rows are the plain
+    step's, so tokens and caches must equal ``decode_step`` on one peer
+    bitwise."""
+    import torch
+    from repro_torch.core.keys import fold_in, generator, key
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decode_step
+    from repro_torch.serve import build_serve_step, global_state, plan_serving
+    from repro_torch.tree import tree_leaves
+
+    b, s = 128, 1024
+    mesh = make_host_mesh(dp=PEERS)
+    plan = plan_serving(mesh, b)
+    state = global_state(cfg, batch=b, max_seq=s,
+                         dtype=cfg.param_dtype, device=dev)
+    fn, _ = build_serve_step(cfg, mesh, plan)(state)
+    toks = torch.randint(0, cfg.vocab_size, (b, GRID_STEPS),
+                         generator=generator(fold_in(key(0), 4), dev),
+                         device=dev)
+    positions = list(range(GRID_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    got, state, ms = _grid_run(fn, params, state, toks, positions, key(0))
+    peak = torch.cuda.max_memory_allocated()
+    plain = global_state(cfg, batch=b, max_seq=s,
+                         dtype=cfg.param_dtype, device=dev)
+    want, plain, _ = _grid_run(
+        lambda p, st, t, pos, k: decode_step(p, st, t, pos, cfg, key=k),
+        params, plain, toks, positions, key(0))
+    equal = bool(torch.equal(got, want)) and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(state),
+                                          tree_leaves(plain)))
+    med = _median(ms[SERVE_WARMUP:])
+    emit({"phase": "serve_grid", "case": "batch", "arch": cfg.name,
+          "peers": PEERS, "batch": b, "plan": "batch", "cache_len": s,
+          "steps": GRID_STEPS, "step_ms_median": med,
+          "tok_per_s": b * 1e3 / med, "peak_mem_bytes": peak,
+          "state_bytes": _nbytes(tree_leaves(state)),
+          "step_bound_ms": (pbytes + _nbytes(tree_leaves(state)))
+          / HBM_BYTES_PER_S * 1e3, "bitwise_plain": equal})
+    if not equal:
+        fail("serve_grid batch: the batch-sharded plan differs from the "
+             "plain step")
+
+
+def grid_seq_plan(dev, cfg, params) -> None:
+    """``serve_grid`` case ``seq``: gpt2-paper on 4 data peers at B 1, the
+    sequence-sharded plan over a ``LONG_SEQ`` cache filled with random
+    values, one step at each side of every shard boundary (and the ends):
+    each against the plain (unsharded) step on a copy of the same cache,
+    tokens agreed, the written rows within ``GRID_TOL`` (another rounding
+    of the softmax: fp32 merge of partial sums, as the reference's)."""
+    import torch
+    from repro_torch.core.keys import fold_in, generator, key
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decode_step
+    from repro_torch.serve import build_serve_step, global_state, plan_serving
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_host_mesh(dp=PEERS)
+    plan = plan_serving(mesh, 1)
+    state = global_state(cfg, batch=1, max_seq=LONG_SEQ,
+                         dtype=cfg.param_dtype, device=dev)
+    gen = generator(fold_in(key(0), 5), dev)
+    for leaf in tree_leaves(state):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev))
+    plain = [type(st)(*(t.clone() for t in st)) for st in state]
+    fn, _ = build_serve_step(cfg, mesh, plan)(state)
+    shard = LONG_SEQ // PEERS
+    positions = [0] + [p for i in range(1, PEERS)
+                       for p in (i * shard - 1, i * shard)] + [LONG_SEQ - 1]
+    toks = torch.randint(0, cfg.vocab_size, (1, len(positions)),
+                         generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    got, state, ms = _grid_run(fn, params, state, toks, positions, key(0))
+    want, plain, _ = _grid_run(
+        lambda p, st, t, pos, k: decode_step(p, st, t, pos, cfg, key=k),
+        params, plain, toks, positions, key(0))
+    err = _rows_err(state, plain, positions)
+    emit({"phase": "serve_grid", "case": "seq", "arch": cfg.name,
+          "peers": PEERS, "batch": 1, "plan": "seq", "cache_len": LONG_SEQ,
+          "positions": positions, "step_ms": ms,
+          "step_ms_median": _median(ms),
+          "state_bytes": _nbytes(tree_leaves(state)),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "token_agreement": float((got == want).float().mean()),
+          "rows_rel_err": err, "tolerance": GRID_TOL})
+    if not err <= GRID_TOL:
+        fail(f"serve_grid seq: written rows {err} > {GRID_TOL}")
+
+
+def grid_tp_plan(dev, cfg) -> None:
+    """``serve_grid`` case ``tp``: gpt2-paper at dp 1 x tp 2 (vocab padded
+    to 50,258, ``wo`` and ``w_down`` two rounded partial products), B 32,
+    a 1,024-token cache, ``GRID_STEPS`` teacher-forced steps, against the
+    same weights at tp 1 (the padding row cut off): tokens agreed, written
+    rows within ``GRID_TOL``."""
+    import torch
+    from repro_torch.core.keys import fold_in, generator, key
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.serve import build_serve_step, global_state, plan_serving
+    from repro_torch.tree import tree_leaves
+
+    b, s = 32, 1024
+    mesh = make_host_mesh(dp=1, tp=2)
+    plan = plan_serving(mesh, b)
+    params = init_params(generator(key(0), dev), cfg, device=dev, tp=2)
+    flat = {**params, "embed": params["embed"][:cfg.vocab_size]}
+    state = global_state(cfg, batch=b, max_seq=s, tp=2,
+                         dtype=cfg.param_dtype, device=dev)
+    plain = global_state(cfg, batch=b, max_seq=s,
+                         dtype=cfg.param_dtype, device=dev)
+    fn, _ = build_serve_step(cfg, mesh, plan)(state)
+    toks = torch.randint(0, cfg.vocab_size, (b, GRID_STEPS),
+                         generator=generator(fold_in(key(0), 6), dev),
+                         device=dev)
+    positions = list(range(GRID_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    got, state, ms = _grid_run(fn, params, state, toks, positions, key(0))
+    want, plain, _ = _grid_run(
+        lambda p, st, t, pos, k: decode_step(p, st, t, pos, cfg, key=k),
+        flat, plain, toks, positions, key(0))
+    err = _rows_err(state, plain, positions)
+    med = _median(ms[SERVE_WARMUP:])
+    emit({"phase": "serve_grid", "case": "tp", "arch": cfg.name, "dp": 1,
+          "tp": 2, "batch": b, "plan": "batch", "cache_len": s,
+          "steps": GRID_STEPS, "step_ms_median": med,
+          "tok_per_s": b * 1e3 / med,
+          "state_bytes": _nbytes(tree_leaves(state)),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "token_agreement": float((got == want).float().mean()),
+          "rows_rel_err": err, "tolerance": GRID_TOL})
+    if not err <= GRID_TOL:
+        fail(f"serve_grid tp: written rows {err} > {GRID_TOL}")
+
+
+def profile_decode(dev, cfg, params) -> None:
+    """Phase ``profile`` of one gpt2-paper decode step at B 128 against a
+    1,024-token cache (position 960), as in 9.: device busy ms, idle share,
+    launches a step, peak memory."""
+    import torch
+    from repro_torch.core.keys import generator, key
+    from repro_torch.models import decode_step, init_decode_state
+
+    b, s = 128, 1024
+    state = init_decode_state(None, cfg, batch=b, max_seq=s,
+                              dtype=cfg.param_dtype, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (b, 1),
+                        generator=generator(key(7), dev), device=dev)
+
+    def one(i):
+        nonlocal state
+        nxt, state = decode_step(params, state, tok, 960 + i, cfg,
+                                 key=key(0))
+        torch.cuda.synchronize()
+    profile_third_step(one, {"path": "serve", "arch": cfg.name, "batch": b,
+                             "cache_len": s, "position": 962})
+
+
+def check_serving_against_cpu(dev) -> None:
+    """Phase ``serve_check``: every smoke config (11 archs and
+    gpt2-smoke) on the card against the CPU, same parameters: ``generate``
+    ((2, 4) prompt, 4 new) tokens equal; then each grid plan teacher-forced
+    (fp32 state): batch-sharded (dp 4, B 4), sequence-sharded (dp 4, B 1),
+    ``weight_fsdp`` + ``moe_stationary`` sequence-sharded (MoE archs), dp 2
+    x tp 2 (dense archs): tokens equal, every state leaf within
+    ``SERVE_TOL`` of its largest magnitude."""
+    import torch
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.core.keys import generator, key
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.serve import (build_serve_step, generate, global_state,
+                                   plan_serving)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    worst = {}
+    for arch in (*ARCHS, "gpt2-paper"):
+        cfg = get_smoke(arch)
+        plans = [("batch", 4, 1, 4, False), ("seq", 4, 1, 1, False)]
+        if cfg.n_experts:
+            plans.append(("stationary", 4, 1, 1, True))
+        if cfg.family == "dense":
+            plans.append(("tp", 2, 2, 2, False))
+        prompts = torch.randint(0, cfg.vocab_size, (2, 4),
+                                generator=generator(key(8)))
+        res = {}
+        for name, device in (("cpu", cpu), ("cuda", dev)):
+            params = init_params(generator(key(0)), cfg, device="cpu")
+            params = tree_map(lambda p: p.to(device), params)
+            res[name] = [("generate", generate(params, cfg,
+                                                prompts.to(device),
+                                                max_new=4, key=key(0)), [])]
+            for plan_name, dp, tp, b, stat in plans:
+                p = params if tp == 1 else tree_map(
+                    lambda t: t.to(device),
+                    init_params(generator(key(0)), cfg, device="cpu", tp=tp))
+                mesh = make_host_mesh(dp=dp, tp=tp)
+                state = global_state(cfg, batch=b, max_seq=8, tp=tp,
+                                     dtype=torch.float32, device=device)
+                fn, _ = build_serve_step(cfg, mesh, plan_serving(mesh, b),
+                                         weight_fsdp=stat,
+                                         moe_stationary=stat)(state)
+                toks = torch.randint(0, cfg.vocab_size, (b, 6),
+                                     generator=generator(key(9))).to(device)
+                nxt = []
+                for t in range(6):
+                    n, state = fn(p, state, toks[:, t:t + 1], t, key(0))
+                    nxt.append(n)
+                res[name].append((plan_name, torch.cat(nxt, dim=1),
+                                  tree_leaves(state)))
+        for (plan_name, a_tok, a_st), (_, g_tok, g_st) in zip(res["cpu"],
+                                                              res["cuda"]):
+            err = max((float((g.cpu() - a).abs().max())
+                       / max(float(a.abs().max()), 1e-30)
+                       for a, g in zip(a_st, g_st)), default=0.0)
+            worst[f"{arch}/{plan_name}"] = err
+            if not torch.equal(a_tok, g_tok.cpu()) or not err <= SERVE_TOL:
+                fail(f"serve_check {arch} {plan_name}: tokens "
+                     f"{a_tok.tolist()} vs {g_tok.tolist()}, state {err}")
+    emit({"phase": "serve_check", "cases": len(worst),
+          "max_state_rel_err": max(worst.values()),
+          "worst_case": max(worst, key=worst.get), "tolerance": SERVE_TOL})
 
 
 PORTED_KERNELS = ("fwht_rows_kernel", "masked_mean_vec4", "ht_kernel",

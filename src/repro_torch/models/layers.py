@@ -1,6 +1,7 @@
-"""Transformer building blocks: RMS norm, RoPE, causal attention, gated MLP.
+"""Transformer building blocks: RMS norm, RoPE, causal attention (training,
+prefill and one-token decode against a KV cache), gated MLP.
 
-Counterpart of the dense-training part of ``src/repro/models/layers.py``,
+Counterpart of ``src/repro/models/layers.py``,
 with the reference's numerics: norms and softmax statistics in fp32 and cast
 back, attention logits accumulated in fp32 (``preferred_element_type``), the
 tanh GELU of ``jax.nn.gelu``, RoPE on split halves, and masking with -1e30.
@@ -13,10 +14,26 @@ row-parallel products (``wo``, ``w_down``) are T partial products over the
 weights' T row chunks, each rounded to the activation dtype, reduced by
 ``pctx.reduce_output`` (a psum in rank order, scattered over the sequence
 under SP).
+
+The KV cache holds the post-RoPE K and V before any expansion to the q
+heads, ``(B, S, H_cache, dh)``; under tensor parallelism it is the global
+cache of every rank's heads (``cache_heads`` names the K / V projection
+head of each cache head when a rank keeps one head of a replicated
+projection, the reference's ``kv_select``), and ``kv_map`` gives each q head
+its cache head. ``attention_decode`` writes the new token's K and V at
+``pos`` in place and attends over the whole cache with positions past
+``pos`` masked to -1e30: fp32 logits from the activation-dtype operands, a
+softmax cast back to the activation dtype, its product with V in that dtype.
+With ``seq_shards`` P (a batch too small to shard, the reference's
+flash-decoding split) the cache's sequence is P contiguous slices, one a
+data peer: each peer's local max, the ``pmax`` over peers, fp32 numerators
+and denominators ``psum``'d over peers (``pctx.psum_dp``), then one divide,
+as the reference's sharded form rounds.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +78,23 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, h * n_rep, d)
 
 
+class KVCache(NamedTuple):
+    """Decode-time cache. k / v: (B, S_max, H_cache, dh); stacked over a
+    period position's repeats in the decode state."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def _map_kv(k: torch.Tensor, hq: int, kv_map: torch.Tensor | None
+            ) -> torch.Tensor:
+    """Expand the cache heads to the q heads: ``kv_map`` (int64 ``(Hq,)``)
+    gives each q head its cache head; None is the contiguous GQA
+    grouping."""
+    if kv_map is None:
+        return _repeat_kv(k, hq // k.shape[2])
+    return k.index_select(2, kv_map)
+
+
 def row_parallel(x: torch.Tensor, w: torch.Tensor,
                  pctx: ParallelCtx) -> torch.Tensor:
     """``x @ w`` with ``w`` row-parallel over the tp ranks: rank t's
@@ -80,11 +114,15 @@ def _tp(pctx: ParallelCtx | None) -> bool:
 def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
                     rope_theta: float = 10000.0, causal: bool = True,
                     pctx: ParallelCtx | None = None,
-                    kv_heads: torch.Tensor | None = None) -> torch.Tensor:
-    """Full causal attention for training. x: (B, S, D); w holds wq
-    (D, Hq*dh), wk/wv (D, Hkv*dh), wo (Hq*dh, D), ``head_dim`` and
+                    kv_heads: torch.Tensor | None = None,
+                    cache_heads: torch.Tensor | None = None,
+                    collect_kv: bool = False):
+    """Full causal attention for training and prefill. x: (B, S, D); w
+    holds wq (D, Hq*dh), wk/wv (D, Hkv*dh), wo (Hq*dh, D), ``head_dim`` and
     ``attn_chunk``. Under tensor parallelism ``kv_heads`` (int64 ``(Hq,)``)
-    gives each q head's K / V head, and ``wo`` is row-parallel."""
+    gives each q head's K / V head, and ``wo`` is row-parallel. With
+    ``collect_kv`` also returns the post-RoPE ``KVCache`` before expansion
+    (the heads ``cache_heads`` selects, when given)."""
     b, s, _ = x.shape
     dh = w["head_dim"]
     attn_chunk = w.get("attn_chunk", 0)
@@ -99,6 +137,11 @@ def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
     q = apply_rope(q.reshape(b, s, hq, dh), positions, theta=rope_theta)
     k = apply_rope(k.reshape(b, s, hkv, dh), positions, theta=rope_theta)
     v = v.reshape(b, s, hkv, dh)
+    cache = None
+    if collect_kv:
+        cache = (KVCache(k, v) if cache_heads is None else
+                 KVCache(k.index_select(2, cache_heads),
+                         v.index_select(2, cache_heads)))
     if kv_heads is None:
         k = _repeat_kv(k, hq // hkv)
         v = _repeat_kv(v, hq // hkv)
@@ -112,9 +155,68 @@ def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
         logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, hq * dh)
-    if _tp(pctx):
-        return row_parallel(ctx, w["wo"], pctx)
-    return ctx @ w["wo"].to(x.dtype)
+    out = (row_parallel(ctx, w["wo"], pctx) if _tp(pctx)
+           else ctx @ w["wo"].to(x.dtype))
+    return (out, cache) if collect_kv else out
+
+
+def attention_decode(x: torch.Tensor, w: dict, cache: KVCache, *,
+                     pos: torch.Tensor, rope_theta: float = 10000.0,
+                     pctx: ParallelCtx | None = None,
+                     kv_map: torch.Tensor | None = None,
+                     cache_heads: torch.Tensor | None = None,
+                     seq_shards: int = 1) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode against a KV cache. x: (B, 1, D); ``pos``: a
+    one-element int64 tensor, the token's position. Writes the token's K
+    and V into ``cache`` at ``pos`` (in place) and returns ``(out,
+    cache)``. ``seq_shards`` P > 1: the cache's sequence is P slices of
+    S/P, one a data peer of ``pctx``, merged with partial-softmax
+    statistics."""
+    b = x.shape[0]
+    dh = w["head_dim"]
+    q = x @ w["wq"].to(x.dtype)
+    k_new = x @ w["wk"].to(x.dtype)
+    v_new = x @ w["wv"].to(x.dtype)
+    hq, hkv = q.shape[-1] // dh, k_new.shape[-1] // dh
+    posb = pos.reshape(1, 1).expand(b, 1)
+    q = apply_rope(q.reshape(b, 1, hq, dh), posb, theta=rope_theta)
+    k_new = apply_rope(k_new.reshape(b, 1, hkv, dh), posb, theta=rope_theta)
+    v_new = v_new.reshape(b, 1, hkv, dh)
+    if cache_heads is not None:
+        k_new = k_new.index_select(2, cache_heads)
+        v_new = v_new.index_select(2, cache_heads)
+    # the peer that owns pos writes it: on the global cache, position pos
+    cache.k.index_copy_(1, pos, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, pos, v_new.to(cache.v.dtype))
+    s = cache.k.shape[1]
+    kk = _map_kv(cache.k, hq, kv_map)
+    vv = _map_kv(cache.v, hq, kv_map)
+    scale = 1.0 / math.sqrt(dh)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          kk.to(torch.float32)) * scale       # (B, H, 1, S)
+    valid = torch.arange(s, device=x.device) <= pos
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    if seq_shards == 1:
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        # a cache narrower than the activations is promoted, as in jnp
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, vv.to(x.dtype))
+    else:
+        # partial softmax merge across the sequence shards: (P, B, H, 1,
+        # S/P) and (P, B, S/P, H, dh) stacks of the peers' slices
+        n = seq_shards
+        lg = logits.reshape(b, hq, 1, n, s // n).movedim(3, 0)
+        m = pctx.pmax_dp(lg.amax(dim=-1, keepdim=True))
+        p = torch.exp(lg - m)
+        vs = vv.reshape(b, n, s // n, hq, dh).movedim(1, 0)
+        num = torch.einsum("pbhqk,pbkhd->pbqhd", p, vs.to(torch.float32))
+        den = p.sum(dim=-1)                                  # (P, B, H, 1)
+        num = pctx.psum_dp(num)[0]
+        den = pctx.psum_dp(den)[0]
+        ctx = (num / den.transpose(1, 2)[..., None]).to(x.dtype)
+    ctx = ctx.reshape(b, 1, hq * dh)
+    out = (row_parallel(ctx, w["wo"], pctx) if _tp(pctx)
+           else ctx @ w["wo"].to(x.dtype))
+    return out, cache
 
 
 def activation_fn(activation: str):

@@ -1,19 +1,31 @@
 """Top-k Mixture-of-Experts: capacity-based dispatch with scatter/gather.
 
 Counterpart of ``src/repro/models/moe.py`` at one tensor-parallel rank
-(experts over tp are ROADMAP A21c; ``param_table`` refuses them), so no
-``pctx`` is taken. No ``(T, E, C)`` one-hot is formed: the position of
-each (token, slot) within its expert comes from a cumulative sum over the
-token-major, then slot, order of the assignments, the reference's order,
-so the same tokens overflow an expert's capacity and are dropped. The
-dispatch buffer is ``(E, C, D)``; a dropped assignment adds a zero into its
-clamped slot, so the scatter-add (``index_put`` with ``accumulate``) is
-exact whatever order it adds in: each slot receives one non-zero value.
+(experts over tp are ROADMAP A21c; ``param_table`` refuses them), so
+``pctx`` serves only serving's data peers. No ``(T, E, C)`` one-hot is
+formed: the position of each (token, slot) within its expert comes from a
+cumulative sum over the token-major, then slot, order of the assignments,
+the reference's order, so the same tokens overflow an expert's capacity
+and are dropped. The dispatch buffer is ``(G, E, C, D)`` for G routing
+groups (1 but under the batch-sharded serving plan); a dropped assignment
+adds a zero into its clamped slot, so the scatter-add (``index_put`` with
+``accumulate``) is exact whatever order it adds in: each slot receives one
+non-zero value.
 Routing runs in fp32; the expert products in the activation dtype.
 
-The weights-stationary form of serving (expert weights left sharded over
-the data axes, the reference's ``pctx.moe_stationary``) belongs to the
-serving slice (ROADMAP A21, serving) and raises here.
+While decoding on the peer grid (``serve/engine.py``) two more forms are
+the reference's. Under the batch-sharded plan each of the P data peers
+routes its own B/P rows' tokens (``peers``): the capacity comes from the
+peer's own token count, so routing the whole batch at once would drop other
+tokens; the routing then runs on a ``(P, T/P, ...)`` stack. The
+weights-stationary form (``pctx.moe_stationary`` under FSDP) keeps the
+expert weights sharded over the data axes on D: peer i takes its D-slice of
+its dispatch buffer and of ``we_gate`` / ``we_up`` (views of the stored
+weight), the P partial products, each in the activation dtype, are
+``psum_dp``'d, each peer computes its D-slice of ``we_down``'s output and a
+tiled all_gather puts the slices together. Under the batch-sharded plan the
+peers' buffers hold different tokens and the reference's psum adds them
+together (ROADMAP C); the port computes the same.
 """
 from __future__ import annotations
 
@@ -23,68 +35,102 @@ import torch
 import torch.nn.functional as F
 
 from .layers import activation_fn
+from .parallel import SINGLE, ParallelCtx
 
 
 class Routing(NamedTuple):
-    logits: torch.Tensor      # (T, E_pad) fp32
-    gate_idx: torch.Tensor    # (T, K) int64, each token's experts, best first
-    gates: torch.Tensor       # (T, K) fp32, softmax over the K picked logits
-    pos: torch.Tensor         # (T, K) position within the expert
-    keep: torch.Tensor        # (T, K) bool, pos < capacity
+    """Each group's routing; the leading dims are the groups'."""
+    logits: torch.Tensor      # (..., T, E_pad) fp32
+    gate_idx: torch.Tensor    # (..., T, K) int64, each token's experts
+    gates: torch.Tensor       # (..., T, K) fp32, softmax of the K logits
+    pos: torch.Tensor         # (..., T, K) position within the expert
+    keep: torch.Tensor        # (..., T, K) bool, pos < capacity
     capacity: int
 
 
 def route(xt: torch.Tensor, router: torch.Tensor, *, top_k: int,
           n_experts: int, capacity_factor: float = 1.25) -> Routing:
     """Router logits, top-k experts and their gates, and each assignment's
-    position in its expert's buffer. ``xt``: (T, D); ``router``: (D,
-    E_pad); padded experts are masked to -1e30 and never picked."""
-    t = xt.shape[0]
+    position in its expert's buffer. ``xt``: (..., T, D), each leading
+    index a group routed on its own; ``router``: (D, E_pad); padded experts
+    are masked to -1e30 and never picked."""
+    *lead, t, _ = xt.shape
     e_pad = router.shape[-1]
     logits = (xt @ router.to(xt.dtype)).to(torch.float32)
     if e_pad > n_experts:
         pad = torch.arange(e_pad, device=xt.device) >= n_experts
-        logits = torch.where(pad[None, :],
-                             torch.full_like(logits, -1e30), logits)
+        logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
     gate_vals, gate_idx = torch.topk(logits, top_k, dim=-1)
     gates = torch.softmax(gate_vals, dim=-1)
     capacity = max(1, int(capacity_factor * top_k * t / e_pad))
     # position of each (token, slot) within its expert, over all K slots
-    onehot = F.one_hot(gate_idx, e_pad).to(torch.int32)       # (T, K, E)
-    pos_flat = torch.cumsum(onehot.reshape(t * top_k, e_pad), dim=0) - 1
-    pos = torch.gather(pos_flat.reshape(t, top_k, e_pad), -1,
+    onehot = F.one_hot(gate_idx, e_pad).to(torch.int32)    # (..., T, K, E)
+    pos_flat = torch.cumsum(onehot.reshape(*lead, t * top_k, e_pad),
+                            dim=-2) - 1
+    pos = torch.gather(pos_flat.reshape(*lead, t, top_k, e_pad), -1,
                        gate_idx[..., None])[..., 0]
     return Routing(logits, gate_idx, gates, pos, pos < capacity, capacity)
 
 
+def _d_slices(w: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """The n contiguous slices of ``w`` along ``dim``, stacked first: the
+    data peers' FSDP shards of a weight stored whole."""
+    shape = list(w.shape)
+    shape[dim:dim + 1] = [n, shape[dim] // n]
+    return w.reshape(shape).movedim(dim, 0)
+
+
 def moe_block(x: torch.Tensor, w: dict, *, top_k: int, n_experts: int,
               capacity_factor: float = 1.25, activation: str = "silu",
-              weights_stationary: bool = False) -> torch.Tensor:
+              peers: int = 1, weights_stationary: bool = False,
+              pctx: ParallelCtx | None = None) -> torch.Tensor:
     """x: (B, S, D). w: router (D, E_pad); we_gate / we_up (E_pad, D, F),
-    we_down (E_pad, F, D). Returns (B, S, D)."""
-    if weights_stationary:
-        raise NotImplementedError(
-            "the weights-stationary MoE (expert weights kept sharded over "
-            "the data axes while decoding) is part of serving: ROADMAP A21 "
-            "(serving)")
+    we_down (E_pad, F, D). ``peers``: the batch's rows are that many data
+    peers' (peer-major), each routed on its own. ``weights_stationary``:
+    the expert products run on the D-slices of ``pctx``'s data peers.
+    Returns (B, S, D)."""
     act = activation_fn(activation)
+    pctx = pctx or SINGLE
     b, s, d = x.shape
-    xt = x.reshape(b * s, d)
+    if b % peers:
+        raise ValueError(f"batch {b} does not split over {peers} peers")
+    xt = x.reshape(peers, b // peers * s, d)
     r = route(xt, w["router"], top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor)
     e_pad = w["router"].shape[-1]
     safe_p = r.pos.clamp(0, r.capacity - 1)
+    group = torch.arange(peers, device=x.device)[:, None, None].expand_as(
+        r.gate_idx)
     zero = torch.zeros((), dtype=xt.dtype, device=xt.device)
-    contrib = torch.where(r.keep[..., None], xt[:, None, :], zero)
-    buf = torch.zeros((e_pad, r.capacity, d), dtype=xt.dtype,
+    contrib = torch.where(r.keep[..., None], xt[:, :, None, :], zero)
+    buf = torch.zeros((peers, e_pad, r.capacity, d), dtype=xt.dtype,
                       device=xt.device).index_put(
-        (r.gate_idx, safe_p), contrib, accumulate=True)       # (E, C, D)
-    g = torch.bmm(buf, w["we_gate"].to(xt.dtype))
-    u = torch.bmm(buf, w["we_up"].to(xt.dtype))
-    out_buf = torch.bmm(act(g) * u, w["we_down"].to(xt.dtype))
-    gathered = torch.where(r.keep[..., None], out_buf[r.gate_idx, safe_p],
-                           zero)                               # (T, K, D)
-    combined = (gathered * r.gates[..., None].to(xt.dtype)).sum(dim=1)
+        (group, r.gate_idx, safe_p), contrib, accumulate=True)  # (G, E, C, D)
+    if weights_stationary:
+        n = pctx.dp_size()
+        if d % n:
+            raise ValueError(f"d_model {d} does not split over {n} data "
+                             "peers")
+        # peer i's D-slice of its own buffer (of the one buffer when the
+        # batch is not sharded over the peers)
+        d_l = d // n
+        part = torch.stack([buf[i if peers == n else 0, ..., i * d_l:
+                                (i + 1) * d_l] for i in range(n)])
+        g = pctx.psum_dp(torch.matmul(
+            part, _d_slices(w["we_gate"].to(xt.dtype), 1, n)))[0]
+        u = pctx.psum_dp(torch.matmul(
+            part, _d_slices(w["we_up"].to(xt.dtype), 1, n)))[0]
+        out_slices = torch.matmul(act(g) * u,
+                                  _d_slices(w["we_down"].to(xt.dtype), 2, n))
+        out_buf = pctx.gather_dp_tiled(out_slices, 2)[0]        # (E, C, D)
+        gathered = out_buf[r.gate_idx, safe_p]                  # (G, T, K, D)
+    else:
+        g = torch.matmul(buf, w["we_gate"].to(xt.dtype))
+        u = torch.matmul(buf, w["we_up"].to(xt.dtype))
+        out_buf = torch.matmul(act(g) * u, w["we_down"].to(xt.dtype))
+        gathered = out_buf[group, r.gate_idx, safe_p]
+    gathered = torch.where(r.keep[..., None], gathered, zero)
+    combined = (gathered * r.gates[..., None].to(xt.dtype)).sum(dim=2)
     return combined.reshape(b, s, d)
 
 

@@ -32,6 +32,12 @@ sublayers is sharded over tp along the sequence, a ``(T, B, S/T, D)`` stack
 of the ranks' slices. ``gather_seq`` puts the slices back together at a
 sublayer's input, and ``reduce_output`` sums the row-parallel partials and
 scatters the sum over the sequence (the reference's ``psum_scatter``).
+
+Serving (``serve/engine.py``) runs the data peers as views of one global
+batch or of one global KV cache's sequence: ``psum_dp``, ``pmax_dp`` and
+``gather_dp_tiled`` reduce or concatenate a ``(P, ...)`` stack of the
+peers' values, for the sequence-sharded softmax merge and the
+weights-stationary MoE (``moe_stationary``).
 """
 from __future__ import annotations
 
@@ -51,6 +57,9 @@ class ParallelCtx:
     gather: Callable | None = None  # (w, dim, key, name) -> w_full
     sizes: Mapping[str, int] = dataclasses.field(default_factory=dict)
     sp: bool = False                # sequence parallelism over tp
+    # serving: MoE expert weights stay sharded over the dp axes and the
+    # expert activations are psum'd instead (``models/moe.py``)
+    moe_stationary: bool = False
 
     def tp_size(self) -> int:
         return self.sizes.get(self.tp_axis, 1) if self.tp_axis else 1
@@ -113,11 +122,33 @@ class ParallelCtx:
         return torch.arange(self.dp_size(), device=device)
 
     def psum_dp(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of a ``(P, ...)`` stack over the dp axes, held by every
+        """Sum of a ``(P, ...)`` stack over the dp axes, held by every peer:
+        the reference's ``psum`` on host devices, which adds the peers in
+        rank order in fp32 and rounds the sum once to the stack's dtype
+        (bf16 included)."""
+        if not self.dp_axes():
+            return x
+        acc = x[0].to(torch.float32)
+        for i in range(1, x.shape[0]):
+            acc = acc + x[i].to(torch.float32)
+        return acc.to(x.dtype)[None].expand_as(x)
+
+    def pmax_dp(self, x: torch.Tensor) -> torch.Tensor:
+        """Max of a ``(P, ...)`` stack over the dp axes, held by every
         peer."""
         if not self.dp_axes():
             return x
-        return x.sum(dim=0, keepdim=True).expand_as(x)
+        return x.amax(dim=0, keepdim=True).expand_as(x)
+
+    def gather_dp_tiled(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """The reference's tiled ``all_gather`` over every dp axis: ``(P,
+        *slice)`` -> ``(P, *full)``, the P slices concatenated along
+        ``axis`` of the unstacked tensor in peer order, held by every
+        peer."""
+        if not self.dp_axes():
+            return x
+        full = torch.cat(x.unbind(0), dim=axis)
+        return full[None].expand(x.shape[0], *full.shape)
 
     def all_gather_dp(self, x: torch.Tensor, axis: int) -> torch.Tensor:
         """FSDP weight gather over the data axis (identity when not fsdp):

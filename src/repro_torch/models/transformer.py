@@ -5,7 +5,8 @@ audio variants.
 
 Counterpart of ``src/repro/models/transformer.py`` (``TpLayout``,
 ``param_table``, ``init_params``, ``count_params``, ``active_params``,
-``abstract_params``, ``forward_hidden``, ``lm_loss``). The port keeps the
+``abstract_params``, ``forward_hidden``, ``lm_loss``, ``prefill_step``,
+``init_decode_state``, ``decode_step``). The port keeps the
 reference's parameter tree, so parameters carry over leaf for leaf
 (``weights.params_from_jax``) and the gradient arena has the same layout.
 Layers are organised in a repeating *period* (1 for homogeneous stacks, 8
@@ -59,8 +60,25 @@ dim 0; the norms and Mamba-2's ``dt_bias``, ``conv_w``, ``a_log`` and
 ``key`` (only when the batch has a prefix), layer l's weights with
 ``fold_in(key, l)``; under tensor parallelism a leaf is sharded on both
 dims and the gather hands over the global weight, the trainer cutting its
-gradient per tp shard. Serving (``prefill_step``, ``decode_step``, the KV
-cache) is the next slice (ROADMAP A21, serving).
+gradient per tp shard.
+
+Serving: ``prefill_step`` runs the prompt through ``forward_hidden`` with
+``collect_state`` (each attention layer's post-RoPE K / V, each Mamba-2
+layer's conv tail and final SSD state, stacked over the period's repeats)
+and takes the fp32 head's greedy token at the last position;
+``decode_step`` embeds one token a row, runs every layer against its slice
+of the decode state (``init_decode_state``: KV caches ``(n_repeat, B,
+S_max, H_cache, dh)``, conv ``(n_repeat, B, K-1, d_inner)``, fp32 SSD
+``(n_repeat, B, H, P, N)``) and writes each layer's new state into it in
+place, one index write into the stacked cache a layer (the reference keeps
+the cache in its scan's carry for the same reason: one live copy). The
+greedy token is the argmax of the fp32 logits; under tensor parallelism
+each rank's best of its vocab range, ``pmax_tp`` and ``psum_tp`` of the
+winner's index, as the reference's ranks agree on it. On the serving grid
+(``serve/engine.py``) a ``pctx`` with data peers and no ``seq_shard_axis``
+means the batch's rows are the peers' (the MoE routes each peer's on their
+own); with ``seq_shard_axis`` the cache's sequence is theirs and the batch
+is replicated.
 """
 from __future__ import annotations
 
@@ -74,10 +92,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.keys import Key, fold_in
 
-from .layers import attention_train, gated_mlp, rms_norm
+from .layers import (KVCache, attention_decode, attention_train, gated_mlp,
+                     rms_norm)
 from .moe import moe_block
 from .parallel import SINGLE, ParallelCtx
-from .ssm import mamba2_forward
+from .ssm import SSMState, mamba2_forward
 
 
 def _ceil_to(x: int, q: int) -> int:
@@ -116,6 +135,15 @@ class TpLayout:
             kv_single=kv_single, vocab_pad=_ceil_to(cfg.vocab_size, tp),
             experts_pad=_ceil_to(cfg.n_experts, tp) if cfg.n_experts else 0,
             ssm_heads_pad=_ceil_to(cfg.ssm_heads, tp) if cfg.ssm_heads else 0)
+
+    @property
+    def kv_local(self) -> int:
+        """KV heads a shard's decode cache holds."""
+        if self.kv_single:
+            return 1
+        if self.kv_replicated:
+            return self.kv_pad
+        return self.kv_pad // self.tp
 
     def kv_select(self, shard: int) -> int | None:
         """Global KV head this shard keeps (kv_single only)."""
@@ -159,6 +187,40 @@ class TpLayout:
                              else kmap[j])
                     out.append(t * kv_l + local)
         return out
+
+    def cache_heads(self, cfg: ModelConfig
+                    ) -> tuple[list[int] | None, list[int]]:
+        """The global decode cache under tp: the K / V projection head each
+        cache head holds (None: all ``kv_pad`` in order) and each global q
+        head's cache head. A ``kv_single`` rank keeps the one head its q
+        heads use, so the cache holds T heads, rank t's at index t."""
+        if self.kv_single:
+            hq_l = self.heads_pad // self.tp
+            return ([self.kv_select(t) for t in range(self.tp)],
+                    [h // hq_l for h in range(self.heads_pad)])
+        return None, self.kv_heads(cfg)
+
+
+class KvMaps(NamedTuple):
+    """Head maps under tensor parallelism (int64 tensors): each q head's
+    K / V projection head, the cache's heads (None: all) and each q head's
+    cache head."""
+    q_kv: torch.Tensor
+    cache: torch.Tensor | None
+    q_cache: torch.Tensor
+
+
+def _kv_maps(cfg: ModelConfig, t: int, device) -> KvMaps | None:
+    if t == 1:
+        return None
+    lay = TpLayout.build(cfg, t)
+    heads, q_cache = lay.cache_heads(cfg)
+
+    def as_tensor(v):
+        return None if v is None else torch.tensor(v, dtype=torch.long,
+                                                   device=device)
+    return KvMaps(as_tensor(lay.kv_heads(cfg)), as_tensor(heads),
+                  as_tensor(q_cache))
 
 
 class Leaf(NamedTuple):
@@ -397,30 +459,55 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     return _map_table(make, param_table(cfg, tp=tp))
 
 
-def _layer(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
-           pos: int, names: tuple[str, ...], pctx: ParallelCtx,
-           kv_heads: torch.Tensor | None, *weights: torch.Tensor
-           ) -> torch.Tensor:
+def _layer(x: torch.Tensor, positions: torch.Tensor | None,
+           cfg: ModelConfig, pos: int, names: tuple[str, ...],
+           pctx: ParallelCtx, kv: KvMaps | None, *weights: torch.Tensor,
+           state=None, step: torch.Tensor | None = None,
+           seq_shards: int = 1, peers: int = 1,
+           collect_state: bool = False):
     """One pre-norm residual block at period position ``pos``: attention or
     Mamba-2, then the FFN position (gated MLP, MoE, both for a dense
     residual, plus the shared experts; none on a pure-SSM layer). Under SP
     ``x`` is the ``(T, B, S/T, D)`` stack of sequence slices (dense family
-    only; the norms are per token)."""
+    only; the norms are per token). Returns ``(x, state)``: with ``step``
+    (decode: the token's one-element position) ``state`` is the layer's
+    ``KVCache`` / ``SSMState``, updated in place; with ``collect_state``
+    the state the sequence leaves (prefill); None otherwise. ``seq_shards``
+    and ``peers`` split the cache's sequence or the batch's rows over the
+    data peers (``decode_step``)."""
     lw = dict(zip(names, weights))
     h = pctx.gather_seq(rms_norm(x, lw["ln1"]))    # SP: the full sequence
+    new_state = None
     if cfg.is_attn_layer(pos):
-        x = x + attention_train(
-            h, {"wq": lw["wq"], "wk": lw["wk"], "wv": lw["wv"],
-                "wo": lw["wo"], "head_dim": cfg.dh,
-                "attn_chunk": cfg.attn_chunk},
-            positions=positions, rope_theta=cfg.rope_theta, pctx=pctx,
-            kv_heads=kv_heads)
+        aw = {"wq": lw["wq"], "wk": lw["wk"], "wv": lw["wv"], "wo": lw["wo"],
+              "head_dim": cfg.dh, "attn_chunk": cfg.attn_chunk}
+        if step is not None:
+            att, new_state = attention_decode(
+                h, aw, state, pos=step, rope_theta=cfg.rope_theta, pctx=pctx,
+                kv_map=kv.q_cache if kv else None,
+                cache_heads=kv.cache if kv else None, seq_shards=seq_shards)
+        else:
+            att = attention_train(
+                h, aw, positions=positions, rope_theta=cfg.rope_theta,
+                pctx=pctx, kv_heads=kv.q_kv if kv else None,
+                cache_heads=kv.cache if kv else None,
+                collect_kv=collect_state)
+            if collect_state:
+                att, new_state = att
+        x = x + att
     else:
-        y, _ = mamba2_forward(h, {**lw, "d_state": cfg.ssm_state,
-                                  "n_groups": 1}, chunk=cfg.ssm_chunk)
+        y, ssm = mamba2_forward(h, {**lw, "d_state": cfg.ssm_state,
+                                    "n_groups": 1}, chunk=cfg.ssm_chunk,
+                                state=state, decode=step is not None)
+        if step is not None:
+            state.conv.copy_(ssm.conv)
+            state.ssm.copy_(ssm.ssm)
+            new_state = state
+        elif collect_state:
+            new_state = ssm
         x = x + y
     if "ln2" not in lw:                    # pure-SSM layer: no FFN sublayer
-        return x
+        return x, new_state
     h2 = pctx.gather_seq(rms_norm(x, lw["ln2"]))
     ff = None
     if "w_gate" in lw:
@@ -429,14 +516,16 @@ def _layer(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
         moe = moe_block(h2, lw, top_k=cfg.top_k,
                         n_experts=cfg.n_experts,
                         capacity_factor=cfg.capacity_factor,
-                        activation=cfg.activation)
+                        activation=cfg.activation, peers=peers,
+                        weights_stationary=pctx.moe_stationary and pctx.fsdp,
+                        pctx=pctx)
         ff = moe if ff is None else ff + moe
         if cfg.n_shared_experts:
             ff = ff + gated_mlp(h2, {"w_gate": lw["ws_gate"],
                                      "w_up": lw["ws_up"],
                                      "w_down": lw["ws_down"]},
                                 activation=cfg.activation, pctx=pctx)
-    return x + ff
+    return x + ff, new_state
 
 
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
@@ -460,8 +549,8 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
-                   pctx: ParallelCtx | None = None,
-                   key: Key | None = None) -> torch.Tensor:
+                   pctx: ParallelCtx | None = None, key: Key | None = None,
+                   collect_state: bool = False):
     """Tokens (after the frontend's prefix, when the batch has
     ``prefix_embeds``) -> final hidden states (B, S, D). The layers run in
     the reference's order, repeat r of the period's position p being layer
@@ -473,7 +562,9 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
     ``key``. Under tensor parallelism the parameters are the global padded
     ones of ``param_table(cfg, tp=T)``; with ``pctx.sp`` the residual
     stream runs as the ranks' sequence slices and is gathered back after
-    the final norm."""
+    the final norm. With ``collect_state`` (prefill; no recompute) returns
+    ``(x, states)``: for each period position its layers' decode state
+    (``KVCache`` / ``SSMState``) stacked over the repeats."""
     pctx = pctx or SINGLE
     t = pctx.tp_size()
     tokens = batch["tokens"].long()
@@ -488,10 +579,8 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    kv_heads = None
+    kv = _kv_maps(cfg, t, tokens.device)
     if t > 1:
-        kv_heads = torch.tensor(TpLayout.build(cfg, t).kv_heads(cfg),
-                                dtype=torch.long, device=tokens.device)
         if pctx.seq_sharded():
             if s % t:
                 raise ValueError(f"seq_parallel needs seq {s} divisible by "
@@ -504,6 +593,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
     # unbind: one view per layer, whose backward stacks the layer grads
     per_pos = [list(zip(*(stage[k].unbind(0) for k in nm)))
                for stage, nm in zip(stages, names)]
+    collected = [[] for _ in range(period)]
     for r in range(len(per_pos[0])):
         for pos in range(period):
             weights = per_pos[pos][r]
@@ -511,13 +601,18 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
                 lkey = fold_in(key, r * period + pos)
                 weights = [_maybe_gather(pctx, w, fsdp_dims[pos][k], lkey, k)
                            for k, w in zip(names[pos], weights)]
-            args = (x, positions, cfg, pos, names[pos], pctx, kv_heads,
-                    *weights)
-            if remat and torch.is_grad_enabled():
-                x = checkpoint(_layer, *args, use_reentrant=False)
+            args = (x, positions, cfg, pos, names[pos], pctx, kv, *weights)
+            if remat and torch.is_grad_enabled() and not collect_state:
+                x, _ = checkpoint(_layer, *args, use_reentrant=False)
             else:
-                x = _layer(*args)
-    return pctx.gather_seq(rms_norm(x, params["final_ln"]))
+                x, st = _layer(*args, collect_state=collect_state)
+                if collect_state:
+                    collected[pos].append(st)
+    x = pctx.gather_seq(rms_norm(x, params["final_ln"]))
+    if not collect_state:
+        return x
+    return x, [type(sts[0])(*(torch.stack(parts) for parts in zip(*sts)))
+               for sts in collected]
 
 
 def _chunk_loss(x_chunk: torch.Tensor, y_chunk: torch.Tensor,
@@ -561,6 +656,14 @@ def _chunk_loss_tp(x_chunk: torch.Tensor, y_chunk: torch.Tensor,
     return nll.sum(), weight.sum()
 
 
+def _head(params, pctx: ParallelCtx, key: Key | None) -> torch.Tensor:
+    """The (D, V_pad) output head: ``lm_head``, or the tied ``embed.T``."""
+    head = params.get("lm_head")
+    if head is None:
+        return _maybe_gather(pctx, params["embed"], 1, key, "head").T
+    return _maybe_gather(pctx, head, 0, key, "lm_head")
+
+
 def lm_loss(params, batch, cfg: ModelConfig, *, seq_chunk: int = 1024,
             remat: bool = True, pctx: ParallelCtx | None = None,
             key: Key | None = None) -> torch.Tensor:
@@ -573,11 +676,7 @@ def lm_loss(params, batch, cfg: ModelConfig, *, seq_chunk: int = 1024,
     p = x.shape[1] - labels.shape[1]
     if p:
         x = x[:, p:]                      # loss only on token positions
-    head = params.get("lm_head")
-    if head is None:                                   # tied: (D, V)
-        head = _maybe_gather(pctx, params["embed"], 1, key, "head").T
-    else:
-        head = _maybe_gather(pctx, head, 0, key, "lm_head")
+    head = _head(params, pctx, key)
     s = x.shape[1]
     chunk = math.gcd(min(seq_chunk, s), s)
     total = torch.zeros((), device=x.device)
@@ -596,3 +695,128 @@ def lm_loss(params, batch, cfg: ModelConfig, *, seq_chunk: int = 1024,
         total = total + l
         count = count + w
     return total / torch.clamp(count, min=1.0)
+
+
+def _greedy(x: torch.Tensor, head: torch.Tensor,
+            pctx: ParallelCtx) -> torch.Tensor:
+    """(B, D) -> (B,) int32: the argmax of the fp32 logits (first index of
+    a tie). Under tensor parallelism each rank's best over its vocab
+    range, the ``pmax_tp`` of the bests, and the ``psum_tp`` of the index
+    of every rank that holds it (ties across ranks add, as the
+    reference's)."""
+    logits = x.to(torch.float32) @ head.to(torch.float32)
+    t = pctx.tp_size()
+    if t == 1:
+        return logits.argmax(dim=-1).to(torch.int32)
+    b, vp = logits.shape
+    v_local = vp // t
+    lg = logits.view(b, t, v_local).movedim(1, 0)             # (T, B, V/T)
+    best_local = lg.amax(dim=-1)
+    best_idx = lg.argmax(dim=-1) + (pctx.tp_index(x.device)
+                                    * v_local)[:, None]
+    best = pctx.pmax_tp(best_local)
+    winner = torch.where(best_local >= best, best_idx,
+                         torch.zeros_like(best_idx))
+    return pctx.psum_tp(winner).to(torch.int32)
+
+
+@torch.no_grad()
+def prefill_step(params, batch, cfg: ModelConfig,
+                 pctx: ParallelCtx | None = None, *, key: Key | None = None):
+    """Serving prefill: consume the prompt, return ``(first_token (B, 1)
+    int32, states)``, the states stacked over the repeats as
+    ``init_decode_state`` lays them out (their sequence the prompt's)."""
+    pctx = pctx or SINGLE
+    x, states = forward_hidden(params, batch, cfg, remat=False, pctx=pctx,
+                               key=key, collect_state=True)
+    return _greedy(x[:, -1], _head(params, pctx, key), pctx)[:, None], states
+
+
+def init_decode_state(params_like, cfg: ModelConfig, *, batch: int,
+                      max_seq: int, tp: int = 1, seq_shards: int = 1,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device: torch.device | str = "cpu"):
+    """A zero decode state, one entry a period position (``params_like`` is
+    unused, as in the reference): ``KVCache`` ``(n_repeat, B,
+    S_max/seq_shards, kv_local, dh)`` for an attention position,
+    ``SSMState`` conv ``(n_repeat, B, K-1, d_inner/tp)`` and fp32 ssm
+    ``(n_repeat, B, H/tp, P, N)`` for a Mamba-2 one: one shard's shapes,
+    which at ``tp`` 1 and ``seq_shards`` 1 are the whole state."""
+    del params_like
+    lay = TpLayout.build(cfg, tp)
+    period = _period(cfg)
+    n_repeat = cfg.n_layers // period
+    states = []
+    for pos in range(period):
+        if cfg.is_attn_layer(pos):
+            shape = (n_repeat, batch, max_seq // seq_shards, lay.kv_local,
+                     cfg.dh)
+            states.append(KVCache(
+                k=torch.zeros(shape, dtype=dtype, device=device),
+                v=torch.zeros(shape, dtype=dtype, device=device)))
+        else:
+            h_l = (lay.ssm_heads_pad or cfg.ssm_heads) // tp
+            states.append(SSMState(
+                conv=torch.zeros((n_repeat, batch, cfg.ssm_conv_k - 1,
+                                  cfg.d_inner // tp), dtype=dtype,
+                                 device=device),
+                ssm=torch.zeros((n_repeat, batch, h_l, cfg.ssm_head_dim,
+                                 cfg.ssm_state), dtype=torch.float32,
+                                device=device)))
+    return states
+
+
+def _serving_split(pctx: ParallelCtx, seq_shard_axis) -> tuple[int, int]:
+    """``(seq_shards, peers)`` of a decode step: with ``seq_shard_axis``
+    (the data axes) the cache's sequence is split over the data peers and
+    the batch replicated; otherwise the batch's rows are split over them."""
+    if seq_shard_axis is None:
+        return 1, pctx.dp_size()
+    axes = ((seq_shard_axis,) if isinstance(seq_shard_axis, str)
+            else tuple(seq_shard_axis))
+    if axes != pctx.dp_axes():
+        raise ValueError(f"seq_shard_axis {axes} must be the data axes "
+                         f"{pctx.dp_axes()}")
+    return pctx.dp_size(), 1
+
+
+@torch.no_grad()
+def decode_step(params, state, tokens, pos, cfg: ModelConfig,
+                pctx: ParallelCtx | None = None, *, key: Key | None = None,
+                seq_shard_axis=None):
+    """One greedy decode step. ``tokens``: (B, 1); ``pos``: the tokens'
+    position, an int or a 0-d tensor; ``state``: the global decode state
+    (a list over period positions), written in place. Returns
+    ``(next_tokens (B, 1) int32, state)``. ``key`` serves only the FSDP
+    gathers (layer l's weights with ``fold_in(key, l)``); with
+    ``pctx.moe_stationary`` under FSDP the expert weights are not
+    gathered."""
+    pctx = pctx or SINGLE
+    tokens = tokens.long()
+    dev = tokens.device
+    step = torch.as_tensor(pos, device=dev).to(torch.long).reshape(1)
+    seq_shards, peers = _serving_split(pctx, seq_shard_axis)
+    x = embed_tokens(_maybe_gather(pctx, params["embed"], 1, key, "embed"),
+                     tokens, cfg, pctx)
+    kv = _kv_maps(cfg, pctx.tp_size(), dev)
+    stages = params["stages"]
+    period = len(stages)
+    names = [tuple(sorted(stage)) for stage in stages]
+    fsdp_dims = _layer_fsdp_dims(cfg) if pctx.fsdp else None
+    stationary = pctx.moe_stationary and pctx.fsdp
+    for r in range(cfg.n_layers // period):
+        for p in range(period):
+            weights = [stages[p][k][r] for k in names[p]]
+            if pctx.fsdp:
+                lkey = (fold_in(key, r * period + p) if key is not None
+                        else None)
+                weights = [w if stationary and k.startswith("we_") else
+                           _maybe_gather(pctx, w, fsdp_dims[p][k], lkey, k)
+                           for k, w in zip(names[p], weights)]
+            layer_state = type(state[p])(*(a[r] for a in state[p]))
+            x, _ = _layer(x, None, cfg, p, names[p], pctx, kv, *weights,
+                          state=layer_state, step=step,
+                          seq_shards=seq_shards, peers=peers)
+    x = rms_norm(x, params["final_ln"])
+    nxt = _greedy(x[:, 0], _head(params, pctx, key), pctx)
+    return nxt[:, None], state

@@ -13,6 +13,11 @@ shapes (padded for ``tp``: ``init_params(key, cfg, tp=T)`` on the
 reference's side, ``param_table(cfg, tp=T)`` on the port's), and on one
 card the port stores every parameter and optimizer leaf whole at its global
 shape (``train/trainer.py``), so the same leaves fit every mode.
+
+``decode_state_from_jax`` carries a decode state across the same way: the
+reference's list over period positions of ``KVCache(k, v)`` /
+``SSMState(conv, ssm)`` with numpy leaves becomes the port's list of its
+``KVCache`` / ``SSMState``, leaf for leaf, dtypes kept.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.models.layers import KVCache
+from repro_torch.models.ssm import SSMState
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.tree import tree_map
 
@@ -50,3 +57,17 @@ def params_from_jax(params: Any, opt_state: Any = None, *,
         m, v = opt_state
         return p, AdamState(m=carry(m), v=carry(v))
     return p, carry(opt_state)
+
+
+def decode_state_from_jax(state, *, device: torch.device | str = "cpu"):
+    """The reference's decode state (a list over period positions of
+    named tuples ``(k, v)`` or ``(conv, ssm)`` of numpy arrays) -> the
+    port's list of ``KVCache`` / ``SSMState`` tensors, bf16 bit for bit."""
+    kinds = {("k", "v"): KVCache, ("conv", "ssm"): SSMState}
+    out = []
+    for st in state:
+        kind = kinds.get(tuple(getattr(st, "_fields", ())))
+        if kind is None:
+            raise TypeError(f"not a KVCache or SSMState: {type(st)}")
+        out.append(kind(*(tensor_from_numpy(a, device) for a in st)))
+    return out

@@ -207,9 +207,23 @@ def test_dropped_assignments_contribute_nothing(ref):
 
 
 def test_weights_stationary_raises():
-    """The serving form is a later slice."""
-    x = torch.zeros(1, 2, 4)
-    w = {"router": torch.zeros(4, 2), "we_gate": torch.zeros(2, 4, 3),
-         "we_up": torch.zeros(2, 4, 3), "we_down": torch.zeros(2, 3, 4)}
-    with pytest.raises(NotImplementedError, match="serving"):
-        moe_block(x, w, top_k=1, n_experts=2, weights_stationary=True)
+    """The weights-stationary form (serving) raises where d_model does not
+    split over the data peers; where it does, with one batch every peer
+    holds, it is the plain form up to the rounding of the partial sums."""
+    from repro_torch.models.parallel import ParallelCtx
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 2, 4, generator=gen)
+    w = {"router": torch.randn(4, 2, generator=gen),
+         "we_gate": torch.randn(2, 4, 3, generator=gen),
+         "we_up": torch.randn(2, 4, 3, generator=gen),
+         "we_down": torch.randn(2, 3, 4, generator=gen)}
+    three = ParallelCtx(dp_axis="data", fsdp=True, sizes={"data": 3})
+    with pytest.raises(ValueError, match="split"):
+        moe_block(x, w, top_k=1, n_experts=2, weights_stationary=True,
+                  pctx=three)
+    two = ParallelCtx(dp_axis="data", fsdp=True, moe_stationary=True,
+                      sizes={"data": 2})
+    got = moe_block(x, w, top_k=1, n_experts=2, weights_stationary=True,
+                    pctx=two)
+    torch.testing.assert_close(got, moe_block(x, w, top_k=1, n_experts=2),
+                               atol=1e-6, rtol=1e-6)
