@@ -34,9 +34,12 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 8. the same trainer on gpt2-smoke, 2 steps on the card against 2 steps of
    the plain versions on the CPU from the same parameters and draws, for
    optireduce and for optireduce_q (noise included);
-9. one more step of each main path under ``torch.profiler``: wall time,
-   device busy time and idle share, the largest device and host entries,
-   and each of the port's kernels' device time;
+9. one more step of optireduce and of optireduce_q under
+   ``torch.profiler``: wall time, device busy time and idle share, the
+   largest device and host entries, and each of the port's kernels' device
+   time (the profiles of optireduce_rounds, ``--recovery ef`` and
+   ``--dp-mode fsdp`` were cut to pay for later phases; PERF.md section
+   4);
 10. kernel B7 (THC's quantizer onto one shared range) against its plain
     version at the THC path's full-width shape: x (8, 148,304, 1024), one
     shared (148,304, 1024) noise copy, the range formed from the data as
@@ -75,15 +78,14 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     gloo_ring (within the fp32 sum bound: its chunks add in another order
     once re-cut); ``dead_links=((1, 2),)`` on optireduce_rounds at drop
     0.01 (bitwise the run without it, 6 + 4 permutes a bucket);
-17. ``rounds_cpu``: 8.'s comparison for optireduce_rounds and tar_rounds_q;
-    and 9.'s profile for optireduce_rounds, with the permutes and the device
-    ms of the index kernels (the permutes' gathers and indexed writes);
+17. ``rounds_cpu``: 8.'s comparison for optireduce_rounds and
+    tar_rounds_q;
 18. ``adaptive_codec``: the launcher with the §3.2 control plane in the loop,
     ``--strategy optireduce --adaptive --drop-rate 0.002 --steps 5 --trace
     --report`` at 6.'s full width: per step the policy the step ran under,
     B1 and B2 launches, loss_frac, step ms, the trace's ``step`` span's
     host ms beyond the step (logging, control plane, any rebuild) and the
-    device busy ms of the first and last step (under ``torch.profiler``),
+    device busy ms of the last step (under ``torch.profiler``),
     then the control plane's host us a step, replayed on the run's own
     telemetry; B1 must be 48 a step while
     ``use_hadamard`` is on and 0 while it is off, B2 24; the rebuilds must
@@ -109,8 +111,7 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     the entries the stale cache filled (> 0), step ms and peak memory;
     exactly 120 B1 launches a step (the data's encode and decode, the
     cache's one-row encode, the residuals' encode and decode, 24 buckets)
-    and none of B2 (the plain mean follows the fill); then one more step of
-    it profiled as in 9., with its elementwise kernels listed;
+    and none of B2 (the plain mean follows the fill);
 22. ``recovery_stale`` (``--recovery stale``, 3 steps: 72 B1, 0 B2 a step)
     and ``recovery_rounds`` (``optireduce_rounds --incast 2 --recovery ef``,
     2 steps: 120 B1, 0 B2, 144 permutes a step);
@@ -157,8 +158,7 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     ``optireduce_2d`` on 2 x 4), and one FSDP step with 2 micro-batches:
     metrics, parameters and both AdamW moments within ``STEP_TOL``, the
     card's launches exact;
-32. ``profile`` of one ``--dp-mode fsdp`` step as in 9., with its peak
-    memory.
+32. (cut: the profile of one ``--dp-mode fsdp`` step.)
 
 33. ``tp_shapes``: B1-B6 at the shapes of the ``(data 4, model 2)`` grid
     (one bucket of the ``(8, 12, 6,553,600)`` arena, both tp groups in one
@@ -273,7 +273,37 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     stationary for the MoE archs, dp 2 x tp 2 for the dense ones) on the
     card against the CPU, same parameters: tokens equal, states within
     1e-5 of each leaf's largest magnitude;
-57. ``seconds``: the script's wall clock, whole and by group of phases.
+57. ``tp_families_main``: the launcher at full width with ``--dp 2 --tp
+    2`` (experts, SSM heads and the prefix over the tp ranks), optireduce,
+    tail drops 0.01, seq 128, global batch 8, AdamW, 2 steps, on
+    qwen2-moe-a2.7b (1 of 24 layers), mamba2-1.3b (12 of 48) and
+    llava-next-mistral-7b (2 of 32, ``--seq-parallel --prefix``: 2,048
+    patches before the 128 tokens): loss, loss_frac, step ms, peak bytes;
+    launches exactly 2 B1 and 1 B2 a bucket of one tp rank's local leaves a
+    step; then one step at ``--tp 1`` without drops: the first losses
+    within ``TP_LOSS_TOL`` relative; then one step each at ``--tp 2`` and
+    ``--tp 1`` without drops in fp32 (mamba2's in fp64): losses within
+    ``TP_LOSS_TOL``, gradient norms within ``TP_GRAD_TOL``;
+58. ``tp_serve_families``: ``generate`` over tp at full width:
+    qwen2-moe-a2.7b (24 layers, tp 8: 60 experts padded to 64; B 32,
+    prompt 64, 32 new), mamba2-1.3b (48 layers, tp 2; B 32, 128, 64) and
+    jamba-v0.1-52b (8 of 32 layers, tp 2; B 8, 256, 32): tok/s, ms a step,
+    state and peak bytes; then, in fp32, 16 teacher-forced
+    ``build_serve_step`` steps at dp 1 x tp T against tp 1 on the same
+    weights: tokens agreed, layer 1's written rows or SSM states within
+    ``TP_LAYER1_TOL``, every layer's within its arch's ``TP_SERVE_TOL``;
+    mamba2's steps again in fp64, every layer's within
+    ``TP_SERVE_FP64_TOL``;
+59. ``tp_families_check``: every non-dense smoke config at (data 2, model
+    2), qwen2-moe-smoke at (data 2, model 4) and llava-smoke under
+    ``seq_parallel``, 2 steps card against CPU within ``STEP_TOL``,
+    launches exact;
+60. ``dryrun``: ``python -m repro_torch.launch.dryrun --all`` on the 16 x
+    16 mesh, on the ``meta`` device in a process of its own started before
+    the kernels' build (host only, beside the card's phases): 40 cells, 8
+    skipped (long_500k of the full-attention archs), each other one's state
+    bytes a device and ``matmul_flops``; its own seconds;
+61. ``seconds``: the script's wall clock, whole and by group of phases.
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -290,6 +320,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -391,6 +422,12 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0))})
+
+    # 60. the dry run of every arch x shape cell, on the host beside the
+    # card's phases
+    dryrun_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dryrun_out = dryrun_dir / "dryrun.json"
+    dryrun = start_dryrun(dryrun_out)
 
     # 2. build every kernel, in parallel
     t0 = time.perf_counter()
@@ -571,10 +608,8 @@ def main() -> int:
 
     # 9. where one step of each main path's time goes (21.: and with
     # error feedback under burst drops)
-    for strategy in ("optireduce", "optireduce_q", "optireduce_rounds"):
+    for strategy in ("optireduce", "optireduce_q"):
         profile_step(dev, strategy)
-    profile_step(dev, "optireduce", recovery="ef", pattern="burst")
-    profile_step(dev, "optireduce", dp_mode="fsdp")
     profile_step(dev, "optireduce", tp=TP)
     lap("profiles")
 
@@ -600,6 +635,15 @@ def main() -> int:
     check_serving_against_cpu(dev)
     lap("serving")
 
+    # 57.-60. the non-dense families over tensor parallelism (A21c):
+    # training, serving, card vs CPU; the dry run runs beside them all
+    tp_families_paths(counters)
+    lap("tp_families_main")
+    tp_serve_families(dev)
+    lap("tp_serve_families")
+    check_tp_families_against_cpu(dev)
+    lap("tp_families_check")
+
     # 10. B7, THC's quantizer, at the THC path's full-width shape
     b7 = check_uniform_quant(dev, gen)
 
@@ -620,8 +664,10 @@ def main() -> int:
     tta_paths(dev)
     check_thc_against_cpu(dev)
     lap("thc_tta")
+    dryrun_s = finish_dryrun(dryrun, dryrun_out)
+    lap("dryrun_wait")
     emit({"phase": "seconds", "total": marks[-1] - marks[0],
-          "by_group": laps})
+          "by_group": laps, "dryrun_own_s": dryrun_s})
 
     kernels.append({
         "name": "fwht", "route": "cuda",
@@ -1272,7 +1318,7 @@ def adaptive_run(phase: str, strategy: str, rate: float, steps: int,
     out_dir.mkdir(parents=True, exist_ok=True)
     report_path = out_dir / "report.json"
     trace_dir = out_dir / "trace"
-    watch = _StepWatch(counters, profile_steps=(0, steps - 1))
+    watch = _StepWatch(counters, profile_steps=(steps - 1,))
     real = launch_train.build_train_step
     launch_train.build_train_step = watch.wrap(real)
     captured = io.StringIO()
@@ -3996,6 +4042,350 @@ def check_serving_against_cpu(dev) -> None:
     emit({"phase": "serve_check", "cases": len(worst),
           "max_state_rel_err": max(worst.values()),
           "worst_case": max(worst, key=worst.get), "tolerance": SERVE_TOL})
+
+
+# ------------------- the families over tensor parallelism (A21c), dry run
+# tp_families_main: (arch, layers, extra launcher flags) through the
+# launcher at full width, --dp 2 --tp 2 (PERF.md section 4 lists the cuts)
+TP_FAMILIES_MAIN = (("qwen2-moe-a2.7b", 1, ()),
+                    ("mamba2-1.3b", 12, ()),
+                    ("llava-next-mistral-7b", 2, ("--seq-parallel",
+                                                  "--prefix")))
+TP_FAMILIES_STEPS = 2
+# the first step at tp 2 against tp 1, same parameters and batch, no
+# drops: the loss in bf16 (tp 2's row-parallel partials rounded before
+# their sum; 7e-7 to 1.5e-5 measured on an H100) and, in fp32, the loss
+# and the gradient norm after the sync. bf16 cannot hold the norm, nor can
+# fp32 for mamba2-1.3b: its random-init gradient is ill-conditioned
+# (ROADMAP C; tools/mamba2_conditioning.py), and 12 layers at full width
+# left 3.1e-3 between tp 2 and tp 1 in fp32 on an H100. So its pair runs
+# in fp64 (TP_GRAD_DTYPE), where rounding's share shrinks to the fp32
+# arena's and norm's own (~1e-7)
+TP_LOSS_TOL = 1e-4
+TP_GRAD_TOL = 1e-4
+TP_GRAD_DTYPE = {"mamba2-1.3b": "float64"}
+# fp32 at full width, tp T against tp 1 on the same weights (the T
+# rounded partial products summed in another order): layer 1's state (the
+# first behind a sum over tp) within TP_LAYER1_TOL of its largest
+# magnitude, every layer's within its arch's TP_SERVE_TOL. Random-init
+# mamba2-1.3b has no gated norm (ROADMAP C): its 48 layers grow the gap
+# ~1.2x a layer (9.66e-7 at layer 1 to 2.64e-3 at layer 45 on an H100),
+# so its bound is wide, and the same comparison in fp64
+# (TP_SERVE_FP64_ARCHS) must fall within TP_SERVE_FP64_TOL: a rounding
+# gap shrinks with the unit roundoff (~2e-9 of fp32's), a wrong head or
+# partial would not
+TP_LAYER1_TOL = 1e-5
+TP_SERVE_TOL = {"qwen2-moe-a2.7b": 1e-5, "mamba2-1.3b": 1e-2,
+                "jamba-v0.1-52b": 1e-4}
+TP_SERVE_FP64_ARCHS = ("mamba2-1.3b",)
+TP_SERVE_FP64_TOL = 1e-8
+# arch -> (layers, tp, batch, prompt, new): generate over tp at full width
+TP_SERVE_FAMILIES = {"qwen2-moe-a2.7b": (None, 8, 32, 64, 32),
+                     "mamba2-1.3b": (None, 2, 32, 128, 64),
+                     "jamba-v0.1-52b": (8, 2, 8, 256, 32)}
+NON_DENSE = ("qwen2-moe-a2.7b", "arctic-480b", "mamba2-1.3b",
+             "jamba-v0.1-52b", "llava-next-mistral-7b", "musicgen-medium")
+DRYRUN_TIMEOUT_S = 600
+
+
+def local_buckets(cfg, tp: int, bucket: int) -> tuple[int, int]:
+    """One tp rank's local parameter count at ``tp`` and its buckets: the
+    arena one tp group packs (``trainer.to_tp``'s chunks)."""
+    from repro_torch.models import param_table
+    from repro_torch.models.transformer import _map_table
+
+    n = 0
+
+    def add(leaf):
+        nonlocal n
+        n += math.prod(leaf.shape) // (tp if leaf.tp_dim is not None else 1)
+    _map_table(add, param_table(cfg, tp=tp))
+    return max(1, -(-n // bucket)), n
+
+
+def tp_families_paths(counters: dict) -> None:
+    """Phase ``tp_families_main``: the launcher (``--arch``) on each
+    ``TP_FAMILIES_MAIN`` model at full width with ``--dp 2 --tp 2``,
+    optireduce, tail drops 0.01, seq 128, global batch 8, AdamW,
+    ``TP_FAMILIES_STEPS`` steps (llava with ``--seq-parallel`` and its
+    2,048-patch prefix): loss, loss_frac, step ms and peak bytes; B1 and B2
+    launches exactly 2 and 1 a bucket of one tp rank's local leaves a step
+    (both tp groups in one launch), none of the others. Then one step of
+    the same launcher at ``--tp 1`` without drops: the first losses within
+    ``TP_LOSS_TOL`` relative; and one step each at ``--tp 2`` and ``--tp
+    1`` without drops on the parameters in fp32 (``TP_GRAD_DTYPE`` where
+    fp32 is too narrow): losses within ``TP_LOSS_TOL``, gradient norms
+    within ``TP_GRAD_TOL``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import count_params
+
+    def rel(a, b, k):
+        return abs(a[0][k] - b[0][k]) / abs(b[0][k])
+
+    full_config = launch_train.get_config
+    for arch, layers, extra in TP_FAMILIES_MAIN:
+        cfg = full_width(arch, layers)
+        buckets, local = local_buckets(cfg, TP, BUCKET)
+        exact = ("--drop-rate", "0", *extra)
+        try:
+            launch_train.get_config = lambda _: cfg
+            free_card()
+            counts, recs = train_main_path(
+                "optireduce", TP_FAMILIES_STEPS, counters,
+                phase="tp_families_main", arch=arch, loss_seen=False,
+                extra=("--dp", "2", "--tp", str(TP), *extra),
+                label={"family": cfg.family, "layers": cfg.n_layers,
+                       "params": count_params(cfg), "tp_local": local,
+                       "buckets": buckets})
+            wide = TP_GRAD_DTYPE.get(arch, "float32")
+            runs = {}
+            for name, tp in (("bf16_tp1", 1), ("wide_tp2", TP),
+                             ("wide_tp1", 1)):
+                if name.startswith("wide"):
+                    launch_train.get_config = lambda _: dataclasses.replace(
+                        cfg, param_dtype=getattr(torch, wide))
+                free_card()
+                runs[name] = train_main_path(
+                    "optireduce", 1, counters,
+                    phase=f"tp_families_{name.replace('wide', wide)}",
+                    arch=arch, loss_seen=False,
+                    extra=("--dp", "2", "--tp", str(tp), *exact))[1]
+        finally:
+            launch_train.get_config = full_config
+        want = {k: 0 for k in counters}
+        want.update(fwht=2 * buckets * TP_FAMILIES_STEPS,
+                    masked_mean=buckets * TP_FAMILIES_STEPS)
+        gaps = {"loss_bf16": rel(recs, runs["bf16_tp1"], "loss"),
+                f"loss_{wide}": rel(runs["wide_tp2"], runs["wide_tp1"],
+                                    "loss"),
+                f"grad_norm_{wide}": rel(runs["wide_tp2"], runs["wide_tp1"],
+                                         "grad_norm")}
+        emit({"phase": "tp_families_vs_tp1", "arch": arch,
+              "loss_tp2": recs[0]["loss"],
+              "loss_tp1": runs["bf16_tp1"][0]["loss"],
+              f"grad_norm_{wide}": [runs["wide_tp2"][0]["grad_norm"],
+                                    runs["wide_tp1"][0]["grad_norm"]],
+              "rel_diff": gaps,
+              "tolerance": {"loss": TP_LOSS_TOL, "grad_norm": TP_GRAD_TOL}})
+        if counts != want:
+            fail(f"tp_families_main {arch}: launch counts {counts} over "
+                 f"{TP_FAMILIES_STEPS} steps, expected {want}")
+        if not (gaps["loss_bf16"] <= TP_LOSS_TOL
+                and gaps[f"loss_{wide}"] <= TP_LOSS_TOL
+                and gaps[f"grad_norm_{wide}"] <= TP_GRAD_TOL):
+            fail(f"tp_families_main {arch}: tp 2 against tp 1 {gaps}")
+    free_card()
+
+
+def _layer_errs(a_state, b_state, positions) -> list:
+    """Each layer's error, in model order (layer r x period + p): its
+    written K / V rows (attention) or its SSM states (conv tail and SSD
+    state), max |a - b| over the largest magnitude there, taken in fp64
+    (an fp32 cast would round fp64 states before the difference)."""
+    import torch
+
+    from repro_torch.models.layers import KVCache
+    period = len(a_state)
+    idx = torch.tensor(positions, device=a_state[0][0].device)
+    errs = {}
+    for p, (a, b) in enumerate(zip(a_state, b_state)):
+        for r in range(a[0].shape[0]):
+            err = scale = 0.0
+            for x, y in zip(a, b):
+                x, y = x[r].double(), y[r].double()
+                if isinstance(a, KVCache):
+                    x, y = x.index_select(-3, idx), y.index_select(-3, idx)
+                err = max(err, float((x - y).abs().max()))
+                scale = max(scale, float(y.abs().max()))
+            errs[r * period + p] = err / max(scale, 1e-30)
+    return [errs[k] for k in sorted(errs)]
+
+
+def _cast(tree, dtype) -> None:
+    """Cast every tensor of a dict / list tree to ``dtype`` in place, one
+    leaf at a time (the old leaf freed as its copy replaces it)."""
+    import torch
+    for k in list(tree.keys() if isinstance(tree, dict)
+                  else range(len(tree))):
+        if isinstance(tree[k], torch.Tensor):
+            tree[k] = tree[k].to(dtype)
+        else:
+            _cast(tree[k], dtype)
+
+
+def tp_serve_families(dev) -> None:
+    """Phase ``tp_serve_families``: ``generate`` over tp at full width on
+    each ``TP_SERVE_FAMILIES`` model (bf16, random weights from seed 0,
+    padded for tp: qwen2-moe's 60 experts to 64 at tp 8): tok/s, ms a
+    step, state and peak bytes, tokens in vocab; then, the weights cast to
+    fp32 in place, ``GRID_STEPS`` teacher-forced steps of
+    ``build_serve_step`` at dp 1 x tp T against the same weights at tp 1:
+    tokens agreed; layer 1's written K / V rows or SSM states (the first
+    layer behind a sum over tp) within ``TP_LAYER1_TOL`` of their largest
+    magnitude, every layer's within its arch's ``TP_SERVE_TOL``; for
+    ``TP_SERVE_FP64_ARCHS`` the same steps again in fp64, every layer's
+    within ``TP_SERVE_FP64_TOL``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.keys import fold_in, generator, key
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ParallelCtx, decode_step, init_params
+    from repro_torch.models.transformer import count_params
+    from repro_torch.serve import (build_serve_step, engine, global_state,
+                                   plan_serving)
+    from repro_torch.tree import tree_leaves
+
+    for arch, (layers, tp, b, prompt, new) in TP_SERVE_FAMILIES.items():
+        free_card()
+        cfg = full_width(arch, layers)
+        params = init_params(generator(key(0), dev), cfg, device=dev, tp=tp)
+        n = sum(p.numel() for p in tree_leaves(params))
+        prompts = torch.randint(0, cfg.vocab_size, (b, prompt),
+                                generator=generator(fold_in(key(0), 1), dev),
+                                device=dev)
+        pctx = ParallelCtx(tp_axis="model", sizes={"model": tp})
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _DecodeClock().around(engine) as clock:
+            out = engine.generate(params, cfg, prompts, max_new=new,
+                                  key=key(0), pctx=pctx)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        row = _serve_row(clock, b * new, seconds, 2 * n)
+        if (tuple(out.shape) != (b, prompt + new)
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size):
+            fail(f"tp_serve_families {arch}: output {tuple(out.shape)}")
+        del out
+        free_card()
+        # the comparison in fp32: in bf16 the T rounded partial sums flip
+        # MoE routes from layer 0 on (qwen2 at tp 8: layer 1's rows 0.17
+        # apart, tokens 0.79 agreed on an H100)
+        mesh = make_host_mesh(dp=1, tp=tp)
+        positions = list(range(GRID_STEPS))
+        toks = prompts[:, :GRID_STEPS]
+        for dtype in (torch.float32, torch.float64):
+            if dtype == torch.float64 and arch not in TP_SERVE_FP64_ARCHS:
+                break
+            _cast(params, dtype)
+            cfg = dataclasses.replace(cfg, param_dtype=dtype)
+            state = global_state(cfg, batch=b, max_seq=GRID_STEPS, tp=tp,
+                                 dtype=dtype, device=dev)
+            plain = global_state(cfg, batch=b, max_seq=GRID_STEPS,
+                                 dtype=dtype, device=dev)
+            fn, _ = build_serve_step(cfg, mesh, plan_serving(mesh, b))(state)
+            got, state, ms = _grid_run(fn, params, state, toks, positions,
+                                       key(0))
+            want, plain, _ = _grid_run(
+                lambda p, st, t, pos, k: decode_step(p, st, t, pos, cfg,
+                                                     key=k),
+                params, plain, toks, positions, key(0))
+            per_layer = _layer_errs(state, plain, positions)
+            del state, plain
+            if dtype == torch.float64:
+                emit({"phase": "tp_serve_families_fp64", "arch": arch,
+                      "tp": tp, "grid_steps": GRID_STEPS,
+                      "token_agreement": float((got == want).float().mean()),
+                      "layer_rel_err": per_layer,
+                      "tolerance": TP_SERVE_FP64_TOL})
+                if not max(per_layer) <= TP_SERVE_FP64_TOL:
+                    fail(f"tp_serve_families {arch}: fp64 layer errors "
+                         f"{per_layer}")
+                continue
+            emit({"phase": "tp_serve_families", "arch": arch,
+                  "family": cfg.family, "layers": cfg.n_layers,
+                  "params": count_params(cfg), "params_padded": n, "tp": tp,
+                  "batch": b, "prompt": prompt, "new": new, **row,
+                  "grid_steps": GRID_STEPS,
+                  "grid_step_ms_median": _median(ms[SERVE_WARMUP:]),
+                  "token_agreement": float((got == want).float().mean()),
+                  "layer_rel_err": per_layer,
+                  "tolerance": [TP_LAYER1_TOL, TP_SERVE_TOL[arch]]})
+            if not (per_layer[1] <= TP_LAYER1_TOL
+                    and max(per_layer) <= TP_SERVE_TOL[arch]):
+                fail(f"tp_serve_families {arch}: layer errors {per_layer}")
+        del params, prompts
+    free_card()
+
+
+def check_tp_families_against_cpu(dev) -> None:
+    """Phase ``tp_families_check``: every non-dense smoke config at ``(data
+    2, model 2)``, qwen2-moe-smoke at ``(data 2, model 4)`` (its 6 experts
+    padded to 8) and llava-smoke under ``seq_parallel``: 2 steps on the
+    card against 2 on the CPU as ``tp_check``, buckets of 16,384 of one tp
+    rank's local leaves (2 B1 + 1 B2 each)."""
+    from repro_torch.configs import get_smoke
+
+    for arch in NON_DENSE:
+        b = local_buckets(get_smoke(arch), TP, 16_384)[0]
+        cpu_cases(dev, {"tp_families_check": (
+            "optireduce", "replicated", False, None, (2, TP), 2,
+            (2 * b, b))}, arch=arch)
+    b = local_buckets(get_smoke("qwen2-moe-a2.7b"), 4, 16_384)[0]
+    cpu_cases(dev, {"tp_families_check_tp4": (
+        "optireduce", "replicated", False, None, (2, 4), 2, (2 * b, b))},
+        arch="qwen2-moe-a2.7b")
+    b = local_buckets(get_smoke("llava-next-mistral-7b"), TP, 16_384)[0]
+    cpu_cases(dev, {"tp_families_check_sp": (
+        "optireduce", "replicated", False, None, (2, TP), 2, (2 * b, b))},
+        seq_parallel=True, arch="llava-next-mistral-7b")
+
+
+def start_dryrun(out_path: Path):
+    """Phase ``dryrun``: ``python -m repro_torch.launch.dryrun --all`` in a
+    process of its own (host only, on the ``meta`` device: it overlaps the
+    card's phases), writing ``out_path``."""
+    import atexit
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", str(out_path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_dryrun(proc, out_path: Path) -> float:
+    """Wait for the dry run; every one of the 40 cells ok or skipped as
+    ``shape_applicable`` gives them (8 long_500k cells of full-attention
+    archs), each with its state bytes and ``matmul_flops``. Returns its
+    seconds by its own ``done`` line."""
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"dryrun: not done in {DRYRUN_TIMEOUT_S} s")
+    done = re.search(r"^done: (\d+) cells, (\d+) errors in ([0-9.]+)s$",
+                     out, re.M)
+    if proc.returncode != 0 or not done:
+        fail(f"dryrun: rc {proc.returncode}: {out[-2000:]}")
+    with open(out_path) as f:
+        recs = json.load(f)
+    cells = [{"arch": r["arch"], "shape": r["shape"], "status": r["status"],
+              "state_bytes_per_device": r.get("state_bytes_per_device",
+                                              {}).get("total"),
+              "matmul_flops": r.get("cost_model", {}).get("matmul_flops"),
+              "seconds": r.get("seconds")} for r in recs]
+    skipped = sum(r["status"] == "skipped" for r in recs)
+    seconds = float(done.group(3))
+    emit({"phase": "dryrun", "mesh": "16x16", "cells": len(recs),
+          "errors": int(done.group(2)), "skipped": skipped,
+          "seconds": seconds, "by_cell": cells})
+    ok = (len(recs) == 40 and skipped == 8
+          and all(r["status"] in ("ok", "skipped") for r in recs)
+          and all(c["matmul_flops"] and c["state_bytes_per_device"]
+                  for c in cells if c["status"] == "ok"))
+    if not ok:
+        fail(f"dryrun: {cells}")
+    return seconds
 
 
 PORTED_KERNELS = ("fwht_rows_kernel", "masked_mean_vec4", "ht_kernel",

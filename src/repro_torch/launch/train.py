@@ -83,6 +83,8 @@ import math
 import sys
 import time
 
+import numpy as np
+
 from repro_torch import obs
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core import recovery as recovery_lib
@@ -175,6 +177,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy-cache", type=int, default=4,
                     help="step functions kept per SyncPolicy (LRU)")
     ap.add_argument("--dp-mode", default="replicated")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="Megatron sequence parallelism over the --tp ranks "
+                         "(the prefix and tokens must split evenly)")
+    ap.add_argument("--prefix", action="store_true",
+                    help="frontend archs: each batch carries the config's "
+                         "prefix_len precomputed patch / frame embeddings "
+                         "(standard normal, from --seed and the step) "
+                         "before the --seq-len tokens")
     ap.add_argument("--sync-mode", default="pipelined",
                     choices=("pipelined", "scan", "vmap"))
     ap.add_argument("--kernel-mode", default=None, choices=KERNEL_MODES,
@@ -193,6 +203,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     return ap
+
+
+def prefix_embeds(cfg, args, step: int) -> np.ndarray:
+    """``--prefix``: step ``step``'s (global batch, prefix_len,
+    frontend_dim) fp32 frontend embeddings, standard normal from
+    ``(--seed, step)``."""
+    rng = np.random.default_rng((args.seed, step, 1))
+    return rng.standard_normal(
+        (args.global_batch, cfg.prefix_len, cfg.frontend_dim),
+        dtype=np.float32)
 
 
 def run(argv=None) -> list[dict]:
@@ -232,6 +252,8 @@ def run(argv=None) -> list[dict]:
                      "--transport=udp")
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.prefix and not cfg.frontend:
+        ap.error(f"--prefix needs a frontend arch; {cfg.name} has none")
     print(f"arch={cfg.name} mesh={mesh.shape} device={device} "
           f"strategy={args.strategy} drop_rate={args.drop_rate} "
           f"transport={args.transport}", flush=True)
@@ -268,7 +290,7 @@ def run(argv=None) -> list[dict]:
                                   hadamard_block=1024),
             optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr),
             dp_mode=args.dp_mode, microbatch=args.microbatch,
-            sync_mode=args.sync_mode,
+            sync_mode=args.sync_mode, seq_parallel=args.seq_parallel,
             transport_override=(WireTransport(ring.bridge_exchange)
                                 if wire else None),
             kernel_mode=args.kernel_mode, seq_chunk=min(512, args.seq_len))
@@ -343,6 +365,8 @@ def run(argv=None) -> list[dict]:
         t0 = time.perf_counter()
         for step in range(start_step, args.steps):
             batch = data.host_batch(step, 0, 1)
+            if args.prefix:
+                batch["prefix_embeds"] = prefix_embeds(cfg, args, step)
             st0 = tracer.now() if tracer is not None else 0.0
             t_step = time.perf_counter()
             if rec_state is None:

@@ -43,10 +43,10 @@ from .parallel import ParallelCtx
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
              eps: float = 1e-5) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)
-            * scale.to(torch.float32)).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * scale.to(acc)).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, *, theta: float = 10000.0,

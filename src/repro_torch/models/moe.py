@@ -1,9 +1,15 @@
 """Top-k Mixture-of-Experts: capacity-based dispatch with scatter/gather.
 
-Counterpart of ``src/repro/models/moe.py`` at one tensor-parallel rank
-(experts over tp are ROADMAP A21c; ``param_table`` refuses them), so
-``pctx`` serves only serving's data peers. No ``(T, E, C)`` one-hot is
-formed: the position of each (token, slot) within its expert comes from a
+Counterpart of ``src/repro/models/moe.py``. Under tensor parallelism the
+reference shards the (padded) experts over the tp ranks: every rank routes
+every token with the replicated router, computes only its ``E_pad / T``
+experts, and the ranks' partial outputs are psum'd (``reduce_output``
+under SP). The port computes all ``E_pad`` experts in one batched product
+(an expert's output does not depend on the rank that holds it), then
+adds the weighted slots, by the rank that owns their expert, into a ``(T,
+B, S, D)`` stack of the ranks' partial outputs (one ``index_add``) and
+reduces it in rank order, so the sum rounds as the reference's psum does.
+No ``(T, E, C)`` one-hot is formed: the position of each (token, slot) within its expert comes from a
 cumulative sum over the token-major, then slot, order of the assignments,
 the reference's order, so the same tokens overflow an expert's capacity
 and are dropped. The dispatch buffer is ``(G, E, C, D)`` for G routing
@@ -130,8 +136,23 @@ def moe_block(x: torch.Tensor, w: dict, *, top_k: int, n_experts: int,
         out_buf = torch.matmul(act(g) * u, w["we_down"].to(xt.dtype))
         gathered = out_buf[group, r.gate_idx, safe_p]
     gathered = torch.where(r.keep[..., None], gathered, zero)
-    combined = (gathered * r.gates[..., None].to(xt.dtype)).sum(dim=2)
-    return combined.reshape(b, s, d)
+    weighted = gathered * r.gates[..., None].to(xt.dtype)     # (G, T, K, D)
+    t = pctx.tp_size()
+    if t == 1:
+        return weighted.sum(dim=2).reshape(b, s, d)
+    if e_pad % t:
+        raise ValueError(f"{e_pad} experts do not split over {t} tp ranks")
+    # tp rank j owns experts [j E/T, (j+1) E/T): its partial output sums
+    # the slots its experts hold, in fp32 (at least) and rounded once as
+    # the sum over K above; the T partials are then reduced in rank order
+    n_tok = b * s
+    owner = r.gate_idx // (e_pad // t)                        # (G, T, K)
+    rows = owner * n_tok + torch.arange(
+        n_tok, device=x.device).view(peers, -1, 1)            # (G, T, K)
+    acc = torch.promote_types(xt.dtype, torch.float32)
+    parts = torch.zeros((t * n_tok, d), dtype=acc, device=x.device).index_add(
+        0, rows.reshape(-1), weighted.reshape(-1, d).to(acc))
+    return pctx.reduce_output(parts.to(xt.dtype).view(t, b, s, d))
 
 
 def moe_aux_loss(logits_f32: torch.Tensor, gate_idx: torch.Tensor,

@@ -1,9 +1,14 @@
 """Mamba-2 (SSD, state-space duality) layer: the chunked training form and
 the O(1) recurrent decode form.
 
-Counterpart of ``src/repro/models/ssm.py`` at one tensor-parallel rank (SSM
-heads over tp are ROADMAP A21c; ``param_table`` refuses them), so no
-``pctx`` is taken. It follows the minimal SSD listing of Dao & Gu
+Counterpart of ``src/repro/models/ssm.py``. Under tensor parallelism the
+reference shards the SSM heads (and the d_inner channels they own) over
+the tp ranks, replicates the one B/C group onto each rank's heads and
+psums ``out_proj``'s row-parallel partials; the port runs the tp group's
+heads in one pass over the global weights (every product but ``out_proj``
+is per channel or per head, so the concatenation of the ranks' values is
+the global value) and reduces ``out_proj``'s T partial products as the
+reference's ranks do. It follows the minimal SSD listing of Dao & Gu
 (arXiv:2405.21060): an intra-chunk quadratic term plus an inter-chunk
 state scan, here a loop over the chunks. The reference's three-operand
 einsums run as two-operand ones with the third factor multiplied in first
@@ -20,6 +25,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .layers import row_parallel
+from .parallel import SINGLE, ParallelCtx
 
 
 class SSMState(NamedTuple):
@@ -62,7 +69,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """SSD forward. x: (B, S, H, P); dt: (B, S, H) (post-softplus);
     a_log: (H,); b, c: (B, S, G, N) with H % G == 0.
     Returns y: (B, S, H, P) in x's dtype and the final state (B, H, P, N)
-    in fp32.
+    in fp32 (fp64 for fp64 x: the scan runs in the wider of x's dtype and
+    fp32).
     """
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -79,14 +87,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         s = s + pad
     nc = s // chunk
     rep = h // g
-    f32 = torch.float32
+    acc = torch.promote_types(x.dtype, torch.float32)
 
-    a = -torch.exp(a_log.to(f32))                                 # (H,)
-    dtac = (dt.to(f32) * a).reshape(bs, nc, chunk, h)
-    xc = x.reshape(bs, nc, chunk, h, p).to(f32)
-    dtc = dt.reshape(bs, nc, chunk, h).to(f32)
-    bc = b.reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3).to(f32)
-    cc = c.reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3).to(f32)
+    a = -torch.exp(a_log.to(acc))                                 # (H,)
+    dtac = (dt.to(acc) * a).reshape(bs, nc, chunk, h)
+    xc = x.reshape(bs, nc, chunk, h, p).to(acc)
+    dtc = dt.reshape(bs, nc, chunk, h).to(acc)
+    bc = b.reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3).to(acc)
+    cc = c.reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3).to(acc)
 
     # intra-chunk (quadratic) term
     decay = torch.exp(_segsum(dtac.transpose(2, 3)))          # (B,NC,H,C,C)
@@ -102,8 +110,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     # inter-chunk scan: carry the state with each chunk's total decay
     chunk_decay = torch.exp(dtac.sum(dim=2))                      # (B,NC,H)
-    st = (torch.zeros((bs, h, p, n), dtype=f32, device=x.device)
-          if init_state is None else init_state.to(f32))
+    st = (torch.zeros((bs, h, p, n), dtype=acc, device=x.device)
+          if init_state is None else init_state.to(acc))
     states_in = []
     for i in range(nc):
         states_in.append(st)
@@ -122,30 +130,38 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                     b: torch.Tensor, c: torch.Tensor, state: torch.Tensor):
     """One-token recurrence. x: (B, 1, H, P); dt: (B, 1, H);
-    b, c: (B, 1, G, N); state: (B, H, P, N) fp32. Returns (y, new_state)."""
+    b, c: (B, 1, G, N); state: (B, H, P, N) fp32 (fp64 for fp64 x).
+    Returns (y, new_state)."""
     h = x.shape[2]
     rep = h // b.shape[2]
-    f32 = torch.float32
-    a = -torch.exp(a_log.to(f32))
-    dta = torch.exp(dt[:, 0].to(f32) * a[None, :])                # (B, H)
-    bh = b[:, 0].repeat_interleave(rep, dim=1).to(f32)            # (B, H, N)
-    ch = c[:, 0].repeat_interleave(rep, dim=1).to(f32)
-    xf = x[:, 0].to(f32)                                          # (B, H, P)
-    dtf = dt[:, 0].to(f32)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    a = -torch.exp(a_log.to(acc))
+    dta = torch.exp(dt[:, 0].to(acc) * a[None, :])                # (B, H)
+    bh = b[:, 0].repeat_interleave(rep, dim=1).to(acc)            # (B, H, N)
+    ch = c[:, 0].repeat_interleave(rep, dim=1).to(acc)
+    xf = x[:, 0].to(acc)                                          # (B, H, P)
+    dtf = dt[:, 0].to(acc)
     new_state = state * dta[:, :, None, None] + \
         (xf * dtf[..., None])[..., None] * bh[:, :, None, :]
     y = torch.einsum("zhn,zhpn->zhp", ch, new_state)
     return y[:, None].to(x.dtype), new_state
 
 
-def mamba2_forward(x: torch.Tensor, w: dict, *, chunk: int = 256,
+def mamba2_forward(x: torch.Tensor, w: dict, *,
+                   pctx: ParallelCtx | None = None, chunk: int = 256,
                    state: SSMState | None = None, decode: bool = False):
-    """Mamba-2 block. x: (B, S, D).
+    """Mamba-2 block. x: (B, S, D), the one activation of the tp group.
 
     w: wx/wz (D, d_inner), wB/wC (D, G*N), wdt (D, H), conv_w (K, d_inner),
     a_log (H,), d_skip (H,), dt_bias (H,), out_proj (d_inner, D), and the
-    ints d_state (N) and n_groups (G). Returns (y, new_state).
+    ints d_state (N) and n_groups (G); H is the padded head count of the
+    tree, each head ``d_inner / H`` channels wide (the reference's ``p``).
+    Under tensor parallelism ``out_proj`` is row-parallel (its T partial
+    products reduced by ``pctx.reduce_output``); every other product is
+    per channel or per head, so it runs over the global weights. Returns
+    (y, new_state); the state at the global head count.
     """
+    pctx = pctx or SINGLE
     bsz, s, _ = x.shape
     n, g = w["d_state"], w["n_groups"]
     xz = x @ w["wx"].to(x.dtype)
@@ -153,7 +169,8 @@ def mamba2_forward(x: torch.Tensor, w: dict, *, chunk: int = 256,
     bproj = x @ w["wB"].to(x.dtype)
     cproj = x @ w["wC"].to(x.dtype)
     dt = x @ w["wdt"].to(x.dtype)
-    dt = dt.to(torch.float32) + w["dt_bias"].to(torch.float32)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dt = dt.to(acc) + w["dt_bias"].to(acc)
     dt = torch.logaddexp(dt, torch.zeros_like(dt))         # softplus
 
     conv_state = state.conv if state is not None else None
@@ -162,12 +179,17 @@ def mamba2_forward(x: torch.Tensor, w: dict, *, chunk: int = 256,
 
     h = w["a_log"].shape[0]
     p = xz.shape[-1] // h
+    if state is not None and state.ssm.shape[-2] != p:
+        raise ValueError(
+            f"the SSM state's head dim {state.ssm.shape[-2]} is not the "
+            f"block's {p} (d_inner {xz.shape[-1]} over {h} padded heads): "
+            "padding the SSM heads for tp changes the head dim (ROADMAP C)")
     xh = xz.reshape(bsz, s, h, p)
     bmat = bproj.reshape(bsz, s, g, n)
     cmat = cproj.reshape(bsz, s, g, n)
     if decode:
         ssm_in = state.ssm if state is not None else torch.zeros(
-            (bsz, h, p, n), dtype=torch.float32, device=x.device)
+            (bsz, h, p, n), dtype=acc, device=x.device)
         y, new_ssm = ssd_decode_step(xh, dt, w["a_log"], bmat, cmat, ssm_in)
     else:
         ssm_in = state.ssm if state is not None else None
@@ -175,5 +197,8 @@ def mamba2_forward(x: torch.Tensor, w: dict, *, chunk: int = 256,
                                  init_state=ssm_in)
     y = y + xh * w["d_skip"].to(y.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, h * p) * F.silu(z)        # gated output
-    out = y @ w["out_proj"].to(x.dtype)
+    if pctx.tp_size() > 1:
+        out = row_parallel(y, w["out_proj"], pctx)
+    else:
+        out = y @ w["out_proj"].to(x.dtype)
     return out, SSMState(conv=new_conv, ssm=new_ssm)

@@ -29,14 +29,21 @@ batch may carry ``prefix_embeds`` (B, P, F): projected by
 positions. The loss is the mean next-token cross-entropy, chunked over the
 sequence with weight ``labels >= 0``, logits in fp32.
 
-Tensor parallelism (dense family; the other families over tp are ROADMAP
-A21c) (``param_table(cfg, tp=T)``, ``pctx.tp_axis``): the shapes are the
-reference's global, padded ones (``TpLayout``: heads, KV heads and vocab
-padded to multiples of T; the KV projections replicated when there are
-fewer KV heads than ranks), and a leaf's ``tp_dim`` is the dim the
-reference shards over ``model``: ``wq``, ``w_gate``, ``w_up`` (and ``wk``,
-``wv`` unless replicated) column-parallel on their output dim, ``wo`` and
-``w_down`` row-parallel on their input dim, ``embed`` on the vocab. The
+Tensor parallelism, every family (``param_table(cfg, tp=T)``,
+``pctx.tp_axis``): the shapes are the reference's global, padded ones
+(``TpLayout``: heads, KV heads, vocab, experts and SSM heads padded to
+multiples of T; the KV projections replicated when there are fewer KV
+heads than ranks), and a leaf's ``tp_dim`` is the dim the reference shards
+over ``model``: ``wq``, ``w_gate``, ``w_up``, ``ws_gate``, ``ws_up`` (and
+``wk``, ``wv`` unless replicated) column-parallel on their output dim,
+``wo``, ``w_down`` and ``ws_down`` row-parallel on their input dim,
+``embed`` on the vocab; the experts ``we_*`` on the expert dim; Mamba-2's
+``wx``, ``wz``, ``wdt``, ``conv_w`` on their channel or head dim,
+``dt_bias``, ``a_log``, ``d_skip`` on the heads, ``out_proj`` row-parallel;
+``router``, ``wB``, ``wC``, ``frontend_proj`` and the norms replicated
+(each rank's partial gradient of a replicated leaf sums by construction:
+one activation feeds every rank). The MoE computes all experts and splits
+its output by the rank that owns each expert (``models/moe.py``). The
 weights stay stored once, global: tp rank t's shard is the t-th of T
 contiguous chunks of the tp dim, a view (``P(..., "model")``'s cut). A
 column-parallel product runs as one GEMM over the global weight (no
@@ -47,7 +54,10 @@ looks up each rank's vocab range, masks it and sums over tp; the loss is the
 vocab-parallel softmax (``pmax_tp`` of the detached max, ``psum_tp`` of the
 exp-sum and of the picked logit). Under ``pctx.sp`` the residual stream is
 a ``(T, B, S/T, D)`` stack of sequence slices between the sublayers
-(``models/parallel.py``). At T = 1 every product is the plain one.
+(``models/parallel.py``); a frontend's prefix is projected by the
+replicated ``frontend_proj``, put before the tokens, and the whole stream
+sliced, so prefix and tokens together must split over T (the reference
+truncates instead: ROADMAP C). At T = 1 every product is the plain one.
 
 FSDP (``param_table(cfg, fsdp_axes=...)``): a leaf's ``fsdp_dim`` is the dim
 the reference shards over the fsdp axes: ``embed`` on dim 1, the
@@ -239,14 +249,6 @@ def _period(cfg: ModelConfig) -> int:
     return p
 
 
-def _check_tp(cfg: ModelConfig, tp: int) -> None:
-    if tp > 1 and cfg.family != "dense":
-        raise NotImplementedError(
-            f"tensor parallelism of the {cfg.family!r} family "
-            f"({cfg.name!r}): experts over tp, SSM heads over tp and the "
-            "frontend prefix under tp are ROADMAP A21c")
-
-
 def _layer_leaves(cfg: ModelConfig, lay: TpLayout, pos: int, n_repeat: int,
                   w) -> dict[str, Leaf]:
     """The leaves of one period position, stacked over its ``n_repeat``
@@ -305,7 +307,6 @@ def param_table(cfg: ModelConfig, *, tp: int = 1,
     are global and padded for ``tp`` (the stored shapes on one card); with
     ``tp`` > 1 each tp-sharded leaf carries its ``tp_dim``, with
     ``fsdp_axes`` each sharded leaf its ``fsdp_dim`` (stack dim counted)."""
-    _check_tp(cfg, tp)
     lay = TpLayout.build(cfg, tp)
     period = _period(cfg)
     if cfg.n_layers % period:
@@ -314,6 +315,9 @@ def param_table(cfg: ModelConfig, *, tp: int = 1,
     if cfg.d_ff % tp:
         raise ValueError(f"d_ff {cfg.d_ff} does not split over {tp} tp "
                          "ranks")
+    if cfg.ssm_heads and cfg.d_inner % tp:
+        raise ValueError(f"d_inner {cfg.d_inner} does not split over {tp} "
+                         "tp ranks")
 
     def w(shape, tp_dim=None, fsdp_dim=None, init="normal"):
         return Leaf(tuple(shape), init,
@@ -497,8 +501,9 @@ def _layer(x: torch.Tensor, positions: torch.Tensor | None,
         x = x + att
     else:
         y, ssm = mamba2_forward(h, {**lw, "d_state": cfg.ssm_state,
-                                    "n_groups": 1}, chunk=cfg.ssm_chunk,
-                                state=state, decode=step is not None)
+                                    "n_groups": 1}, pctx=pctx,
+                                chunk=cfg.ssm_chunk, state=state,
+                                decode=step is not None)
         if step is not None:
             state.conv.copy_(ssm.conv)
             state.ssm.copy_(ssm.ssm)
@@ -583,8 +588,11 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
     if t > 1:
         if pctx.seq_sharded():
             if s % t:
-                raise ValueError(f"seq_parallel needs seq {s} divisible by "
-                                 f"tp {t}")
+                # the reference's ranks take s // t positions each and
+                # drop the rest, misaligning the loss (ROADMAP C)
+                raise ValueError(
+                    f"seq_parallel needs the sequence (prefix and tokens) "
+                    f"{s} divisible by tp {t}")
             x = pctx.scatter_seq(x)
     stages = params["stages"]
     period = len(stages)
@@ -739,13 +747,15 @@ def init_decode_state(params_like, cfg: ModelConfig, *, batch: int,
     """A zero decode state, one entry a period position (``params_like`` is
     unused, as in the reference): ``KVCache`` ``(n_repeat, B,
     S_max/seq_shards, kv_local, dh)`` for an attention position,
-    ``SSMState`` conv ``(n_repeat, B, K-1, d_inner/tp)`` and fp32 ssm
-    ``(n_repeat, B, H/tp, P, N)`` for a Mamba-2 one: one shard's shapes,
+    ``SSMState`` conv ``(n_repeat, B, K-1, d_inner/tp)`` and fp32 (fp64
+    under an fp64 ``dtype``) ssm ``(n_repeat, B, H/tp, P, N)`` for a
+    Mamba-2 one: one shard's shapes,
     which at ``tp`` 1 and ``seq_shards`` 1 are the whole state."""
     del params_like
     lay = TpLayout.build(cfg, tp)
     period = _period(cfg)
     n_repeat = cfg.n_layers // period
+    ssm_dtype = torch.promote_types(dtype, torch.float32)
     states = []
     for pos in range(period):
         if cfg.is_attn_layer(pos):
@@ -761,7 +771,7 @@ def init_decode_state(params_like, cfg: ModelConfig, *, batch: int,
                                   cfg.d_inner // tp), dtype=dtype,
                                  device=device),
                 ssm=torch.zeros((n_repeat, batch, h_l, cfg.ssm_head_dim,
-                                 cfg.ssm_state), dtype=torch.float32,
+                                 cfg.ssm_state), dtype=ssm_dtype,
                                 device=device)))
     return states
 

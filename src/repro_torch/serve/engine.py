@@ -21,8 +21,10 @@ The sharding policy is the reference's, chosen per shape:
 each use; on one card the gather is the identity, still called at the
 reference's sites with its keys. ``moe_stationary`` keeps the expert
 weights sharded and psums the expert activations instead. Tensor
-parallelism serves the dense family; the others over tp are ROADMAP A21c
-(``param_specs`` raises for them).
+parallelism serves every family: heads, experts (``E_pad / T`` a rank) and
+SSM heads (``ssm_heads_pad / T``) over ``model``, so the global state
+holds every rank's KV heads, conv channels and SSD heads
+(``global_state``).
 """
 from __future__ import annotations
 
@@ -182,12 +184,15 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
              pctx: ParallelCtx | None = None) -> torch.Tensor:
     """Single-peer loop: teacher-force the prompt token by token through
     ``decode_step`` (no prefill), then greedy-decode ``max_new`` tokens.
-    Returns the prompts and the new tokens, (B, S0 + max_new)."""
+    Returns the prompts and the new tokens, (B, S0 + max_new). A ``pctx``
+    with T tp ranks decodes over tp, on the global state of T ranks
+    (``global_state``; ``params`` padded for T)."""
     pctx = pctx or SINGLE
     key = key if key is not None else make_key(0)
     b, s0 = prompts.shape
-    state = init_decode_state(params, cfg, batch=b, max_seq=s0 + max_new,
-                              dtype=cfg.param_dtype, device=prompts.device)
+    state = global_state(cfg, batch=b, max_seq=s0 + max_new,
+                         tp=pctx.tp_size(), dtype=cfg.param_dtype,
+                         device=prompts.device)
     tok = prompts[:, :1]
     out = [prompts]
     for t in range(s0 + max_new - 1):

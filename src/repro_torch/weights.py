@@ -10,14 +10,17 @@ AdamW's ``AdamState(m, v)`` or momentum SGD's tree of ``m``. bfloat16 arrays
 FSDP, ``pure_dp`` and tensor-parallel trees carry across the same way:
 ``np.asarray`` of the reference's sharded arrays assembles their global
 shapes (padded for ``tp``: ``init_params(key, cfg, tp=T)`` on the
-reference's side, ``param_table(cfg, tp=T)`` on the port's), and on one
+reference's side, ``param_table(cfg, tp=T)`` on the port's: heads, vocab,
+experts and SSM heads padded for every family), and on one
 card the port stores every parameter and optimizer leaf whole at its global
 shape (``train/trainer.py``), so the same leaves fit every mode.
 
 ``decode_state_from_jax`` carries a decode state across the same way: the
 reference's list over period positions of ``KVCache(k, v)`` /
 ``SSMState(conv, ssm)`` with numpy leaves becomes the port's list of its
-``KVCache`` / ``SSMState``, leaf for leaf, dtypes kept.
+``KVCache`` / ``SSMState``, leaf for leaf, dtypes kept; a state served
+over tp is the global one (every rank's KV heads, conv channels and SSD
+heads: ``serve.global_state``).
 """
 from __future__ import annotations
 

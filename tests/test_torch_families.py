@@ -311,15 +311,6 @@ def test_launcher_trains_every_arch(arch, mode):
         assert math.isfinite(rec["grad_norm"])
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if get_config(a).family != "dense"])
-def test_tensor_parallel_non_dense_raises_a21c(arch):
-    with pytest.raises(NotImplementedError, match="A21c"):
-        launch_train.run(["--arch", arch, "--smoke", "--device", "cpu",
-                          "--steps", "1", "--seq-len", "16", "--dp", "2",
-                          "--tp", "2"])
-
-
 def test_init_params_inits_ssm_leaves():
     """The reference's inits: ``a_log`` in [0, log 16), ``dt_bias`` zeros,
     ``d_skip`` ones, ``conv_w`` of std 1/sqrt(kernel width)."""

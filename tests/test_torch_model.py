@@ -183,12 +183,16 @@ def test_init_params_shapes_follow_reference_tree(smoke):
 
 
 def test_other_families_are_not_ported_yet():
-    """Every family trains at tp = 1 (``tests/test_torch_families.py``);
-    the non-dense families over tensor-parallel ranks are ROADMAP A21c."""
+    """Every family is ported, over tensor-parallel ranks too (the name is
+    kept from when they were not): mamba2-1.3b's SSM heads shard over tp,
+    its ``wB``/``wC`` stay replicated (``tests/test_torch_tp_families.py``
+    holds every family to the reference)."""
     from repro_torch.models import param_table
     assert get_config("mamba2-1.3b").family == "ssm"
-    with pytest.raises(NotImplementedError, match="A21c"):
-        param_table(get_config("mamba2-1.3b"), tp=2)
+    stage = param_table(get_config("mamba2-1.3b"), tp=2)["stages"][0]
+    assert stage["wx"].tp_dim == 2 and stage["a_log"].tp_dim == 1
+    assert stage["out_proj"].tp_dim == 1
+    assert stage["wB"].tp_dim is None and stage["wC"].tp_dim is None
 
 
 def test_warmup_cosine_schedule_shape():

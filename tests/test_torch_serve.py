@@ -39,13 +39,12 @@ import torch
 from repro_torch.configs import ARCHS, get_smoke
 from repro_torch.core.keys import generator, key
 from repro_torch.launch import serve as launch_serve
-from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import (SINGLE, abstract_params, decode_step,
                                 forward_hidden, init_decode_state,
-                                init_params, param_table, prefill_step)
+                                init_params, prefill_step)
 from repro_torch.models.layers import KVCache
 from repro_torch.models.ssm import SSMState
-from repro_torch.serve import build_serve_step, generate, plan_serving
+from repro_torch.serve import generate
 from repro_torch.tree import tree_leaves, tree_unflatten
 from repro_torch.weights import decode_state_from_jax, params_from_jax
 
@@ -290,18 +289,6 @@ def test_cli_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(CLI)
-
-
-# ------------------------------------------------------------- limits
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b",
-                                  "jamba-v0.1-52b"])
-def test_tp_serving_of_a_non_dense_family_raises(arch):
-    cfg = get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="A21c"):
-        param_table(cfg, tp=2)
-    mesh = make_host_mesh(dp=1, tp=2)
-    with pytest.raises(NotImplementedError, match="A21c"):
-        build_serve_step(cfg, mesh, plan_serving(mesh, 2))
 
 
 def test_decode_state_from_jax_keeps_bf16_bits():

@@ -293,3 +293,29 @@ def test_decay_stability_and_finite_grads():
     (g,) = torch.autograd.grad(y.sum() + final.sum(), [dt])
     assert torch.isfinite(g).all()
 
+
+
+def test_fp64_inputs_scan_in_fp64():
+    """fp64 inputs run the scan (and the RMSNorm) in fp64, not in fp32: the
+    chunked and the sequential forms then agree to fp64 rounding (1e-12),
+    which an fp32 scan cannot (7e-7 here), and the state stays fp64.
+    fp32 and bf16 inputs still scan in fp32."""
+    from repro_torch.models.layers import rms_norm
+
+    x, dt, a_log, b, c = (t.double() for t in _inputs(3))
+    y_chunk, final = ssd_chunked(x, dt, a_log, b, c, chunk=8)
+    state = torch.zeros((2, 4, 8, 16), dtype=torch.float64)
+    ys = []
+    for t in range(32):
+        y, state = ssd_decode_step(x[:, t:t + 1], dt[:, t:t + 1], a_log,
+                                   b[:, t:t + 1], c[:, t:t + 1], state)
+        ys.append(y)
+    assert final.dtype == state.dtype == torch.float64
+    torch.testing.assert_close(y_chunk, torch.cat(ys, 1), atol=1e-12, rtol=0)
+    torch.testing.assert_close(final, state, atol=1e-12, rtol=0)
+    assert ssd_chunked(x.bfloat16(), dt, a_log, b, c,
+                       chunk=8)[1].dtype == torch.float32
+    v = x.reshape(2, 32, 32) * 1e3
+    want = v / torch.sqrt((v * v).mean(-1, keepdim=True) + 1e-5)
+    torch.testing.assert_close(rms_norm(v, torch.ones(32, dtype=v.dtype)),
+                               want, atol=1e-12, rtol=0)
