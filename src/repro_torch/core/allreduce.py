@@ -10,29 +10,43 @@ arena's P = G * N peers (``core/collectives.py``).
 
 Modes of ``sync_packed``:
   ``'scan'``       buckets strictly one after the other.
+  ``'vmap'``       the reference's ``jax.vmap`` over the buckets, as one
+                   batch: each stage runs once over all B buckets (one
+                   encode, one exchange, one decode a step; each kernel one
+                   launch), the buckets interleaved block by block
+                   (``pipeline.interleave``) so that every shard, chunk and
+                   Hadamard block of the batch holds the same elements of
+                   each bucket as the bucket's own would. The draws are the
+                   buckets' own, drawn together.
   ``'pipelined'``  the reference's stage skew (``_sync_pipelined``):
                    iteration k encodes bucket k, exchanges bucket k-1 and
                    decodes bucket k-2. Everything runs on one CUDA stream
                    here, so the order is kept but nothing overlaps yet.
-Both run the same per-bucket stages on the same draws, so their results are
-identical. The reference's ``'vmap'`` mode has no counterpart yet.
+All three run the same arithmetic a bucket on the same draws, so their
+results are identical, bucket for bucket. ``sync_pytree_unfused`` is the
+reference's parity oracle: the seed's loop over flat slices of the leaves.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import tree_map
+import torch.nn.functional as F
 
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+from . import collectives
 from .bucket_plan import BucketPlan
 from .pipeline import (CollectiveSpec, Hadamard, HTQuant, Identity, Lossy,
                        OptiReduceConfig, Reliable, SyncContext, TarTopology,
-                       resolve_spec, strategy_names)
+                       deinterleave, interleave, resolve_spec,
+                       strategy_names)
 
 __all__ = ["OptiReduceConfig", "SyncContext", "CollectiveSpec",
            "resolve_spec", "strategy_names", "sync_bucket", "sync_packed",
-           "sync_pytree", "rs_spec", "reduce_scatter_axis"]
+           "sync_pytree", "sync_pytree_unfused", "rs_spec",
+           "reduce_scatter_axis"]
 
-MODES = ("scan", "pipelined")
+MODES = ("scan", "vmap", "pipelined")
 
 
 def _check_device(x: torch.Tensor, cfg: OptiReduceConfig) -> None:
@@ -65,9 +79,6 @@ def sync_packed(batch: torch.Tensor, ctx: SyncContext, *,
     recovery codec. Bucket b's row enters at its encode and rides the stage
     state through the skew; None leaves every path as without recovery."""
     if mode not in MODES:
-        if mode == "vmap":
-            raise NotImplementedError("sync mode 'vmap' is not ported yet: "
-                                      "ROADMAP A7")
         raise ValueError(f"unknown sync mode {mode!r}; one of {MODES}")
     if batch.dim() != 3:
         raise ValueError("sync_packed takes a (P, B, bucket_elems) arena, "
@@ -87,6 +98,8 @@ def sync_packed(batch: torch.Tensor, ctx: SyncContext, *,
     def stale_at(b):
         return None if stale is None else stale[b]
 
+    if mode == "vmap":
+        return _sync_batched(batch, ctx, spec, stale)
     out = torch.empty(batch.shape, dtype=torch.float32, device=batch.device)
     if mode == "scan":
         for b in range(nbuckets):
@@ -110,6 +123,34 @@ def sync_packed(batch: torch.Tensor, ctx: SyncContext, *,
     return out
 
 
+def _sync_batched(batch: torch.Tensor, ctx: SyncContext,
+                  spec: CollectiveSpec,
+                  stale: torch.Tensor | None) -> torch.Tensor:
+    """``mode='vmap'``: the B buckets as one stack. Each bucket is padded
+    as its own encode would pad it, the B padded rows are interleaved in
+    runs of the codec's block, and the stack goes through the spec's three
+    stages once, under a context that draws the B buckets' sites
+    together; the result is taken apart the same way."""
+    p, nbuckets, length = batch.shape
+    cfg = ctx.cfg
+    g = spec.codec.block(cfg)
+    n = collectives.axis_size(batch[:, 0], ctx.grid)
+    unit = spec.topology.pad_units(cfg, n) * g
+    padded = -(-length // unit) * unit
+    x = batch.to(torch.float32)
+    if padded != length:
+        x = F.pad(x, (0, padded - length))
+    x = interleave(x.transpose(0, 1), g)                  # (P, B * L')
+    st = None
+    if stale is not None:
+        st = stale if padded == length else F.pad(stale,
+                                                  (0, padded - length))
+        st = interleave(st, g)
+    bctx = ctx.for_buckets(tuple(range(nbuckets)), g, st)
+    out = spec.all_reduce(x, bctx)
+    return deinterleave(out, nbuckets, g).transpose(0, 1)[..., :length]
+
+
 def sync_pytree(grads, ctx: SyncContext, *, bucket_elems: int = 6_553_600,
                 plan: BucketPlan | None = None, mode: str = "scan",
                 spec: CollectiveSpec | None = None):
@@ -121,6 +162,33 @@ def sync_pytree(grads, ctx: SyncContext, *, bucket_elems: int = 6_553_600,
                                    bucket_elems)
     return plan.unpack(sync_packed(plan.pack(grads), ctx, mode=mode,
                                    spec=spec))
+
+
+def sync_pytree_unfused(grads, ctx: SyncContext, *,
+                        bucket_elems: int = 6_553_600):
+    """The seed bucketing loop, kept as the parity oracle for
+    :func:`sync_pytree` (the reference's of the same name): the leaves'
+    ``(P, *shape)`` stacks flattened and joined in tree order, cut into
+    ``bucket_elems``-long slices (the last one shorter, padded only as its
+    encode pads it), slice b synced as bucket b, and the result cut back
+    into the leaves, each in its dtype."""
+    spec = resolve_spec(ctx.cfg)
+    leaves = tree_leaves(grads)
+    p = leaves[0].shape[0]
+    flat = torch.cat([leaf.reshape(p, -1).to(torch.float32)
+                      for leaf in leaves], dim=1)
+    total = flat.shape[1]
+    parts = [sync_bucket(flat[:, start:start + bucket_elems],
+                         ctx.for_bucket(b), spec=spec)
+             for b, start in enumerate(range(0, total, bucket_elems))]
+    synced = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    out, off = [], 0
+    for leaf in leaves:
+        size = leaf[0].numel()
+        out.append(synced[:, off:off + size].reshape(leaf.shape)
+                   .to(leaf.dtype))
+        off += size
+    return tree_unflatten(grads, out)
 
 
 def rs_spec(cfg: OptiReduceConfig, *,

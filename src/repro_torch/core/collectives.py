@@ -215,15 +215,26 @@ def _grouped(x: torch.Tensor, grid: Grid, axis) -> torch.Tensor:
     return x.reshape(grid.tp, grid.pods * n, *x.shape[1:])
 
 
+def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over ``dim``, kept, its adds in index order: the same bits
+    whatever the other dims' sizes (a library reduction may reorder its
+    adds with the row width), as the reference's psum adds in rank
+    order."""
+    parts = x.unbind(dim)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total.unsqueeze(dim)
+
+
 def pmean(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
     """Mean over ``axis``, held by every peer on it: ``(P, ...)`` ->
     ``(P, ...)``."""
     n = axis_size(x, grid, axis)
     if n == x.shape[0]:
-        return mean_of(x.sum(dim=0, keepdim=True), n).expand_as(x)
+        return mean_of(_sum_in_order(x, 0), n).expand_as(x)
     xs = _grouped(x, grid, axis)
-    return mean_of(xs.sum(dim=1, keepdim=True), n).expand_as(xs) \
-        .reshape(x.shape)
+    return mean_of(_sum_in_order(xs, 1), n).expand_as(xs).reshape(x.shape)
 
 
 def pmax(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:

@@ -12,6 +12,8 @@ The reference derives the sign from a key inside these functions; the port
 takes the sign itself (from the ``SyncContext``'s draws), so the same
 encode and decode can be fed the reference's sign in the tests. Leading
 axes (the peer axis) ride along: a ``(P, L)`` stack is one kernel launch.
+A ``(G, block)`` sign gives row i of the blocks sign ``i % G`` (the
+buckets of a batched sync, interleaved block by block).
 """
 from __future__ import annotations
 
@@ -20,11 +22,23 @@ import torch
 from repro_torch.kernels.fwht import randomized_fwht
 from repro_torch.kernels.ht_quant import ht_amax, ht_quant
 
+from . import keys as keys_lib
 
-def rademacher_sign(gen: torch.Generator, block: int) -> torch.Tensor:
-    """The random +-1 diagonal D shared by all workers for one bucket."""
-    keep = torch.rand((block,), generator=gen, device=gen.device) < 0.5
+
+def rademacher_signs(keys, block: int,
+                     device: torch.device | str = "cpu") -> torch.Tensor:
+    """``(K, block)`` fp32 +-1: :func:`rademacher_sign` under each key, in
+    one draw."""
+    keep = keys_lib.bernoulli_batch(keys, 0.5, block, device)
     return torch.where(keep, 1.0, -1.0).to(torch.float32)
+
+
+def rademacher_sign(key: keys_lib.Key, block: int,
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+    """The random +-1 diagonal D shared by all workers for one bucket:
+    ``where(bernoulli(key, 0.5, (block,)), 1, -1)``, as the reference
+    draws it."""
+    return rademacher_signs([key], block, device)[0]
 
 
 def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:

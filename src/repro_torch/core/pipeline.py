@@ -28,12 +28,14 @@ kernel launch a bucket for all of them), and the groups never mix.
 axis, the FSDP gradient reduction (``core/allreduce.reduce_scatter_axis``).
 The randomness the reference draws from keys inside the stages (the
 Hadamard sign, each receiver's arrival mask, the quantizer's
-stochastic-rounding noise) comes from the context's :class:`Draws` provider
-instead, so a test can hand in the reference's own draws.
+stochastic-rounding noise) comes from the context's :class:`Draws` provider:
+:class:`ThreefryDraws` gives the reference's own bits, and a test can hand
+in others.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, ClassVar, Protocol
 
 import torch
@@ -47,8 +49,9 @@ from repro_torch.kernels.dequant_reduce import dequant_masked_mean
 from repro_torch.kernels.quant import grid_quant
 
 from .hadamard import (ht_decode, ht_encode, ht_encode_amax, ht_encode_quant,
-                       rademacher_sign)
-from .keys import Key, fold_in, generator
+                       rademacher_signs)
+from . import keys as keys_lib
+from .keys import Key, fold_in
 from .ubt import UbtState
 
 
@@ -122,16 +125,22 @@ class Draws(Protocol):
 
 
 @dataclasses.dataclass(frozen=True)
-class GeneratorDraws:
-    """The default provider: ``torch.Generator``s seeded from the key path
-    of the reference — sign from the site key (``fold_in(key, b)`` for
-    bucket b, ``key`` folded with each element of a path), a receiver's
-    mask from ``fold_in(site_key, receiver)``, a quantizer's noise from
-    ``fold_in(site_key, salt)``. ``key`` is the step's sync key for bucket
-    draws, the step key for FSDP gather sites."""
+class ThreefryDraws:
+    """The default provider: the reference's own draws, bit for bit
+    (``core/keys.py``). The sign is ``bernoulli(site_key, 0.5, (block,))``
+    (``fold_in(key, b)`` for bucket b, ``key`` folded with each element of
+    a path), a receiver's mask comes from ``fold_in(site_key, receiver)``,
+    a quantizer's noise is ``uniform(fold_in(site_key, salt), shape)``.
+    ``key`` is the step's sync key for bucket draws, the step key for FSDP
+    gather sites. The batched forms (:meth:`signs`, :meth:`masks`,
+    :meth:`noises`) draw many sites or receivers in one kernel launch on
+    the card. A site's sign is drawn once and kept (the encode and the
+    decode of a bucket read the same one); a provider serves one step."""
     key: Key
     cfg: OptiReduceConfig
     device: torch.device
+    _signs: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
     def _site(self, bucket: Site) -> Key:
         path = bucket if isinstance(bucket, tuple) else (bucket,)
@@ -140,23 +149,106 @@ class GeneratorDraws:
             k = fold_in(k, d)
         return k
 
+    def signs(self, buckets, block: int) -> torch.Tensor:
+        buckets = list(buckets)
+        new = [b for b in dict.fromkeys(buckets)
+               if (b, block) not in self._signs]
+        if new:
+            drawn = rademacher_signs([self._site(b) for b in new], block,
+                                     self.device)
+            self._signs.update({(b, block): row
+                                for b, row in zip(new, drawn)})
+        if len(buckets) == 1:
+            return self._signs[buckets[0], block][None]
+        return torch.stack([self._signs[b, block] for b in buckets])
+
     def sign(self, bucket: Site, block: int) -> torch.Tensor:
-        return rademacher_sign(generator(self._site(bucket), self.device),
-                               block)
+        return self.signs([bucket], block)[0]
+
+    def masks(self, rows, n: int, s: int) -> torch.Tensor:
+        """``(K, n, s)``: one mask a ``(bucket, receiver, self_index)``
+        row."""
+        return drops_lib.make_masks(
+            self.cfg.drop_pattern,
+            [fold_in(self._site(b), r) for b, r, _ in rows], n, s,
+            rate=self.cfg.drop_rate, packet_elems=self.cfg.packet_elems,
+            self_index=[i for _, _, i in rows], device=self.device)
 
     def mask(self, bucket: Site, receiver: int, n: int, s: int,
              self_index: int | None = None) -> torch.Tensor:
-        gen = generator(fold_in(self._site(bucket), receiver), self.device)
-        return drops_lib.make_mask(self.cfg.drop_pattern, gen, n, s,
-                                   rate=self.cfg.drop_rate,
-                                   packet_elems=self.cfg.packet_elems,
-                                   self_index=receiver if self_index is None
-                                   else self_index)
+        return self.masks([(bucket, receiver, receiver if self_index is None
+                            else self_index)], n, s)[0]
+
+    def noises(self, buckets, salt: int,
+               shape: tuple[int, ...]) -> torch.Tensor:
+        return keys_lib.uniform_batch(
+            [fold_in(self._site(b), salt) for b in buckets],
+            math.prod(shape), self.device).view(-1, *shape)
 
     def noise(self, bucket: Site, salt: int,
               shape: tuple[int, ...]) -> torch.Tensor:
-        gen = generator(fold_in(self._site(bucket), salt), self.device)
-        return torch.rand(shape, generator=gen, device=self.device)
+        return self.noises([bucket], salt, shape)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyedDraws(ThreefryDraws):
+    """:class:`ThreefryDraws` keyed on ``key`` itself at every site: the
+    reference's host peer (``repro/net/peer.py``) keys a step's sign, masks
+    and noise on the step key, no bucket folded in."""
+
+    def _site(self, bucket: Site) -> Key:
+        return self.key
+
+
+def draw_masks(draws: Draws, rows, n: int, s: int) -> torch.Tensor:
+    """``(K, n, s)`` arrival masks, one a ``(bucket, receiver,
+    self_index)`` row: one batched draw where the provider has one
+    (``masks``), else one ``mask`` call a row."""
+    many = getattr(draws, "masks", None)
+    if many is not None:
+        return many(rows, n, s)
+    return torch.stack([draws.mask(b, r, n, s) if i == r else
+                        draws.mask(b, r, n, s, self_index=i)
+                        for b, r, i in rows])
+
+
+def interleave(t: torch.Tensor, g: int) -> torch.Tensor:
+    """``(B, ..., L)`` -> ``(..., B * L)``, ``g``-element runs of the B
+    items taken in turn: run k of item b lands at run ``k * B + b``. A
+    batched sync lays its B buckets out so, ``g`` being the codec's block:
+    every cut a schedule makes at a multiple of ``g`` in one bucket is the
+    same cut, at a multiple of ``B * g``, of the interleaved row."""
+    b, length = t.shape[0], t.shape[-1]
+    mid = t.shape[1:-1]
+    return t.reshape(b, *mid, length // g, g).movedim(0, -2).reshape(
+        *mid, b * length)
+
+
+def deinterleave(x: torch.Tensor, b: int, g: int) -> torch.Tensor:
+    """The inverse of :func:`interleave`: ``(..., B * L)`` -> ``(B, ...,
+    L)``."""
+    mid, length = x.shape[:-1], x.shape[-1] // b
+    return x.reshape(*mid, length // g, b, g).movedim(-2, 0).reshape(
+        b, *mid, length)
+
+
+def draw_signs(draws: Draws, buckets, block: int) -> torch.Tensor:
+    """``(B, block)`` signs of several sites, in one draw where the
+    provider batches them (``signs``)."""
+    many = getattr(draws, "signs", None)
+    if many is not None:
+        return many(buckets, block)
+    return torch.stack([draws.sign(b, block) for b in buckets])
+
+
+def draw_noises(draws: Draws, buckets, salt: int,
+                shape: tuple[int, ...]) -> torch.Tensor:
+    """``(B, *shape)`` noises of several sites, in one draw where the
+    provider batches them (``noises``)."""
+    many = getattr(draws, "noises", None)
+    if many is not None:
+        return many(buckets, salt, shape)
+    return torch.stack([draws.noise(b, salt, shape) for b in buckets])
 
 
 @dataclasses.dataclass
@@ -165,13 +257,22 @@ class SyncContext:
     the bucket's previous decoded value ``(L,)``, set by the sync engine
     when a stale-fill recovery codec is armed (None otherwise). ``grid``
     lays out the stacks' P peers (``collectives.Grid``: T tp groups of G
-    pods of N, the sizes the reference reads from its mesh)."""
+    pods of N, the sizes the reference reads from its mesh).
+
+    ``buckets`` (the batched sync, ``sync_packed(mode='vmap')``) names the
+    sites of a stack that holds B buckets interleaved ``interleave``
+    elements at a time (:func:`interleave`): the sign is then ``(B,
+    block)`` (row i of the blocks takes sign ``i % B``), a noise and each
+    receiver's mask are the B sites' own, interleaved the same way, all
+    drawn in one batch."""
     cfg: OptiReduceConfig
     draws: Draws
     bucket: Site = 0
     stats: dict = dataclasses.field(default_factory=dict)
     stale: torch.Tensor | None = None
     grid: collectives.Grid = collectives.ONE
+    buckets: tuple | None = None
+    interleave: int = 1
 
     def __post_init__(self):
         if self.grid.pods > 1 and self.cfg.pod_axis is None:
@@ -185,6 +286,19 @@ class SyncContext:
         return SyncContext(cfg=self.cfg, draws=self.draws, bucket=bucket,
                            stats=self.stats, stale=stale, grid=self.grid)
 
+    def for_buckets(self, buckets: tuple, interleave: int,
+                    stale: torch.Tensor | None = None) -> "SyncContext":
+        """This step's context for a batch of buckets laid out by
+        :func:`interleave` in runs of ``interleave`` (stats shared)."""
+        return SyncContext(cfg=self.cfg, draws=self.draws, stats=self.stats,
+                           stale=stale, grid=self.grid,
+                           buckets=tuple(buckets), interleave=interleave)
+
+    @property
+    def batch(self) -> int:
+        """The buckets a stack holds: 1, or B in a batched sync."""
+        return 1 if self.buckets is None else len(self.buckets)
+
     def data_axes(self):
         """The axes of the data-parallel group, as collective axes: the
         pod axis joins the data axis when one is configured."""
@@ -193,10 +307,33 @@ class SyncContext:
         return collectives.DATA
 
     def sign(self, block: int) -> torch.Tensor:
-        return self.draws.sign(self.bucket, block)
+        if self.buckets is None:
+            return self.draws.sign(self.bucket, block)
+        return draw_signs(self.draws, self.buckets, block)
 
     def noise(self, salt: int, shape: tuple[int, ...]) -> torch.Tensor:
-        return self.draws.noise(self.bucket, salt, shape)
+        """``shape``: the noise's ``(rows, block)``; in a batched sync the
+        rows are the B buckets' own, interleaved row by row."""
+        if self.buckets is None:
+            return self.draws.noise(self.bucket, salt, shape)
+        b = self.batch
+        per = draw_noises(self.draws, self.buckets, salt,
+                          (shape[0] // b, *shape[1:]))
+        return per.transpose(0, 1).reshape(shape)
+
+    def arrival_masks(self, n: int, s: int, own) -> torch.Tensor:
+        """``(len(own), n, s)``: receiver r's arrival mask in row r, its own
+        row ``own[r]`` kept; in a batched sync each bucket's masks over its
+        ``s / B`` entries, interleaved."""
+        rows = list(enumerate(own))
+        if self.buckets is None:
+            return draw_masks(self.draws, [(self.bucket, r, i)
+                                           for r, i in rows], n, s)
+        b = self.batch
+        masks = draw_masks(self.draws, [(k, r, i) for k in self.buckets
+                                        for r, i in rows], n, s // b)
+        return interleave(masks.view(b, len(rows), n, s // b),
+                          self.interleave)
 
     def loss_fraction(self) -> torch.Tensor:
         """Observed entry-loss fraction this step, averaged over receivers
@@ -482,13 +619,8 @@ class Lossy(Reliable):
     def arrival_mask(self, ctx, n, s, self_index=None, payload=None):
         if ctx.cfg.drop_rate <= 0.0:
             return None
-        if self_index is None:
-            mask = torch.stack([ctx.draws.mask(ctx.bucket, r, n, s)
-                                for r in range(n)])
-        else:
-            mask = torch.stack([ctx.draws.mask(ctx.bucket, r, n, s,
-                                               self_index=i)
-                                for r, i in enumerate(self_index)])
+        mask = ctx.arrival_masks(n, s, range(n) if self_index is None
+                                 else self_index)
         dropped = (1.0 - mask).sum(dim=(1, 2))
         ctx.stats["dropped"] = ctx.stats.get("dropped", 0.0) + dropped
         ctx.stats["total"] = ctx.stats.get("total", 0.0) + float(n * s)
@@ -589,6 +721,10 @@ class WireTransport(Lossy):
         self._bridge = bridge
 
     def arrival_mask(self, ctx, n, s, self_index=None, payload=None):
+        if ctx.buckets is not None:
+            raise NotImplementedError(
+                "WireTransport exchanges one bucket a call, in bucket order; "
+                "a batched (vmap) sync has no per-bucket exchange to bridge")
         if payload is None or self_index is not None:
             raise NotImplementedError(
                 "WireTransport needs the stage-1 payload hook of a "
@@ -617,6 +753,11 @@ class Topology:
 
     def validate(self, transport: Reliable, codec: Codec) -> None:
         pass
+
+    def pad_units(self, cfg: OptiReduceConfig, n: int) -> int:
+        """The units ``encode_stage`` pads a bucket to a multiple of (times
+        the codec's block) on an n-peer axis."""
+        return 1
 
     def encode_stage(self, bucket: torch.Tensor, transport: Reliable,
                      codec: Codec, ctx: SyncContext) -> tuple:
@@ -716,6 +857,8 @@ class RingTopology(Topology):
             return sum(weights)
         return n if order is None else len(order)
 
+    pad_units = _pad_n
+
     def encode_stage(self, bucket, transport, codec, ctx):
         n = collectives.axis_size(bucket, ctx.grid)
         x, _ = tar_lib.pad_for_tar(bucket, self._pad_n(ctx.cfg, n),
@@ -788,7 +931,8 @@ class TarTopology(Topology):
         g = ctx.grid.pods
         if g <= 1:
             return own
-        if self.outer == "tar" and own.shape[-1] % g == 0:
+        # one bucket's shard decides, as in an unbatched sync
+        if self.outer == "tar" and (own.shape[-1] // ctx.batch) % g == 0:
             return tar_lib.tar_allreduce(own, grid=ctx.grid,
                                          axis=collectives.POD)
         return collectives.pmean(own, ctx.grid, collectives.POD)
@@ -810,6 +954,10 @@ class TarTopology(Topology):
         if active is not None and self.schedule == "rounds":
             return active, len(active), weights, dead
         return active, n, weights, dead
+
+    def pad_units(self, cfg: OptiReduceConfig, n: int) -> int:
+        _, n_shards, weights, _ = self._participation(cfg, n)
+        return n_shards if weights is None else sum(weights)
 
     @staticmethod
     def _check_weighted(cfg: OptiReduceConfig, codec) -> None:

@@ -158,8 +158,9 @@ def sender_arrival_masks(draws, bucket: int, n: int, s: int) -> torch.Tensor:
     row i concatenates, over owners j, sender i's arrival mask at receiver
     j, each receiver's mask redrawn as the exchange draws it (the
     reference's ``fold_in(key, j)``, own row forced)."""
-    masks = torch.stack([draws.mask(bucket, j, n, s, self_index=j)
-                         for j in range(n)])           # (owner, sender, s)
+    from .pipeline import draw_masks
+    masks = draw_masks(draws, [(bucket, j, j) for j in range(n)], n,
+                       s)                              # (owner, sender, s)
     return masks.transpose(0, 1).reshape(n, n * s)
 
 

@@ -27,17 +27,21 @@ namespace {
 
 using butterfly::kThreads;
 
-template <int LOG_N>
+template <int LOG_N, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
 fwht_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
                  const float* __restrict__ sign, long long rows,
-                 long long rows_per_peer, long long peer_stride, int mode) {
+                 long long rows_per_peer, long long peer_stride, int mode,
+                 int sign_groups) {
   using S = butterfly::Shape<LOG_N>;
   extern __shared__ float smem[];
   const int slot = threadIdx.x / S::T;
   const int t = threadIdx.x % S::T;
   const long long row = (long long)blockIdx.x * S::ROWS_PER_BLOCK + slot;
   const bool active = row < rows;
+  // a (G, n) sign: row i reads sign row i % G (a variant of its own, so
+  // the one-row form runs the code it ran before)
+  if constexpr (GROUPED) sign += (row % sign_groups) * S::N;
   float v[S::E];
   butterfly::rotate_row<LOG_N>(
       butterfly::row_ptr(x, row, rows_per_peer, peer_stride, S::N),
@@ -55,12 +59,17 @@ fwht_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
 template <int LOG_N>
 cudaError_t launch(const float* x, float* y, const float* sign, long long rows,
                    long long rows_per_peer, long long peer_stride, int mode,
-                   cudaStream_t stream) {
+                   int sign_groups, cudaStream_t stream) {
   using S = butterfly::Shape<LOG_N>;
   const long long blocks = (rows + S::ROWS_PER_BLOCK - 1) / S::ROWS_PER_BLOCK;
-  fwht_rows_kernel<LOG_N><<<(unsigned)blocks, kThreads, S::kSmemBytes,
-                            stream>>>(x, y, sign, rows, rows_per_peer,
-                                      peer_stride, mode);
+  if (sign_groups > 1)
+    fwht_rows_kernel<LOG_N, true><<<(unsigned)blocks, kThreads,
+                                    S::kSmemBytes, stream>>>(
+        x, y, sign, rows, rows_per_peer, peer_stride, mode, sign_groups);
+  else
+    fwht_rows_kernel<LOG_N, false><<<(unsigned)blocks, kThreads,
+                                     S::kSmemBytes, stream>>>(
+        x, y, sign, rows, rows_per_peer, peer_stride, mode, sign_groups);
   return cudaGetLastError();
 }
 
@@ -68,20 +77,23 @@ cudaError_t launch(const float* x, float* y, const float* sign, long long rows,
 
 // x: rows of n fp32; row i starts at x + (i / rows_per_peer) * peer_stride
 // + (i % rows_per_peer) * n (16-byte aligned). y: contiguous (rows, n).
-// sign: (n,) fp32 or null when mode == 0. mode: 0 none, 1 pre, 2 post.
+// sign: (sign_groups, n) fp32, row i reading sign row i % sign_groups, or
+// null when mode == 0. mode: 0 none, 1 pre, 2 post.
 // Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for a
 // length outside 16..4096 or not a power of two.
 extern "C" int fwht_f32(const void* x, void* y, const void* sign,
                         long long rows, int n, long long rows_per_peer,
-                        long long peer_stride, int mode, void* stream) {
+                        long long peer_stride, int mode, int sign_groups,
+                        void* stream) {
   const float* xs = static_cast<const float*>(x);
   float* ys = static_cast<float*>(y);
   const float* sg = static_cast<const float*>(sign);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows == 0) return cudaSuccess;
-  if (rows_per_peer <= 0) return cudaErrorInvalidValue;
-#define FWHT_CALL(L) \
-  launch<L>(xs, ys, sg, rows, rows_per_peer, peer_stride, mode, st)
+  if (rows_per_peer <= 0 || sign_groups <= 0) return cudaErrorInvalidValue;
+#define FWHT_CALL(L)                                                       \
+  launch<L>(xs, ys, sg, rows, rows_per_peer, peer_stride, mode, sign_groups, \
+            st)
   BUTTERFLY_DISPATCH(n, FWHT_CALL)
 #undef FWHT_CALL
 }

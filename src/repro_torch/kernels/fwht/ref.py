@@ -91,10 +91,23 @@ def fwht_mxu_ref(x: torch.Tensor) -> torch.Tensor:
     return y.reshape(shape).to(dtype)
 
 
+def row_signs(x: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
+    """The sign each row of ``x`` (``(..., n)``) takes: ``sign`` itself when
+    it is one ``(n,)`` row; for a ``(G, n)`` sign, row i of the flattened
+    rows takes sign row ``i % G`` (the kernels' rule)."""
+    if sign.dim() == 1:
+        return sign
+    n = x.shape[-1]
+    rows = torch.arange(x.numel() // n, device=sign.device)
+    return sign[rows % sign.shape[0]].view(x.shape)
+
+
 def randomized_fwht_ref(x: torch.Tensor, sign: torch.Tensor, *,
                         mode: str) -> torch.Tensor:
     """encode: H (d * x); decode: d * (H y). Orthonormal H makes decode the
-    exact inverse of encode."""
+    exact inverse of encode. A ``(G, n)`` sign gives each row its own (see
+    :func:`row_signs`)."""
+    sign = row_signs(x, sign)
     if mode == "encode":
         return fwht_ref(x * sign)
     if mode == "decode":

@@ -118,6 +118,7 @@ struct Walk {
   FastDiv rep, per_peer;
   int noise_rows;          // noise rows a stage holds (ht_quant)
   FastDiv group_rows;      // rows a grid group holds (ht_quant)
+  unsigned sign_groups;    // sign rows: row i reads sign row i % these
 
   __device__ __forceinline__ unsigned grid(unsigned j) const {
     return rep.div(j);
@@ -250,7 +251,11 @@ ht_kernel(Walk w, const float* __restrict__ sign,
     float v[E];
     if (active) {
       // the contiguous run t*E.., signed; index bits 0..LOG_E-1 in registers
-      const float4* sg = reinterpret_cast<const float4*>(sign + t * E);
+      const float* srow =
+          w.sign_groups > 1
+              ? sign + (size_t)(w.row(j) % w.sign_groups) * N
+              : sign;
+      const float4* sg = reinterpret_cast<const float4*>(srow + t * E);
 #pragma unroll
       for (int m = 0; m < E / 4; ++m) {
         const float4 q =
@@ -385,22 +390,26 @@ cudaError_t launch(Walk w, const float* sign, const float* noise,
 }  // namespace
 
 // x: rows of n fp32; row i starts at x + (i / rows_per_peer) * peer_stride
-// + (i % rows_per_peer) * n (16-byte aligned). sign: (n,) fp32, 16-byte
-// aligned. out: (rows,) fp32. rows < 2^31. Returns cudaGetLastError() after
-// the launch; cudaErrorInvalidValue for a length outside 16..4096 or not a
+// + (i % rows_per_peer) * n (16-byte aligned). sign: (sign_groups, n) fp32,
+// 16-byte aligned; row i reads sign row i % sign_groups (one row: (n,)).
+// out: (rows,) fp32. rows < 2^31. Returns cudaGetLastError() after the
+// launch; cudaErrorInvalidValue for a length outside 16..4096 or not a
 // power of two.
 extern "C" int ht_amax_f32(const void* x, const void* sign, void* out,
                            long long rows, int n, long long rows_per_peer,
-                           long long peer_stride, void* stream) {
+                           long long peer_stride, int sign_groups,
+                           void* stream) {
   const float* sg = static_cast<const float*>(sign);
   float* os = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows == 0) return cudaSuccess;
-  if (rows < 0 || rows > INT_MAX || rows_per_peer <= 0 || sg == nullptr)
+  if (rows < 0 || rows > INT_MAX || rows_per_peer <= 0 || sg == nullptr ||
+      sign_groups <= 0)
     return cudaErrorInvalidValue;
   const Walk w{static_cast<const float*>(x), peer_stride, (unsigned)rows,
                (unsigned)rows, FastDiv::of(1),
-               FastDiv::of((unsigned)rows_per_peer), 0, FastDiv::of(1)};
+               FastDiv::of((unsigned)rows_per_peer), 0, FastDiv::of(1),
+               (unsigned)sign_groups};
 #define AMAX_CALL(L) \
   launch<L, false>(w, sg, nullptr, nullptr, nullptr, os, nullptr, 0.f, st)
   BUTTERFLY_DISPATCH(n, AMAX_CALL)
@@ -410,8 +419,8 @@ extern "C" int ht_amax_f32(const void* x, const void* sign, void* out,
 // x, sign: as ht_amax_f32. noise: contiguous (grid_rows, n) fp32, 16-byte
 // aligned; lo, step: (groups, grid_rows) fp32; row i reads noise row i %
 // grid_rows and the lo and step of that grid row in group i / (rows /
-// groups), grid_rows dividing rows_per_peer and rows / groups. out:
-// contiguous (rows, n) uint8. bits: 1..8.
+// groups), grid_rows dividing rows_per_peer and rows / groups; sign rows as
+// in ht_amax_f32. out: contiguous (rows, n) uint8. bits: 1..8.
 extern "C" int ht_quant_grouped_f32(const void* x, const void* sign,
                                     const void* noise, const void* lo,
                                     const void* step, void* out,
@@ -419,7 +428,8 @@ extern "C" int ht_quant_grouped_f32(const void* x, const void* sign,
                                     long long rows_per_peer,
                                     long long peer_stride,
                                     long long grid_rows, long long groups,
-                                    int bits, void* stream) {
+                                    int bits, int sign_groups,
+                                    void* stream) {
   const float* sg = static_cast<const float*>(sign);
   const float* ns = static_cast<const float*>(noise);
   const float* ls = static_cast<const float*>(lo);
@@ -430,12 +440,13 @@ extern "C" int ht_quant_grouped_f32(const void* x, const void* sign,
   if (rows < 0 || rows > INT_MAX || rows_per_peer <= 0 || grid_rows <= 0 ||
       groups <= 0 || rows % groups || rows_per_peer % grid_rows ||
       (rows / groups) % grid_rows || bits < 1 || bits > 8 ||
-      sg == nullptr || reinterpret_cast<uintptr_t>(noise) % 16)
+      sg == nullptr || reinterpret_cast<uintptr_t>(noise) % 16 ||
+      sign_groups <= 0)
     return cudaErrorInvalidValue;
   const Walk w{static_cast<const float*>(x), peer_stride, (unsigned)rows,
                (unsigned)grid_rows, FastDiv::of((unsigned)(rows / grid_rows)),
                FastDiv::of((unsigned)rows_per_peer), 0,
-               FastDiv::of((unsigned)(rows / groups))};
+               FastDiv::of((unsigned)(rows / groups)), (unsigned)sign_groups};
   const float levels = (float)((1 << bits) - 1);
 #define QUANT_CALL(L) \
   launch<L, true>(w, sg, ns, ls, ss, nullptr, os, levels, st)

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import build, runtime
 from repro_torch.kernels.fwht import randomized_fwht
-from repro_torch.kernels.fwht.ops import MAX_N, MIN_N, _rows_view
+from repro_torch.kernels.fwht.ops import MAX_N, MIN_N, _rows_view, check_sign
 
 from .ref import ht_amax_ref, ht_quant_ref
 
@@ -30,10 +30,10 @@ _ARGTYPES = {
     "ht_amax_f32": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_longlong,
                                             ctypes.c_longlong,
-                                            ctypes.c_void_p],
+                                            ctypes.c_int, ctypes.c_void_p],
     "ht_quant_grouped_f32": [ctypes.c_void_p] * 6
     + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 4
-    + [ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -54,23 +54,24 @@ def _check_rows(x: torch.Tensor, sign: torch.Tensor, what: str):
     if n < MIN_N or n > MAX_N or n & (n - 1):
         raise ValueError(f"{what} kernel takes a power-of-two block in "
                          f"[{MIN_N}, {MAX_N}], got {n}")
-    if sign.shape != (n,) or sign.device != x.device:
-        raise ValueError(f"sign must be ({n},) on the input's device")
-    sign = sign.contiguous()
+    sign, groups = check_sign(sign, x, what)
     xv, rows, per_peer, stride = _rows_view(x)
-    if xv.data_ptr() % 16 or stride % 4 or sign.data_ptr() % 16:
-        raise ValueError(f"{what} kernel needs 16-byte aligned rows and sign")
-    return sign, xv, rows, per_peer, stride
+    if xv.data_ptr() % 16 or stride % 4:
+        raise ValueError(f"{what} kernel needs 16-byte aligned rows")
+    return sign, groups, xv, rows, per_peer, stride
 
 
 def ht_amax_launch(x: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
-    """Launch B3 on CUDA fp32 rows ``(..., n)`` -> ``(...)`` fp32."""
+    """Launch B3 on CUDA fp32 rows ``(..., n)`` -> ``(...)`` fp32, with a
+    ``(n,)`` or ``(G, n)`` sign (row i takes sign row ``i % G``)."""
     global amax_launches
-    sign, xv, rows, per_peer, stride = _check_rows(x, sign, "ht_amax")
+    sign, groups, xv, rows, per_peer, stride = _check_rows(x, sign,
+                                                           "ht_amax")
     out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     err = _kernel("ht_amax_f32")(
         xv.data_ptr(), sign.data_ptr(), out.data_ptr(), rows, x.shape[-1],
-        per_peer, stride, torch.cuda.current_stream(x.device).cuda_stream)
+        per_peer, stride, groups,
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ht_amax_f32")
     amax_launches += 1
     return out
@@ -82,10 +83,12 @@ def ht_quant_launch(x: torch.Tensor, sign: torch.Tensor, noise: torch.Tensor,
     """Launch B4 on CUDA fp32 rows ``(..., n)`` with ``(G, n)`` noise and
     ``(G,)`` grids (row i reads row ``i % G``), or ``(T, G)`` grids, one
     set for each of T contiguous groups of the rows (the tp groups of a
-    peer stack) -> uint8 of x's shape."""
+    peer stack) -> uint8 of x's shape. The sign as in
+    :func:`ht_amax_launch`."""
     global quant_launches
     n = x.shape[-1]
-    sign, xv, rows, per_peer, stride = _check_rows(x, sign, "ht_quant")
+    sign, sgroups, xv, rows, per_peer, stride = _check_rows(x, sign,
+                                                            "ht_quant")
     groups = lo.shape[0] if lo.dim() == 2 else 1
     g = lo.shape[-1]
     grids = (groups, g) if lo.dim() == 2 else (g,)
@@ -109,7 +112,8 @@ def ht_quant_launch(x: torch.Tensor, sign: torch.Tensor, noise: torch.Tensor,
     err = _kernel("ht_quant_grouped_f32")(
         xv.data_ptr(), sign.data_ptr(), noise.data_ptr(), lo.data_ptr(),
         step.data_ptr(), out.data_ptr(), rows, n, per_peer, stride, g,
-        groups, bits, torch.cuda.current_stream(x.device).cuda_stream)
+        groups, bits, sgroups,
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ht_quant_grouped_f32")
     quant_launches += 1
     return out
@@ -117,7 +121,7 @@ def ht_quant_launch(x: torch.Tensor, sign: torch.Tensor, noise: torch.Tensor,
 
 def ht_amax(x: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
     """Per-block amax of the rotated blocks, without materializing them.
-    ``(..., n)`` -> ``(...)`` fp32."""
+    ``(..., n)`` -> ``(...)`` fp32; ``sign`` ``(n,)`` or ``(G, n)``."""
     if runtime.use_kernel(x, "ht_amax"):
         return ht_amax_launch(x, sign)
     return ht_amax_ref(x, sign)

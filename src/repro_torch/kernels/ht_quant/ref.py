@@ -17,13 +17,14 @@ import math
 
 import torch
 
-from repro_torch.kernels.fwht.ref import fwht_ref
+from repro_torch.kernels.fwht.ref import fwht_ref, row_signs
 from repro_torch.kernels.quant.ref import grid_quant_ref
 
 
 def ht_rotate_ref(x: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
-    """sign-flip + blocked FWHT of ``(..., n)``: the encode rotation."""
-    return fwht_ref(x.to(torch.float32) * sign)
+    """sign-flip + blocked FWHT of ``(..., n)``: the encode rotation (a
+    ``(G, n)`` sign as ``fwht.ref.row_signs`` lays it on the rows)."""
+    return fwht_ref(x.to(torch.float32) * row_signs(x, sign))
 
 
 def ht_amax_ref(x: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:

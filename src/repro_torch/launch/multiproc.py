@@ -23,9 +23,10 @@ PHASES_PER_STEP + phase``)::
     events -> phase1 encode | phase2 send1 | phase3 reduce+send2 | phase4
     decode -> telemetry -> ControlPlane -> checkpoint
 
-Each step's random operands come from ``GeneratorDraws(fold_in(key(seed),
-step))`` at bucket 0 (the port's keys; the reference's threefry draws can
-be served instead through ``_run_peer``'s ``draws_fn``). Every worker
+Each step's random operands come from ``KeyedDraws(fold_in(key(seed),
+step))``: the reference's threefry draws, keyed on the step key as its peer
+keys them (other draws can be served through ``_run_peer``'s
+``draws_fn``). Every worker
 derives the same per-step data matrix from the seed with numpy and
 contributes its own row.
 
@@ -149,7 +150,7 @@ def _run_peer(client, backend, args, *, uid: int, kill_fn=None,
     ``backend`` the datagram fabric, ``kill_fn(client)`` the crash
     injection for the scripted kill scenario, ``draws_fn(step)`` the
     step's :class:`~repro_torch.core.pipeline.Draws` provider (default:
-    ``GeneratorDraws(fold_in(key(seed), step))`` on the peer's device),
+    ``KeyedDraws(fold_in(key(seed), step))`` on the peer's device),
     ``t0`` the ``time.monotonic()`` the worker started at (default: now).
     """
     t0 = time.monotonic() if t0 is None else t0
@@ -157,7 +158,7 @@ def _run_peer(client, backend, args, *, uid: int, kill_fn=None,
     import torch
 
     from repro_torch.core.keys import fold_in, key
-    from repro_torch.core.pipeline import GeneratorDraws, OptiReduceConfig
+    from repro_torch.core.pipeline import KeyedDraws, OptiReduceConfig
     from repro_torch.net import HostPeer, aggregate_reports
     from repro_torch.runtime import ControlPlane
     from repro_torch.train import checkpoint as ckpt_lib
@@ -185,8 +186,8 @@ def _run_peer(client, backend, args, *, uid: int, kill_fn=None,
 
     if draws_fn is None:
         def draws_fn(step):
-            return GeneratorDraws(fold_in(key(args.seed), step), cfg,
-                                  peer.device)
+            return KeyedDraws(fold_in(key(args.seed), step), cfg,
+                              peer.device)
     model = torch.zeros(args.elems, dtype=torch.float32, device=peer.device)
     resumed_from = None
     ckpt_dir = None

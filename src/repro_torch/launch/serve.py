@@ -19,7 +19,7 @@ import time
 import torch
 
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.core.keys import fold_in, generator, key
+from repro_torch.core.keys import key, randint
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serve.engine import generate
@@ -41,13 +41,11 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     k = key(args.seed)
-    params = init_params(generator(k, device), cfg, device=device)
-    prompts = torch.randint(0, cfg.vocab_size,
-                            (args.batch, args.prompt_len),
-                            generator=generator(fold_in(k, 1), device),
-                            device=device)
+    params = init_params(k, cfg, device=device)
+    prompts = torch.from_numpy(randint(k, (args.batch, args.prompt_len), 0,
+                                       cfg.vocab_size)).to(device)
     t0 = time.time()
-    out = generate(params, cfg, prompts, max_new=args.max_new, key=k)
+    out = generate(params, cfg, prompts, max_new=args.max_new)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0

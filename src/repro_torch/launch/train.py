@@ -92,7 +92,7 @@ from repro_torch.core.allreduce import OptiReduceConfig, strategy_names
 from repro_torch.core.bucket_plan import BucketPlan
 from repro_torch.core.pipeline import (RingTopology, TarTopology,
                                        WireTransport, resolve_spec)
-from repro_torch.core.keys import generator, key as make_key
+from repro_torch.core.keys import key as make_key
 from repro_torch.core.safeguards import LossMonitor
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels.runtime import MODES as KERNEL_MODES
@@ -299,7 +299,7 @@ def run(argv=None) -> list[dict]:
                                       global_batch=args.global_batch,
                                       seed=args.seed))
         key = make_key(args.seed)
-        params = init_params(generator(key, device), cfg, device=device, tp=tp)
+        params = init_params(key, cfg, device=device, tp=tp)
         step_fn, opt = build_train_step(cfg, tc, mesh, device=device)
         opt_state = opt.init(params)
         rec_state = None

@@ -1,5 +1,5 @@
-"""Transformer building blocks: RMS norm, RoPE, causal attention (training,
-prefill and one-token decode against a KV cache), gated MLP.
+"""Transformer building blocks: RMS norm, layer norm, RoPE, causal attention
+(training, prefill and one-token decode against a KV cache), gated MLP.
 
 Counterpart of ``src/repro/models/layers.py``,
 with the reference's numerics: norms and softmax statistics in fp32 and cast
@@ -49,6 +49,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
     return (xf * torch.rsqrt(var + eps) * scale.to(acc)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The reference's ``layer_norm``: mean and (biased) variance over the
+    last axis in fp32, then scale and bias, cast back."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
+    mu = xf.mean(dim=-1, keepdim=True)
+    centered = xf - mu
+    var = (centered * centered).mean(dim=-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
+    return (y * scale.to(acc) + bias.to(acc)).to(x.dtype)
+
+
 def rope_freqs(head_dim: int, *, theta: float = 10000.0,
                device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -95,6 +108,59 @@ def _map_kv(k: torch.Tensor, hq: int, kv_map: torch.Tensor | None
     return k.index_select(2, kv_map)
 
 
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, scale: float,
+                             chunk: int) -> torch.Tensor:
+    """Flash-style causal attention over ``chunk``-long blocks with an
+    online softmax, the (S, S) logits never whole (the reference's
+    ``_chunked_causal_attention``, what a 32k prefill needs). q, k, v:
+    ``(B, S, H, dh)``, the K / V heads already expanded to the q heads.
+    Products as in the dense path: fp32 logits from q and k, ``p`` cast to
+    V's dtype for the PV product, a running ``(o, m, l)`` in fp32.
+
+    Query block i visits key blocks 0..i only. The reference visits all of
+    them, but a block above the diagonal is masked whole: its logits are
+    all -1e30, so ``m`` stays (block 0 holds the diagonal, so ``m`` is
+    finite by then), ``p = exp(-1e30 - m)`` is 0, ``corr = exp(0)`` is 1,
+    and ``l * 1 + 0 = l`` and ``o * 1 + 0 = o`` exactly whenever V is
+    finite: skipping those blocks gives the same bits."""
+    b, s, h, dh = q.shape
+    if s % chunk:
+        raise ValueError(
+            f"chunked attention needs the sequence ({s}) to be a multiple "
+            f"of attn_chunk ({chunk}); the reference fails reshaping it "
+            "into blocks")
+    idx = torch.arange(chunk, device=q.device)
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    outs = []
+    for i in range(s // chunk):
+        qi = qf[:, i * chunk:(i + 1) * chunk]
+        o = torch.zeros((b, chunk, h, dh), dtype=torch.float32,
+                        device=q.device)
+        m = torch.full((b, h, chunk), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l_sum = torch.zeros((b, h, chunk), dtype=torch.float32,
+                            device=q.device)
+        for j in range(i + 1):
+            kj = kf[:, j * chunk:(j + 1) * chunk]
+            vj = v[:, j * chunk:(j + 1) * chunk]
+            sc = torch.einsum("bqhd,bkhd->bhqk", qi, kj) * scale
+            if j == i:                     # the diagonal block
+                mask = idx[:, None] >= idx[None, :]
+                sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l_sum = l_sum * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype),
+                              vj).to(torch.float32)
+            o = o * corr.transpose(1, 2)[..., None] + pv
+            m = m_new
+        outs.append(o / torch.clamp(l_sum.transpose(1, 2)[..., None],
+                                    min=1e-30))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
 def row_parallel(x: torch.Tensor, w: torch.Tensor,
                  pctx: ParallelCtx) -> torch.Tensor:
     """``x @ w`` with ``w`` row-parallel over the tp ranks: rank t's
@@ -126,10 +192,6 @@ def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
     b, s, _ = x.shape
     dh = w["head_dim"]
     attn_chunk = w.get("attn_chunk", 0)
-    if attn_chunk and s > attn_chunk:
-        raise NotImplementedError(
-            f"seq {s} > attn_chunk {attn_chunk}: chunked (flash-style) "
-            "attention is not ported yet: ROADMAP A21")
     q = x @ w["wq"].to(x.dtype)
     k = x @ w["wk"].to(x.dtype)
     v = x @ w["wv"].to(x.dtype)
@@ -148,13 +210,21 @@ def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
     else:
         k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
     scale = 1.0 / math.sqrt(dh)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) * scale
-    if causal:
-        mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
-        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, hq * dh)
+    if attn_chunk and s > attn_chunk:
+        # causal whatever ``causal`` says, as in the reference
+        ctx = chunked_causal_attention(q, k, v, scale=scale,
+                                       chunk=attn_chunk)
+    else:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                              k.to(torch.float32)) * scale
+        if causal:
+            mask = torch.ones((s, s), dtype=torch.bool,
+                              device=x.device).tril()
+            logits = torch.where(mask, logits,
+                                 torch.full_like(logits, -1e30))
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    ctx = ctx.reshape(b, s, hq * dh)
     out = (row_parallel(ctx, w["wo"], pctx) if _tp(pctx)
            else ctx @ w["wo"].to(x.dtype))
     return (out, cache) if collect_kv else out

@@ -7,11 +7,12 @@ tensors on one card (pod-major over ``(pod, data)``, as
 ``core/collectives.py`` lays them out), so a per-device value of the
 reference becomes a ``(P, ...)`` stack and each collective reindexes it.
 
-``gather`` is the FSDP weight gather the trainer installs: ``(w, dim, key,
-name) -> w_full``, whose gradient the trainer reduces with OptiReduce's
-reduce-scatter. On one card a parameter is stored whole, so the gather
-hands back the full weight; ``name`` tells apart two call sites that share
-a key (the embedding lookup and the tied head).
+``gather`` is the FSDP weight gather the trainer installs: ``(w, dim,
+path, name) -> w_full``, whose gradient the trainer reduces with
+OptiReduce's reduce-scatter under the draws of the site's key path below
+the step key (``()`` or ``(l,)``). On one card a parameter is stored whole,
+so the gather hands back the full weight; ``name`` tells apart two call
+sites that share a path (the embedding lookup and the tied head).
 
 Tensor parallelism (``tp_axis``, T = ``sizes[tp_axis]`` ranks). The model
 code runs one data peer at a time and keeps **one** activation for the
@@ -54,7 +55,7 @@ class ParallelCtx:
     dp_axis: str | None = None      # 'data'  (fsdp gathers + grad sync)
     pod_axis: str | None = None     # 'pod', or 'model' under pure_dp
     fsdp: bool = False              # weights sharded over the dp axes
-    gather: Callable | None = None  # (w, dim, key, name) -> w_full
+    gather: Callable | None = None  # (w, dim, path, name) -> w_full
     sizes: Mapping[str, int] = dataclasses.field(default_factory=dict)
     sp: bool = False                # sequence parallelism over tp
     # serving: MoE expert weights stay sharded over the dp axes and the

@@ -65,10 +65,11 @@ projections on their input dim (``wo``, ``w_down``, ``out_proj`` and the
 down projections of the experts on their output dim), ``frontend_proj`` on
 dim 0; the norms and Mamba-2's ``dt_bias``, ``conv_w``, ``a_log`` and
 ``d_skip`` replicated. The forward pass gathers each sharded weight through
-``pctx.gather`` at the reference's call sites and keys: ``embed`` with
-``key`` for the lookup and again for the tied head, ``frontend_proj`` with
-``key`` (only when the batch has a prefix), layer l's weights with
-``fold_in(key, l)``; under tensor parallelism a leaf is sharded on both
+``pctx.gather`` at the reference's call sites, each named by its key path
+below the step key: ``embed`` at ``()`` for the lookup and again for the
+tied head, ``frontend_proj`` at ``()`` (only when the batch has a prefix),
+layer l's weights at ``(l,)`` (the reference's ``fold_in(key, l)``); the
+gather derives the keys. Under tensor parallelism a leaf is sharded on both
 dims and the gather hands over the global weight, the trainer cutting its
 gradient per tp shard.
 
@@ -100,7 +101,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.keys import Key, fold_in
+from repro_torch.core.keys import Key, normal, split, uniform
+from repro_torch.kernels.threefry.ref import log_xla
 
 from .layers import (KVCache, attention_decode, attention_train, gated_mlp,
                      rms_norm)
@@ -371,10 +373,10 @@ def _layer_fsdp_dims(cfg: ModelConfig) -> list[dict[str, int | None]]:
 
 
 def _maybe_gather(pctx: ParallelCtx, w: torch.Tensor, dim: int | None,
-                  key: Key | None, name: str) -> torch.Tensor:
+                  path: tuple[int, ...], name: str) -> torch.Tensor:
     if dim is None or not pctx.fsdp or pctx.gather is None:
         return w
-    return pctx.gather(w, dim, key, name)
+    return pctx.gather(w, dim, path, name)
 
 
 def _map_table(fn, table):
@@ -431,36 +433,58 @@ def abstract_params(cfg: ModelConfig, *, tp: int = 1,
         param_table(cfg, tp=tp, fsdp_axes=fsdp_axes))
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig, *,
+def init_params(key: Key, cfg: ModelConfig, *,
                 device: torch.device | str, tp: int = 1,
                 scale: float = 0.02):
     """Materialize parameters in ``cfg.param_dtype`` on ``device``, at the
-    global padded shapes of ``tp``, with the reference's inits: normal
-    leaves std min(scale, 1/sqrt(fan_in)) (the padding rows too), norms
-    and ``d_skip`` ones, ``dt_bias`` zeros, ``a_log`` the log of U[1, 16)
-    (Mamba-2's A), ``conv_w`` normal / sqrt(kernel width). The values come
-    from ``gen``, not from the reference's threefry stream; carry the
-    reference's parameters over with ``weights.params_from_jax``."""
-    def draw(shape, uniform=False):
-        fn = torch.rand if uniform else torch.randn
-        return fn(shape, generator=gen, dtype=torch.float32,
-                  device=gen.device)
+    global padded shapes of ``tp``, as the reference draws them: ``key`` is
+    split once per leaf, the keys handed out in the order the reference's
+    table walk meets the leaves (dict insertion order), normal leaves are ``normal * std`` with std min(scale,
+    1/sqrt(fan_in)) (the padding rows too), norms and ``d_skip`` ones,
+    ``dt_bias`` zeros, ``a_log`` ``log(uniform(k, shape, 1, 16))`` (Mamba-2's
+    A), ``conv_w`` normal / sqrt(kernel width); fp32, then cast. The draws
+    are the reference's threefry bits (``core/keys.py``) and ``a_log`` is
+    bit for bit the reference's; a normal is within 2 ulp of fp32 of it
+    (XLA's CPU formulas, about two values in 10^5 differ), so nearly every
+    bf16 weight equals the reference's."""
+    table = param_table(cfg, tp=tp)
+    # the reference splits the key into one key a leaf and hands them out
+    # in the order its table walk visits the leaves: dicts in insertion
+    # order, not the sorted tree order
+    visits: list[int] = []
+
+    def visit(node) -> None:
+        if isinstance(node, Leaf):
+            visits.append(id(node))
+        elif isinstance(node, dict):
+            for v in node.values():
+                visit(v)
+        else:
+            for v in node:
+                visit(v)
+    visit(table)
+    keys = dict(zip(visits, split(key, len(visits))))
 
     def make(leaf: Leaf) -> torch.Tensor:
+        k = keys[id(leaf)]
         if leaf.init in ("ones", "zeros"):
             fill = torch.ones if leaf.init == "ones" else torch.zeros
             return fill(leaf.shape, dtype=cfg.param_dtype, device=device)
         if leaf.init == "alog":
-            w = torch.log(1.0 + 15.0 * draw(leaf.shape, uniform=True))
-        elif leaf.init == "conv":
-            w = draw(leaf.shape) / math.sqrt(leaf.shape[-2])
+            w = log_xla(uniform(k, leaf.shape, device, minval=1.0,
+                                maxval=16.0))
         else:
-            fan_in = (leaf.shape[-2] if len(leaf.shape) >= 2
-                      else leaf.shape[-1])
-            w = draw(leaf.shape) * min(scale, 1.0 / math.sqrt(fan_in))
-        return w.to(device=device, dtype=cfg.param_dtype)
+            w = normal(k, leaf.shape, device)
+            if leaf.init == "conv":
+                # a true division, on the card too
+                w = w / torch.full_like(w, math.sqrt(leaf.shape[-2]))
+            else:
+                fan_in = (leaf.shape[-2] if len(leaf.shape) >= 2
+                          else leaf.shape[-1])
+                w = w * min(scale, 1.0 / math.sqrt(fan_in))
+        return w.to(dtype=cfg.param_dtype)
 
-    return _map_table(make, param_table(cfg, tp=tp))
+    return _map_table(make, table)
 
 
 def _layer(x: torch.Tensor, positions: torch.Tensor | None,
@@ -554,7 +578,7 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
-                   pctx: ParallelCtx | None = None, key: Key | None = None,
+                   pctx: ParallelCtx | None = None,
                    collect_state: bool = False):
     """Tokens (after the frontend's prefix, when the batch has
     ``prefix_embeds``) -> final hidden states (B, S, D). The layers run in
@@ -563,8 +587,8 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
     (the reference's ``jax.checkpoint``). Under FSDP (``pctx.fsdp``) each
     sharded weight is gathered before its layer runs, outside the
     recomputed region, so a recompute gathers nothing; layer l's weights
-    with ``fold_in(key, l)``, the embedding and the frontend projection with
-    ``key``. Under tensor parallelism the parameters are the global padded
+    at the site path ``(l,)``, the embedding and the frontend projection at
+    ``()``. Under tensor parallelism the parameters are the global padded
     ones of ``param_table(cfg, tp=T)``; with ``pctx.sp`` the residual
     stream runs as the ranks' sequence slices and is gathered back after
     the final norm. With ``collect_state`` (prefill; no recompute) returns
@@ -573,10 +597,10 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
     pctx = pctx or SINGLE
     t = pctx.tp_size()
     tokens = batch["tokens"].long()
-    emb = _maybe_gather(pctx, params["embed"], 1, key, "embed")
+    emb = _maybe_gather(pctx, params["embed"], 1, (), "embed")
     x = embed_tokens(emb, tokens, cfg, pctx)
     if cfg.frontend and "prefix_embeds" in batch:
-        proj = _maybe_gather(pctx, params["frontend_proj"], 0, key,
+        proj = _maybe_gather(pctx, params["frontend_proj"], 0, (),
                              "frontend_proj")
         pref = batch["prefix_embeds"].to(cfg.param_dtype) @ proj.to(
             cfg.param_dtype)
@@ -606,8 +630,8 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
         for pos in range(period):
             weights = per_pos[pos][r]
             if pctx.fsdp:
-                lkey = fold_in(key, r * period + pos)
-                weights = [_maybe_gather(pctx, w, fsdp_dims[pos][k], lkey, k)
+                site = (r * period + pos,)
+                weights = [_maybe_gather(pctx, w, fsdp_dims[pos][k], site, k)
                            for k, w in zip(names[pos], weights)]
             args = (x, positions, cfg, pos, names[pos], pctx, kv, *weights)
             if remat and torch.is_grad_enabled() and not collect_state:
@@ -664,27 +688,27 @@ def _chunk_loss_tp(x_chunk: torch.Tensor, y_chunk: torch.Tensor,
     return nll.sum(), weight.sum()
 
 
-def _head(params, pctx: ParallelCtx, key: Key | None) -> torch.Tensor:
+def _head(params, pctx: ParallelCtx) -> torch.Tensor:
     """The (D, V_pad) output head: ``lm_head``, or the tied ``embed.T``."""
     head = params.get("lm_head")
     if head is None:
-        return _maybe_gather(pctx, params["embed"], 1, key, "head").T
-    return _maybe_gather(pctx, head, 0, key, "lm_head")
+        return _maybe_gather(pctx, params["embed"], 1, (), "head").T
+    return _maybe_gather(pctx, head, 0, (), "lm_head")
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, seq_chunk: int = 1024,
-            remat: bool = True, pctx: ParallelCtx | None = None,
-            key: Key | None = None) -> torch.Tensor:
+            remat: bool = True,
+            pctx: ParallelCtx | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy, chunked over the sequence (full
     logits are never alive at once when ``remat`` recomputes each chunk).
-    ``pctx`` and ``key`` as in :func:`forward_hidden`."""
+    ``pctx`` as in :func:`forward_hidden`."""
     pctx = pctx or SINGLE
-    x = forward_hidden(params, batch, cfg, remat=remat, pctx=pctx, key=key)
+    x = forward_hidden(params, batch, cfg, remat=remat, pctx=pctx)
     labels = batch["labels"]
     p = x.shape[1] - labels.shape[1]
     if p:
         x = x[:, p:]                      # loss only on token positions
-    head = _head(params, pctx, key)
+    head = _head(params, pctx)
     s = x.shape[1]
     chunk = math.gcd(min(seq_chunk, s), s)
     total = torch.zeros((), device=x.device)
@@ -730,14 +754,14 @@ def _greedy(x: torch.Tensor, head: torch.Tensor,
 
 @torch.no_grad()
 def prefill_step(params, batch, cfg: ModelConfig,
-                 pctx: ParallelCtx | None = None, *, key: Key | None = None):
+                 pctx: ParallelCtx | None = None):
     """Serving prefill: consume the prompt, return ``(first_token (B, 1)
     int32, states)``, the states stacked over the repeats as
     ``init_decode_state`` lays them out (their sequence the prompt's)."""
     pctx = pctx or SINGLE
     x, states = forward_hidden(params, batch, cfg, remat=False, pctx=pctx,
-                               key=key, collect_state=True)
-    return _greedy(x[:, -1], _head(params, pctx, key), pctx)[:, None], states
+                               collect_state=True)
+    return _greedy(x[:, -1], _head(params, pctx), pctx)[:, None], states
 
 
 def init_decode_state(params_like, cfg: ModelConfig, *, batch: int,
@@ -792,21 +816,19 @@ def _serving_split(pctx: ParallelCtx, seq_shard_axis) -> tuple[int, int]:
 
 @torch.no_grad()
 def decode_step(params, state, tokens, pos, cfg: ModelConfig,
-                pctx: ParallelCtx | None = None, *, key: Key | None = None,
-                seq_shard_axis=None):
+                pctx: ParallelCtx | None = None, *, seq_shard_axis=None):
     """One greedy decode step. ``tokens``: (B, 1); ``pos``: the tokens'
     position, an int or a 0-d tensor; ``state``: the global decode state
     (a list over period positions), written in place. Returns
-    ``(next_tokens (B, 1) int32, state)``. ``key`` serves only the FSDP
-    gathers (layer l's weights with ``fold_in(key, l)``); with
-    ``pctx.moe_stationary`` under FSDP the expert weights are not
-    gathered."""
+    ``(next_tokens (B, 1) int32, state)``. Under FSDP layer l's weights
+    are gathered at the site path ``(l,)``; with ``pctx.moe_stationary``
+    the expert weights are not gathered."""
     pctx = pctx or SINGLE
     tokens = tokens.long()
     dev = tokens.device
     step = torch.as_tensor(pos, device=dev).to(torch.long).reshape(1)
     seq_shards, peers = _serving_split(pctx, seq_shard_axis)
-    x = embed_tokens(_maybe_gather(pctx, params["embed"], 1, key, "embed"),
+    x = embed_tokens(_maybe_gather(pctx, params["embed"], 1, (), "embed"),
                      tokens, cfg, pctx)
     kv = _kv_maps(cfg, pctx.tp_size(), dev)
     stages = params["stages"]
@@ -818,15 +840,14 @@ def decode_step(params, state, tokens, pos, cfg: ModelConfig,
         for p in range(period):
             weights = [stages[p][k][r] for k in names[p]]
             if pctx.fsdp:
-                lkey = (fold_in(key, r * period + p) if key is not None
-                        else None)
+                site = (r * period + p,)
                 weights = [w if stationary and k.startswith("we_") else
-                           _maybe_gather(pctx, w, fsdp_dims[p][k], lkey, k)
+                           _maybe_gather(pctx, w, fsdp_dims[p][k], site, k)
                            for k, w in zip(names[p], weights)]
             layer_state = type(state[p])(*(a[r] for a in state[p]))
             x, _ = _layer(x, None, cfg, p, names[p], pctx, kv, *weights,
                           state=layer_state, step=step,
                           seq_shards=seq_shards, peers=peers)
     x = rms_norm(x, params["final_ln"])
-    nxt = _greedy(x[:, 0], _head(params, pctx, key), pctx)
+    nxt = _greedy(x[:, 0], _head(params, pctx), pctx)
     return nxt[:, None], state

@@ -35,7 +35,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.pipeline import (CollectiveSpec, GeneratorDraws,
+from repro_torch.core.pipeline import (CollectiveSpec, ThreefryDraws,
                                        OptiReduceConfig, WireTransport,
                                        resolve_spec)
 from repro_torch.core.ubt import AdaptiveTimeout, LossBudget
@@ -172,7 +172,7 @@ class HostRing:
         ``buckets``: (n, L) tensor or array — peer p contributes row p.
         ``draws`` gives the random operands every peer shares (a
         :class:`~repro_torch.core.pipeline.Draws` provider, or a key, which
-        means ``GeneratorDraws(key)`` on the ring's device), drawn at site
+        means ``ThreefryDraws(key)`` on the ring's device), drawn at site
         ``bucket``, as ``sync_packed`` draws its bucket ``bucket``.
         ``stale`` is the replicated previous-step decoded bucket ``(L,)``
         for StaleFill recovery codecs (``cfg.recovery != "none"``).
@@ -183,7 +183,7 @@ class HostRing:
             raise ValueError(f"buckets must be ({self.n}, L), "
                              f"got {tuple(buckets.shape)}")
         if isinstance(draws, tuple):
-            draws = GeneratorDraws(draws, self.cfg, self.device)
+            draws = ThreefryDraws(draws, self.cfg, self.device)
         results: list = [None] * self.n
         reports: list = [None] * self.n
         errors: list = []

@@ -1,5 +1,5 @@
-from .optimizers import (AdamState, OptimizerConfig, adamw, make_optimizer,
-                         momentum_sgd, sgd)
+from .optimizers import (AdafactorState, AdamState, OptimizerConfig,
+                         adafactor, adamw, make_optimizer, momentum_sgd, sgd)
 
-__all__ = ["AdamState", "OptimizerConfig", "adamw", "make_optimizer",
-           "momentum_sgd", "sgd"]
+__all__ = ["AdafactorState", "AdamState", "OptimizerConfig", "adafactor",
+           "adamw", "make_optimizer", "momentum_sgd", "sgd"]

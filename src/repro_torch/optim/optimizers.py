@@ -1,5 +1,5 @@
-"""Optimizers: SGD, momentum SGD and AdamW, written out as the reference
-writes them.
+"""Optimizers: SGD, momentum SGD, AdamW and the factored Adafactor-lite,
+written out as the reference writes them.
 
 Counterpart of ``src/repro/optim/optimizers.py``. AdamW here is
 ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)`` on every leaf, in fp32,
@@ -10,8 +10,12 @@ States are trees mirroring the parameters. ``update`` writes the new
 parameters and moments into the given tensors in place (no second copy of
 either) and returns them. The reference's ``scan_update`` only bounds XLA's
 fp32 transients by mapping the update over stacked layers; eager PyTorch
-updates one leaf at a time already, so it has no counterpart here. Adafactor
-waits for a later slice.
+updates one leaf at a time already, so it has no counterpart here.
+Adafactor's state is two trees of factored second-moment statistics (a row
+vector and a column vector a leaf of two or more dims, the full ``v`` and a
+placeholder otherwise), not shaped like the parameters
+(``state_like_params=False``): the reference replicates it under FSDP, and
+so does the port, which holds every state whole on the card.
 """
 from __future__ import annotations
 
@@ -112,13 +116,63 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
     return Optimizer(init, update, state_like_params=True)
 
 
-_REGISTRY = {"sgd": sgd, "momentum": momentum_sgd, "adamw": adamw}
+class AdafactorState(NamedTuple):
+    row: Any     # per-leaf row statistics (the full v for a leaf under 2-D)
+    col: Any     # per-leaf column statistics (a 0-d placeholder under 2-D)
+
+
+def adafactor(cfg: OptimizerConfig) -> Optimizer:
+    """Factored second moment over the trailing two dims (Shazeer-Stern,
+    simplified as the reference simplifies it: no first moment, no update
+    clipping, no relative step): ``r = b2 r + (1 - b2) mean_col(g^2)``,
+    ``c = b2 c + (1 - b2) mean_row(g^2)``, ``v_hat = r c / max(mean(r),
+    1e-30)``, ``p -= lr (g / (sqrt(v_hat) + eps) + wd p)``, in fp32, with
+    ``g^2`` taken as ``g * g + 1e-30``. Updates in place, as AdamW does."""
+    def init(params):
+        def rows(p):
+            shape = p.shape[:-1] if p.dim() >= 2 else p.shape
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+        def cols(p):
+            shape = (p.shape[:-2] + p.shape[-1:]) if p.dim() >= 2 else ()
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        return AdafactorState(row=tree_map(rows, params),
+                              col=tree_map(cols, params))
+
+    @torch.no_grad()
+    def update(grads, state, params, lr, step):
+        del step
+        b2 = cfg.beta2
+        lr = torch.as_tensor(lr, dtype=torch.float32)
+        for p, g, r, c in zip(tree_leaves(params), tree_leaves(grads),
+                              tree_leaves(state.row), tree_leaves(state.col)):
+            gf = g.to(torch.float32)
+            g2 = gf * gf + 1e-30
+            if p.dim() >= 2:
+                rn = b2 * r + (1 - b2) * g2.mean(dim=-1)
+                cn = b2 * c + (1 - b2) * g2.mean(dim=-2)
+                rmean = rn.mean(dim=-1, keepdim=True)
+                vhat = (rn[..., None] * cn[..., None, :]
+                        / torch.clamp(rmean[..., None], min=1e-30))
+                c.copy_(cn)
+            else:
+                rn = b2 * r + (1 - b2) * g2
+                vhat = rn
+            pf = p.to(torch.float32)
+            pf = pf - lr.to(p.device) * (gf / (torch.sqrt(vhat) + cfg.eps)
+                                         + cfg.weight_decay * pf)
+            p.copy_(pf)
+            r.copy_(rn)
+        return params, state
+
+    return Optimizer(init, update, state_like_params=False)
+
+
+_REGISTRY = {"sgd": sgd, "momentum": momentum_sgd, "adamw": adamw,
+             "adafactor": adafactor}
 
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
-    if cfg.name == "adafactor":
-        raise NotImplementedError(f"optimizer {cfg.name!r} is not ported "
-                                  "yet: ROADMAP A10")
     if cfg.name not in _REGISTRY:
         raise ValueError(f"unknown optimizer {cfg.name!r}")
     return _REGISTRY[cfg.name](cfg)

@@ -34,7 +34,6 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.core.keys import Key, key as make_key
 from repro_torch.models import decode_step, init_decode_state, param_specs
 from repro_torch.models.layers import KVCache
 from repro_torch.models.parallel import SINGLE, ParallelCtx
@@ -137,7 +136,7 @@ def abstract_state(cfg: ModelConfig, shape: ShapeConfig, plan: ServePlan):
 def build_serve_step(cfg: ModelConfig, mesh, plan: ServePlan, *,
                      weight_fsdp: bool = False, moe_stationary: bool = False):
     """``make(abstract_state) -> (fn, specs)``: ``fn(params, state, tokens,
-    pos, key) -> (next_tok (B, 1), state)`` runs one decode step of every
+    pos) -> (next_tok (B, 1), state)`` runs one decode step of every
     peer of ``mesh`` under ``plan`` (the state written in place); ``specs``
     holds the partition specs of the params, the state and the tokens.
 
@@ -153,7 +152,7 @@ def build_serve_step(cfg: ModelConfig, mesh, plan: ServePlan, *,
         pod_axis="pod" if "pod" in names else None,
         fsdp=weight_fsdp,
         # one card stores each weight whole: the gather hands it back
-        gather=(lambda w, dim, key, name: w) if weight_fsdp else None,
+        gather=(lambda w, dim, path, name: w) if weight_fsdp else None,
         sizes=mesh.shape, moe_stationary=moe_stationary)
     seq_axes = plan.seq_axes or None
     p_specs = param_specs(cfg, tp=plan.tp,
@@ -161,7 +160,7 @@ def build_serve_step(cfg: ModelConfig, mesh, plan: ServePlan, *,
     s_specs = state_specs(cfg, plan)
     tok_spec = (_axes_entry(plan.batch_axes), None)
 
-    def fn(params, state, tokens, pos, key: Key | None = None):
+    def fn(params, state, tokens, pos):
         if seq_axes is None and tokens.shape[0] % plan.dp_total:
             raise ValueError(f"batch {tokens.shape[0]} does not split over "
                              f"{plan.dp_total} data peers")
@@ -169,7 +168,7 @@ def build_serve_step(cfg: ModelConfig, mesh, plan: ServePlan, *,
         if seq_axes and any(n % plan.dp_total for n in lengths):
             raise ValueError(f"cache length {lengths} does not split over "
                              f"{plan.dp_total} data peers")
-        return decode_step(params, state, tokens, pos, cfg, pctx, key=key,
+        return decode_step(params, state, tokens, pos, cfg, pctx,
                            seq_shard_axis=seq_axes)
 
     def make(abstract_st):
@@ -180,7 +179,7 @@ def build_serve_step(cfg: ModelConfig, mesh, plan: ServePlan, *,
 
 
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
-             max_new: int = 16, key: Key | None = None,
+             max_new: int = 16,
              pctx: ParallelCtx | None = None) -> torch.Tensor:
     """Single-peer loop: teacher-force the prompt token by token through
     ``decode_step`` (no prefill), then greedy-decode ``max_new`` tokens.
@@ -188,7 +187,6 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
     with T tp ranks decodes over tp, on the global state of T ranks
     (``global_state``; ``params`` padded for T)."""
     pctx = pctx or SINGLE
-    key = key if key is not None else make_key(0)
     b, s0 = prompts.shape
     state = global_state(cfg, batch=b, max_seq=s0 + max_new,
                          tp=pctx.tp_size(), dtype=cfg.param_dtype,
@@ -196,7 +194,7 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *,
     tok = prompts[:, :1]
     out = [prompts]
     for t in range(s0 + max_new - 1):
-        nxt, state = decode_step(params, state, tok, t, cfg, pctx, key=key)
+        nxt, state = decode_step(params, state, tok, t, cfg, pctx)
         if t + 1 < s0:
             tok = prompts[:, t + 1:t + 2]      # teacher-force the prompt
         else:

@@ -15,14 +15,14 @@ one launch each for all N workers, and B1 again for the decode; the HT of
 the OptiReduce paths is B1. The drop-compensated means stay plain PyTorch,
 as the reference keeps them jnp.
 
-Draws follow the reference's key path name for name, from the port's key
-tuples (``core/keys.py``): the step key ``fold_in(seed, step)``; the HT and
+Draws are the reference's own, bit for bit (threefry keys,
+``core/keys.py``), on its key path name for name: the step key ``fold_in(seed, step)``; the HT and
 THC sign from the step key; THC's noise from ``fold_in(step_key, 1)``, one
 copy every worker shares (the reference hands every worker the same key);
 stage-1 masks from ``fold_in(step_key, r)`` and stage-2 masks from
 ``fold_in(step_key, 100 + i)``; TernGrad's draw from ``fold_in(step_key,
-i)``. A :class:`Draws` provider serves them, so a test can hand in the
-reference's own.
+i)``. A :class:`Draws` provider serves them (:class:`KeyDraws` by
+default), so a test can hand in others.
 """
 from __future__ import annotations
 
@@ -39,7 +39,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import compression as comp_lib
 from repro_torch.core import drops as drops_lib
 from repro_torch.core.hadamard import ht_decode, ht_encode, rademacher_sign
-from repro_torch.core.keys import Key, fold_in, generator
+from repro_torch.core import keys as keys_lib
+from repro_torch.core.keys import Key, fold_in
 from repro_torch.core.keys import key as seed_key
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels import runtime
@@ -95,20 +96,20 @@ class Draws(Protocol):
 
 @dataclasses.dataclass(frozen=True)
 class KeyDraws:
-    """The default provider: a ``torch.Generator`` seeded from each key."""
+    """The default provider: the reference's threefry draws under each key
+    (``core/keys.py``), on the run's device."""
     device: torch.device
 
     def sign(self, key: Key, block: int) -> torch.Tensor:
-        return rademacher_sign(generator(key, self.device), block)
+        return rademacher_sign(key, block, self.device)
 
     def uniform(self, key: Key, shape: tuple[int, ...]) -> torch.Tensor:
-        return torch.rand(shape, generator=generator(key, self.device),
-                          device=self.device)
+        return keys_lib.uniform(key, shape, self.device)
 
     def mask(self, key: Key, pattern: str, n: int, elems: int, *,
              rate: float, self_index: int | None = None) -> torch.Tensor:
-        return drops_lib.make_mask(pattern, generator(key, self.device), n,
-                                   elems, rate=rate, self_index=self_index)
+        return drops_lib.make_mask(pattern, key, n, elems, rate=rate,
+                                   self_index=self_index, device=self.device)
 
 
 def _mean(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
@@ -331,8 +332,7 @@ class ReplicaRun:
         self.key = seed_key(rc.seed)
         n = rc.n_workers
         if params is None:
-            params = init_params(generator(self.key, self.device), self.cfg,
-                                 device=self.device)
+            params = init_params(self.key, self.cfg, device=self.device)
         self.meta = _layout(params)
         self.length = sum(self.meta[2])
         self.params = tree_map(

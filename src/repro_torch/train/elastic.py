@@ -52,6 +52,11 @@ def reshard(full_params: Any, cfg: ModelConfig, new_n: int, *, tp: int = 1
     dims = _fsdp_dims(cfg, tp)
     shards: list[list] = [[] for _ in range(new_n)]
     for leaf, dim in zip(tree_leaves(full_params), dims):
+        if dim is not None and dim >= leaf.dim():
+            raise ValueError(
+                f"a leaf of shape {tuple(leaf.shape)} has no fsdp dim {dim}: "
+                "reshard takes trees shaped like the parameters (a factored "
+                "Adafactor state is not; it is replicated, not sharded)")
         if dim is None:
             for s in shards:
                 s.append(leaf)

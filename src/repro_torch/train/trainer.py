@@ -101,7 +101,7 @@ from repro_torch.core.allreduce import (OptiReduceConfig, rs_spec,
                                         sync_packed, sync_pytree)
 from repro_torch.core.bucket_plan import BucketPlan
 from repro_torch.core.keys import Key, fold_in
-from repro_torch.core.pipeline import (Draws, GeneratorDraws, SyncContext,
+from repro_torch.core.pipeline import (Draws, ThreefryDraws, SyncContext,
                                        resolve_spec)
 from repro_torch.core.safeguards import guard_scale, guard_update
 from repro_torch.kernels import runtime as kernel_runtime
@@ -122,7 +122,7 @@ class TrainConfig:
     seq_chunk: int = 1024                # loss sequence chunking
     remat: bool = True
     bucket_elems: int = 6_553_600        # 25 MB fp32 buckets
-    sync_mode: str = "pipelined"         # 'pipelined' | 'scan'
+    sync_mode: str = "pipelined"         # 'pipelined' | 'scan' | 'vmap'
     guard: bool = True                   # §3.4 skip-update safeguard
     accum_dtype: torch.dtype = torch.float32
     # pure data parallelism on a single-pod mesh: the 'model' axis is a
@@ -257,10 +257,11 @@ class FsdpGather:
     """The FSDP weight gather and its deferred VJP, OptiReduce's
     reduce-scatter (the reference's custom-VJP ``gather``).
 
-    ``gather(w, dim, key, name)`` (installed as ``ParallelCtx.gather``)
+    ``gather(w, dim, path, name)`` (installed as ``ParallelCtx.gather``)
     hands the forward pass a fresh autograd leaf over the full weight ``w``
     (on one card the peers' shards side by side are the whole tensor), one
-    a site, a site being (name, key): the reference's call sites and keys.
+    a site, a site being (name, path): the reference's call sites, each
+    with its key path below the step key (``()`` or ``(l,)``).
     ``backward`` takes one peer's gradients of its sites into each site's
     ``(P, *shape)`` stack; once the last peer of a micro-batch is done,
     ``reduce`` runs each stack's reduce-scatter over all peers, one hop a
@@ -280,9 +281,9 @@ class FsdpGather:
         self.taken: dict = {}     # this forward: site -> (leaf, dim, view)
         self.stacks: dict = {}    # site -> ((T*P, *local) stack, dim, view)
 
-    def gather(self, w: torch.Tensor, dim: int, key: Key,
+    def gather(self, w: torch.Tensor, dim: int, path: tuple[int, ...],
                name: str) -> torch.Tensor:
-        site = (name, key)
+        site = (name, path)
         if site in self.taken:
             raise RuntimeError(f"gather site {site} taken twice in one "
                                "forward pass")
@@ -307,13 +308,13 @@ class FsdpGather:
         self.taken = {}
         return grads[len(order):]
 
-    def reduce(self, draws: Draws, skey: Key):
+    def reduce(self, draws: Draws):
         """Yield ``(view, reduced gradient)`` a site and drop the stacks.
-        A site's draws are ``draws`` at the key path below ``skey``."""
+        A site's draws are ``draws`` (keyed on the step key) at its path."""
         stacks, self.stacks = self.stacks, {}
-        for (name, key), (stack, dim, w) in stacks.items():
-            ctx = SyncContext(cfg=self.cfg, draws=draws,
-                              bucket=key[len(skey):], grid=self.grid)
+        for (name, path), (stack, dim, w) in stacks.items():
+            ctx = SyncContext(cfg=self.cfg, draws=draws, bucket=path,
+                              grid=self.grid)
             g = stack
             for axis, hop in self.hops:
                 g = hop.reduce_scatter(g, axis, dim, ctx)
@@ -384,7 +385,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
     (``launch.mesh.make_host_mesh``) gives the peer grid, ``peers=N`` the
     one-axis grid of N; ``batch`` is the global batch (numpy or tensors)
     split over the peers, pod-major. ``draws`` overrides the step's default
-    :class:`GeneratorDraws` of the bucketed sync (keyed on the step's sync
+    :class:`ThreefryDraws` of the bucketed sync (keyed on the step's sync
     key), ``site_draws`` that of the FSDP gather sites (keyed on the step
     key; a site's draws are ``bucket=()`` for the embedding, ``(l,)`` for
     layer l): a test hands in the reference's.
@@ -547,8 +548,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                 tree_leaves(plan.unpack(g * (gscale * clip))), leaf_tp)])
         return grads, losses, loss_frac, gnorm, skipped, new_rec
 
-    def fsdp_grads(params, batch, b_local, mb, n_micro, ctx, skey,
-                   site_draws):
+    def fsdp_grads(params, batch, b_local, mb, n_micro, ctx, site_draws):
         leaves = tree_leaves(params)
         small = [p for p, m in zip(leaves, fsdp_mask) if not m]
         small_tp = [d for d, m in zip(leaf_tp, fsdp_mask) if not m]
@@ -575,13 +575,13 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                 lo = peer * b_local + i * mb
                 mbatch = _local(batch, slice(lo, lo + mb), device)
                 loss = lm_loss(params, mbatch, cfg, seq_chunk=tc.seq_chunk,
-                               remat=tc.remat, pctx=step_pctx, key=skey)
+                               remat=tc.remat, pctx=step_pctx)
                 for stack, g, d in zip(small_g, gather.backward(
                         loss, peer, peers, small), small_tp):
                     grid.by_group(stack)[:, peer] = to_tp(g, d, tp)
                 loss_p[peer] += loss.detach()
             # the deferred VJP over all peers; sites sharing a leaf add
-            for w, g in gather.reduce(site_draws, skey):
+            for w, g in gather.reduce(site_draws):
                 _grad_view(w, bufs).add_(g)
             if n_micro == 1:
                 acc, small_acc = grad, small_g
@@ -629,13 +629,13 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                    else "takes no rec_state"))
         skey = fold_in(key, step)
         b_local, mb, n_micro = split(batch)
-        ctx = SyncContext(cfg=sync_cfg, draws=draws or GeneratorDraws(
+        ctx = SyncContext(cfg=sync_cfg, draws=draws or ThreefryDraws(
             key=fold_in(skey, 7), cfg=sync_cfg, device=device), grid=grid)
         new_rec = None
         if fsdp:
             grads, losses, loss_frac, gnorm, skipped = fsdp_grads(
-                params, batch, b_local, mb, n_micro, ctx, skey,
-                site_draws or GeneratorDraws(key=skey, cfg=sync_cfg,
+                params, batch, b_local, mb, n_micro, ctx,
+                site_draws or ThreefryDraws(key=skey, cfg=sync_cfg,
                                              device=device))
         else:
             grads, losses, loss_frac, gnorm, skipped, new_rec = \

@@ -39,6 +39,7 @@ from repro_torch.optim.optimizers import AdamState, OptimizerConfig, \
     make_optimizer
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.tree import tree_leaves
+from repro_torch.core.keys import key as tkey
 
 LR = 3e-4                       # the launcher's default
 M_TOL = 1e-6
@@ -219,7 +220,7 @@ def _port_run(argv):
 
 
 def _final_state(d, step):
-    like = init_params(torch.Generator(), get_smoke("gpt2-paper"),
+    like = init_params(tkey(0), get_smoke("gpt2-paper"),
                        device="cpu")
     opt = make_optimizer(OptimizerConfig(lr=LR))
     got_step, (params, state), _ = ckpt.restore(str(d), (like,

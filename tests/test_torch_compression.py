@@ -43,7 +43,7 @@ from repro.kernels.quant.ref import \
     uniform_dequant_ref as j_dequant  # noqa: E402
 from repro_torch.core import compression as comp  # noqa: E402
 from repro_torch.core.hadamard import rademacher_sign  # noqa: E402
-from repro_torch.core.keys import generator, key  # noqa: E402
+from repro_torch.core.keys import key  # noqa: E402
 from repro_torch.kernels.quant import (uniform_dequant,  # noqa: E402
                                        uniform_quant)
 from repro_torch.kernels.quant import ref as q_ref  # noqa: E402
@@ -184,8 +184,8 @@ def test_thc_roundtrip_error_bound():
     n, block = 4, 1024
     xs = torch.from_numpy(_data((n, block), 99))
     lohi = torch.tensor([-8.0, 8.0])
-    sign = rademacher_sign(generator(key(2)), block)
-    noise = torch.rand((1, block), generator=generator(key(3)))
+    sign = rademacher_sign(key(2), block)
+    noise = torch.rand((1, block), generator=torch.Generator().manual_seed(3))
     c = comp.thc_compress(xs, sign, noise, lohi, bits=8, block=block)
     assert isinstance(c, comp.THCCompressed)
     out = comp.thc_decompress_sum(c.codes.to(torch.int32).sum(0), sign, lohi,
@@ -247,7 +247,7 @@ def test_terngrad_worker_axis_and_zero_rows():
     sends zeros."""
     x = torch.from_numpy(_data((3, 64), 5))
     x[1] = 0.0
-    u = torch.rand((3, 64), generator=generator(key(6)))
+    u = torch.rand((3, 64), generator=torch.Generator().manual_seed(6))
     out = comp.terngrad_compress(x, u)
     for i in range(3):
         assert torch.equal(out[i], comp.terngrad_compress(x[i], u[i]))
@@ -258,6 +258,6 @@ def test_terngrad_worker_axis_and_zero_rows():
 
 def test_terngrad_unbiased():
     x = torch.from_numpy(_data((64,), 7, scale=0.3))
-    u = torch.rand((2000, 64), generator=generator(key(8)))
+    u = torch.rand((2000, 64), generator=torch.Generator().manual_seed(8))
     mean = comp.terngrad_compress(x.expand(2000, 64), u).mean(0)
     assert float((mean - x).abs().max()) < 0.1

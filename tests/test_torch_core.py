@@ -19,8 +19,8 @@ from repro_torch.core import collectives  # noqa: E402
 from repro_torch.core.allreduce import (OptiReduceConfig,  # noqa: E402
                                         rs_spec, sync_pytree)
 from repro_torch.core.bucket_plan import BucketPlan, bucket_keys  # noqa: E402
-from repro_torch.core.keys import fold_in, generator, seed_of  # noqa: E402
-from repro_torch.core.pipeline import (CollectiveSpec, GeneratorDraws,  # noqa: E402
+from repro_torch.core.keys import fold_in, key, uniform  # noqa: E402
+from repro_torch.core.pipeline import (CollectiveSpec, ThreefryDraws,  # noqa: E402
                                        Hadamard, HTQuant, Lossy, PsumTopology,
                                        SyncContext, TarTopology,
                                        resolve_spec)
@@ -70,11 +70,12 @@ def test_pack_into_accumulates_and_stacks_peers():
 
 
 def test_bucket_keys_fold_in_the_index():
-    assert bucket_keys((4, 7), 3) == [(4, 7, 0), (4, 7, 1), (4, 7, 2)]
-    assert fold_in((1,), 2) == (1, 2)
-    assert seed_of((1, 2)) != seed_of((1, 2, 0))
-    a = torch.rand(4, generator=generator((1, 2)))
-    assert torch.equal(a, torch.rand(4, generator=generator((1, 2))))
+    k = fold_in(key(4), 7)
+    assert bucket_keys(k, 3) == [fold_in(k, 0), fold_in(k, 1), fold_in(k, 2)]
+    assert fold_in(key(1), 2) != fold_in(key(1), 3)
+    assert all(0 <= w < 2 ** 32 for w in fold_in(key(1), 2))
+    a = uniform(fold_in(key(1), 2), (4,))
+    assert torch.equal(a, uniform(fold_in(key(1), 2), (4,)))
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.05, 0.1, 0.2])
@@ -177,7 +178,7 @@ def test_registry_and_validation():
 
 def test_use_kernels_demands_the_card():
     cfg = OptiReduceConfig(use_kernels=True)
-    ctx = SyncContext(cfg=cfg, draws=GeneratorDraws((0,), cfg,
+    ctx = SyncContext(cfg=cfg, draws=ThreefryDraws(key(0), cfg,
                                                     torch.device("cpu")))
     with pytest.raises(RuntimeError, match="CUDA"):
         sync_pytree({"w": torch.zeros(4, 64)}, ctx, bucket_elems=32)
@@ -188,7 +189,7 @@ def test_sync_pytree_roundtrips_stacked_leaves():
     grads = {"w": torch.randn(4, 10, 30, generator=g),
              "b": torch.randn(4, 30, generator=g)}
     cfg = OptiReduceConfig(hadamard_block=16)
-    ctx = SyncContext(cfg=cfg, draws=GeneratorDraws((0,), cfg,
+    ctx = SyncContext(cfg=cfg, draws=ThreefryDraws(key(0), cfg,
                                                     torch.device("cpu")))
     out = sync_pytree(grads, ctx, bucket_elems=128, mode="pipelined")
     for k in grads:

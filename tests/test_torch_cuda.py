@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed
 from repro_torch.core import collectives
 from repro_torch.core.compression import thc_compress
-from repro_torch.core.pipeline import GeneratorDraws, SyncContext
+from repro_torch.core.pipeline import ThreefryDraws, SyncContext
 from repro_torch.kernels.dequant_reduce import dequant_masked_mean
 from repro_torch.kernels.dequant_reduce import ops as dq_ops
 from repro_torch.kernels.fwht import ops as fwht_ops
@@ -41,6 +41,7 @@ from repro_torch.kernels.quant.ref import grid_quant_ref, uniform_quant_ref
 from repro_torch.net import (HostPeer, HostRing, InprocBackend,
                              mask_scripted_drops, wire_spec)
 from repro_torch.sim.tta import KeyDraws, TrainRunConfig, _aggregate
+from repro_torch.core.keys import fold_in, key as tkey
 
 ROT_TOL = 1e-5
 MEAN_TOL = 2e-6
@@ -291,7 +292,8 @@ def test_thc_aggregate_on_card_matches_cpu(dev):
     g = F.pad(x, (0, (-x.shape[1]) % (n * block)))
     lohi = torch.stack([g.min() * 1.2 - 1e-3, g.max() * 1.2 + 1e-3])
     sign = HostDraws.inner.sign((0, 3), block)
-    noise = HostDraws.inner.uniform((0, 3, 1), (g.shape[1] // block, block))
+    noise = HostDraws.inner.uniform(fold_in((0, 3), 1),
+                                   (g.shape[1] // block, block))
     sums = [thc_compress(g.to(d), sign.to(d), noise.to(d), lohi.to(d),
                          block=block).codes.to(torch.int32).sum(0).cpu()
             for d in (cpu, dev)]
@@ -339,7 +341,7 @@ def test_sync_packed_on_card_matches_cpu(dev, mode, strategy):
                         .manual_seed(0))
 
     class HostDraws:
-        inner = GeneratorDraws((0,), cfg, cpu)
+        inner = ThreefryDraws(tkey(0), cfg, cpu)
 
         def sign(self, b, block):
             return self.inner.sign(b, block).to(dev)
@@ -423,7 +425,7 @@ class _HostDraws:
     comparison see the same signs, masks and noises."""
 
     def __init__(self, cfg, dev):
-        self.inner = GeneratorDraws((0,), cfg, torch.device("cpu"))
+        self.inner = ThreefryDraws(tkey(0), cfg, torch.device("cpu"))
         self.dev = dev
 
     def sign(self, b, block):
@@ -573,7 +575,7 @@ def test_tp_step_on_card_matches_cpu(dev, mode, strategy):
                      dp_mode=mode, seq_chunk=32)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                                   global_batch=4, seed=0))
-    params0 = init_params(torch.Generator().manual_seed(0), cfg,
+    params0 = init_params(tkey(0), cfg,
                           device="cpu", tp=2)
     runs = []
     for device in (torch.device("cpu"), dev):
@@ -586,7 +588,7 @@ def test_tp_step_on_card_matches_cpu(dev, mode, strategy):
         for step in range(2):
             params, state, m = step_fn(params, state,
                                        data.host_batch(step, 0, 1), step,
-                                       (0,), draws=draws, site_draws=draws)
+                                       tkey(0), draws=draws, site_draws=draws)
             out.append({k: float(v) for k, v in m.items()})
         runs.append(out)
     for cpu, card in zip(*runs):
@@ -664,3 +666,68 @@ def test_wire_bridge_on_card_tensors(dev):
     assert got.is_cuda and torch.equal(got, want)
     assert ctx.stats["dropped"].is_cuda and ring.bridge_misses == 0
     ring.close()
+
+
+def test_threefry_kernel_equals_plain(dev):
+    """T1 against its plain version on the card, bit for bit, in every
+    mode, on ragged and 16-byte rows and past one launch's key count."""
+    from repro_torch.core import keys
+    from repro_torch.kernels.threefry import ops as tf_ops
+    from repro_torch.kernels.threefry import ref as tf_ref
+    ks = keys.batch_keys([keys.fold_in(tkey(1), i) for i in range(6)])
+    kt = torch.from_numpy(ks.astype("int64"))
+    for mode, a, b, n in (("uniform", 0.0, 1.0, 4099),
+                          ("uniform", 1.0, 16.0, 1024),
+                          ("bernoulli", 0.3, 1.0, 777),
+                          ("bernoulli", 0.5, 1.0, 1024),
+                          ("normal", 0.0, 1.0, 65536)):
+        before = tf_ops.launches
+        got = tf_ops.draw_launch(ks, n, mode, a, b, dev)
+        assert tf_ops.launches == before + 1
+        want = tf_ref.draw_ref(kt, n, mode, a, b, dev)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    many = [keys.fold_in(tkey(2), i) for i in range(300)]
+    assert torch.equal(keys.uniform_batch(many, 64, dev).cpu(),
+                       keys.uniform_batch(many, 64, "cpu"))
+
+
+def test_grouped_sign_kernels_equal_plain(dev):
+    """B1, B3 and B4 with a (G, n) sign (the batched sync's: row i takes
+    sign row i % G) against their plain versions."""
+    g = _gen(dev, 9)
+    n, groups = 1024, 3
+    x = torch.randn((4, 12, n), generator=g, device=dev)
+    sign = torch.where(torch.rand((groups, n), generator=g, device=dev)
+                       < 0.5, 1.0, -1.0)
+    for mode in ("encode", "decode"):
+        got = randomized_fwht(x, sign, mode=mode)
+        want = fwht_ref.randomized_fwht_ref(x, sign, mode=mode)
+        torch.testing.assert_close(got, want, atol=ROT_TOL, rtol=0)
+    assert torch.equal(ht_amax(x, sign), hq_ref.ht_amax_ref(x, sign))
+    noise = torch.rand((12, n), generator=g, device=dev)
+    amax = hq_ref.ht_amax_ref(x, sign).amax(0)
+    step = 2 * amax / torch.full_like(amax, 255.0)
+    got = ht_quant(x, sign, noise, -amax, step)
+    want = hq_ref.ht_quant_ref(x, sign, noise, -amax, step, bits=8)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("strategy", ["optireduce", "optireduce_q",
+                                      "optireduce_rounds"])
+def test_vmap_on_card_matches_scan_and_cpu(dev, strategy):
+    """The batched sync on the card: bitwise its scan there, and its draws
+    (T1) the CPU's, so the two devices agree within the kernels' rounding."""
+    cfg = OptiReduceConfig(strategy=strategy, drop_rate=0.05,
+                           hadamard_block=1024)
+    arena = torch.randn((4, 3, 5000), generator=torch.Generator()
+                        .manual_seed(4))
+    outs = {}
+    for where, mode in (("card", "vmap"), ("card", "scan"), ("cpu", "vmap")):
+        d = dev if where == "card" else torch.device("cpu")
+        ctx = SyncContext(cfg=cfg, draws=ThreefryDraws(tkey(3), cfg, d))
+        outs[where, mode] = (sync_packed(arena.to(d), ctx, mode=mode).cpu(),
+                             float(ctx.loss_fraction()))
+    assert torch.equal(outs["card", "vmap"][0], outs["card", "scan"][0])
+    assert outs["card", "vmap"][1] == outs["cpu", "vmap"][1]
+    torch.testing.assert_close(outs["card", "vmap"][0],
+                               outs["cpu", "vmap"][0], atol=ROT_TOL, rtol=0)

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke
-from repro_torch.core.keys import generator, key
+from repro_torch.core.keys import key
 from repro_torch.models import init_params
 from repro_torch.models.transformer import param_table, _map_table
 from repro_torch.train.elastic import gather_shards, reshard
@@ -74,7 +74,7 @@ def ref(tmp_path_factory):
 
 def _params(seed=0, tp=1):
     cfg = get_smoke("gpt2-paper")
-    return cfg, init_params(generator(key(seed)), cfg, device="cpu", tp=tp)
+    return cfg, init_params(key(seed), cfg, device="cpu", tp=tp)
 
 
 def _equal(a, b):

@@ -38,6 +38,7 @@ from repro_torch.models import (abstract_params, active_params,
                                 count_params, init_params, lm_loss)
 from repro_torch.tree import tree_leaves, tree_unflatten
 from repro_torch.weights import params_from_jax
+from repro_torch.core.keys import key as tkey
 
 ALL = list(ARCHS) + ["gpt2-paper"]
 FRONTEND = ("llava-next-mistral-7b", "musicgen-medium")
@@ -315,7 +316,7 @@ def test_init_params_inits_ssm_leaves():
     """The reference's inits: ``a_log`` in [0, log 16), ``dt_bias`` zeros,
     ``d_skip`` ones, ``conv_w`` of std 1/sqrt(kernel width)."""
     cfg = dataclasses.replace(get_smoke("mamba2-1.3b"), n_layers=4)
-    st = init_params(torch.Generator().manual_seed(0), cfg,
+    st = init_params(tkey(0), cfg,
                      device="cpu")["stages"][0]
     assert float(st["a_log"].min()) >= 0 and \
         float(st["a_log"].max()) < math.log(16)

@@ -359,7 +359,7 @@ def test_reduce_scatter_lossless_is_the_mean():
 
 # ------------------------------------------------------------------ trainer
 def _port_params(ref):
-    like = init_params(torch.Generator(), get_smoke("gpt2-paper"),
+    like = init_params(torch_key(0), get_smoke("gpt2-paper"),
                        device="cpu")
     n = len([k for k in ref if k.startswith("init/")])
     return params_from_jax(tree_unflatten(
@@ -432,7 +432,7 @@ def test_lossless_fsdp_equals_replicated():
         step_fn, opt = build_train_step(cfg, _tc(mode, False, None,
                                                  "optireduce", rate=0.0),
                                         peers=4, device="cpu")
-        params = init_params(torch.Generator().manual_seed(0), cfg,
+        params = init_params(torch_key(0), cfg,
                              device="cpu")
         state = opt.init(params)
         losses = []
@@ -454,11 +454,11 @@ def test_fsdp_loss_frac_counts_only_the_replicated_bucket():
     C), ``loss_frac`` under FSDP is the loss of the norms' bucket alone:
     ``gpt2-smoke``'s 320 replicated entries, padded to 4 x 256."""
     from repro_torch.core.keys import fold_in
-    from repro_torch.core.pipeline import GeneratorDraws
+    from repro_torch.core.pipeline import ThreefryDraws
     cfg = get_smoke("gpt2-paper")
     tc = _tc("fsdp", False, None, "optireduce")
     step_fn, opt = build_train_step(cfg, tc, peers=4, device="cpu")
-    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = init_params(torch_key(0), cfg, device="cpu")
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
                                   global_batch=GLOBAL_BATCH, seed=0))
     fracs = []
@@ -466,7 +466,7 @@ def test_fsdp_loss_frac_counts_only_the_replicated_bucket():
         params, state, m = step_fn(params, opt.init(params),
                                    data.host_batch(step, 0, 1), step,
                                    torch_key(0))
-        draws = GeneratorDraws(key=fold_in(fold_in(torch_key(0), step), 7),
+        draws = ThreefryDraws(key=fold_in(fold_in(torch_key(0), step), 7),
                                cfg=tc.sync, device=torch.device("cpu"))
         masks = torch.stack([draws.mask(0, r, 4, 256) for r in range(4)])
         want = ((1.0 - masks).sum(dim=(1, 2)) / (4 * 256)).mean()
@@ -509,7 +509,7 @@ def test_tensor_parallel_mesh_names_a15b():
         step_fn, opt = build_train_step(
             cfg, _tc(mode, False, None, "optireduce"), make_host_mesh(2, 2),
             device="cpu")
-        params = init_params(torch.Generator().manual_seed(0), cfg,
+        params = init_params(torch_key(0), cfg,
                              device="cpu", tp=2)
         state = opt.init(params)
         _, _, m = step_fn(params, state, data.host_batch(0, 0, 1), 0,

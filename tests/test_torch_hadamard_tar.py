@@ -30,7 +30,7 @@ from repro.core import hadamard as jhad  # noqa: E402
 from repro_torch.core import drops, tar  # noqa: E402
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed  # noqa: E402
 from repro_torch.core.hadamard import ht_decode, ht_encode, rademacher_sign  # noqa: E402
-from repro_torch.core.keys import generator  # noqa: E402
+from repro_torch.core.keys import fold_in, key  # noqa: E402
 from repro_torch.core.pipeline import SyncContext  # noqa: E402
 
 ROT_TOL = 1e-5
@@ -162,8 +162,8 @@ def test_ht_encode_rejects_unaligned_bucket():
 
 
 def test_rademacher_sign_is_pm_one_and_deterministic():
-    a = rademacher_sign(generator((1, 2)), 4096)
-    b = rademacher_sign(generator((1, 2)), 4096)
+    a = rademacher_sign(fold_in(key(1), 2), 4096)
+    b = rademacher_sign(fold_in(key(1), 2), 4096)
     assert torch.equal(a, b)
     assert set(a.unique().tolist()) == {-1.0, 1.0}
     assert abs(float(a.mean())) < 0.1
@@ -219,7 +219,7 @@ PATTERNS = ["bernoulli", "tail", "straggler", "burst"]
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_self_row_is_never_dropped(pattern):
     for r in range(N):
-        m = drops.make_mask(pattern, generator((3, r)), N, 5000, rate=0.4,
+        m = drops.make_mask(pattern, fold_in(key(3), r), N, 5000, rate=0.4,
                             self_index=r)
         assert m.shape == (N, 5000) and m.dtype == torch.float32
         assert bool((m[r] == 1.0).all())
@@ -232,7 +232,7 @@ def test_loss_fraction_tracks_rate_like_reference(pattern):
     draws must both sit at the configured rate."""
     rate, n_elems, draws = 0.05, 256 * 200, 60
     port = np.mean([float(drops.loss_fraction(drops.make_mask(
-        pattern, generator((7, i)), N, n_elems, rate=rate)))
+        pattern, fold_in(key(7), i), N, n_elems, rate=rate)))
         for i in range(draws)])
     jmask = jax.jit(lambda k: jdrops.make_mask(pattern, k, N, n_elems,
                                                rate=rate))
@@ -250,7 +250,7 @@ def test_tail_cut_structure_matches_reference():
     n_elems, rate, pkt = 256 * 100, 0.02, 256
     jm = np.asarray(jdrops.tail_mask(jax.random.PRNGKey(0), 64, n_elems,
                                      rate=rate, packet_elems=pkt))
-    tm = drops.tail_mask(generator((0,)), 64, n_elems, rate=rate,
+    tm = drops.tail_mask(key(0), 64, n_elems, rate=rate,
                          packet_elems=pkt).numpy()
 
     def cuts(m):
@@ -267,7 +267,7 @@ def test_tail_cut_structure_matches_reference():
 
 def test_burst_runs_are_clustered():
     """Gilbert-Elliott: mean loss run ~ BURST_MEAN_PKTS packets."""
-    m = drops.burst_mask(generator((1,)), 8, 64 * 20_000, rate=0.05,
+    m = drops.burst_mask(key(1), 8, 64 * 20_000, rate=0.05,
                          packet_elems=64).numpy()
     pk = m[:, ::64]
     runs = []
@@ -293,5 +293,5 @@ def test_expand_matches_reference():
 
 
 def test_zero_rate_keeps_everything():
-    m = drops.make_mask("tail", generator((0,)), 4, 100, rate=0.0)
+    m = drops.make_mask("tail", key(0), 4, 100, rate=0.0)
     assert bool((m == 1).all())

@@ -47,9 +47,9 @@ def test_kernel_sources_are_in_the_package():
     kdir = ROOT / "src" / "repro_torch" / "kernels"
     srcs = sorted(p.name for p in kdir.glob("*/csrc/*.cu"))
     assert srcs == ["dequant_mean.cu", "fwht.cu", "grid_quant.cu",
-                    "ht_quant.cu", "masked_mean.cu"]
+                    "ht_quant.cu", "masked_mean.cu", "threefry.cu"]
     assert sorted(build.sources()) == ["dequant_mean", "fwht", "grid_quant",
-                                       "ht_quant", "masked_mean"]
+                                       "ht_quant", "masked_mean", "threefry"]
     assert [p.relative_to(kdir).as_posix() for p in build.headers()] == \
         ["fwht/csrc/butterfly.cuh"]
     # every include of a source names a header of the package

@@ -131,7 +131,17 @@ def test_quantized_exchange_two_steps_on_cpu():
         assert math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0
 
 
-def test_vmap_sync_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A7"):
-        train.run(["--smoke", "--device", "cpu", "--steps", "1",
-                   "--seq-len", "16", "--sync-mode", "vmap"])
+@pytest.mark.parametrize("strategy", ["optireduce", "optireduce_q"])
+def test_vmap_sync_mode_is_not_ported(strategy):
+    """``--sync-mode vmap`` (ROADMAP A7, now ported) trains bit for bit as
+    ``scan`` does: the batched sync is the per-bucket one, bucket for
+    bucket (tests/test_torch_vmap.py holds every strategy)."""
+    argv = ["--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "16",
+            "--drop-rate", "0.05", "--strategy", strategy]
+    keys = ("loss", "grad_norm", "loss_frac", "skipped")
+    batched = [{k: r[k] for k in keys}
+               for r in train.run([*argv, "--sync-mode", "vmap"])]
+    serial = [{k: r[k] for k in keys}
+              for r in train.run([*argv, "--sync-mode", "scan"])]
+    assert batched == serial
+    assert all(r["loss_frac"] > 0 for r in batched)

@@ -30,6 +30,7 @@ from repro_torch.optim import OptimizerConfig, adamw  # noqa: E402
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.weights import params_from_jax, tensor_from_numpy  # noqa: E402
+from repro_torch.core.keys import key as tkey  # noqa: E402
 
 ACT_TOL = 2e-5
 
@@ -119,11 +120,24 @@ def test_attention_matches_reference(heads, kv):
 
 
 def test_chunked_attention_is_not_ported_yet():
-    w = {"wq": torch.zeros(8, 8), "wk": torch.zeros(8, 8),
-         "wv": torch.zeros(8, 8), "wo": torch.zeros(8, 8), "head_dim": 8,
-         "attn_chunk": 4}
-    with pytest.raises(NotImplementedError, match="A21"):
-        tl.attention_train(torch.zeros(1, 5, 8), w,
+    """Chunked attention (ROADMAP A9, now ported): past ``attn_chunk`` the
+    port's ``attention_train`` runs the flash-style path, within fp32
+    rounding of the reference's at seq 16, chunk 4; a sequence that is no
+    multiple of the chunk raises the port's ValueError (the reference's
+    reshape fails; tests/test_torch_chunked.py holds the rest)."""
+    w = {"wq": _rand(8, 16, seed=1), "wk": _rand(8, 16, seed=2),
+         "wv": _rand(8, 16, seed=3), "wo": _rand(16, 8, seed=4),
+         "head_dim": 8, "attn_chunk": 4}
+    x = _rand(1, 16, 8, seed=5)
+    pos = np.arange(16, dtype=np.int32)[None]
+    want = np.asarray(jl.attention_train(x, w, SINGLE, positions=pos))
+    tw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+          for k, v in w.items()}
+    got = tl.attention_train(torch.from_numpy(x), tw,
+                             positions=torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    with pytest.raises(ValueError, match="multiple of attn_chunk"):
+        tl.attention_train(torch.zeros(1, 5, 8), tw,
                            positions=torch.zeros(1, 5, dtype=torch.int32))
 
 
@@ -176,7 +190,7 @@ def test_gpt2_paper_is_full_width():
 
 def test_init_params_shapes_follow_reference_tree(smoke):
     _, jp = smoke
-    params = init_params(torch.Generator().manual_seed(0),
+    params = init_params(tkey(0),
                          get_smoke("gpt2-paper"), device="cpu")
     assert [tuple(p.shape) for p in tree_leaves(params)] == \
         [tuple(p.shape) for p in jax.tree.leaves(jp)]

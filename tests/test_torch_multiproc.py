@@ -7,7 +7,8 @@ workers over the in-memory coordinator, and 4 UDP processes over the TCP
 rendezvous, give per rank and step the same output checksums as
 ``HostRing.allreduce`` under the same scripted wire loss
 (``bernoulli_drops`` hashes the packet headers) and the same draws
-(``GeneratorDraws(fold_in(key(seed), step))`` at bucket 0). A thread-mode
+(``KeyedDraws(fold_in(key(seed), step))``: every operand keyed on the step
+key, as the reference's peer keys them). A thread-mode
 crash and a real SIGKILL walk the victim through ejection and PROBATION
 readmission from its checkpoint, as the reference's
 ``tests/test_multiproc.py`` asserts.
@@ -56,7 +57,7 @@ import torch  # noqa: E402
 
 from repro.core.hadamard import rademacher_sign as jsign  # noqa: E402
 from repro_torch.core.keys import fold_in, key  # noqa: E402
-from repro_torch.core.pipeline import OptiReduceConfig  # noqa: E402
+from repro_torch.core.pipeline import KeyedDraws, OptiReduceConfig  # noqa: E402
 from repro_torch.launch import multiproc as mp  # noqa: E402
 from repro_torch.net import (HostRing, bernoulli_drops,  # noqa: E402
                              udp_available)
@@ -114,9 +115,10 @@ def _hostring_checksums(elems, steps, seed=0):
         for step in range(steps):
             data = np.random.default_rng(seed + step).standard_normal(
                 (N, elems)).astype(np.float32)
-            res, _ = ring.allreduce(torch.from_numpy(data),
-                                    fold_in(key(seed), step), step=step,
-                                    bucket=0)
+            res, _ = ring.allreduce(
+                torch.from_numpy(data),
+                KeyedDraws(fold_in(key(seed), step), cfg,
+                           torch.device("cpu")), step=step, bucket=0)
             out[step] = [_checksum(res[r]) for r in range(N)]
     finally:
         ring.close()

@@ -47,7 +47,8 @@ from repro.core.hadamard import rademacher_sign as jsign  # noqa: E402
 from repro.core.pipeline import OptiReduceConfig as RefConfig  # noqa: E402
 from repro_torch.core import collectives, tar  # noqa: E402
 from repro_torch.core.allreduce import sync_packed  # noqa: E402
-from repro_torch.core.pipeline import (GeneratorDraws,  # noqa: E402
+from repro_torch.core.keys import key as tkey  # noqa: E402
+from repro_torch.core.pipeline import (ThreefryDraws,  # noqa: E402
                                        OptiReduceConfig, SyncContext,
                                        WireTransport, resolve_spec)
 from repro_torch.core.ubt import AdaptiveTimeout  # noqa: E402
@@ -61,7 +62,7 @@ from repro_torch.runtime import ControlPlane  # noqa: E402
 
 N = 4
 L = 1000                  # not block-aligned: the pad and tail-packet paths
-KEY = (5,)
+KEY = tkey(5)
 REF_TOL = 1e-5
 CPU = torch.device("cpu")
 # (strategy, drop rate, recovery): the reference's parity set, and the
@@ -112,7 +113,7 @@ def _sync(x, cfg, draws, spec=None, stale=None):
 def test_ring_and_bridge_are_sync_packed_bitwise(case):
     strategy, rate, recovery = PARITY[case]
     cfg = _cfg(strategy=strategy, drop_rate=rate, recovery=recovery)
-    draws = GeneratorDraws(KEY, cfg, CPU)
+    draws = ThreefryDraws(KEY, cfg, CPU)
     x = _buckets()
     stale = (torch.from_numpy(np.random.default_rng(9).standard_normal(L)
                               .astype(np.float32))
@@ -132,11 +133,11 @@ def test_ring_and_bridge_are_sync_packed_bitwise(case):
     bridge = _ring(cfg_w, backend=InprocBackend(N, drop_fn=drop_fn))
     spec = wire_spec(cfg_w, bridge)
     assert isinstance(spec.transport, WireTransport)
-    _, prime_frac = _sync(x, cfg_w, GeneratorDraws(KEY, cfg_w, CPU), spec,
+    _, prime_frac = _sync(x, cfg_w, ThreefryDraws(KEY, cfg_w, CPU), spec,
                           stale)
     assert prime_frac == 0.0                    # the priming call: all-ones
     assert bridge.flush()
-    got, frac = _sync(x, cfg_w, GeneratorDraws(KEY, cfg_w, CPU), spec, stale)
+    got, frac = _sync(x, cfg_w, ThreefryDraws(KEY, cfg_w, CPU), spec, stale)
     assert torch.equal(got, ref)
     assert frac == pytest.approx(ref_frac, abs=1e-7)
     assert bridge.bridge_misses == 0 and bridge.bridge_error is None
@@ -333,13 +334,13 @@ def test_refusals():
     degraded = _cfg(strategy="optireduce_rounds", active_peers=(0, 1, 3))
     with pytest.raises(NotImplementedError, match="payload"):
         sync_packed(x[:, None], SyncContext(
-            cfg=degraded, draws=GeneratorDraws(KEY, degraded, CPU)),
+            cfg=degraded, draws=ThreefryDraws(KEY, degraded, CPU)),
             spec=dataclasses.replace(resolve_spec(degraded),
                                      transport=spec.transport))
     pods = _cfg(pod_axis="pod")
     with pytest.raises(NotImplementedError, match="one data axis"):
         sync_packed(torch.cat([x, x])[:, None], SyncContext(
-            cfg=pods, draws=GeneratorDraws(KEY, pods, CPU),
+            cfg=pods, draws=ThreefryDraws(KEY, pods, CPU),
             grid=collectives.Grid(pods=2)), spec=spec)
     ring.bridge_exchange(torch.zeros((N, N, 8)))
     assert ring.flush()
@@ -392,7 +393,7 @@ def test_bridge_keeps_order_under_thread_switching():
     telemetry is drained once."""
     import sys
     cfg = _cfg(drop_rate=0.1)
-    draws = GeneratorDraws(KEY, cfg, CPU)
+    draws = ThreefryDraws(KEY, cfg, CPU)
     s = 64 * 4
     masks, drop_fn = _scripted(draws, cfg, s)
     want = torch.from_numpy(np.stack([masks[r] for r in range(N)]))

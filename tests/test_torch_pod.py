@@ -44,7 +44,8 @@ import torch
 from repro_torch.core import collectives
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed
 from repro_torch.core.hadamard import ht_encode
-from repro_torch.core.pipeline import (CollectiveSpec, GeneratorDraws,
+from repro_torch.core.keys import key as tkey  # noqa: E402
+from repro_torch.core.pipeline import (CollectiveSpec, ThreefryDraws,
                                        HTQuant, Lossy, SyncContext,
                                        TarTopology, resolve_spec)
 from repro_torch.core.tar import pad_for_tar
@@ -244,7 +245,7 @@ def test_one_pod_is_the_one_axis_path(strategy):
                         .manual_seed(2))
     cfg1 = OptiReduceConfig(strategy=strategy, drop_rate=rate,
                             hadamard_block=BLOCK)
-    draws = GeneratorDraws(key=(5,), cfg=cfg1, device=torch.device("cpu"))
+    draws = ThreefryDraws(key=tkey(5), cfg=cfg1, device=torch.device("cpu"))
     before = collectives.permutes
     a, fa = _run(arena, cfg1, draws, 1)
     mid = collectives.permutes
@@ -259,7 +260,7 @@ def test_pods_draw_the_same_masks_and_hold_one_result():
     arena = torch.randn((4, 2, 2048), generator=torch.Generator()
                         .manual_seed(4))
     cfg1 = OptiReduceConfig(drop_rate=RATE, hadamard_block=BLOCK)
-    draws = GeneratorDraws(key=(6,), cfg=cfg1, device=torch.device("cpu"))
+    draws = ThreefryDraws(key=tkey(6), cfg=cfg1, device=torch.device("cpu"))
     one, f1 = _run(arena, cfg1, draws, 1)
     two, f2 = _run(torch.cat([arena, arena]), _cfg("optireduce_2d", RATE),
                    draws, 2)
@@ -288,6 +289,6 @@ def test_optireduce_q_joins_pods_with_a_pmean(ref):
 def test_grid_needs_the_pod_axis():
     cfg = OptiReduceConfig(hadamard_block=BLOCK)
     with pytest.raises(ValueError, match="pod_axis"):
-        SyncContext(cfg=cfg, draws=GeneratorDraws(
-            key=(0,), cfg=cfg, device=torch.device("cpu")),
+        SyncContext(cfg=cfg, draws=ThreefryDraws(
+            key=tkey(0), cfg=cfg, device=torch.device("cpu")),
             grid=collectives.Grid(pods=2))

@@ -200,7 +200,7 @@ def _leaves(ref, prefix):
 
 
 def _like():
-    return init_params(torch.Generator(), get_smoke("gpt2-paper"),
+    return init_params(torch_key(0), get_smoke("gpt2-paper"),
                        device="cpu")
 
 

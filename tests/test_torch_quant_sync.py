@@ -41,7 +41,8 @@ import torch  # noqa: E402
 
 from repro_torch.core import collectives, tar  # noqa: E402
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed  # noqa: E402
-from repro_torch.core.pipeline import (Encoded, GeneratorDraws,  # noqa: E402
+from repro_torch.core.keys import key as tkey  # noqa: E402
+from repro_torch.core.pipeline import (Encoded, ThreefryDraws,  # noqa: E402
                                        HTQuant, SyncContext, resolve_spec)
 
 AMAX_TOL = 1e-5
@@ -286,8 +287,8 @@ def test_scan_and_pipelined_agree_exactly_on_own_draws():
     cfg = _cfg("tail")
     arena = torch.randn((N, 4, 3000), generator=torch.Generator()
                         .manual_seed(2))
-    outs = [sync_packed(arena, SyncContext(cfg=cfg, draws=GeneratorDraws(
-        key=(1,), cfg=cfg, device=torch.device("cpu"))), mode=mode)
+    outs = [sync_packed(arena, SyncContext(cfg=cfg, draws=ThreefryDraws(
+        key=tkey(1), cfg=cfg, device=torch.device("cpu"))), mode=mode)
         for mode in ("scan", "pipelined")]
     assert torch.equal(outs[0], outs[1])
     # 8-bit codes of the rotated mean: an estimate, not garbage
@@ -306,8 +307,8 @@ def test_a_non_finite_gradient_turns_its_block_nan(bad):
                         .manual_seed(4))
     arena[1, 0, 700] = float(bad)             # bucket 0, block 1 (512..1023)
     for mode in ("scan", "pipelined"):
-        got = sync_packed(arena, SyncContext(cfg=cfg, draws=GeneratorDraws(
-            key=(1,), cfg=cfg, device=torch.device("cpu"))), mode=mode)
+        got = sync_packed(arena, SyncContext(cfg=cfg, draws=ThreefryDraws(
+            key=tkey(1), cfg=cfg, device=torch.device("cpu"))), mode=mode)
         assert bool(got[:, 0, BLOCK:2 * BLOCK].isnan().all())
         rest = torch.cat([got[:, 0, :BLOCK], got[:, 0, 2 * BLOCK:],
                           got[:, 1]], dim=-1)
@@ -316,7 +317,7 @@ def test_a_non_finite_gradient_turns_its_block_nan(bad):
 
 def test_generator_draws_noise_is_shared_and_uniform():
     cfg = _cfg("tail")
-    draws = GeneratorDraws(key=(3,), cfg=cfg, device=torch.device("cpu"))
+    draws = ThreefryDraws(key=tkey(3), cfg=cfg, device=torch.device("cpu"))
     a, b = draws.noise(2, 3, (16, 512)), draws.noise(2, 3, (16, 512))
     assert torch.equal(a, b) and a.dtype == torch.float32
     assert not torch.equal(a, draws.noise(2, 4, (16, 512)))
@@ -330,4 +331,4 @@ def test_quant_bits_outside_uint8_raise():
                            hadamard_block=16)
     with pytest.raises(ValueError, match="1..8 bits"):
         sync_packed(torch.zeros((N, 1, 64)), SyncContext(
-            cfg=cfg, draws=GeneratorDraws((0,), cfg, torch.device("cpu"))))
+            cfg=cfg, draws=ThreefryDraws(tkey(0), cfg, torch.device("cpu"))))

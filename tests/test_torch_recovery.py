@@ -35,7 +35,8 @@ import torch
 from repro_torch.core import recovery
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed
 from repro_torch.core.hadamard import ht_decode, ht_encode
-from repro_torch.core.pipeline import (GeneratorDraws, SyncContext,
+from repro_torch.core.keys import key as tkey  # noqa: E402
+from repro_torch.core.pipeline import (ThreefryDraws, SyncContext,
                                        resolve_spec)
 
 N = 4
@@ -197,7 +198,7 @@ def test_without_cache_or_drops_the_inner_codec_bitwise(case):
     outs = []
     for mode in ("stale", "none"):
         cfg = _cfg(mode=mode, rate=rate)
-        draws = GeneratorDraws(key=(2,), cfg=cfg, device=torch.device("cpu"))
+        draws = ThreefryDraws(key=tkey(2), cfg=cfg, device=torch.device("cpu"))
         outs.append(sync_packed(arena, _ctx(cfg, draws), mode="pipelined",
                                 stale=stale))
     assert torch.equal(outs[0], outs[1])
@@ -267,7 +268,7 @@ def test_ef_conserves_mass(codec, me):
     # small packets: every peer loses some entries and keeps others
     cfg = _cfg(mode="ef", hadamard=hadamard, pattern="bernoulli", rate=0.3,
                packet_elems=16)
-    ctx = _ctx(cfg, GeneratorDraws(key=(9,), cfg=cfg,
+    ctx = _ctx(cfg, ThreefryDraws(key=tkey(9), cfg=cfg,
                                    device=torch.device("cpu")), bucket=2)
     g = torch.Generator().manual_seed(me)
     x = torch.randn((L,), generator=g, dtype=torch.float64).float()
@@ -290,7 +291,7 @@ def test_a_non_finite_cache_entry_gives_nan_as_the_reference():
     entry it reaches NaN, arrived ones included (0 * inf), not only the
     lost ones a ``where`` would touch."""
     cfg = _cfg(hadamard=False)
-    draws = GeneratorDraws(key=(4,), cfg=cfg, device=torch.device("cpu"))
+    draws = ThreefryDraws(key=tkey(4), cfg=cfg, device=torch.device("cpu"))
     arena = torch.ones((N, 1, L))
     stale = torch.zeros((1, L))
     stale[0, 5] = float("inf")
@@ -335,7 +336,7 @@ def test_degraded_participation_is_rejected():
 
 def test_shard_weights_are_rejected():
     cfg = _cfg("optireduce_rounds", mode="stale", shard_weights=(2, 2, 2, 1))
-    draws = GeneratorDraws(key=(1,), cfg=cfg, device=torch.device("cpu"))
+    draws = ThreefryDraws(key=tkey(1), cfg=cfg, device=torch.device("cpu"))
     with pytest.raises(ValueError, match="shard_weights"):
         sync_packed(torch.zeros((N, 1, L)), _ctx(cfg, draws),
                     stale=torch.zeros((1, L)))

@@ -169,7 +169,7 @@ def ref(tmp_path_factory):
 
 
 def _port_params(ref):
-    like = init_params(torch.Generator(), get_smoke("gpt2-paper"),
+    like = init_params(torch_key(0), get_smoke("gpt2-paper"),
                        device="cpu")
     n = len([k for k in ref if k.startswith("init/")])
     return params_from_jax(tree_unflatten(
@@ -259,7 +259,7 @@ def test_scan_and_pipelined_agree_exactly_with_stale(ref):
 
 def test_step_requires_the_state_its_config_arms():
     cfg = get_smoke("gpt2-paper")
-    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = init_params(torch_key(0), cfg, device="cpu")
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
                                   global_batch=GLOBAL_BATCH, seed=0))
     for mode, rec in (("ef", None), ("none", {"stale": torch.zeros(1)})):

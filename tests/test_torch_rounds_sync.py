@@ -56,7 +56,8 @@ import torch  # noqa: E402
 from repro_torch.core import collectives  # noqa: E402
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed  # noqa: E402
 from repro_torch.core.hadamard import ht_encode  # noqa: E402
-from repro_torch.core.pipeline import (GeneratorDraws, SyncContext,  # noqa: E402
+from repro_torch.core.keys import key as tkey  # noqa: E402
+from repro_torch.core.pipeline import (ThreefryDraws, SyncContext,  # noqa: E402
                                        strategy_names)
 from repro_torch.core.tar import pad_for_tar  # noqa: E402
 
@@ -227,7 +228,7 @@ def _run(arena, cfg, draws, mode="scan"):
 
 
 def _own_draws(cfg):
-    return GeneratorDraws(key=(3,), cfg=cfg, device=torch.device("cpu"))
+    return ThreefryDraws(key=tkey(3), cfg=cfg, device=torch.device("cpu"))
 
 
 def _grid_steps(arena, sign, length):

@@ -37,7 +37,7 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCHS, get_smoke
-from repro_torch.core.keys import generator, key
+from repro_torch.core.keys import key
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import (SINGLE, abstract_params, decode_step,
                                 forward_hidden, init_decode_state,
@@ -175,8 +175,7 @@ def _states_close(ref, prefix: str, states) -> None:
 def _teacher_forced(params, cfg, toks: torch.Tensor, state):
     nxt = []
     for t in range(toks.shape[1]):
-        n, state = decode_step(params, state, toks[:, t:t + 1], t, cfg,
-                               key=key(0))
+        n, state = decode_step(params, state, toks[:, t:t + 1], t, cfg)
         nxt.append(n)
     return torch.cat(nxt, dim=1), state
 
@@ -223,7 +222,7 @@ def test_decode_teacher_forced_matches_reference(ref, arch):
 def test_generate_matches_reference(ref, arch):
     out = generate(_params(ref, arch), get_smoke(arch),
                    torch.from_numpy(ref[f"gen_prompt/{arch}"]),
-                   max_new=GEN_NEW, key=key(0))
+                   max_new=GEN_NEW)
     np.testing.assert_array_equal(out.numpy(), ref[f"gen/{arch}"])
 
 
@@ -233,14 +232,13 @@ def test_decode_step_smoke(arch):
     decode step of every smoke config keeps the state's structure and
     gives an int32 token in range."""
     cfg = get_smoke(arch)
-    params = init_params(generator(key(0)), cfg, device="cpu")
+    params = init_params(key(0), cfg, device="cpu")
     state = init_decode_state(params, cfg, batch=2, max_seq=8,
                               dtype=cfg.param_dtype)
     shapes = [tuple(leaf.shape) for leaf in tree_leaves(state)]
     tok = torch.randint(0, cfg.vocab_size, (2, 1),
-                        generator=generator(key(1)))
-    nxt, new_state = decode_step(params, state, tok, 0, cfg, SINGLE,
-                                 key=key(0))
+                        generator=torch.Generator().manual_seed(1))
+    nxt, new_state = decode_step(params, state, tok, 0, cfg, SINGLE)
     assert nxt.shape == (2, 1) and nxt.dtype == torch.int32
     assert 0 <= int(nxt.min()) and int(nxt.max()) < cfg.vocab_size
     assert [tuple(leaf.shape) for leaf in tree_leaves(new_state)] == shapes
@@ -254,17 +252,16 @@ def test_prefill_then_decode_consistency(arch):
     """Greedy token after prefill == greedy token after teacher-forced
     step-by-step decoding of the same prompt (a 0-d tensor position)."""
     cfg = get_smoke(arch)
-    params = init_params(generator(key(1)), cfg, device="cpu")
+    params = init_params(key(1), cfg, device="cpu")
     prompt = torch.randint(0, cfg.vocab_size, (1, 8),
-                           generator=generator(key(2)))
-    tok_pf, _ = prefill_step(params, {"tokens": prompt}, cfg, SINGLE,
-                             key=key(1))
+                           generator=torch.Generator().manual_seed(2))
+    tok_pf, _ = prefill_step(params, {"tokens": prompt}, cfg, SINGLE)
     state = init_decode_state(params, cfg, batch=1, max_seq=8,
                               dtype=cfg.param_dtype)
     tok = prompt[:, :1]
     for t in range(8):
         nxt, state = decode_step(params, state, tok, torch.tensor(t), cfg,
-                                 SINGLE, key=key(1))
+                                 SINGLE)
         tok = prompt[:, t + 1:t + 2] if t + 1 < 8 else nxt
     assert int(tok_pf[0, 0]) == int(tok[0, 0])
 
@@ -334,9 +331,9 @@ def test_decode_on_the_card_matches_cpu(card, arch):
     leaf's largest magnitude."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_smoke(arch)
-    params = init_params(generator(key(0)), cfg, device="cpu")
+    params = init_params(key(0), cfg, device="cpu")
     toks = torch.randint(0, cfg.vocab_size, (B, S),
-                         generator=generator(key(3)))
+                         generator=torch.Generator().manual_seed(3))
     res = {}
     for dev in (torch.device("cpu"), card):
         p = [t.to(dev) for t in tree_leaves(params)]

@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core.keys import generator, key
+from repro_torch.core.keys import key
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import (abstract_params, decode_step,
                                 init_decode_state, init_params)
@@ -167,7 +167,7 @@ def _serve(params, name: str, toks: np.ndarray, device="cpu"):
     toks = torch.from_numpy(toks).to(device)
     nxt = []
     for t in range(steps):
-        n, state = fn(params, state, toks[:, t:t + 1], t, key(0))
+        n, state = fn(params, state, toks[:, t:t + 1], t)
         nxt.append(n)
     return torch.cat(nxt, dim=1), tree_leaves(state)
 
@@ -265,10 +265,10 @@ def test_plans_and_specs():
     assert specs["state"][0].k == (None, "data", None, "model", None)
     assert specs["tokens"] == ("data", None)
     assert specs["params"]["embed"] == ("model", "data")
-    params = init_params(generator(key(0)), cfg, device="cpu", tp=2)
+    params = init_params(key(0), cfg, device="cpu", tp=2)
     with pytest.raises(ValueError, match="split"):
         fn(params, global_state(cfg, batch=3, max_seq=8, tp=2),
-           torch.zeros((3, 1), dtype=torch.long), 0, key(0))
+           torch.zeros((3, 1), dtype=torch.long), 0)
 
 
 @pytest.fixture
@@ -286,7 +286,7 @@ def test_serve_step_on_the_card_matches_cpu(card, name):
     torch.backends.cuda.matmul.allow_tf32 = False
     arch, _, tp = CASES[name][:3]
     cfg = get_smoke(arch)
-    params = init_params(generator(key(0)), cfg, device="cpu", tp=tp)
+    params = init_params(key(0), cfg, device="cpu", tp=tp)
     toks = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(CASES[name][3], CASES[name][5]))
     cpu = _serve(params, name, toks)

@@ -36,7 +36,7 @@ import torch
 from repro_torch.configs import get_smoke
 from repro_torch.core.allreduce import OptiReduceConfig, sync_packed
 from repro_torch.core.keys import key as torch_key
-from repro_torch.core.pipeline import GeneratorDraws, SyncContext
+from repro_torch.core.pipeline import ThreefryDraws, SyncContext
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models import init_params
 from repro_torch.optim.optimizers import OptimizerConfig
@@ -172,7 +172,7 @@ def _ref_init_leaves(ref):
 
 def _port_params(ref):
     """The reference's initial parameters, in the port's tree."""
-    like = init_params(torch.Generator(), get_smoke("gpt2-paper"),
+    like = init_params(torch_key(0), get_smoke("gpt2-paper"),
                        device="cpu")
     return params_from_jax(tree_unflatten(like, _ref_init_leaves(ref)))
 
@@ -263,8 +263,8 @@ def test_nodrop_sync_is_the_mean_for_any_sign():
     g = torch.Generator().manual_seed(5)
     arena = torch.randn((PEERS, 3, 4096), generator=g)
     sync = OptiReduceConfig(hadamard_block=BLOCK)
-    outs = [sync_packed(arena, SyncContext(cfg=sync, draws=GeneratorDraws(
-        key=(seed,), cfg=sync, device=torch.device("cpu"))))
+    outs = [sync_packed(arena, SyncContext(cfg=sync, draws=ThreefryDraws(
+        key=torch_key(seed), cfg=sync, device=torch.device("cpu"))))
         for seed in (0, 1)]
     want = arena.mean(0)
     for out in outs:

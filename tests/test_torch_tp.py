@@ -43,6 +43,7 @@ from repro_torch.models.transformer import TpLayout, _map_table  # noqa: E402
 from repro_torch.train.trainer import _spec_leaves  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
 from repro_torch.weights import params_from_jax  # noqa: E402
+from repro_torch.core.keys import key as tkey  # noqa: E402
 
 SEQ = 32
 BATCH = 2
@@ -320,7 +321,7 @@ def test_params_from_jax_takes_tp_padded_trees(tp, over, dtype):
             p.to(torch.float32).numpy(), np.asarray(jp, np.float32))
         np.testing.assert_array_equal(
             m.to(torch.float32).numpy(), np.asarray(jm, np.float32))
-    assert tuple(init_params(torch.Generator(), cfg, device="cpu",
+    assert tuple(init_params(tkey(0), cfg, device="cpu",
                              tp=tp)["embed"].shape) == table[0].shape
 
 
@@ -343,7 +344,7 @@ def test_checkpoint_holds_the_global_padded_leaves(tmp_path):
     jparams = jinit(jax.random.PRNGKey(4), jcfg, tp=tp)
     jstate = jadamw(JOptCfg()).init(jparams)
     jckpt.save(str(tmp_path / "ref"), 3, (jparams, jstate))
-    like = init_params(torch.Generator(), cfg, device="cpu", tp=tp)
+    like = init_params(tkey(0), cfg, device="cpu", tp=tp)
     like_state = make_optimizer(OptimizerConfig()).init(like)
     step, (params, state), _ = ckpt.restore(str(tmp_path / "ref"),
                                             (like, like_state))

@@ -334,7 +334,7 @@ def test_sp_prefix_that_does_not_split_misaligns_the_reference(ref):
         x = forward_hidden(params, batch, cfg, remat=False, pctx=pctx)
         shifted = x[:, pre - r:pre - r + s]
         nll, w = _chunk_loss_tp(shifted, batch["labels"],
-                                _head(params, pctx, None), pctx)
+                                _head(params, pctx), pctx)
         aligned = lm_loss(params, batch, cfg, seq_chunk=SEQ_CHUNK,
                           pctx=pctx)
     want = float(ref[f"{name}/loss"])

@@ -27,7 +27,6 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke
-from repro_torch.core.keys import key
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import abstract_params
 from repro_torch.serve import build_serve_step, global_state, plan_serving
@@ -147,7 +146,7 @@ def test_tp_serving_matches_reference(ref, name):
     toks = torch.from_numpy(ref[f"{name}/toks"])
     nxt = []
     for t in range(steps):
-        n, state = fn(params, state, toks[:, t:t + 1], t, key(0))
+        n, state = fn(params, state, toks[:, t:t + 1], t)
         nxt.append(n)
     np.testing.assert_array_equal(torch.cat(nxt, dim=1).numpy(),
                                   ref[f"{name}/next"])

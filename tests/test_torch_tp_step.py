@@ -325,7 +325,7 @@ def test_tp_groups_reduce_scatter_as_one_group_each(case):
 
 # ----------------------------------------------------------------- trainer
 def _port_params(ref):
-    like = init_params(torch.Generator(), get_smoke("gpt2-paper"),
+    like = init_params(torch_key(0), get_smoke("gpt2-paper"),
                        device="cpu", tp=2)
     n = len(tree_leaves(like))
     return params_from_jax(tree_unflatten(

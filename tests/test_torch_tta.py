@@ -65,7 +65,7 @@ from repro.optim.optimizers import momentum_sgd as jmomentum  # noqa: E402
 from repro.sim import tta as jtta  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.core import compression as comp  # noqa: E402
-from repro_torch.core.keys import fold_in  # noqa: E402
+from repro_torch.core.keys import fold_in, key  # noqa: E402
 from repro_torch.optim.optimizers import (OptimizerConfig,  # noqa: E402
                                           make_optimizer, momentum_sgd)
 from repro_torch.sim import tta  # noqa: E402
@@ -78,9 +78,11 @@ GRAD_TOL = 2e-5
 N = 4
 
 
-def jkey(k):
-    out = jax.random.PRNGKey(k[0])
-    for d in k[1:]:
+def jkey(k, path=()):
+    """The port's raw threefry key ``(k0, k1)`` as a JAX key, with
+    ``path`` folded in."""
+    out = jnp.asarray(np.asarray(k, np.uint32))
+    for d in path:
         out = jax.random.fold_in(out, d)
     return out
 
@@ -175,15 +177,42 @@ def test_momentum_sgd_matches_reference(dtype):
             _close(a, b)
 
 
-def test_adafactor_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_optimizer(OptimizerConfig(name="adafactor"))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adafactor_is_not_ported(dtype):
+    """Adafactor (ROADMAP A10, now ported): 3 steps on 1-D, 2-D and 3-D
+    leaves against the reference's; the parameters and the factored row /
+    column statistics within fp32 rounding (the means reduce in another
+    order)."""
+    rng = np.random.default_rng(7)
+    jdtype = jnp.dtype(dtype)
+    params = _tree(rng, jdtype)
+    cfg = dict(name="adafactor", lr=1e-2, weight_decay=0.1)
+    jopt = jmake_opt(JOptCfg(**cfg))
+    opt = make_optimizer(OptimizerConfig(**cfg))
+    assert not opt.state_like_params and not jopt.state_like_params
+    port = params_from_jax(_np_tree(params))
+    jstate, state = jopt.init(params), opt.init(port)
+    for step in range(3):
+        grads = _tree(np.random.default_rng(10 + step), jdtype)
+        params, jstate = jopt.update(grads, jstate, params,
+                                     jnp.float32(cfg["lr"]), jnp.int32(step))
+        port, state = opt.update(params_from_jax(_np_tree(grads)), state,
+                                 port, cfg["lr"], step)
+    for got, want in zip(tree_leaves(port), jax.tree.leaves(params)):
+        assert str(got.dtype).endswith(dtype)
+        _close(got, want)
+    for field in ("row", "col"):
+        for got, want in zip(tree_leaves(getattr(state, field)),
+                             jax.tree.leaves(getattr(jstate, field))):
+            assert tuple(got.shape) == tuple(np.shape(want))
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=0)
 
 
 # ------------------------------------------------------------- _aggregate
 LENGTH = 3000          # pads to 3072 = 4 workers x 3 blocks of 256
 BLOCK = 256
-SKEY = (0, 5)
+SKEY = fold_in(key(0), 5)          # the reference's fold_in(PRNGKey(0), 5)
 
 
 def _flats(seed=0, scale=1e-2):

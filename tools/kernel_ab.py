@@ -2,6 +2,9 @@
 and B1 ``fwht_f32``) of several kernel trees in turns, on one NVIDIA GPU.
 A tree older than the grouped entry point exports B4 as ``ht_quant_f32``,
 which takes the same arguments less ``groups``: it is timed through that.
+A tree whose entry points take a ``(G, n)`` sign (``sign_groups`` before
+the stream) is called with one sign row, the ``(n,)`` form the older trees
+take.
 
     python3 tools/kernel_ab.py LABEL=ROOT ... [--reps N]
 
@@ -48,6 +51,22 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+AMAX_ARGS = [_P] * 3 + [_L, _I, _L, _L, _P]
+QUANT_ARGS = [_P] * 6 + [_L, _I] + [_L] * 4 + [_I, _P]     # grouped
+FWHT_ARGS = [_P] * 3 + [_L, _I, _L, _L, _I, _P]
+
+
+def _signed(args: list) -> list:
+    """An entry point's argument types with the grouped sign's count."""
+    return args[:-1] + [_I, args[-1]]
+
+
+def _one_sign_row(fn, *args):
+    """A grouped-sign entry point called with one sign row."""
+    return fn(*args[:-1], 1, args[-1])
+
+
 def build_tree(label: str, root: Path) -> dict:
     from repro_torch.kernels import build
     out_dir = ROOT / "build" / "ab" / label
@@ -68,7 +87,9 @@ def build_tree(label: str, root: Path) -> dict:
         libs[name] = ctypes.CDLL(str(lib))
         regs.update({e: r for e, r in build.registers(log).items()
                      if any(f"ILi{k}E" in e for k in (10, 11, 12))})
-    return {"libs": libs, "registers": regs}
+    fwht_src = root / "src/repro_torch/kernels/fwht/csrc/fwht.cu"
+    return {"libs": libs, "registers": regs,
+            "signs": "sign_groups" in fwht_src.read_text()}
 
 
 def _one_group(fn, *args):
@@ -77,31 +98,21 @@ def _one_group(fn, *args):
     return fn(*args[:11], 1, *args[11:])
 
 
-def bind(libs: dict):
-    from repro_torch.kernels.ht_quant.ops import _ARGTYPES
+def bind(libs: dict, signs: bool):
+    def typed(fn, args):
+        fn.argtypes = _signed(args) if signs else args
+        fn.restype = ctypes.c_int
+        return functools.partial(_one_sign_row, fn) if signs else fn
     fns = {}
     lib = libs["ht_quant"]
-    fn = lib.ht_amax_f32
-    fn.argtypes, fn.restype = _ARGTYPES["ht_amax_f32"], ctypes.c_int
-    fns["ht_amax_f32"] = fn
+    fns["ht_amax_f32"] = typed(lib.ht_amax_f32, AMAX_ARGS)
     if hasattr(lib, "ht_quant_grouped_f32"):
-        fn = lib.ht_quant_grouped_f32
-        fn.argtypes = _ARGTYPES["ht_quant_grouped_f32"]
-        fn.restype = ctypes.c_int
-        fns["ht_quant"] = functools.partial(_one_group, fn)
+        fns["ht_quant"] = functools.partial(
+            _one_group, typed(lib.ht_quant_grouped_f32, QUANT_ARGS))
     else:
-        fn = lib.ht_quant_f32
-        grouped = _ARGTYPES["ht_quant_grouped_f32"]
-        fn.argtypes = grouped[:11] + grouped[12:]
-        fn.restype = ctypes.c_int
-        fns["ht_quant"] = fn
-    fn = libs["fwht"].fwht_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_longlong,
-                                           ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fns["fwht_f32"] = fn
+        fns["ht_quant"] = typed(lib.ht_quant_f32,
+                                QUANT_ARGS[:11] + QUANT_ARGS[12:])
+    fns["fwht_f32"] = typed(libs["fwht"].fwht_f32, FWHT_ARGS)
     return fns
 
 
@@ -131,7 +142,8 @@ def main() -> int:
         except RuntimeError as e:          # the other trees still run
             emit({"tree": label, "build_error": str(e)[-6000:]})
             continue
-        trees[label]["fns"] = bind(trees[label]["libs"])
+        trees[label]["fns"] = bind(trees[label]["libs"],
+                                   trees[label]["signs"])
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

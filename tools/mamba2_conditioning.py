@@ -31,7 +31,7 @@ import json
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.keys import generator, key
+from repro_torch.core.keys import key
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import train as launch_train
 from repro_torch.models import ParallelCtx, init_params, lm_loss
@@ -77,7 +77,7 @@ def launcher_gaps(args) -> None:
 def perturbation(args) -> None:
     cfg = _cfg(args, torch.float32)
     dev = torch.device(args.device)
-    params = init_params(generator(key(0), dev), cfg, device=dev, tp=2)
+    params = init_params(key(0), cfg, device=dev, tp=2)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
                                   global_batch=BATCH, seed=0))
     batch = {k: torch.as_tensor(v[:BATCH // 2]).to(dev)
@@ -97,7 +97,7 @@ def perturbation(args) -> None:
     base = grads()
     for eps in (1e-4, 1e-3, 4e-3):
         saved = [p.detach().clone() for p in leaves]
-        noise = generator(key(1), dev)
+        noise = torch.Generator(device=dev).manual_seed(1)
         with torch.no_grad():
             for p in leaves:
                 p.mul_(1 + eps * torch.randn(p.shape, generator=noise,
