@@ -329,7 +329,33 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     batch 2 (the reference's ``prefill_32k``, its batch cut from 32): ms,
     peak, state bytes; one attention layer at 8,192 chunked against dense
     in fp32 within ``CHUNK_DENSE_TOL``;
-67. ``seconds``: the script's wall clock, whole and by group of phases.
+67. ``dist_sync``: 4 ranks on the card, one peer a rank over a gloo
+    process group (``tools/distcheck.py``, one process a rank; the stacked
+    side runs meanwhile, during the ranks' start-up and cold first step,
+    and their second step waits for its end), each syncing its row of a
+    seeded (4, 3, 65,536) arena through every strategy in ``scan`` and
+    ``pipelined`` (tail drops 0.01 on the lossy ones) and the policies,
+    ``pmax`` over a NaN and a ``ppermute`` naming some destinations, then
+    ``optireduce`` and ``optireduce_q`` on the full (4, 24, 6,553,600)
+    arena: each rank's result bitwise its row of the stacked form's on the
+    same arena and draws, the same loss fraction, and the rank's own
+    launches (B1-B6, T1, permutes) equal to the stacked sync's; per rank
+    the bytes it sent through the group and the host s in its calls;
+68. ``dist_main``: the launcher on those ranks (``--dist-backend gloo``),
+    gpt2-paper at full width, ``optireduce``, tail drops 0.01,
+    ``pipelined``, 2 steps, against the stacked launcher's 2 steps at
+    ``--dp 4``: the ranks' parameters bitwise equal after every step, rank
+    0's parameters and metrics within ``STEP_TOL`` of the stacked run's,
+    each rank's launches (48 B1, 24 B2, 48 T1 a step, 8 T1 at init) the
+    stacked run's; per rank and step host ms, peak bytes, bytes sent and
+    host s in the group's calls (gloo only: an NCCL call returns once
+    queued); every rank's second step starts after the stacked sides
+    and nccl's first step ended;
+69., 70. ``dist_nccl_sync``, ``dist_nccl_main``: 67. and 68. over nccl at
+    a world of ``torch.cuda.device_count()`` (one rank a card; the small
+    arena only), started with the gloo ranks, its steps after the first
+    once they have ended;
+71. ``seconds``: the script's wall clock, whole and by group of phases.
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -643,6 +669,11 @@ def main() -> int:
     # full-width arena
     sync_strategies(dev, counters)
     lap("strategies")
+
+    # 67.-70. one rank a peer over a process group (ROADMAP A18c): 4 gloo
+    # ranks on the card, then nccl at the card count
+    dist_paths(dev)
+    lap("dist")
 
     # 8., 17. the same trainer on the card and on the CPU, same params and
     # draws
@@ -4890,6 +4921,242 @@ def chunked_prefill(dev) -> None:
     emit(row)
     if not (row["token_in_vocab"] and rel <= CHUNK_DENSE_TOL):
         fail(f"chunked_prefill: {row}")
+
+
+# ----------------------------------------- one rank a peer (ROADMAP A18c)
+DIST_RANKS = 4
+DIST_ARENA = (3, 65_536)       # every strategy and policy, small
+DIST_RATE = 0.01
+DIST_PACKET = 256
+DIST_STEPS = 2
+DIST_TIMEOUT_S = 600
+DIST_THREADS = 2               # torch's host threads a rank: 4 ranks, 8 cores
+
+
+def _distcheck():
+    """``tools/distcheck.py``, the ranks' side of the ``dist_*`` phases."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import distcheck
+    return distcheck
+
+
+def _dist_train_argv(world: int) -> list:
+    """The launcher's flags of ``dist_main``: the main path at full width,
+    ``optireduce``, ``pipelined``, ``DIST_STEPS`` steps, ``world`` peers."""
+    argv = train_argv("optireduce")
+    argv[argv.index("--dp") + 1] = str(world)
+    return argv + ["--steps", str(DIST_STEPS), "--sync-mode", "pipelined"]
+
+
+def _stacked_side(dev, world: int, full: bool) -> dict:
+    """The stacked form's side of the ``dist_*`` phases at ``world`` peers:
+    each sync case's row digests, loss fraction and launches on the arenas
+    and draws the ranks use, and the launcher's records, per-step
+    parameter digests, last parameters and launches."""
+    from repro_torch.core import collectives
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import train as launch_train
+    distcheck = _distcheck()
+
+    arenas = [("", DIST_ARENA, None, True)]
+    if full:
+        arenas.append(("full:", (ARENA_BUCKETS, BUCKET),
+                       distcheck.FULL_STRATEGIES, False))
+    sync = {}
+    for prefix, (b, e), strategies, small in arenas:
+        x = distcheck.peer_rows(range(world), b, e, 0, dev)
+        for name, y, frac, launched in distcheck.sync_cases(
+                x, collectives.ONE, rate=DIST_RATE, block=BLOCK,
+                packet=DIST_PACKET, strategies=strategies,
+                policies=small and world == DIST_RANKS,
+                modes=distcheck.MODES if small else ("pipelined",)):
+            sync[prefix + name] = ([distcheck.digest(row) for row in y],
+                                   frac, launched)
+            del y
+        if small:
+            for name, y in distcheck.primitive_cases(x, collectives.ONE):
+                sync[name] = ([distcheck.digest(row) for row in y], None,
+                              None)
+        del x
+        free_card()
+    before = distcheck.counts()
+    with distcheck.watch_steps(keep=True) as seen:
+        records = launch_train.run(_dist_train_argv(world))
+    after = distcheck.counts()
+    runtime.set_kernel_mode(None)     # the launcher left it at 'kernel'
+    free_card()
+    return {"sync": sync, "records": records, "digests": seen["digests"],
+            "params": seen["params"],
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+def _dist_held(phases: tuple, world: int, want: dict, reports: list,
+               params_path: Path, times: dict) -> None:
+    """Hold the ranks' reports of one world against the stacked side and
+    emit its sync row and its launcher's rows (see :func:`dist_paths`).
+    ``dist_s`` is emitted for gloo only: its calls return when the data
+    has moved, NCCL's once the work is queued."""
+    import torch
+    sync_phase, main_phase = phases
+    gloo = reports[0]["backend"] == "gloo"
+    bad, full_rows = [], {}
+    for case, (digests, frac, launched) in want["sync"].items():
+        got = [rep["sync"][case] for rep in reports]
+        for r, g in enumerate(got):
+            if g["digest"] != digests[r] or (frac is not None and (
+                    g["loss_frac"] != frac or g["launches"] != launched)):
+                bad.append({"case": case, "rank": r,
+                            "bitwise": g["digest"] == digests[r],
+                            "loss_frac": [g.get("loss_frac"), frac],
+                            "launches": [g.get("launches"), launched]})
+        if case.startswith("full:"):
+            full_rows[case[5:]] = {
+                "stacked_launches": launched,
+                "launches_per_rank": [g["launches"] for g in got],
+                "dist_bytes": [g["dist_bytes"] for g in got],
+                "dist_s": [g["dist_s"] for g in got] if gloo else None,
+                "loss_frac": frac}
+    emit({"phase": sync_phase, "backend": reports[0]["backend"],
+          "ranks": world, "cases": len(want["sync"]),
+          "small_arena": list(DIST_ARENA), **times, "full": full_rows,
+          "mismatches": bad})
+    if bad:
+        fail(f"{sync_phase}: {len(bad)} rank results differ from the "
+             f"stacked form: {bad[:4]}")
+
+    runs = [rep["train"]["main"] for rep in reports]
+    # the stacked sides ran while the ranks started; their second steps
+    # wait for the release (``--wait-for``), which this checks
+    later = min(r["starts"][1] for r in runs)
+    alone = later >= times["released"]
+    params = torch.load(params_path)
+    params_gap = max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(params, want["params"]))
+    metrics_gap = max(abs(a[k] - b[k]) for a, b in zip(runs[0]["records"],
+                                                       want["records"])
+                      for k in ("loss", "loss_frac", "grad_norm"))
+    ranks_equal = all(r["digests"] == runs[0]["digests"] for r in runs)
+    launches_ok = all(r["launches"] == want["launches"] for r in runs)
+    for r, run in enumerate(runs):
+        for i, rec in enumerate(run["records"]):
+            emit({"phase": f"{main_phase}_step", "rank": r, "step": i,
+                  "loss": rec["loss"], "loss_frac": rec["loss_frac"],
+                  "step_ms": rec["step_s"] * 1e3,
+                  "wait_ms": run["wait_s"] * 1e3 if i == 0 else 0.0,
+                  "peak_bytes": rec["peak_bytes"],
+                  "dist_bytes": rec["dist_bytes"],
+                  "dist_s": rec["dist_s"] if gloo else None})
+    emit({"phase": main_phase, "backend": reports[0]["backend"],
+          "ranks": world, "steps": DIST_STEPS,
+          "step1_after_release_s": later - times["released"],
+          "ranks_bitwise_equal": ranks_equal,
+          "rank0_bitwise_stacked": runs[0]["digests"] == want["digests"],
+          "params_max_abs_diff": params_gap,
+          "metrics_max_abs_diff": metrics_gap, "tolerance": STEP_TOL,
+          "stacked": [{k: rec[k] for k in ("loss", "loss_frac", "grad_norm",
+                                           "step_s")}
+                      for rec in want["records"]],
+          "stacked_launches": want["launches"],
+          "launches_per_rank": [r["launches"] for r in runs]})
+    if not (ranks_equal and launches_ok and params_gap <= STEP_TOL
+            and metrics_gap <= STEP_TOL and alone):
+        fail(f"{main_phase}: ranks equal {ranks_equal}, launches "
+             f"{launches_ok}, params {params_gap}, metrics {metrics_gap} "
+             f"(tolerance {STEP_TOL}), step 1 after the release {alone}")
+
+
+def dist_paths(dev) -> None:
+    """Phases ``dist_sync``, ``dist_main`` (4 gloo ranks on the one card,
+    one peer a rank) and ``dist_nccl_sync``, ``dist_nccl_main`` (nccl at a
+    world of ``torch.cuda.device_count()``, one rank a card), each world
+    started by ``tools/distcheck.py``.
+
+    ``*_sync``: each rank syncs its row of the seeded (P, 3, 65,536) arena
+    through every strategy in ``scan`` and ``pipelined`` (tail drops 0.01
+    on the lossy ones; the policies too at 4 ranks), ``pmax`` over a NaN
+    and a partial ``ppermute``; over gloo also ``optireduce`` and
+    ``optireduce_q`` (``pipelined``) on the full (4, 24, 6,553,600) arena.
+    Against the stacked form on the same arenas and draws: each rank's
+    result bitwise its row, the same loss fraction, and the rank's own
+    kernel launches (B1-B6, T1) and permutes equal to the stacked sync's.
+    Per rank and full-size case: launches, bytes sent through the group,
+    host s in its calls (gloo only).
+
+    ``*_main``: the launcher on every rank (``_dist_train_argv``: 2 steps
+    of the main path, the global batch of 8 split over the ranks) against
+    the stacked launcher's same steps at ``--dp`` the world: the ranks'
+    parameters bitwise equal to each other after every step; rank 0's
+    parameters, loss, loss_frac and grad norm within ``STEP_TOL`` of the
+    stacked run's (bitwise recorded); each rank's kernel launches (B1, B2,
+    T1 with the init's draws) the stacked run's. Per rank and step: host
+    ms, peak bytes, bytes sent through the group, host s in its calls.
+
+    Both worlds start at once and run their launcher first; both stacked
+    sides run in this process meanwhile, during the ranks' start-up and
+    cold first step. A world's second step waits for a file (``--wait-for``)
+    that this process writes once the stacked sides have ended and nccl's
+    rank has finished its first step (gloo's world) or gloo's ranks have
+    ended (nccl's), so each world's later steps and its syncs have the card
+    to themselves. Every second step's start on the wall clock is held
+    against that release."""
+    import shutil
+
+    import torch
+    distcheck = _distcheck()
+
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    worlds = [(DIST_RANKS, "gloo", True, ("dist_sync", "dist_main")),
+              (torch.cuda.device_count(), "nccl", False,
+               ("dist_nccl_sync", "dist_nccl_main"))]
+
+    def argv(world, backend, full):
+        flags = ["--device", "cuda", "--backend", backend, "--arena",
+                 "%d,%d" % DIST_ARENA, "--block", str(BLOCK), "--packet",
+                 str(DIST_PACKET), "--rate", str(DIST_RATE), "--threads",
+                 str(DIST_THREADS), "--wait-for", str(out / backend / "go"),
+                 "--train", json.dumps({
+                     "name": "main", "argv": _dist_train_argv(world)
+                     + ["--dist-backend", backend]}),
+                 "--save-params", "main"]
+        return flags + (["--full", f"{ARENA_BUCKETS},{BUCKET}"] if full
+                        else [])
+
+    free_card()
+    t0 = time.perf_counter()
+    procs = [distcheck.start(out / backend, world,
+                             argv(world, backend, full))
+             for world, backend, full, _ in worlds]
+    try:
+        wants = [_stacked_side(dev, world, full=full)
+                 for world, _, full, _ in worlds]
+        stacked_s = time.perf_counter() - t0
+        free_card()
+        try:
+            # nccl's rank idles before gloo's ranks go on
+            distcheck.await_ready(procs[1], out / "nccl" / "go",
+                                  timeout=DIST_TIMEOUT_S)
+        except Exception as e:
+            fail(f"dist_nccl_main: {e}")
+        for (world, backend, _, phases), ranks, want in zip(worlds, procs,
+                                                            wants):
+            released = time.time()
+            (out / backend / "go").touch()
+            try:
+                distcheck.wait(ranks, timeout=DIST_TIMEOUT_S)
+            except Exception as e:      # a rank's failure or a hang
+                fail(f"{phases[0]}: {e}")
+            times = {"stacked_s": stacked_s, "released": released,
+                     "ranks_s": time.perf_counter() - t0}
+            _dist_held(phases, world, want,
+                       distcheck.reports(out / backend, world),
+                       out / backend / "main.pt", times)
+    finally:
+        for proc in (p for ranks in procs for p in ranks):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    shutil.rmtree(out, ignore_errors=True)
+    free_card()
 
 
 PORTED_KERNELS = ("fwht_rows_kernel", "masked_mean_vec4", "ht_kernel",

@@ -1,18 +1,18 @@
 """The peer grid: the port's counterpart of the ``jax.lax`` axis primitives
-the sync path uses.
+the sync path uses, in two forms.
 
-The reference runs its ranks as ``shard_map`` over a mesh whose data axis
-has N devices, or over a ``(pod, data)`` mesh of G x N devices for the
-hierarchical 2D TAR (§3.1.2), with a ``model`` axis of T tensor-parallel
-ranks beside them. On one card the port runs them as a leading peer axis of
-size P = T * G * N on stacked tensors, ordered ``(model, pod, data)``: row
-``p = (t * G + g) * N + i`` of every stacked tensor is what rank (pod g,
-data i, model t) holds. The model axis is outermost, so each tp group is a
-contiguous copy of the pod-major ``(pod, data)`` grid, the order of
-``P(('pod', 'data'))``. A :class:`Grid` (G and T; N is what a stack's P
-leaves) is passed to every collective, and ``axis`` names the one it acts
-over, always inside each tp group (the sync never reduces the tp groups
-against each other):
+**Stacked (the default).** The reference runs its ranks as ``shard_map``
+over a mesh whose data axis has N devices, or over a ``(pod, data)`` mesh
+of G x N devices for the hierarchical 2D TAR (§3.1.2), with a ``model``
+axis of T tensor-parallel ranks beside them. On one card the port runs them
+as a leading peer axis of size P = T * G * N on stacked tensors, ordered
+``(model, pod, data)``: row ``p = (t * G + g) * N + i`` of every stacked
+tensor is what rank (pod g, data i, model t) holds. The model axis is
+outermost, so each tp group is a contiguous copy of the pod-major ``(pod,
+data)`` grid, the order of ``P(('pod', 'data'))``. A :class:`Grid` (G and
+T; N is what a stack's P leaves) is passed to every collective, and
+``axis`` names the one it acts over, always inside each tp group (the sync
+never reduces the tp groups against each other):
 
   ``DATA``  within each pod, over its N data peers (the ring, tree and TAR
             schedules; ``ppermute`` pairs and per-peer rows are data
@@ -36,13 +36,33 @@ the transposes are copies.
 ``permutes`` counts its calls, as the reference's tests count
 ``collective_permute`` sites in its HLO.
 
-A ``torch.distributed`` (NCCL) backend behind this interface, one rank per
-card, is the next multi-GPU slice (ROADMAP).
+**Over a process group (one rank a peer).** ``Grid(group=pg)`` (or
+:func:`rank_grid`) puts the data axis on the ranks of a
+``torch.distributed`` process group, one peer a rank, as the reference
+puts one on each device: a stack's leading axis holds this rank's one row,
+and each primitive gives that row of the stacked form's result, bit for
+bit. ``axis_size`` is the group's size, ``axis_index``, ``per_peer``,
+``take_rows`` and ``put_rows`` read the rank's own entry, ``all_to_all``
+is ``all_to_all_single``, ``all_gather`` is ``all_gather_into_tensor``
+(the list form on gloo), ``ppermute`` an ``all_to_all_single`` whose split
+sizes name the rank's one destination and one source (a rank no pair
+names receives zeros; ``permutes`` counts each call once, as above).
+``pmean`` and ``pmax`` gather every row and reduce them here, the sum in
+rank order (a library ``all_reduce`` reorders its adds) and the max
+through ``amax`` (NaN passes, where NCCL's ``fmaxf`` may drop it). The
+module counters ``dist_bytes`` (bytes this rank sends) and ``dist_s``
+(host seconds inside the library's calls) measure the traffic. Over gloo
+a call returns when its data has moved, so ``dist_s`` is the whole wait;
+an NCCL call returns once its work is queued on the card, so there
+``dist_s`` is the enqueue only. This form holds one pod at tp 1: pods and tp over ranks are
+later slices (ROADMAP A18c).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
+from typing import Any
 
 import torch
 
@@ -51,20 +71,46 @@ POD = "pod"
 BOTH = (POD, DATA)
 
 permutes = 0
+dist_bytes = 0           # bytes this rank sent through the process group
+dist_s = 0.0             # host seconds inside the process group's calls
 
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
     """The layout of a stack's P peers: T tp groups (``tp``) of G pods
     (``pods``) of N data peers, ordered ``(model, pod, data)``. N is what a
-    stack's P leaves, P / (T * G)."""
+    stack's P leaves, P / (T * G). With ``group`` (a ``torch.distributed``
+    process group) the N data peers are the group's ranks, one a rank, and
+    a stack holds this rank's row alone."""
     pods: int = 1
     tp: int = 1
+    group: Any = None
 
     def __post_init__(self):
         if self.pods < 1 or self.tp < 1:
             raise ValueError(f"pods and tp must be positive, got "
                              f"{self.pods} and {self.tp}")
+        if self.group is not None and (self.pods, self.tp) != (1, 1):
+            raise ValueError(
+                f"a process group holds one pod at tp 1, got {self.pods} "
+                f"pods and tp {self.tp} (pods and tp over ranks: ROADMAP "
+                "A18c)")
+
+    @property
+    def rank(self) -> int:
+        """This process's data index: its rank in ``group`` (0 without)."""
+        if self.group is None:
+            return 0
+        import torch.distributed as dist
+        return dist.get_rank(self.group)
+
+    @property
+    def ranks(self) -> int:
+        """The group's size (1 without a group)."""
+        if self.group is None:
+            return 1
+        import torch.distributed as dist
+        return dist.get_world_size(self.group)
 
     @property
     def blocks(self) -> int:
@@ -72,7 +118,13 @@ class Grid:
         return self.tp * self.pods
 
     def data_size(self, p: int) -> int:
-        """N, the data peers of each pod of a stack of ``p`` peers."""
+        """N, the data peers of each pod of a stack of ``p`` peers (the
+        group's ranks, where a stack holds one)."""
+        if self.group is not None:
+            if p != 1:
+                raise ValueError(f"a process group's stack holds this "
+                                 f"rank's one row, got {p}")
+            return self.ranks
         if p % self.blocks:
             raise ValueError(f"{p} peers do not fill {self.tp} x "
                              f"{self.pods} pods")
@@ -103,6 +155,13 @@ class Grid:
 ONE = Grid()
 
 
+def rank_grid(group=None) -> Grid:
+    """The grid of a process group's ranks, one peer a rank (the default
+    group when None)."""
+    import torch.distributed as dist
+    return Grid(group=dist.group.WORLD if group is None else group)
+
+
 @functools.lru_cache(maxsize=512)
 def index(values: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """A constant int64 index tensor on ``device``, made once: the schedules'
@@ -115,7 +174,9 @@ def per_peer(values: tuple[int, ...], device: torch.device,
              grid: Grid = ONE) -> torch.Tensor:
     """``(P,)`` index tensor of a per-data-index table ``values`` (length
     N): peer ``b * N + i`` reads ``values[i]`` in every block b of the
-    grid."""
+    grid (over a process group: the rank's own entry, ``(1,)``)."""
+    if grid.group is not None:
+        return index((values[grid.rank],), device)
     return index(tuple(values) * grid.blocks, device)
 
 
@@ -136,6 +197,8 @@ def axis_index(x: torch.Tensor, grid: Grid = ONE,
                axis=DATA) -> torch.Tensor:
     """Each peer's own index on ``axis``, ``(P,)``."""
     n = axis_size(x, grid)
+    if grid.group is not None:
+        return index((0 if axis == POD else grid.rank,), x.device)
     peers = torch.arange(x.shape[0], device=x.device)
     return {DATA: peers % n, POD: (peers // n) % grid.pods,
             BOTH: peers % (grid.pods * n)}[axis]
@@ -152,6 +215,53 @@ def on_grid(rows: torch.Tensor, x: torch.Tensor, grid: Grid = ONE,
     return rows.index_select(0, axis_index(x, grid, axis))
 
 
+def _dist_call(fn, sent: int) -> None:
+    """Run one call of the process group's library, counting the bytes this
+    rank sends and the host seconds until it returns."""
+    global dist_bytes, dist_s
+    t0 = time.perf_counter()
+    fn()
+    dist_s += time.perf_counter() - t0
+    dist_bytes += sent
+
+
+def _is_gloo(grid: Grid) -> bool:
+    import torch.distributed as dist
+    return dist.get_backend(grid.group) == "gloo"
+
+
+def gather_peers(x: torch.Tensor, grid: Grid = ONE) -> torch.Tensor:
+    """Every data peer's row of a ``(P, ...)`` stack, ``(N, ...)`` in index
+    order: the stack itself, or over a process group every rank's one row
+    gathered (the stacked form's stack, bit for bit)."""
+    if grid.group is None:
+        return x
+    import torch.distributed as dist
+    n = axis_size(x, grid)
+    row = x[0].contiguous()
+    out = torch.empty((n, *row.shape), dtype=row.dtype, device=row.device)
+    nbytes = row.numel() * row.element_size()
+    if _is_gloo(grid):
+        _dist_call(lambda: dist.all_gather(list(out.unbind(0)), row,
+                                           group=grid.group), nbytes)
+    else:
+        _dist_call(lambda: dist.all_gather_into_tensor(out, row,
+                                                       group=grid.group),
+                   nbytes)
+    return out
+
+
+def _all_to_all_rows(x: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """``(1, n, S)`` -> ``(1, n, S)`` over a process group: row j goes to
+    rank j, row i of the result came from rank i."""
+    import torch.distributed as dist
+    send = x[0].contiguous()
+    out = torch.empty_like(send)
+    _dist_call(lambda: dist.all_to_all_single(out, send, group=grid.group),
+               send.numel() * send.element_size())
+    return out.unsqueeze(0)
+
+
 def all_to_all(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
     """Tiled all_to_all over ``axis``: ``(P, n, S)`` sender-major (row p =
     what peer p sends to each of the axis's n peers) -> receiver-major
@@ -162,6 +272,8 @@ def all_to_all(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
         raise ValueError(f"all_to_all over {n} peers needs {n} shards each, "
                          f"got {x.shape[1]}")
     s, tp, pods = x.shape[2], grid.tp, grid.pods
+    if grid.group is not None:
+        return x if axis == POD else _all_to_all_rows(x, grid)
     if axis == POD:                   # (t, h, i, g) -> (t, g, i, h)
         if pods == 1:
             return x
@@ -182,6 +294,9 @@ def all_gather(own: torch.Tensor, grid: Grid = ONE,
     (a broadcast view when the axis spans every peer)."""
     p, tp, pods = own.shape[0], grid.tp, grid.pods
     n = axis_size(own, grid, axis)
+    if grid.group is not None:
+        return own if axis == POD else gather_peers(own, grid).reshape(
+            1, n * own.shape[-1])
     if axis == POD:
         if pods == 1:
             return own
@@ -231,6 +346,10 @@ def pmean(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
     """Mean over ``axis``, held by every peer on it: ``(P, ...)`` ->
     ``(P, ...)``."""
     n = axis_size(x, grid, axis)
+    if grid.group is not None:
+        if axis == POD:
+            return x
+        return mean_of(_sum_in_order(gather_peers(x, grid), 0), n)
     if n == x.shape[0]:
         return mean_of(_sum_in_order(x, 0), n).expand_as(x)
     xs = _grouped(x, grid, axis)
@@ -238,7 +357,13 @@ def pmean(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
 
 
 def pmax(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
+    """Max over ``axis``, held by every peer on it (``amax``: a NaN on any
+    peer gives NaN)."""
     n = axis_size(x, grid, axis)
+    if grid.group is not None:
+        if axis == POD:
+            return x
+        return gather_peers(x, grid).amax(dim=0, keepdim=True)
     if n == x.shape[0]:
         return x.amax(dim=0, keepdim=True).expand_as(x)
     xs = _grouped(x, grid, axis)
@@ -276,6 +401,8 @@ def ppermute(x: torch.Tensor, perm, grid: Grid = ONE) -> torch.Tensor:
     if any(not (0 <= i < n) for pair in pairs for i in pair):
         raise ValueError(f"ppermute pairs {pairs} outside the {n}-peer axis")
     permutes += 1
+    if grid.group is not None:
+        return _ppermute_rows(x, pairs, grid)
     lifted = [(b * n + s, b * n + d) for b in range(grid.blocks)
               for s, d in pairs]
     if len(pairs) == n:                     # every peer receives: one gather
@@ -288,4 +415,32 @@ def ppermute(x: torch.Tensor, perm, grid: Grid = ONE) -> torch.Tensor:
         srcs = index(tuple(s for s, _ in lifted), x.device)
         out.index_copy_(0, index(tuple(d for _, d in lifted), x.device),
                         x.index_select(0, srcs))
+    return out
+
+
+def _ppermute_rows(x: torch.Tensor, pairs, grid: Grid) -> torch.Tensor:
+    """``ppermute`` of a one-row stack over a process group: one
+    ``all_to_all_single`` every rank joins, its split sizes naming this
+    rank's destination and source (a self pair is a copy); zeros where no
+    pair names the rank as a destination."""
+    import torch.distributed as dist
+    rank, n = grid.rank, grid.ranks
+    dst = next((d for s_, d in pairs if s_ == rank), None)
+    src = next((s_ for s_, d in pairs if d == rank), None)
+    if src is None:
+        out = torch.zeros_like(x)
+    elif src == rank:
+        out = x.clone()
+    else:
+        out = torch.empty_like(x)
+    send = x.contiguous()
+    width = send.numel()
+    in_splits = [width if j == dst and dst != rank else 0 for j in range(n)]
+    out_splits = [width if j == src and src != rank else 0
+                  for j in range(n)]
+    recv = out if sum(out_splits) else out.new_empty((0,))
+    _dist_call(lambda: dist.all_to_all_single(
+        recv.view(-1), send.view(-1) if sum(in_splits) else send.new_empty(
+            (0,)), out_splits, in_splits, group=grid.group),
+        sum(in_splits) * send.element_size())
     return out

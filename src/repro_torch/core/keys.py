@@ -4,7 +4,7 @@ A key is the raw ``(k0, k1)`` pair of uint32 words of a
 ``jax.random.PRNGKey`` (default threefry implementation, partitionable
 mode, the reference's jax 0.9.0 default):
 
-  ``key(seed)``      ``(hi32(seed), lo32(seed))``;
+  ``key(seed)``      ``(0, lo32(seed))`` (jax without x64);
   ``fold_in(k, d)``  ``threefry2x32(k, (0, d))``;
   ``split(k, n)``    key ``i`` is the pair ``threefry2x32(k, (0, i))``;
   draws              value ``i`` (row-major flat index) takes the 32 bits
@@ -64,12 +64,13 @@ def _hash_np(k0, k1, x0, x1):
 
 
 def key(seed: int) -> Key:
-    """``jax.random.PRNGKey(seed)``: the 64-bit seed's two words."""
+    """``jax.random.PRNGKey(seed)`` with x64 off: ``(0, seed mod 2^32)``
+    for any seed in ``[-2^63, 2^63)`` (jax keeps the seed's low word
+    only), ``OverflowError`` outside it, as jax raises."""
     seed = int(seed)
-    if -(1 << 31) <= seed < 0:
-        # a negative int32 seed: jax shifts the int32 itself, high word 0
-        return (0, seed & MASK)
-    return ((seed >> 32) & MASK, seed & MASK)
+    if not -(1 << 63) <= seed < (1 << 63):
+        raise OverflowError(f"seed {seed} does not fit in int64")
+    return (0, seed & MASK)
 
 
 def fold_in(k: Key, data: int) -> Key:
@@ -158,29 +159,24 @@ def bits(k: Key, shape) -> np.ndarray:
 
 def randint(k: Key, shape, minval: int, maxval: int) -> np.ndarray:
     """``jax.random.randint(k, shape, minval, maxval)`` (int32) on the host:
-    two bit draws from ``split(k)``, the span and multiplier arithmetic
-    wrapping in uint32, as jax's ``_randint`` computes them."""
+    two bit draws from ``split(k)``, the span, the multiplier
+    ``(2^16 mod span)^2 mod span`` and the offset wrapping in uint32, as
+    jax's ``_randint`` computes them. Bounds past int32 raise
+    ``OverflowError``, as jax's do with x64 off."""
     shape = _shape(shape)
-    lo = max(int(minval), -(1 << 31))
-    hi = min(int(maxval), (1 << 31) - 1)
-    out_of_range = int(maxval) > (1 << 31) - 1
+    lo, hi = int(minval), int(maxval)
+    for bound in (lo, hi):
+        if not -(1 << 31) <= bound < (1 << 31):
+            raise OverflowError(f"randint bound {bound} does not fit in "
+                                "int32")
     k1, k2 = split(k)
     higher, lower = bits(k1, shape), bits(k2, shape)
-    span = np.uint32((hi - lo) & MASK)
-    if hi <= lo:
-        span = np.uint32(1)
-    elif out_of_range:
-        span = np.uint32((int(span) + 1) & MASK)
+    span = np.uint32(1 if hi <= lo else (hi - lo) & MASK)
     with np.errstate(over="ignore"):
-        mult = np.uint32((1 << 16) % int(span)) if span else np.uint32(0)
-        mult = np.uint32((int(mult) * int(mult)) % int(span)) if span \
-            else np.uint32(0)
-        if span:
-            off = (higher % span) * mult + (lower % span)
-            off = off % span
-        else:
-            off = higher * mult + lower
-    return (np.int64(lo) + off.astype(np.int64)).astype(np.int32)
+        mult = np.uint32(1 << 16) % span
+        mult = (mult * mult) % span
+        off = ((higher % span) * mult + (lower % span)) % span
+    return (lo + off.astype(np.int64)).astype(np.int32)
 
 
 def batch_keys(keys) -> np.ndarray:

@@ -324,8 +324,11 @@ class SyncContext:
     def arrival_masks(self, n: int, s: int, own) -> torch.Tensor:
         """``(len(own), n, s)``: receiver r's arrival mask in row r, its own
         row ``own[r]`` kept; in a batched sync each bucket's masks over its
-        ``s / B`` entries, interleaved."""
+        ``s / B`` entries, interleaved. Over a process group the rank draws
+        its own receiver's mask alone, ``(1, n, s)``."""
         rows = list(enumerate(own))
+        if self.grid.group is not None:
+            rows = [rows[self.grid.rank]]
         if self.buckets is None:
             return draw_masks(self.draws, [(self.bucket, r, i)
                                            for r, i in rows], n, s)
@@ -339,10 +342,13 @@ class SyncContext:
         """Observed entry-loss fraction this step, averaged over receivers
         (the reference's ``pmean`` of dropped/total over ``data_axes()``:
         every pod draws the data axis's masks alike, so the mean over the N
-        receivers is the mean over both axes)."""
+        receivers is the mean over both axes). Over a process group every
+        rank's count is gathered first, so each rank holds the same
+        value."""
         if "total" not in self.stats:
             return torch.zeros(())
-        frac = self.stats["dropped"] / max(self.stats["total"], 1.0)
+        dropped = collectives.gather_peers(self.stats["dropped"], self.grid)
+        frac = dropped / max(self.stats["total"], 1.0)
         return frac.mean()
 
 
@@ -1026,7 +1032,7 @@ class TarTopology(Topology):
         # receiver p reduces shard p (None), or its data index's shard over
         # pods and tp groups, or its virtual position's on a degraded round
         # schedule
-        shard_index = (None if grid.blocks == 1
+        shard_index = (None if grid.blocks == 1 and grid.group is None
                        else collectives.axis_index(data, grid))
         if rounds and active is not None:
             # rows are in virtual-ring order; so are shard ownership and the

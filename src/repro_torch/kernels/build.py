@@ -13,11 +13,15 @@ is rebuilt and an unchanged one is loaded as it is. Only sources in this
 package are compiled; nothing is fetched or taken from elsewhere. A failed
 build raises with the compiler's output. :func:`build_all` starts one
 ``nvcc`` per source at once and waits for all of them (what a cold run on
-the card should do before its first launch).
+the card should do before its first launch). Builds hold an exclusive
+lock on ``build/torch_kernels/.lock``, so ranks that start together build
+each library once: the first compiles, the others wait and load it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -92,12 +96,26 @@ def _finish(src: Path, out: Path, tmp: Path,
     return log
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive, across processes, while libraries are built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> dict[str, str]:
     """Compile every kernel source in parallel; returns ``{name: nvcc log}``
     (the ``-Xptxas -v`` register and shared-memory report; empty for a
     library already built)."""
-    started = {name: (src, *_start(src)) for name, src in sources().items()}
-    return {name: _finish(*job) for name, job in started.items()}
+    with _build_lock():
+        started = {name: (src, *_start(src))
+                   for name, src in sources().items()}
+        return {name: _finish(*job) for name, job in started.items()}
 
 
 def registers(log: str) -> dict[str, int]:
@@ -131,8 +149,10 @@ def library(name: str) -> ctypes.CDLL:
             if src is None:
                 raise KeyError(f"no kernel source {name}.cu under "
                                f"{KERNELS_DIR}")
-            out, tmp, proc = _start(src)
-            _finish(src, out, tmp, proc)
+            out = _target(src)
+            if not out.exists():
+                with _build_lock():
+                    _finish(src, *_start(src))
             lib = ctypes.CDLL(str(out))
             _libs[name] = lib
         return lib

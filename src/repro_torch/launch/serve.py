@@ -3,7 +3,9 @@
 Counterpart of ``src/repro/launch/serve.py``, with the reference's flags
 and its two output lines, plus ``--device``: the CUDA device unless asked
 otherwise, raising where there is none (no CPU fallback). The weights and
-the prompts are random, made from ``--seed``. Example:
+the prompts are random, made from ``--seed``. It runs as one process:
+under ``torchrun`` (``WORLD_SIZE`` set) it raises, serving over ranks
+being a later slice of ROADMAP A18c. Example:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-paper \\
       --batch 128 --prompt-len 896 --max-new 128
@@ -13,6 +15,7 @@ the prompts are random, made from ``--seed``. Example:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -37,6 +40,9 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda; 'cpu' runs on the "
                          "CPU)")
     args = ap.parse_args(argv)
+    if "WORLD_SIZE" in os.environ:
+        raise ValueError("serving over ranks (torchrun) is a later slice of "
+                         "ROADMAP A18c: run launch/serve.py as one process")
 
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)

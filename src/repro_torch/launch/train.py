@@ -35,8 +35,21 @@ when its ``SyncPolicy`` moves, the next step runs the policy's step function
 optimizer state carries over). ``--report`` writes the per-step detector
 state as JSON, ``--trace`` a Perfetto trace of the steps and the control
 plane's transitions (read it with ``python -m repro_torch.obs.report``).
-``--dp`` is the number of peers simulated on the card, ``--device`` where
-they run (the CUDA device unless asked otherwise).
+``--dp`` is the number of data-parallel peers. Run as one process, the
+launcher holds all of them on one card, as the leading axis of stacked
+tensors (``core/collectives.py``), ``--device`` where they run (the CUDA
+device unless asked otherwise). Run under ``torchrun`` (``WORLD_SIZE`` set)
+it runs one peer a rank, as the reference runs one a device: ``--dp`` is
+the world size (another value is an error), each rank runs on
+``cuda:(LOCAL_RANK % device_count())`` unless ``--device cpu``, and the
+sync's collectives go over a ``torch.distributed`` process group,
+``--dist-backend nccl`` (the default on the card; NCCL refuses two ranks
+on one card) or ``gloo`` (the default on the CPU; it stages CUDA tensors
+through the host). Rank 0 prints and writes the report, trace and
+checkpoints. This form runs replicated data parallelism on one pod at tp 1
+in ``--sync-mode scan`` or ``pipelined``; ``--tp``, ``--production-mesh``,
+``--dp-mode fsdp``, ``--sync-mode vmap``, ``--recovery``, ``--transport``
+and ``--adaptive`` over ranks raise (later slices of ROADMAP A18c).
 On the card every Hadamard encode/decode, every drop-compensated mean and,
 with ``--strategy optireduce_q``, every quantization stage (grid pass,
 stage-1 codes, dequant + mean, stage-2 codes) is a launch of the port's
@@ -73,13 +86,17 @@ Example:
       --steps 3 --transport inproc --drop-rate 0.02
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 2 --transport udp --rendezvous auto --wire-deadline 0.05
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch gpt2-paper --steps 3 --drop-rate 0.01 --dist-backend gloo
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import sys
 import time
 
@@ -87,6 +104,7 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.core import collectives
 from repro_torch.core import recovery as recovery_lib
 from repro_torch.core.allreduce import OptiReduceConfig, strategy_names
 from repro_torch.core.bucket_plan import BucketPlan
@@ -116,8 +134,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
-    ap.add_argument("--dp", type=int, default=4,
-                    help="number of data-parallel peers simulated on the card")
+    ap.add_argument("--dp", type=int, default=None,
+                    help="number of data-parallel peers (default 4): all "
+                         "of them on one card as stacked tensors, or, under "
+                         "torchrun, the world size, one peer a rank")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="under torchrun: the process group's backend "
+                         "(default nccl on the card, gloo on the CPU)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
@@ -215,6 +238,57 @@ def prefix_embeds(cfg, args, step: int) -> np.ndarray:
         dtype=np.float32)
 
 
+# flags the one-rank-a-peer form refuses: each is a later slice of A18c
+RANK_REFUSED = (
+    ("--tp", lambda a: a.tp != 1), ("--production-mesh",
+                                     lambda a: a.production_mesh),
+    ("--dp-mode fsdp", lambda a: a.dp_mode != "replicated"),
+    ("--sync-mode vmap", lambda a: a.sync_mode == "vmap"),
+    ("--recovery", lambda a: a.recovery != "none"),
+    ("--transport", lambda a: a.transport != "lossy"),
+    ("--adaptive", lambda a: a.adaptive))
+
+
+def _rank_setup(args):
+    """Under torchrun: check the flags, join the default process group
+    (once a process) and return ``(group, device)``; ``(None, None)``
+    otherwise."""
+    if "WORLD_SIZE" not in os.environ:
+        if args.dist_backend is not None:
+            raise ValueError("--dist-backend needs torchrun (WORLD_SIZE "
+                             "unset)")
+        return None, None
+    import torch
+    import torch.distributed as dist
+    world = int(os.environ["WORLD_SIZE"])
+    for flag, refused in RANK_REFUSED:
+        if refused(args):
+            raise ValueError(
+                f"{flag} over ranks is a later slice of ROADMAP A18c: one "
+                "rank a peer runs replicated data parallelism on one pod at "
+                "tp 1")
+    if args.dp is not None and args.dp != world:
+        raise ValueError(f"--dp {args.dp} under torchrun with a world of "
+                         f"{world}: one peer a rank")
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = args.dist_backend or ("nccl" if device.type == "cuda"
+                                    else "gloo")
+    if not dist.is_initialized():
+        dist.init_process_group(backend)
+    if dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()}, not "
+                         f"--dist-backend {backend}")
+    if dist.get_world_size() != world:
+        raise ValueError(f"WORLD_SIZE {world} and the process group's "
+                         f"{dist.get_world_size()} ranks differ")
+    return dist.group.WORLD, device
+
+
 def run(argv=None) -> list[dict]:
     """Parse ``argv``, train, and return one record per step run (loss,
     grad_norm, loss_frac, skipped, ``filled`` under ``--recovery``, step_s:
@@ -223,11 +297,35 @@ def run(argv=None) -> list[dict]:
     observed them, NaN when none was drained), ``wire_flush_s`` (host
     seconds the step's end waited for them), ``wire_misses`` (the bridge's
     misses so far) and ``wire_error`` (1 when the bridge worker failed since
-    the last step)."""
+    the last step). Under torchrun each rank returns its own records, with
+    ``dist_bytes`` (bytes the rank sent through the process group in the
+    step), ``dist_s`` (host seconds inside its calls: over gloo the whole
+    wait, over NCCL the enqueue only) and, on the card,
+    ``peak_bytes`` (``torch.cuda.max_memory_allocated`` so far); only rank
+    0 prints."""
     ap = parser()
     args = ap.parse_args(argv)
+    group, device = _rank_setup(args)
+    if group is None:
+        return _run(ap, args, None, None)
+    import torch.distributed as dist
+    with open(os.devnull, "w") as sink:
+        with (contextlib.redirect_stdout(sink) if dist.get_rank(group)
+              else contextlib.nullcontext()):
+            return _run(ap, args, group, device)
+
+
+def _run(ap, args, group, device) -> list[dict]:
+    ranks = None
+    if group is not None:
+        import torch.distributed as dist
+        ranks = dist.get_world_size(group)
+        leader = dist.get_rank(group) == 0
+    else:
+        leader = True
+    dp = ranks or (4 if args.dp is None else args.dp)
     mesh = (make_production_mesh() if args.production_mesh
-            else make_host_mesh(dp=args.dp, tp=args.tp))
+            else make_host_mesh(dp=dp, tp=args.tp))
     tp = mesh.shape.get("model", 1)
     n_data = mesh.shape.get("data", 1)
     if args.transport != "lossy":
@@ -250,13 +348,17 @@ def run(argv=None) -> list[dict]:
         if args.rendezvous and args.transport != "udp":
             ap.error("--rendezvous coordinates real socket peers; it needs "
                      "--transport=udp")
-    device = resolve_device(args.device)
+    if device is None:
+        device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.prefix and not cfg.frontend:
         ap.error(f"--prefix needs a frontend arch; {cfg.name} has none")
     print(f"arch={cfg.name} mesh={mesh.shape} device={device} "
           f"strategy={args.strategy} drop_rate={args.drop_rate} "
-          f"transport={args.transport}", flush=True)
+          f"transport={args.transport}"
+          + ("" if group is None else
+             f" ranks={ranks} dist_backend={dist.get_backend(group)}"),
+          flush=True)
 
     tracer = None
     if args.trace is not None:
@@ -300,7 +402,8 @@ def run(argv=None) -> list[dict]:
                                       seed=args.seed))
         key = make_key(args.seed)
         params = init_params(key, cfg, device=device, tp=tp)
-        step_fn, opt = build_train_step(cfg, tc, mesh, device=device)
+        step_fn, opt = build_train_step(cfg, tc, mesh, device=device,
+                                        group=group)
         opt_state = opt.init(params)
         rec_state = None
         if args.recovery != "none":
@@ -314,8 +417,8 @@ def run(argv=None) -> list[dict]:
                     else (params, opt_state, rec_state))
 
         start_step = 0
-        ckpt = (ckpt_lib.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir
-                else None)
+        ckpt = (ckpt_lib.AsyncCheckpointer(args.ckpt_dir)
+                if args.ckpt_dir and leader else None)
         if args.resume and args.ckpt_dir:
             try:
                 start_step, restored, _ = ckpt_lib.restore(
@@ -369,6 +472,7 @@ def run(argv=None) -> list[dict]:
                 batch["prefix_embeds"] = prefix_embeds(cfg, args, step)
             st0 = tracer.now() if tracer is not None else 0.0
             t_step = time.perf_counter()
+            sent, held = collectives.dist_bytes, collectives.dist_s
             if rec_state is None:
                 params, opt_state, metrics = step_fn(params, opt_state, batch,
                                                      step, key)
@@ -377,6 +481,12 @@ def run(argv=None) -> list[dict]:
                     params, opt_state, batch, step, key, rec_state=rec_state)
             m = {k: float(v) for k, v in metrics.items()}  # waits for the step
             m["step_s"] = time.perf_counter() - t_step
+            if group is not None:
+                m["dist_bytes"] = collectives.dist_bytes - sent
+                m["dist_s"] = collectives.dist_s - held
+                if device.type == "cuda":
+                    import torch
+                    m["peak_bytes"] = torch.cuda.max_memory_allocated(device)
             records.append(m)
             logged = step % args.log_every == 0 or step == args.steps - 1
             if with_budget:
@@ -498,14 +608,16 @@ def run(argv=None) -> list[dict]:
             c.leave()
         if rdv_server is not None:
             rdv_server.close()
-    if args.report:
+    if args.report and leader:
         with open(args.report, "w") as f:
             json.dump({"n_peers": control.detector.n_peers,
                        "rebalance": bool(args.rebalance),
                        "steps": report_rows}, f, indent=1)
         print(f"report: {len(report_rows)} steps -> {args.report}",
               flush=True)
-    if tracer is not None:
+    if tracer is not None and not leader:
+        obs.configure(False)
+    elif tracer is not None:
         path = obs.export.write_trace(args.trace, tracer,
                                       meta={"transport": args.transport,
                                             "strategy": args.strategy})
@@ -583,7 +695,12 @@ def _policy_of(sync: OptiReduceConfig) -> SyncPolicy:
 
 
 def main(argv=None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

@@ -80,6 +80,14 @@ residual ``ef`` ``(P, B, E)`` joins each peer's arena before the sync, the
 stale cache ``stale`` ``(B, E)`` feeds the fill, and the step returns the
 next state (this step's synced arena as the cache, the new residuals).
 
+One rank a peer (``build_train_step(..., group=)``, the launcher under
+``torchrun``): the data axis is a ``torch.distributed`` process group's
+ranks (``collectives.rank_grid``), each rank runs its own rows of the
+global batch once and packs a ``(1, B, bucket_elems)`` arena, and the sync
+crosses processes; every rank then holds the same synced arena, so the
+guard, norm, clip and update above run on each rank alike and the replicas
+stay bitwise equal. Replicated, one pod, tp 1 only (ROADMAP A18c).
+
 The loss metric is the mean over peers; ``loss_frac`` the mean over
 receivers. ``tc.transport_override`` swaps the spec's transport for the
 bucketed sync (the launcher's ``WireTransport``, whose masks a host wire
@@ -376,9 +384,26 @@ def _grad_view(w: torch.Tensor, owners: dict) -> torch.Tensor:
     return buf.as_strided(w.shape, w.stride(), buf.storage_offset() + off)
 
 
+def _check_rank_form(tc: TrainConfig, names, shape) -> None:
+    """Raise on what the one-rank-a-peer form does not run yet, each with
+    its ROADMAP item (A18c's later slices)."""
+    refused = [
+        (tc.dp_mode != "replicated", "FSDP (--dp-mode fsdp) over ranks"),
+        ("pod" in names or tc.pure_dp, "pods (G > 1) over ranks"),
+        (shape.get("model", 1) > 1, "tensor parallelism (--tp) over ranks"),
+        (tc.sync_mode == "vmap", "--sync-mode vmap over ranks"),
+        (tc.sync.recovery != "none", "--recovery over ranks"),
+        (tc.transport_override is not None, "--transport over ranks")]
+    for bad, what in refused:
+        if bad:
+            raise ValueError(f"{what} is a later slice of ROADMAP A18c: "
+                             "one rank a peer runs replicated data "
+                             "parallelism on one pod at tp 1")
+
+
 def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
-                     peers: int | None = None,
-                     device: torch.device | str) -> tuple[Callable, Any]:
+                     peers: int | None = None, device: torch.device | str,
+                     group=None) -> tuple[Callable, Any]:
     """Returns ``(step_fn, opt)``; ``step_fn(params, opt_state, batch, step,
     key, draws=None, site_draws=None) -> (params, opt_state, metrics)``
     updates ``params`` and ``opt_state`` in place. ``mesh``
@@ -393,7 +418,16 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
     With ``tc.sync.recovery`` armed the call takes ``rec_state=`` (from
     ``recovery.init_state``) and returns ``(params, opt_state, rec_state,
     metrics)``: a new state, never sharing storage with the old one, and a
-    ``filled`` metric, the lost wire entries the stale cache filled."""
+    ``filled`` metric, the lost wire entries the stale cache filled.
+
+    ``group`` (a ``torch.distributed`` process group) runs one peer a
+    rank: the mesh's data axis is the group's ranks, this rank runs the
+    forward and backward pass of its own rows of the global batch once,
+    packs a ``(1, B, bucket_elems)`` arena and syncs it over the group
+    (``collectives.rank_grid``). Every decision after the sync reads values
+    every rank holds bitwise (the synced arena, the gathered loss
+    fraction), so the replicas stay equal; ``loss`` is the mean of the
+    gathered per-rank losses in rank order, as the stacked form's."""
     if (mesh is None) == (peers is None):
         raise ValueError("build_train_step takes a mesh or peers=, one of "
                          "them")
@@ -418,7 +452,16 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         tp = shape.get("model", 1)
     pods = shape[pod_axis] if pod_axis else 1
     peers = pods * (shape[data_axis] if data_axis else 1)
-    grid = collectives.Grid(pods, tp)
+    if group is None:
+        grid = collectives.Grid(pods, tp)
+        local_peers = tuple(range(peers))
+    else:
+        _check_rank_form(tc, names, shape)
+        grid = collectives.rank_grid(group)
+        if grid.ranks != peers:
+            raise ValueError(f"a {peers}-peer data axis over a process "
+                             f"group of {grid.ranks} ranks")
+        local_peers = (grid.rank,)
     fsdp = tc.dp_mode == "fsdp"
     fsdp_axes = dp_axes if fsdp else None
 
@@ -483,11 +526,12 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         plan = BucketPlan.for_tree(tree_unflatten(params, local_like),
                                    tc.bucket_elems)
         arena_dtype = torch.float32 if n_micro == 1 else tc.accum_dtype
-        arena = torch.zeros((tp * peers, plan.num_buckets, plan.bucket_elems),
+        arena = torch.zeros((tp * len(local_peers), plan.num_buckets,
+                             plan.bucket_elems),
                             dtype=arena_dtype, device=device)
         ranks = grid.by_group(arena)
         losses = []
-        for peer in range(peers):
+        for row, peer in enumerate(local_peers):
             loss_p = torch.zeros((), device=device)
             for i in range(n_micro):
                 lo = peer * b_local + i * mb
@@ -501,7 +545,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                          for p, g in zip(leaves, grads)]
                 # each tp rank's local gradients into its own row
                 grads = [to_tp(g, d, tp) for g, d in zip(grads, leaf_tp)]
-                plan.pack_into(ranks[:, peer], tree_unflatten(params, grads),
+                plan.pack_into(ranks[:, row], tree_unflatten(params, grads),
                                accumulate=i > 0)
                 loss_p = loss_p + loss.detach()
             losses.append(loss_p / n_micro)
@@ -644,7 +688,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         params, opt_state = opt.update(grads, opt_state, params,
                                        tc.optimizer.lr, step)
         metrics = {
-            "loss": torch.stack(losses).mean(),
+            "loss": collectives.gather_peers(torch.stack(losses),
+                                             grid).mean(),
             "grad_norm": gnorm,
             "loss_frac": loss_frac,
             "skipped": skipped.to(torch.float32),
