@@ -355,7 +355,21 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     a world of ``torch.cuda.device_count()`` (one rank a card; the small
     arena only), started with the gloo ranks, its steps after the first
     once they have ended;
-71. ``seconds``: the script's wall clock, whole and by group of phases.
+71. ``dist_fsdp_main``: the launcher with ``--dp-mode fsdp`` on 67.'s
+    ranks after 68. (ZeRO-3: each rank holds its shard of every sharded
+    leaf and of its AdamW moments), 2 steps of gpt2-paper at full width,
+    against 27.'s first 2 steps (the same flags, kept from that run):
+    after every step each rank's parameters and moments bitwise its slice
+    of the stacked ones, the replicated leaves bitwise equal, every rank's
+    loss, loss_frac, grad norm and skipped the stacked run's, launches a
+    rank a step the stacked step's (174 B1, 87 B2, T1), state bytes a rank
+    its shard's count; per rank and step host ms, peak bytes, state bytes,
+    bytes sent and host s in gloo's calls. 67. also reduce-scatters a
+    (4, 50,257, 768) bf16 gradient (the embedding's shape) along dim 1,
+    plain and with the 8-bit wire (``rs_wire_bits=8``): each rank's shard
+    bitwise its stacked row, its launches (B1, B2, B3-B5, T1) the stacked
+    reduce-scatter's;
+72. ``seconds``: the script's wall clock, whole and by group of phases.
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -2392,15 +2406,34 @@ def trainer_path(dev, phase: str, tc, mesh, steps: int,
         fail(f"{phase}: peers hold different synced arenas")
 
 
+# the stacked side of ``dist_fsdp_main``, kept from ``fsdp_main``'s first
+# ``DIST_STEPS`` steps (the same flags): per step each rank's slice digest
+# of the parameters and AdamW moments, the replicated leaves' digest, the
+# launches and the records
+FSDP_STACKED: dict = {}
+
+
 def a15_paths(dev, counters: dict) -> None:
-    """Phases ``fsdp_main``, ``fsdp_q``, ``pod_main`` and ``pod_q``."""
+    """Phases ``fsdp_main``, ``fsdp_q``, ``pod_main`` and ``pod_q``.
+    ``fsdp_main``'s first ``DIST_STEPS`` steps also give ``dist_fsdp_main``
+    its stacked side (``FSDP_STACKED``): a copy of the parameters and
+    moments after each (on the card, so its peak counts them), digested
+    as each of ``DIST_RANKS`` ranks must hold its slice."""
     from repro_torch.core.allreduce import OptiReduceConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train.trainer import TrainConfig
 
-    counts, _ = train_main_path("optireduce", 4, counters,
-                                phase="fsdp_main",
-                                extra=("--dp-mode", "fsdp"), loss_seen=False)
+    distcheck = _distcheck()
+    with distcheck.watch_steps(state=True, shards=DIST_RANKS,
+                               steps=DIST_STEPS) as seen:
+        counts, records = train_main_path(
+            "optireduce", 4, counters, phase="fsdp_main",
+            extra=("--dp-mode", "fsdp"), loss_seen=False)
+    FSDP_STACKED.update(records=records[:DIST_STEPS],
+                        digests=seen["digests"],
+                        replicated=seen["replicated"],
+                        launches=seen["launches"][:DIST_STEPS],
+                        state_bytes=seen["state_bytes"][0])
     want = {n: 0 for n in counters}
     want.update({n: v * 4 for n, v in A15_PER_STEP["fsdp_main"].items()})
     if counts != want:
@@ -3439,7 +3472,7 @@ def elastic_phase(dev) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.keys import key
     from repro_torch.models import init_params
-    from repro_torch.train.elastic import _fsdp_dims, gather_shards, reshard
+    from repro_torch.train.elastic import fsdp_dims, gather_shards, reshard
     from repro_torch.tree import tree_leaves
 
     cfg = get_config("gpt2-paper")
@@ -3447,7 +3480,7 @@ def elastic_phase(dev) -> None:
     leaves = tree_leaves(params)
     n_params = sum(t.numel() for t in leaves)
     nbytes = sum(t.numel() * t.element_size() for t in leaves)
-    dims = _fsdp_dims(cfg, 1)
+    dims = fsdp_dims(cfg, 1)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -4931,6 +4964,7 @@ DIST_PACKET = 256
 DIST_STEPS = 2
 DIST_TIMEOUT_S = 600
 DIST_THREADS = 2               # torch's host threads a rank: 4 ranks, 8 cores
+DIST_RS = (50_257, 768)        # gpt2-paper's embedding, reduce-scattered
 
 
 def _distcheck():
@@ -4963,6 +4997,15 @@ def _stacked_side(dev, world: int, full: bool) -> dict:
         arenas.append(("full:", (ARENA_BUCKETS, BUCKET),
                        distcheck.FULL_STRATEGIES, False))
     sync = {}
+    if full:        # the FSDP reduce-scatter on the embedding's shape
+        g = distcheck.peer_rows(range(world), *DIST_RS, 1, dev)
+        for name, y, frac, launched in distcheck.rs_cases(
+                g, collectives.ONE, rate=DIST_RATE, block=BLOCK,
+                packet=DIST_PACKET):
+            sync[name] = ([distcheck.digest(row) for row in y], frac,
+                          launched)
+            del y
+        del g
     for prefix, (b, e), strategies, small in arenas:
         x = distcheck.peer_rows(range(world), b, e, 0, dev)
         for name, y, frac, launched in distcheck.sync_cases(
@@ -5009,8 +5052,8 @@ def _dist_held(phases: tuple, world: int, want: dict, reports: list,
                             "bitwise": g["digest"] == digests[r],
                             "loss_frac": [g.get("loss_frac"), frac],
                             "launches": [g.get("launches"), launched]})
-        if case.startswith("full:"):
-            full_rows[case[5:]] = {
+        if case.startswith(("full:", "rs/")):
+            full_rows[case.removeprefix("full:")] = {
                 "stacked_launches": launched,
                 "launches_per_rank": [g["launches"] for g in got],
                 "dist_bytes": [g["dist_bytes"] for g in got],
@@ -5065,6 +5108,77 @@ def _dist_held(phases: tuple, world: int, want: dict, reports: list,
              f"(tolerance {STEP_TOL}), step 1 after the release {alone}")
 
 
+def fsdp_rank_state_bytes(world: int) -> int:
+    """Bytes of parameters and AdamW moments one of ``world`` ranks holds
+    under FSDP on gpt2-paper: its shard of each sharded leaf (bf16 and two
+    fp32 moments) and the replicated leaves whole."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import _map_table, param_table
+    cfg = get_config("gpt2-paper")
+    leaves = []
+    _map_table(leaves.append, param_table(cfg, fsdp_axes=("data",)))
+    itemsize = torch.empty((), dtype=cfg.param_dtype).element_size()
+    return sum(math.prod(leaf.shape) // (1 if leaf.fsdp_dim is None
+                                         else world)
+               for leaf in leaves) * (itemsize + 2 * 4)
+
+
+def _dist_fsdp_held(reports: list) -> None:
+    """Phase ``dist_fsdp_main``: the gloo ranks' FSDP run against
+    ``fsdp_main``'s first steps (``FSDP_STACKED``): after every step each
+    rank's parameters and AdamW moments bitwise its slice of the stacked
+    ones, the replicated leaves bitwise the stacked ones on every rank,
+    every rank's loss, loss_frac, grad norm and skipped the stacked run's,
+    each step's launches a rank the stacked step's (174 B1, 87 B2, T1),
+    and the state bytes a rank its shard's count."""
+    want = FSDP_STACKED
+    runs = [rep["train"]["fsdp"] for rep in reports]
+    world = len(runs)
+    count = fsdp_rank_state_bytes(world)
+    keys = ("loss", "loss_frac", "grad_norm", "skipped")
+    shards_ok = all(run["digests"] == [d[r] for d in want["digests"]]
+                    for r, run in enumerate(runs))
+    replicated_ok = all(run["replicated"] == want["replicated"]
+                        for run in runs)
+    records_ok = all([{k: rec[k] for k in keys} for rec in run["records"]]
+                     == [{k: rec[k] for k in keys}
+                         for rec in want["records"]] for run in runs)
+    per_step = A15_PER_STEP["fsdp_main"]
+    launches_ok = all(run["step_launches"] == want["launches"]
+                      for run in runs) and all(
+        all(step[k] == v for k, v in per_step.items())
+        for step in want["launches"])
+    bytes_ok = all(b == count for run in runs for b in run["state_bytes"])
+    for r, run in enumerate(runs):
+        for i, rec in enumerate(run["records"]):
+            emit({"phase": "dist_fsdp_main_step", "rank": r, "step": i,
+                  "loss": rec["loss"], "loss_frac": rec["loss_frac"],
+                  "grad_norm": rec["grad_norm"],
+                  "step_ms": rec["step_s"] * 1e3,
+                  "peak_bytes": rec["peak_bytes"],
+                  "state_bytes": run["state_bytes"][i],
+                  "dist_bytes": rec["dist_bytes"], "dist_s": rec["dist_s"],
+                  "launches": run["step_launches"][i]})
+    emit({"phase": "dist_fsdp_main", "backend": reports[0]["backend"],
+          "ranks": world, "steps": DIST_STEPS,
+          "shards_bitwise_stacked": shards_ok,
+          "replicated_bitwise_stacked": replicated_ok,
+          "records_equal_stacked": records_ok,
+          "launches_equal_stacked": launches_ok,
+          "state_bytes_a_rank": count,
+          "stacked_state_bytes": want["state_bytes"],
+          "stacked": [{k: rec[k] for k in ("loss", "loss_frac", "grad_norm",
+                                           "step_s")}
+                      for rec in want["records"]],
+          "stacked_launches": want["launches"]})
+    if not (shards_ok and replicated_ok and records_ok and launches_ok
+            and bytes_ok):
+        fail(f"dist_fsdp_main: shards {shards_ok}, replicated "
+             f"{replicated_ok}, records {records_ok}, launches "
+             f"{launches_ok}, state bytes {bytes_ok} ({count} expected)")
+
+
 def dist_paths(dev) -> None:
     """Phases ``dist_sync``, ``dist_main`` (4 gloo ranks on the one card,
     one peer a rank) and ``dist_nccl_sync``, ``dist_nccl_main`` (nccl at a
@@ -5090,6 +5204,13 @@ def dist_paths(dev) -> None:
     stacked run's (bitwise recorded); each rank's kernel launches (B1, B2,
     T1 with the init's draws) the stacked run's. Per rank and step: host
     ms, peak bytes, bytes sent through the group, host s in its calls.
+
+    ``dist_fsdp_main`` (gloo's world, after ``dist_main``): the launcher
+    with ``--dp-mode fsdp`` on the ranks, each holding its shard of every
+    sharded leaf, against ``fsdp_main``'s first steps (the same flags; see
+    :func:`_dist_fsdp_held`). Gloo's ``dist_sync`` also reduce-scatters
+    the embedding's shape (``DIST_RS``), plain and with the 8-bit wire,
+    each rank's shard bitwise its stacked row.
 
     Both worlds start at once and run their launcher first; both stacked
     sides run in this process meanwhile, during the ranks' start-up and
@@ -5118,8 +5239,16 @@ def dist_paths(dev) -> None:
                      "name": "main", "argv": _dist_train_argv(world)
                      + ["--dist-backend", backend]}),
                  "--save-params", "main"]
-        return flags + (["--full", f"{ARENA_BUCKETS},{BUCKET}"] if full
-                        else [])
+        if not full:
+            return flags
+        # the gloo world also trains FSDP over its ranks and
+        # reduce-scatters the embedding's shape
+        return flags + ["--full", f"{ARENA_BUCKETS},{BUCKET}",
+                        "--rs", "%d,%d" % DIST_RS, "--train", json.dumps({
+                            "name": "fsdp", "state": True,
+                            "argv": _dist_train_argv(world)
+                            + ["--dp-mode", "fsdp", "--dist-backend",
+                               backend]})]
 
     free_card()
     t0 = time.perf_counter()
@@ -5147,9 +5276,11 @@ def dist_paths(dev) -> None:
                 fail(f"{phases[0]}: {e}")
             times = {"stacked_s": stacked_s, "released": released,
                      "ranks_s": time.perf_counter() - t0}
-            _dist_held(phases, world, want,
-                       distcheck.reports(out / backend, world),
+            reports = distcheck.reports(out / backend, world)
+            _dist_held(phases, world, want, reports,
                        out / backend / "main.pt", times)
+            if backend == "gloo":
+                _dist_fsdp_held(reports)
     finally:
         for proc in (p for ranks in procs for p in ranks):
             if proc.poll() is None:

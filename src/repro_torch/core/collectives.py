@@ -44,7 +44,10 @@ and each primitive gives that row of the stacked form's result, bit for
 bit. ``axis_size`` is the group's size, ``axis_index``, ``per_peer``,
 ``take_rows`` and ``put_rows`` read the rank's own entry, ``all_to_all``
 is ``all_to_all_single``, ``all_gather`` is ``all_gather_into_tensor``
-(the list form on gloo), ``ppermute`` an ``all_to_all_single`` whose split
+(the list form on gloo), :func:`all_gather_dim` the same gather of a
+rank's tensor concatenated along one of its dims (the FSDP weight
+gather's, the reference's ``all_gather(..., axis=dim, tiled=True)``),
+``ppermute`` an ``all_to_all_single`` whose split
 sizes name the rank's one destination and one source (a rank no pair
 names receives zeros; ``permutes`` counts each call once, as above).
 ``pmean`` and ``pmax`` gather every row and reduce them here, the sum in
@@ -249,6 +252,18 @@ def gather_peers(x: torch.Tensor, grid: Grid = ONE) -> torch.Tensor:
                                                        group=grid.group),
                    nbytes)
     return out
+
+
+def all_gather_dim(x: torch.Tensor, dim: int,
+                   grid: Grid = ONE) -> torch.Tensor:
+    """Tiled all_gather of one rank's tensor along its dim ``dim``: every
+    rank's ``x`` concatenated along ``dim`` in rank order, held by every
+    rank (a reliable gather, through :func:`gather_peers`). ``x`` itself
+    without a process group, where a tensor is already whole."""
+    if grid.group is None:
+        return x
+    rows = gather_peers(x.unsqueeze(0), grid)
+    return rows.movedim(0, dim).flatten(dim, dim + 1)
 
 
 def _all_to_all_rows(x: torch.Tensor, grid: Grid) -> torch.Tensor:

@@ -46,10 +46,18 @@ sync's collectives go over a ``torch.distributed`` process group,
 ``--dist-backend nccl`` (the default on the card; NCCL refuses two ranks
 on one card) or ``gloo`` (the default on the CPU; it stages CUDA tensors
 through the host). Rank 0 prints and writes the report, trace and
-checkpoints. This form runs replicated data parallelism on one pod at tp 1
-in ``--sync-mode scan`` or ``pipelined``; ``--tp``, ``--production-mesh``,
-``--dp-mode fsdp``, ``--sync-mode vmap``, ``--recovery``, ``--transport``
-and ``--adaptive`` over ranks raise (later slices of ROADMAP A18c).
+checkpoints. This form runs replicated data parallelism and, with
+``--dp-mode fsdp``, ZeRO-3 on one pod at tp 1 in ``--sync-mode scan`` or
+``pipelined``. Under FSDP each rank holds only its shard of every sharded
+leaf and of its optimizer state: it draws the parameters one full leaf at
+a time and keeps its slice (``train/elastic.py``); ``--ckpt-dir`` gathers
+the shards one leaf at a time and rank 0 writes the full leaves, the
+format the one-process form writes, and ``--resume`` hands each rank its
+slice of them, so either form resumes the other's checkpoints (at the same
+world size; resuming over ranks at another is a later slice). ``--tp``,
+``--production-mesh``, ``--sync-mode vmap``, ``--recovery``,
+``--transport`` and ``--adaptive`` over ranks raise (later slices of
+ROADMAP A18c).
 On the card every Hadamard encode/decode, every drop-compensated mean and,
 with ``--strategy optireduce_q``, every quantization stage (grid pass,
 stage-1 codes, dequant + mean, stage-2 codes) is a launch of the port's
@@ -88,6 +96,8 @@ Example:
       --steps 2 --transport udp --rendezvous auto --wire-deadline 0.05
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch gpt2-paper --steps 3 --drop-rate 0.01 --dist-backend gloo
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --smoke --device cpu --steps 2 --drop-rate 0.01 --dp-mode fsdp
 """
 from __future__ import annotations
 
@@ -123,6 +133,7 @@ from repro_torch.optim.optimizers import OptimizerConfig
 from repro_torch.runtime import (ControlPlane, PolicyStepCache, StepTelemetry,
                                  SyncPolicy)
 from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train import elastic
 from repro_torch.train.trainer import TrainConfig, build_train_step
 
 
@@ -242,7 +253,6 @@ def prefix_embeds(cfg, args, step: int) -> np.ndarray:
 RANK_REFUSED = (
     ("--tp", lambda a: a.tp != 1), ("--production-mesh",
                                      lambda a: a.production_mesh),
-    ("--dp-mode fsdp", lambda a: a.dp_mode != "replicated"),
     ("--sync-mode vmap", lambda a: a.sync_mode == "vmap"),
     ("--recovery", lambda a: a.recovery != "none"),
     ("--transport", lambda a: a.transport != "lossy"),
@@ -265,8 +275,8 @@ def _rank_setup(args):
         if refused(args):
             raise ValueError(
                 f"{flag} over ranks is a later slice of ROADMAP A18c: one "
-                "rank a peer runs replicated data parallelism on one pod at "
-                "tp 1")
+                "rank a peer runs replicated data parallelism and FSDP on "
+                "one pod at tp 1")
     if args.dp is not None and args.dp != world:
         raise ValueError(f"--dp {args.dp} under torchrun with a world of "
                          f"{world}: one peer a rank")
@@ -316,11 +326,11 @@ def run(argv=None) -> list[dict]:
 
 
 def _run(ap, args, group, device) -> list[dict]:
-    ranks = None
+    ranks = rank = None
     if group is not None:
         import torch.distributed as dist
-        ranks = dist.get_world_size(group)
-        leader = dist.get_rank(group) == 0
+        ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+        leader = rank == 0
     else:
         leader = True
     dp = ranks or (4 if args.dp is None else args.dp)
@@ -401,10 +411,19 @@ def _run(ap, args, group, device) -> list[dict]:
                                       global_batch=args.global_batch,
                                       seed=args.seed))
         key = make_key(args.seed)
-        params = init_params(key, cfg, device=device, tp=tp)
+        # FSDP over ranks: this rank's shard of each leaf, cut from the
+        # full leaf as it is drawn
+        sharded = group is not None and args.dp_mode == "fsdp"
+        dims = elastic.fsdp_dims(cfg, tp) if sharded else None
+        params = init_params(key, cfg, device=device, tp=tp, keep=(
+            (lambda i, w: elastic.rank_piece(w, dims[i], ranks, rank))
+            if sharded else None))
         step_fn, opt = build_train_step(cfg, tc, mesh, device=device,
                                         group=group)
         opt_state = opt.init(params)
+        if sharded:
+            dims = dims + elastic.state_dims(cfg, opt_state,
+                                             opt.state_like_params, tp)
         rec_state = None
         if args.recovery != "none":
             plan = BucketPlan.for_tree(params, tc.bucket_elems)
@@ -419,10 +438,24 @@ def _run(ap, args, group, device) -> list[dict]:
         start_step = 0
         ckpt = (ckpt_lib.AsyncCheckpointer(args.ckpt_dir)
                 if args.ckpt_dir and leader else None)
+
+        def save(label: int) -> None:
+            tree = ckpt_tree()
+            if sharded:       # every rank joins each leaf's gather
+                tree = elastic.gather_rank_tree(
+                    tree, dims, collectives.rank_grid(group),
+                    keep=ckpt is not None)
+            if ckpt is not None:
+                ckpt.save(label, tree)
+
         if args.resume and args.ckpt_dir:
             try:
                 start_step, restored, _ = ckpt_lib.restore(
-                    args.ckpt_dir, ckpt_tree(), device=device)
+                    args.ckpt_dir, ckpt_tree(),
+                    device="cpu" if sharded else device)
+                if sharded:   # this rank's slice of each full leaf
+                    restored = elastic.rank_tree(restored, dims, ranks, rank,
+                                                 device)
                 if rec_state is None:
                     params, opt_state = restored
                 else:
@@ -596,10 +629,11 @@ def _run(ap, args, group, device) -> list[dict]:
                 rb = monitor.rollback()
                 if rb is not None:
                     _, params = rb
-            if ckpt and step > 0 and step % args.ckpt_every == 0:
-                ckpt.save(step, ckpt_tree())
+            if args.ckpt_dir and step > 0 and step % args.ckpt_every == 0:
+                save(step)
+        if args.ckpt_dir:
+            save(args.steps)
         if ckpt:
-            ckpt.save(args.steps, ckpt_tree())
             ckpt.wait()
     finally:
         if ring is not None:

@@ -11,8 +11,10 @@ reference becomes a ``(P, ...)`` stack and each collective reindexes it.
 path, name) -> w_full``, whose gradient the trainer reduces with
 OptiReduce's reduce-scatter under the draws of the site's key path below
 the step key (``()`` or ``(l,)``). On one card a parameter is stored whole,
-so the gather hands back the full weight; ``name`` tells apart two call
-sites that share a path (the embedding lookup and the tied head).
+so the gather hands back the full weight; over a process group (one rank
+a peer) it is the rank's shard, and the gather builds the full weight from
+every rank's; ``name`` tells apart two call sites that share a path (the
+embedding lookup and the tied head).
 
 Tensor parallelism (``tp_axis``, T = ``sizes[tp_axis]`` ranks). The model
 code runs one data peer at a time and keeps **one** activation for the

@@ -95,7 +95,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -435,7 +435,9 @@ def abstract_params(cfg: ModelConfig, *, tp: int = 1,
 
 def init_params(key: Key, cfg: ModelConfig, *,
                 device: torch.device | str, tp: int = 1,
-                scale: float = 0.02):
+                scale: float = 0.02,
+                keep: Callable[[int, torch.Tensor], torch.Tensor] | None
+                = None):
     """Materialize parameters in ``cfg.param_dtype`` on ``device``, at the
     global padded shapes of ``tp``, as the reference draws them: ``key`` is
     split once per leaf, the keys handed out in the order the reference's
@@ -446,7 +448,9 @@ def init_params(key: Key, cfg: ModelConfig, *,
     are the reference's threefry bits (``core/keys.py``) and ``a_log`` is
     bit for bit the reference's; a normal is within 2 ulp of fp32 of it
     (XLA's CPU formulas, about two values in 10^5 differ), so nearly every
-    bf16 weight equals the reference's."""
+    bf16 weight equals the reference's. ``keep(i, w)``, when given, takes
+    leaf i (tree order) as it is drawn and returns what to hold of it (a
+    rank's FSDP shard): the full leaf goes before the next is drawn."""
     table = param_table(cfg, tp=tp)
     # the reference splits the key into one key a leaf and hands them out
     # in the order its table walk visits the leaves: dicts in insertion
@@ -484,7 +488,10 @@ def init_params(key: Key, cfg: ModelConfig, *,
                 w = w * min(scale, 1.0 / math.sqrt(fan_in))
         return w.to(dtype=cfg.param_dtype)
 
-    return _map_table(make, table)
+    if keep is None:
+        return _map_table(make, table)
+    order = iter(range(len(visits)))     # _map_table walks in tree order
+    return _map_table(lambda leaf: keep(next(order), make(leaf)), table)
 
 
 def _layer(x: torch.Tensor, positions: torch.Tensor | None,

@@ -9,7 +9,11 @@ controller re-forms the membership). What remains is state surgery:
 
 * replicated params: nothing to do — every survivor holds the full state.
 * fsdp shards: concatenate old shards along each leaf's fsdp dim and
-  re-split by the new axis size (``reshard``).
+  re-split by the new axis size (``reshard``). One rank a peer under FSDP
+  (``launch/train.py`` under ``torchrun``) takes its shard of each leaf
+  through the same slicing (``rank_piece``, ``rank_tree``) and puts the
+  ranks' shards back together through the same join
+  (``gather_rank_tree``), for its checkpoints.
 * data pipeline: deterministic (step, host, n_hosts) indexing re-partitions
   the global stream automatically (data/pipeline.py).
 
@@ -27,21 +31,67 @@ from repro_torch.models.transformer import _map_table, param_table
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
-def _fsdp_dims(cfg: ModelConfig, tp: int) -> list[int | None]:
+def fsdp_dims(cfg: ModelConfig, tp: int = 1) -> list[int | None]:
     """Each leaf's fsdp dim in tree order (None: replicated)."""
     table = param_table(cfg, tp=tp, fsdp_axes=("data",))
     return tree_leaves(_map_table(lambda leaf: leaf.fsdp_dim, table))
 
 
+def state_dims(cfg: ModelConfig, opt_state: Any, like_params: bool,
+               tp: int = 1) -> list[int | None]:
+    """Each leaf's fsdp dim of an optimizer state, in tree order: the
+    parameters' dims once for each parameter-shaped tree it holds
+    (``like_params``: AdamW's two moments, momentum's one), else None for
+    every leaf (a state replicated whole)."""
+    n = len(tree_leaves(opt_state))
+    if not like_params:
+        return [None] * n
+    dims = fsdp_dims(cfg, tp)
+    if n % len(dims):
+        raise ValueError(f"an optimizer state of {n} leaves is not whole "
+                         f"trees of {len(dims)} parameters")
+    return dims * (n // len(dims))
+
+
+def split_leaf(leaf: torch.Tensor, dim: int | None, n: int) -> list:
+    """A leaf's ``n`` fsdp shards, views along ``dim`` in worker order (n
+    times the leaf itself when ``dim`` is None). Raises ValueError when the
+    dim does not split evenly."""
+    if dim is None:
+        return [leaf] * n
+    if dim >= leaf.dim():
+        raise ValueError(
+            f"a leaf of shape {tuple(leaf.shape)} has no fsdp dim {dim}: "
+            "reshard takes trees shaped like the parameters (a factored "
+            "Adafactor state is not; it is replicated, not sharded)")
+    if leaf.shape[dim] % n:
+        raise ValueError(f"leaf of shape {tuple(leaf.shape)} does not "
+                         f"split over {n} workers along dim {dim}")
+    return list(torch.tensor_split(leaf, n, dim=dim))
+
+
+def join_leaf(parts: list, dim: int | None) -> torch.Tensor:
+    """Inverse of :func:`split_leaf`: the shards concatenated along
+    ``dim`` (the first part of a replicated leaf)."""
+    return parts[0] if dim is None else torch.cat(parts, dim=dim)
+
+
+def rank_piece(leaf: torch.Tensor, dim: int | None, n: int,
+               rank: int) -> torch.Tensor:
+    """What worker ``rank`` of ``n`` holds of a full leaf: its shard along
+    ``dim`` as a contiguous copy of its own, so the full leaf can be
+    freed (the leaf itself when replicated)."""
+    if dim is None:
+        return leaf
+    return split_leaf(leaf, dim, n)[rank].clone(
+        memory_format=torch.contiguous_format)
+
+
 def gather_shards(shard_trees: list, cfg: ModelConfig, tp: int = 1) -> Any:
     """Reassemble full params from the per-worker fsdp shards."""
-    dims = _fsdp_dims(cfg, tp)
     flats = [tree_leaves(t) for t in shard_trees]
-    out = []
-    for i, dim in enumerate(dims):
-        parts = [f[i] for f in flats]
-        out.append(parts[0] if dim is None        # replicated leaf
-                   else torch.cat(parts, dim=dim))
+    out = [join_leaf([f[i] for f in flats], dim)
+           for i, dim in enumerate(fsdp_dims(cfg, tp))]
     return tree_unflatten(shard_trees[0], out)
 
 
@@ -49,21 +99,34 @@ def reshard(full_params: Any, cfg: ModelConfig, new_n: int, *, tp: int = 1
             ) -> list:
     """Split full params into ``new_n`` fsdp shards (one per new worker).
     Raises ValueError when a leaf's fsdp dim does not split evenly."""
-    dims = _fsdp_dims(cfg, tp)
     shards: list[list] = [[] for _ in range(new_n)]
-    for leaf, dim in zip(tree_leaves(full_params), dims):
-        if dim is not None and dim >= leaf.dim():
-            raise ValueError(
-                f"a leaf of shape {tuple(leaf.shape)} has no fsdp dim {dim}: "
-                "reshard takes trees shaped like the parameters (a factored "
-                "Adafactor state is not; it is replicated, not sharded)")
-        if dim is None:
-            for s in shards:
-                s.append(leaf)
-            continue
-        if leaf.shape[dim] % new_n:
-            raise ValueError(f"leaf of shape {tuple(leaf.shape)} does not "
-                             f"split over {new_n} workers along dim {dim}")
-        for w, piece in enumerate(torch.tensor_split(leaf, new_n, dim=dim)):
+    for leaf, dim in zip(tree_leaves(full_params), fsdp_dims(cfg, tp)):
+        for w, piece in enumerate(split_leaf(leaf, dim, new_n)):
             shards[w].append(piece)
     return [tree_unflatten(full_params, s) for s in shards]
+
+
+def rank_tree(full: Any, dims: list, n: int, rank: int,
+              device: torch.device | str) -> Any:
+    """Worker ``rank``'s tree of ``n`` on ``device``: :func:`rank_piece`
+    of every leaf (``dims`` in tree order), one leaf at a time."""
+    return tree_unflatten(full, [
+        rank_piece(leaf, dim, n, rank).to(device)
+        for leaf, dim in zip(tree_leaves(full), dims)])
+
+
+def gather_rank_tree(tree: Any, dims: list, grid, *, keep: bool) -> Any:
+    """The full tree of the ranks' shards (a process group's
+    ``collectives.Grid``): each sharded leaf gathered from every rank and
+    joined along its dim, one leaf at a time; every rank must call it.
+    Where ``keep``, the full leaves are copied to the host and returned as
+    a tree; elsewhere None (each gathered leaf is dropped at once)."""
+    from repro_torch.core import collectives
+    leaves = []
+    for leaf, dim in zip(tree_leaves(tree), dims):
+        full = leaf if dim is None else collectives.all_gather_dim(
+            leaf, dim, grid)
+        if keep:
+            leaves.append(full.detach().to("cpu", copy=True))
+        del full
+    return tree_unflatten(tree, leaves) if keep else None

@@ -39,8 +39,9 @@ own draws (:data:`~repro_torch.core.pipeline.Site`). The peers' reduced
 slices are the leaf's reduced gradient; sites sharing a leaf add. AdamW is
 elementwise, so one update of the full tensor is every peer's update of its
 own shard; the global norm is the reference's grouped sum of squares (one
-partial sum per shard, summed over each sharded-axes set). There is no
-memory saving on one card. The replicated leaves (the norms) are
+partial sum per shard, summed over each sharded-axes set). The stacked
+form saves no memory on one card: every leaf is held whole. The
+replicated leaves (the norms) are
 bucket-synced as in the reference, and ``loss_frac`` counts only them, as
 the reference's does (its gather VJP's stats are thrown away; ROADMAP C).
 
@@ -83,10 +84,20 @@ next state (this step's synced arena as the cache, the new residuals).
 One rank a peer (``build_train_step(..., group=)``, the launcher under
 ``torchrun``): the data axis is a ``torch.distributed`` process group's
 ranks (``collectives.rank_grid``), each rank runs its own rows of the
-global batch once and packs a ``(1, B, bucket_elems)`` arena, and the sync
-crosses processes; every rank then holds the same synced arena, so the
-guard, norm, clip and update above run on each rank alike and the replicas
-stay bitwise equal. Replicated, one pod, tp 1 only (ROADMAP A18c).
+global batch once and the syncs cross processes. Replicated: the rank packs
+a ``(1, B, bucket_elems)`` arena; every rank then holds the same synced
+arena, so the guard, norm, clip and update above run on each rank alike
+and the replicas stay bitwise equal. FSDP (ZeRO-3): the rank holds only its
+shard of every sharded leaf (its slice along the leaf's ``fsdp_dim``,
+``train/elastic.py``) and of that leaf's optimizer state; the gather
+builds the full weight from the ranks' shards (``collectives.
+all_gather_dim``), a fresh leaf a site, the deferred VJP reduce-scatters
+the rank's ``(1, *shape)`` gradient over the group and keeps the rank's
+reduced shard, and the update runs on the shards in place. The global norm
+sums the squares of each rank's own shards, gathers the per-rank partial
+sums and adds them as the stacked form adds its per-shard ones, so norm,
+clip and every shard are bitwise the stacked form's. One pod, tp 1 only;
+pods and tp over ranks are later slices (ROADMAP A18c).
 
 The loss metric is the mean over peers; ``loss_frac`` the mean over
 receivers. ``tc.transport_override`` swaps the spec's transport for the
@@ -192,32 +203,48 @@ def _psum_group_total(groups) -> torch.Tensor:
     return total
 
 
-def _shard_sumsq(g: torch.Tensor, spec, sizes) -> torch.Tensor:
+def _shard_sumsq(g: torch.Tensor, spec, sizes,
+                 whole: bool = True) -> torch.Tensor:
     """Sum of squares of a leaf in fp32: a scalar when replicated, else
     one partial sum per shard, ``(k,)`` (k the product of the sharded
     dims' axis sizes: ``model`` on the tp dim, the fsdp axes pod-major on
-    another), as each rank of the reference sums its own shard."""
+    another), as each rank of the reference sums its own shard. Each
+    shard is summed alone, as one contiguous run, so a rank that holds
+    only its shard (``whole`` off: ``g`` is that shard, ``(1,)``) sums it
+    to the same bits."""
     g = g.to(torch.float32)
     dims = [(d, e) for d, e in enumerate(spec) if e is not None]
     if not dims:
         return torch.sum(g * g)
-    # cut every sharded dim into its shards, moved to the front
-    parts = g
-    for i, (d, entry) in enumerate(dims):
-        k = math.prod(sizes[a] for a in _spec_axes((entry,)))
-        parts = parts.unflatten(d + i, (k, -1)).movedim(d + i, i)
-    parts = parts.reshape(math.prod(parts.shape[:len(dims)]), -1)
-    return torch.sum(parts * parts, dim=1)
+    if whole:
+        # cut every sharded dim into its shards, moved to the front
+        parts = g
+        for i, (d, entry) in enumerate(dims):
+            k = math.prod(sizes[a] for a in _spec_axes((entry,)))
+            parts = parts.unflatten(d + i, (k, -1)).movedim(d + i, i)
+        parts = parts.reshape(math.prod(parts.shape[:len(dims)]), -1)
+    else:
+        parts = g.reshape(1, -1)
+    return torch.stack([torch.sum(row * row) for row in parts])
 
 
-def sharded_global_norm(grads, specs, sizes) -> torch.Tensor:
+def sharded_global_norm(grads, specs, sizes,
+                        grid: collectives.Grid = collectives.ONE
+                        ) -> torch.Tensor:
     """Global L2 norm of a gradient tree whose leaves are sharded per
     ``specs`` over axes of ``sizes``: each shard's squared sum, summed over
     exactly the axes its leaf is sharded on, leaves grouped by their
-    sharded-axes set (one sum a group), so replicated leaves count once."""
+    sharded-axes set (one sum a group), so replicated leaves count once.
+    Over a process group (``grid.group``) a sharded leaf is this rank's
+    shard: each group's per-rank partial sum is gathered, in rank order,
+    into the vector the stacked form sums."""
+    whole = grid.group is None
     groups = _summed_groups(
-        (_spec_axes(s), _shard_sumsq(g, s, sizes))
+        (_spec_axes(s), _shard_sumsq(g, s, sizes, whole))
         for g, s in zip(tree_leaves(grads), _spec_leaves(specs)))
+    if not whole:
+        groups = {axes: collectives.gather_peers(ss, grid) if ss.dim()
+                  else ss for axes, ss in groups.items()}
     return torch.sqrt(_psum_group_total(groups))
 
 
@@ -279,7 +306,12 @@ class FsdpGather:
     enters the stack as its T tp shards (rows ``t * P + p``), each tp group
     reduce-scatters its own, and the reduced shards go back into the
     global weight's tp chunks (tp rank 0's for a weight replicated over
-    tp)."""
+    tp).
+
+    Over a process group (one rank a peer) ``w`` is this rank's shard: the
+    gather builds the full weight from every rank's shard
+    (:func:`collectives.all_gather_dim`), a stack holds the rank's one row,
+    and ``reduce`` yields ``w`` with the rank's reduced shard gradient."""
 
     def __init__(self, cfg: OptiReduceConfig, hops,
                  grid: collectives.Grid = collectives.ONE,
@@ -295,14 +327,16 @@ class FsdpGather:
         if site in self.taken:
             raise RuntimeError(f"gather site {site} taken twice in one "
                                "forward pass")
-        leaf = w.detach().requires_grad_(True)
+        full = collectives.all_gather_dim(w.detach(), dim, self.grid)
+        leaf = full.requires_grad_(True)
         self.taken[site] = (leaf, dim, w)
         return leaf
 
     def backward(self, loss: torch.Tensor, peer: int, peers: int,
                  inputs: list) -> tuple:
-        """``loss``'s gradients for peer ``peer``: its sites' into their
-        stacks; those of ``inputs`` (the replicated leaves) returned."""
+        """``loss``'s gradients for the peer in row ``peer`` of ``peers``
+        rows: its sites' into their stacks; those of ``inputs`` (the
+        replicated leaves) returned."""
         order = list(self.taken)
         grads = torch.autograd.grad(
             loss, [self.taken[site][0] for site in order] + list(inputs))
@@ -384,11 +418,21 @@ def _grad_view(w: torch.Tensor, owners: dict) -> torch.Tensor:
     return buf.as_strided(w.shape, w.stride(), buf.storage_offset() + off)
 
 
+# the reference's FSDP step with Adafactor fails as it traces (ROADMAP C):
+# its factored statistics are declared replicated, at the global shapes,
+# while each device's gradient has its shard's
+ADAFACTOR_FSDP = (
+    "FSDP with Adafactor does not run in the reference: its step replicates "
+    "Adafactor's factored statistics at the global shapes while each device "
+    "updates its shard, and fails as it traces (TypeError: add got "
+    "incompatible shapes for broadcasting; ROADMAP C); use --dp-mode "
+    "replicated or another optimizer")
+
+
 def _check_rank_form(tc: TrainConfig, names, shape) -> None:
     """Raise on what the one-rank-a-peer form does not run yet, each with
     its ROADMAP item (A18c's later slices)."""
     refused = [
-        (tc.dp_mode != "replicated", "FSDP (--dp-mode fsdp) over ranks"),
         ("pod" in names or tc.pure_dp, "pods (G > 1) over ranks"),
         (shape.get("model", 1) > 1, "tensor parallelism (--tp) over ranks"),
         (tc.sync_mode == "vmap", "--sync-mode vmap over ranks"),
@@ -398,7 +442,7 @@ def _check_rank_form(tc: TrainConfig, names, shape) -> None:
         if bad:
             raise ValueError(f"{what} is a later slice of ROADMAP A18c: "
                              "one rank a peer runs replicated data "
-                             "parallelism on one pod at tp 1")
+                             "parallelism and FSDP on one pod at tp 1")
 
 
 def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
@@ -422,12 +466,16 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
 
     ``group`` (a ``torch.distributed`` process group) runs one peer a
     rank: the mesh's data axis is the group's ranks, this rank runs the
-    forward and backward pass of its own rows of the global batch once,
-    packs a ``(1, B, bucket_elems)`` arena and syncs it over the group
-    (``collectives.rank_grid``). Every decision after the sync reads values
-    every rank holds bitwise (the synced arena, the gathered loss
-    fraction), so the replicas stay equal; ``loss`` is the mean of the
-    gathered per-rank losses in rank order, as the stacked form's."""
+    forward and backward pass of its own rows of the global batch once and
+    syncs over the group (``collectives.rank_grid``). Replicated, it packs
+    a ``(1, B, bucket_elems)`` arena; under FSDP ``params`` and
+    ``opt_state`` hold this rank's shard of every sharded leaf
+    (``train/elastic.py``: ``rank_piece``) and the rest whole. Every
+    decision after the sync reads values every rank holds bitwise (the
+    synced arena or norm, the gathered loss fraction), so the replicas, or
+    the shards against the stacked form's slices, stay equal; ``loss`` is
+    the mean of the gathered per-rank losses in rank order, as the stacked
+    form's."""
     if (mesh is None) == (peers is None):
         raise ValueError("build_train_step takes a mesh or peers=, one of "
                          "them")
@@ -464,6 +512,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         local_peers = (grid.rank,)
     fsdp = tc.dp_mode == "fsdp"
     fsdp_axes = dp_axes if fsdp else None
+    if fsdp and tc.optimizer.name == "adafactor":
+        raise ValueError(ADAFACTOR_FSDP)
 
     sync_cfg = dataclasses.replace(tc.sync, data_axis=data_axis or "data",
                                    pod_axis=pod_axis)
@@ -604,7 +654,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                                   site_tp)
         step_pctx = dataclasses.replace(pctx, gather=gather.gather)
         acc = small_acc = None
-        loss_p = torch.zeros(peers, device=device)
+        rows = len(local_peers)
+        loss_p = torch.zeros(rows, device=device)
         for i in range(n_micro):
             # this micro-batch's gradient: the sharded leaves' reduced sums
             # (param dtype, as the gather's VJP casts) and each peer's
@@ -612,18 +663,18 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
             grad = [torch.zeros_like(p) if m else None
                     for p, m in zip(leaves, fsdp_mask)]
             bufs = {ptr: (leaves[j], grad[j]) for ptr, j in owners.items()}
-            small_g = [torch.empty((tp * peers, *to_tp(p, d, tp).shape[1:]),
+            small_g = [torch.empty((tp * rows, *to_tp(p, d, tp).shape[1:]),
                                    dtype=p.dtype, device=device)
                        for p, d in zip(small, small_tp)]
-            for peer in range(peers):
+            for row, peer in enumerate(local_peers):
                 lo = peer * b_local + i * mb
                 mbatch = _local(batch, slice(lo, lo + mb), device)
                 loss = lm_loss(params, mbatch, cfg, seq_chunk=tc.seq_chunk,
                                remat=tc.remat, pctx=step_pctx)
                 for stack, g, d in zip(small_g, gather.backward(
-                        loss, peer, peers, small), small_tp):
-                    grid.by_group(stack)[:, peer] = to_tp(g, d, tp)
-                loss_p[peer] += loss.detach()
+                        loss, row, rows, small), small_tp):
+                    grid.by_group(stack)[:, row] = to_tp(g, d, tp)
+                loss_p[row] += loss.detach()
             # the deferred VJP over all peers; sites sharing a leaf add
             for w, g in gather.reduce(site_draws):
                 _grad_view(w, bufs).add_(g)
@@ -657,7 +708,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                 grads, loss_frac, skip_threshold=sync_cfg.skip_threshold)
         else:
             skipped = torch.zeros((), dtype=torch.bool, device=device)
-        gnorm = sharded_global_norm(grads, p_specs, shape)
+        gnorm = sharded_global_norm(grads, p_specs, shape, grid)
         clip = torch.clamp(tc.optimizer.grad_clip
                            / torch.clamp(gnorm, min=1e-9), max=1.0)
         grads = tree_map(lambda g_: g_ * clip.to(g_.dtype), grads)

@@ -15,8 +15,11 @@ Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
 
 - ``train``: for each ``--train`` JSON ``{"name": ..., "argv": [...]}``,
   the training launcher's records (``launch/train.run``), each step's
-  digest of the parameters and each step's start on the wall clock
-  (:func:`watch_steps`); ``--save-params`` names runs whose last
+  digest of the parameters (with ``"state": true`` in the JSON, of the
+  parameters and the optimizer state), the bytes of the parameters and
+  optimizer state the rank holds, and each step's launches and start on
+  the wall clock (:func:`watch_steps`; on the card the peak-memory counter
+  is reset before each run); ``--save-params`` names runs whose last
   parameters rank 0 saves to ``OUT/<name>.pt``. With ``--wait-for PATH``
   each run's first step ends by waiting for the card, writing
   ``PATH.ready<r>`` and waiting until ``PATH`` exists (the time is
@@ -35,10 +38,15 @@ Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
   the group and the host seconds in its calls (``OUT/rank<r>.npz`` keeps the
   results of up to 2^20 elements). ``--full B,E`` adds
   :data:`FULL_STRATEGIES` on a second, full-size arena, in ``pipelined``
-  mode, digests only.
+  mode, digests only. ``--rs R,C`` adds the FSDP reduce-scatter of a
+  seeded ``(P, R, C)`` bf16 gradient along dim 1 (the embedding's fsdp
+  dim), plain and with the 8-bit wire (:func:`rs_cases`): each rank's
+  reduced shard.
 
-:func:`sync_cases` and :func:`watch_steps` on the stacked grid give the
-other side; :func:`tree_digest` and :func:`digest` compare them.
+:func:`sync_cases`, :func:`rs_cases` and :func:`watch_steps` on the
+stacked grid give the other side (``watch_steps(shards=)`` digests each
+rank's slice of the stacked form's state, ``train/elastic.py``'s);
+:func:`tree_digest` and :func:`digest` compare them.
 """
 from __future__ import annotations
 
@@ -61,7 +69,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import collectives, keys  # noqa: E402
-from repro_torch.core.allreduce import sync_packed  # noqa: E402
+from repro_torch.core.allreduce import rs_spec, sync_packed  # noqa: E402
 from repro_torch.core.pipeline import (  # noqa: E402
     Lossy, OptiReduceConfig, SyncContext, ThreefryDraws, resolve_spec,
     strategy_names)
@@ -72,6 +80,7 @@ from repro_torch.kernels.masked_sum import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.quant import ops as gq_ops  # noqa: E402
 from repro_torch.kernels.runtime import resolve_device  # noqa: E402
 from repro_torch.kernels.threefry import ops as tf_ops  # noqa: E402
+from repro_torch.train import elastic  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 KERNELS = {"fwht": (fwht_ops, "launches"), "masked_mean": (mm_ops, "launches"),
@@ -160,6 +169,31 @@ def sync_cases(x: torch.Tensor, grid: collectives.Grid, *, rate: float,
         yield name, y, frac, {k: after[k] - before[k] for k in after}
 
 
+RS_BITS = (("rs/optireduce", 0), ("rs/rs_wire_bits=8", 8))
+
+
+def rs_cases(x: torch.Tensor, grid: collectives.Grid, *, rate: float,
+             block: int, packet: int):
+    """Yield ``(name, reduced shards, loss fraction, launches)`` of the
+    FSDP reduce-scatter (``rs_spec``: TAR stage 1 with tail drops at
+    ``rate``) of ``x`` in bf16, the trainer's gradient dtype, along dim 1
+    of each peer's tensor, once per entry of :data:`RS_BITS` (the draws
+    keyed on ``key(5)``, the site ``()``)."""
+    g = x.to(torch.bfloat16)
+    for name, bits in RS_BITS:
+        cfg = OptiReduceConfig(strategy="optireduce", hadamard_block=block,
+                               packet_elems=packet, drop_rate=rate,
+                               rs_wire_bits=bits)
+        ctx = SyncContext(cfg=cfg, draws=ThreefryDraws(keys.key(5), cfg,
+                                                       x.device),
+                          bucket=(), grid=grid)
+        before = counts()
+        y = rs_spec(cfg).reduce_scatter(g, collectives.DATA, 1, ctx)
+        frac = float(ctx.loss_fraction())
+        after = counts()
+        yield name, y, frac, {k: after[k] - before[k] for k in after}
+
+
 def permute_pairs(n: int) -> list[tuple[int, int]]:
     """A ``ppermute`` that leaves some peers without a source (and, past 2
     peers, holds a self pair)."""
@@ -178,20 +212,43 @@ def primitive_cases(x: torch.Tensor, grid: collectives.Grid):
     yield "ppermute_partial", collectives.ppermute(v, permute_pairs(n), grid)
 
 
+def state_bytes(tree) -> int:
+    """Bytes of the distinct storages a tree's tensors live in: what a
+    rank holds of it, views counted once and whole."""
+    storages = {}
+    for t in tree_leaves(tree):
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+    return sum(storages.values())
+
+
 @contextlib.contextmanager
-def watch_steps(keep: bool = False, wait_for: str | None = None):
+def watch_steps(keep: bool = False, wait_for: str | None = None, *,
+                state: bool = False, shards: int | None = None,
+                steps: int | None = None):
     """Wrap the training launcher's ``build_train_step``: after each step a
-    copy of the parameters on their device (a copy only, so the launcher's
-    step time barely moves), and each step's start on the wall clock in
-    ``seen["starts"]``; on leaving, each step's parameter digest goes into
-    ``seen["digests"]`` and, when ``keep``, the last step's parameters (on
-    the host) into ``seen["params"]``. With ``wait_for``, the first step
+    copy of the parameters (with ``state``, and of the optimizer state) on
+    their device (a copy only, so the launcher's step time barely moves),
+    the bytes of parameters and optimizer state held
+    (:func:`state_bytes`) in ``seen["state_bytes"]``, each step's kernel
+    launches and permutes (:func:`counts`) in ``seen["launches"]``, and
+    each step's start on the wall clock in ``seen["starts"]``; on leaving,
+    each step's
+    digest goes into ``seen["digests"]``, with ``state`` the digest of the
+    leaves FSDP replicates into ``seen["replicated"]``, and, when
+    ``keep``, the last step's copy (on the host) into ``seen["params"]``.
+    With ``shards=n`` a step's digest is instead the list of the n
+    workers' digests of their FSDP slices (``elastic.split_leaf``): what
+    rank r of the one-rank-a-peer form must hold. ``steps`` copies only
+    the first so many steps. With ``wait_for``, the first step
     ends by waiting for the card to finish it, writing
     :func:`ready_path` and waiting until ``wait_for`` exists (both waits
     are ``seen["wait_s"]``)."""
     from repro_torch.launch import train as launch_train
-    seen = {"digests": [], "params": None, "starts": [], "wait_s": 0.0}
+    seen = {"digests": [], "params": None, "starts": [], "wait_s": 0.0,
+            "state_bytes": [], "replicated": [], "launches": []}
     copies = []
+    dims = []
     inner = launch_train.build_train_step
 
     def build(*args, **kw):
@@ -199,7 +256,15 @@ def watch_steps(keep: bool = False, wait_for: str | None = None):
 
         def watched(*a, **k):
             seen["starts"].append(time.time())
+            before = counts()
             out = step_fn(*a, **k)
+            after = counts()
+            seen["launches"].append({n: after[n] - before[n] for n in after})
+            seen["state_bytes"].append(state_bytes((out[0], out[1])))
+            if (state or shards) and not dims:
+                cfg = args[0]           # build_train_step(cfg, tc, ...)
+                dims.extend(elastic.fsdp_dims(cfg) + (elastic.state_dims(
+                    cfg, out[1], opt.state_like_params) if state else []))
             if wait_for and len(copies) == 0:
                 t0 = time.perf_counter()
                 leaf = tree_leaves(out[0])[0]
@@ -210,7 +275,9 @@ def watch_steps(keep: bool = False, wait_for: str | None = None):
                 while not os.path.exists(wait_for):
                     time.sleep(0.05)
                 seen["wait_s"] = time.perf_counter() - t0
-            copies.append([p.detach().clone() for p in tree_leaves(out[0])])
+            if steps is None or len(copies) < steps:
+                copies.append([p.detach().clone() for p in tree_leaves(
+                    (out[0], out[1]) if state else out[0])])
             return out
         return watched, opt
 
@@ -219,7 +286,17 @@ def watch_steps(keep: bool = False, wait_for: str | None = None):
         yield seen
     finally:
         launch_train.build_train_step = inner
-        seen["digests"] = [tree_digest(c) for c in copies]
+        if shards is None:
+            seen["digests"] = [tree_digest(c) for c in copies]
+        else:
+            seen["digests"] = [
+                [tree_digest([elastic.split_leaf(leaf, d, shards)[r]
+                              for leaf, d in zip(c, dims)])
+                 for r in range(shards)] for c in copies]
+        if state:
+            seen["replicated"] = [
+                tree_digest([leaf for leaf, d in zip(c, dims) if d is None])
+                for c in copies]
         if keep and copies:
             seen["params"] = [p.cpu() for p in copies[-1]]
         copies.clear()
@@ -281,12 +358,18 @@ def run(args, device) -> None:
         for spec in args.train:
             job = json.loads(spec)
             keep = job["name"] in args.save_params
+            if device.type == "cuda":       # each run's own peak
+                torch.cuda.reset_peak_memory_stats(device)
             before = counts()
-            with watch_steps(keep, args.wait_for) as seen:
+            with watch_steps(keep, args.wait_for,
+                             state=job.get("state", False)) as seen:
                 records = launch_train.run(job["argv"])
             after = counts()
             report["train"][job["name"]] = {
                 "records": records, "digests": seen["digests"],
+                "replicated": seen["replicated"],
+                "state_bytes": seen["state_bytes"],
+                "step_launches": seen["launches"],
                 "starts": seen["starts"], "wait_s": seen["wait_s"],
                 "launches": {k: after[k] - before[k] for k in after}}
             if keep and rank == 0:
@@ -313,6 +396,22 @@ def run(args, device) -> None:
                     report["sync"][name] = {"digest": digest(y)}
                     arrays[name] = y.cpu().numpy()
             del x
+        if args.rs:
+            x = peer_rows([rank], *args.rs, 1, device)
+            sent, held = collectives.dist_bytes, collectives.dist_s
+            for name, y, frac, launched in rs_cases(
+                    x, grid, rate=args.rate, block=args.block,
+                    packet=args.packet):
+                report["sync"][name] = {
+                    "digest": digest(y), "loss_frac": frac,
+                    "launches": launched,
+                    "dist_bytes": collectives.dist_bytes - sent,
+                    "dist_s": collectives.dist_s - held}
+                sent, held = collectives.dist_bytes, collectives.dist_s
+                if y.numel() <= SMALL:
+                    arrays[name] = y.float().cpu().numpy()
+                del y
+            del x
     finally:
         dist.destroy_process_group()
     if arrays:
@@ -330,6 +429,7 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"))
     ap.add_argument("--arena", type=_pair, default=None, metavar="B,E")
     ap.add_argument("--full", type=_pair, default=None, metavar="B,E")
+    ap.add_argument("--rs", type=_pair, default=None, metavar="R,C")
     ap.add_argument("--block", type=int, default=256)
     ap.add_argument("--packet", type=int, default=64)
     ap.add_argument("--rate", type=float, default=0.05)
