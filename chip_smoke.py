@@ -247,11 +247,12 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     (mamba2-1.3b's profile was cut to pay for the restarted steps of the
     card-vs-CPU cases);
 51. ``serve_main``: ``repro_torch.launch.serve`` (its ``main``) on the
-    card, gpt2-paper at full width, ``--batch 128 --prompt-len 896
-    --max-new 128`` (1023 decode steps, a 4.83 GB bf16 KV cache): its two
-    lines, tok/s, ms a decode step (CUDA events, median after 4), the
-    cache's and the peak bytes; the output (128, 1024) in vocab; no kernel
-    of the repo launched (serving reaches none);
+    card, gpt2-paper at full width, ``--batch 128 --prompt-len 128
+    --max-new 128`` (255 decode steps, a 1.21 GB bf16 KV cache; the
+    896-token prompt was cut to pay for 72.-74.): its two lines, tok/s, ms
+    a decode step (CUDA events, median after 4), the cache's and the peak
+    bytes; the output (128, 256) in vocab; no kernel of the repo launched
+    (serving reaches none);
 52. ``serve_families``: ``serve.generate`` at full width and depth on
     glm4-9b (B 32, prompt 256, 64 new), qwen2-moe-a2.7b (B 32, prompt 64,
     32 new) and mamba2-1.3b (B 32, prompt 128, 64 new), bf16: the same
@@ -369,7 +370,38 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     plain and with the 8-bit wire (``rs_wire_bits=8``): each rank's shard
     bitwise its stacked row, its launches (B1, B2, B3-B5, T1) the stacked
     reduce-scatter's;
-72. ``seconds``: the script's wall clock, whole and by group of phases.
+72. ``dist_pod_sync``: 67.'s gloo ranks as a ``(pod 2, data 2)`` grid
+    of process groups (``collectives.rank_grid(pods=2)``: each pod's data
+    group, each data index's pod group), after 71.: the (4, 3, 65,536)
+    arena through every strategy in ``scan`` and ``pipelined`` and the
+    policies that run on 2 data peers, at tail drops 0.05 (at 0.01 that
+    arena's 2-peer data axis loses nothing), ``pmax`` over a NaN and
+    ``pmean`` over the pod axis and over both, ``optireduce_q`` on the
+    full (4, 24, 6,553,600) arena, and the embedding's (4, 50,257, 768)
+    FSDP reduce-scatter over both hops (pod first, reliable; then data),
+    plain and 8-bit, at 0.01: each rank's result bitwise its row of the
+    stacked 2 x 2 grid's on the same arenas and draws, with the same loss
+    fraction and launches; per rank and full-size case the bytes sent and
+    host s in gloo's calls;
+73. ``dist_pod_main``: ``build_train_step`` with ``pure_dp`` on a ``(data
+    2, model 2)`` mesh over those ranks (``tools/distcheck.py
+    --pod-train``; no launcher has a pod flag), gpt2-paper at full width,
+    ``optireduce_2d`` (the hierarchical 2D TAR: data exchange, TAR over
+    the pods, data broadcast), tail drops 0.01, ``pipelined``, AdamW, seq
+    128, global batch 8 split pod-major, 2 steps, against the same run on
+    the stacked 2 x 2 grid (in the parent while the ranks start): after
+    every step each rank's parameters and AdamW moments bitwise the
+    stacked ones, its loss, loss_frac, grad norm and skipped the stacked
+    run's, its launches a step the stacked step's (48 B1, 24 B2, T1) and
+    at init; per rank and step host ms, peak bytes, state bytes, bytes
+    sent by axis (data, pod, both) and host s in gloo's calls;
+74. ``dist_pod_fsdp_main``: the same under FSDP: each rank holds its
+    pod-major quarter of every sharded leaf and of its moments, the
+    gather over the whole grid, each site's reduce-scatter the pod hop
+    (reliable, unrotated) then the data hop; after every step each rank's
+    state bitwise its slice of the stacked state, 174 B1 and 87 B2 a
+    step, the state bytes its quarter's count;
+75. ``seconds``: the script's wall clock, whole and by group of phases.
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -684,8 +716,9 @@ def main() -> int:
     sync_strategies(dev, counters)
     lap("strategies")
 
-    # 67.-70. one rank a peer over a process group (ROADMAP A18c): 4 gloo
-    # ranks on the card, then nccl at the card count
+    # 67.-74. one rank a peer over a process group (ROADMAP A18c): 4 gloo
+    # ranks on the card, flat and as a 2 x 2 pod grid, then nccl at the
+    # card count
     dist_paths(dev)
     lap("dist")
 
@@ -3678,8 +3711,11 @@ def check_families_against_cpu(dev) -> None:
 
 
 # ------------------------------------------------------ serving (A21)
+# a 128-token prompt and 128 new: 255 decode steps (a 896-token prompt, to
+# GPT-2's 1024-token context, was cut to pay for the pod grid over ranks)
 SERVE_MAIN = ("--arch", "gpt2-paper", "--batch", "128", "--prompt-len",
-              "896", "--max-new", "128")      # GPT-2's 1024-token context
+              "128", "--max-new", "128")
+SERVE_MAIN_STEPS = 255
 # arch -> (batch, prompt, new); each at full depth through ``generate``
 SERVE_FAMILIES = {"glm4-9b": (32, 256, 64), "qwen2-moe-a2.7b": (32, 64, 32),
                   "mamba2-1.3b": (32, 128, 64)}
@@ -3764,10 +3800,10 @@ def _launch_snapshot(counters: dict) -> dict:
 
 def serve_main(counters: dict) -> None:
     """Phase ``serve_main``: ``repro_torch.launch.serve.main`` on the card,
-    gpt2-paper at full width, ``SERVE_MAIN`` (1023 decode steps, the prompt
-    teacher-forced): the launcher's two lines, tok/s, ms a step, the KV
-    cache's and the peak bytes; the output (128, 1024) in vocab, no kernel
-    of the repo launched (the serving path has none)."""
+    gpt2-paper at full width, ``SERVE_MAIN`` (``SERVE_MAIN_STEPS`` decode
+    steps, the prompt teacher-forced): the launcher's two lines, tok/s, ms
+    a step, the KV cache's and the peak bytes; the output (128, 256) in
+    vocab, no kernel of the repo launched (the serving path has none)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch_serve
@@ -3783,7 +3819,7 @@ def serve_main(counters: dict) -> None:
         rc = launch_serve.main(list(SERVE_MAIN))
     lines = out.getvalue().splitlines()
     m = re.match(r"generated \((\d+), (\d+)\) in ([0-9.]+)s", lines[0])
-    if rc != 0 or not m or (m.group(1), m.group(2)) != ("128", "1024"):
+    if rc != 0 or not m or (m.group(1), m.group(2)) != ("128", "256"):
         fail(f"serve_main: rc {rc}, lines {lines}")
     sample = json.loads(lines[1].removeprefix("sample: "))
     cfg = get_config("gpt2-paper")
@@ -3796,7 +3832,7 @@ def serve_main(counters: dict) -> None:
     if len(sample) != 128 or not all(0 <= t < cfg.vocab_size
                                      for t in sample):
         fail(f"serve_main: sample {sample}")
-    if len(clock.events) != 1023 or any(launches.values()):
+    if len(clock.events) != SERVE_MAIN_STEPS or any(launches.values()):
         fail(f"serve_main: {len(clock.events)} steps, launches {launches}")
     free_card()
 
@@ -4965,6 +5001,13 @@ DIST_STEPS = 2
 DIST_TIMEOUT_S = 600
 DIST_THREADS = 2               # torch's host threads a rank: 4 ranks, 8 cores
 DIST_RS = (50_257, 768)        # gpt2-paper's embedding, reduce-scattered
+DIST_PODS = 2                  # the pod grid over gloo's 4 ranks: 2 x 2
+# the small arena's tail drops on the pod grid: at DIST_RATE its 2-peer
+# data axis loses no entry of that arena, at 0.05 masks with zeros cross
+DIST_POD_RATE = 0.05
+# what the ranks hold against the stacked pod grid's per-step launches
+DIST_POD_PHASES = {"pod_main": ("dist_pod_main", "pod_main"),
+                   "pod_fsdp": ("dist_pod_fsdp_main", "fsdp_main")}
 
 
 def _distcheck():
@@ -4982,46 +5025,51 @@ def _dist_train_argv(world: int) -> list:
     return argv + ["--steps", str(DIST_STEPS), "--sync-mode", "pipelined"]
 
 
+def dist_pod_jobs(world: int) -> dict:
+    """The ``--pod-train`` runs of gloo's world (``distcheck.pod_train``):
+    the main path's gpt2-paper at full width on the ``(pod 2, data 2)``
+    grid, ``optireduce_2d``, tail drops ``DIST_RATE``, ``pipelined``,
+    ``DIST_STEPS`` steps, replicated and FSDP."""
+    base = {"arch": "gpt2-paper", "smoke": False, "pods": DIST_PODS,
+            "peers": world, "steps": DIST_STEPS, "seq_len": 128,
+            "global_batch": 8, "drop_rate": DIST_RATE, "block": BLOCK,
+            "bucket_elems": BUCKET, "lr": 3e-4, "skip_threshold": 0.10,
+            "sync_mode": "pipelined", "seed": 0, "kernel_mode": "kernel",
+            "strategy": "optireduce_2d"}
+    return {"pod_main": {**base, "name": "pod_main", "dp_mode": "replicated"},
+            "pod_fsdp": {**base, "name": "pod_fsdp", "dp_mode": "fsdp"}}
+
+
 def _stacked_side(dev, world: int, full: bool) -> dict:
     """The stacked form's side of the ``dist_*`` phases at ``world`` peers:
     each sync case's row digests, loss fraction and launches on the arenas
-    and draws the ranks use, and the launcher's records, per-step
-    parameter digests, last parameters and launches."""
+    and draws the ranks use (with ``full``, also on the pod grid, in
+    ``pod_sync``), the pod grid's training runs (``pods``,
+    :func:`dist_pod_jobs`) and the launcher's records, per-step parameter
+    digests, last parameters and launches."""
     from repro_torch.core import collectives
     from repro_torch.kernels import runtime
     from repro_torch.launch import train as launch_train
     distcheck = _distcheck()
 
-    arenas = [("", DIST_ARENA, None, True)]
+    sync, pod_sync, pods = {}, {}, {}
+    grids = [collectives.ONE]
     if full:
-        arenas.append(("full:", (ARENA_BUCKETS, BUCKET),
-                       distcheck.FULL_STRATEGIES, False))
-    sync = {}
-    if full:        # the FSDP reduce-scatter on the embedding's shape
-        g = distcheck.peer_rows(range(world), *DIST_RS, 1, dev)
-        for name, y, frac, launched in distcheck.rs_cases(
-                g, collectives.ONE, rate=DIST_RATE, block=BLOCK,
-                packet=DIST_PACKET):
-            sync[name] = ([distcheck.digest(row) for row in y], frac,
-                          launched)
+        grids.append(collectives.Grid(pods=DIST_PODS))
+    for grid in grids:
+        for name, y, frac, launched in distcheck.grid_cases(
+                grid, range(world), dev, world=world, arena=DIST_ARENA,
+                full=(ARENA_BUCKETS, BUCKET) if full else None,
+                rs=DIST_RS if full else None, rate=DIST_RATE,
+                pod_rate=DIST_POD_RATE, block=BLOCK, packet=DIST_PACKET):
+            (pod_sync if grid.pods > 1 else sync)[name] = (
+                [distcheck.digest(row) for row in y], frac, launched)
             del y
-        del g
-    for prefix, (b, e), strategies, small in arenas:
-        x = distcheck.peer_rows(range(world), b, e, 0, dev)
-        for name, y, frac, launched in distcheck.sync_cases(
-                x, collectives.ONE, rate=DIST_RATE, block=BLOCK,
-                packet=DIST_PACKET, strategies=strategies,
-                policies=small and world == DIST_RANKS,
-                modes=distcheck.MODES if small else ("pipelined",)):
-            sync[prefix + name] = ([distcheck.digest(row) for row in y],
-                                   frac, launched)
-            del y
-        if small:
-            for name, y in distcheck.primitive_cases(x, collectives.ONE):
-                sync[name] = ([distcheck.digest(row) for row in y], None,
-                              None)
-        del x
         free_card()
+    if full:
+        for name, job in dist_pod_jobs(world).items():
+            pods[name] = distcheck.pod_train(job, dev)
+            free_card()
     before = distcheck.counts()
     with distcheck.watch_steps(keep=True) as seen:
         records = launch_train.run(_dist_train_argv(world))
@@ -5029,7 +5077,7 @@ def _stacked_side(dev, world: int, full: bool) -> dict:
     runtime.set_kernel_mode(None)     # the launcher left it at 'kernel'
     free_card()
     return {"sync": sync, "records": records, "digests": seen["digests"],
-            "params": seen["params"],
+            "params": seen["params"], "pod_sync": pod_sync, "pods": pods,
             "launches": {k: after[k] - before[k] for k in after}}
 
 
@@ -5179,6 +5227,98 @@ def _dist_fsdp_held(reports: list) -> None:
              f"{launches_ok}, state bytes {bytes_ok} ({count} expected)")
 
 
+def _dist_pod_held(reports: list, want: dict) -> None:
+    """Phases ``dist_pod_sync``, ``dist_pod_main`` and
+    ``dist_pod_fsdp_main``: gloo's ranks as the ``(pod 2, data 2)`` grid
+    against the stacked 2 x 2 grid on the same arenas, draws and flags.
+    Sync: each rank's result bitwise its stacked row, the same loss
+    fraction and launches. Training (:func:`dist_pod_jobs`): after every
+    step each rank's parameters and AdamW moments bitwise the stacked
+    ones (FSDP: its pod-major slice), every rank's loss, loss_frac, grad
+    norm and skipped the stacked run's, each step's launches a rank the
+    stacked step's and those of ``A15_PER_STEP``'s row for the same sync
+    (the pod hop of FSDP launches nothing: it is reliable and unrotated),
+    the init's launches the stacked init's, and under FSDP the state bytes
+    a rank its quarter's count."""
+    world = len(reports)
+    bad, full_rows = [], {}
+    for case, (digests, frac, launched) in want["pod_sync"].items():
+        got = [rep["sync"][case] for rep in reports]
+        for r, g in enumerate(got):
+            if g["digest"] != digests[r] or (frac is not None and (
+                    g["loss_frac"] != frac or g["launches"] != launched)):
+                bad.append({"case": case, "rank": r,
+                            "bitwise": g["digest"] == digests[r],
+                            "loss_frac": [g.get("loss_frac"), frac],
+                            "launches": [g.get("launches"), launched]})
+        if "full:" in case or "rs/" in case:
+            full_rows[case.split(":", 1)[1].removeprefix("full:")] = {
+                "stacked_launches": launched,
+                "launches_per_rank": [g["launches"] for g in got],
+                "dist_bytes": [g["dist_bytes"] for g in got],
+                "dist_s": [g["dist_s"] for g in got], "loss_frac": frac}
+    lossy = {case: frac for case, (_, frac, _) in want["pod_sync"].items()
+             if frac}
+    emit({"phase": "dist_pod_sync", "backend": reports[0]["backend"],
+          "ranks": world, "pods": DIST_PODS, "cases": len(want["pod_sync"]),
+          "small_arena": list(DIST_ARENA), "small_arena_rate": DIST_POD_RATE,
+          "rate": DIST_RATE, "cases_with_drops": len(lossy),
+          "full": full_rows, "mismatches": bad})
+    if bad or not lossy:
+        fail(f"dist_pod_sync: {len(bad)} rank results differ from the "
+             f"stacked form: {bad[:4]}; {len(lossy)} cases dropped")
+
+    keys = ("loss", "loss_frac", "grad_norm", "skipped")
+    count = fsdp_rank_state_bytes(world)
+    for run, (phase, per_step_row) in DIST_POD_PHASES.items():
+        stacked = want["pods"][run]
+        runs = [rep["train"][run] for rep in reports]
+        fsdp = run == "pod_fsdp"
+        states_ok = all(
+            got["digests"] == ([d[r] for d in stacked["digests"]] if fsdp
+                               else stacked["digests"])
+            for r, got in enumerate(runs))
+        records_ok = all([{k: rec[k] for k in keys} for rec in got["records"]]
+                         == [{k: rec[k] for k in keys}
+                             for rec in stacked["records"]] for got in runs)
+        per_step = A15_PER_STEP[per_step_row]
+        launches_ok = all(
+            got["launches"] == stacked["launches"]
+            and got["init_launches"] == stacked["init_launches"]
+            for got in runs) and all(
+            all(step[k] == v for k, v in per_step.items())
+            for step in stacked["launches"])
+        bytes_ok = all(b == (count if fsdp else stacked["state_bytes"][0])
+                       for got in runs for b in got["state_bytes"])
+        for r, got in enumerate(runs):
+            for i, rec in enumerate(got["records"]):
+                emit({"phase": f"{phase}_step", "rank": r, "step": i,
+                      "loss": rec["loss"], "loss_frac": rec["loss_frac"],
+                      "grad_norm": rec["grad_norm"],
+                      "step_ms": rec["step_s"] * 1e3,
+                      "peak_bytes": rec.get("peak_bytes"),
+                      "state_bytes": got["state_bytes"][i],
+                      "dist_bytes": rec["dist_bytes"],
+                      "dist_axis_bytes": rec["dist_axis_bytes"],
+                      "dist_s": rec["dist_s"],
+                      "launches": got["launches"][i]})
+        emit({"phase": phase, "backend": reports[0]["backend"],
+              "ranks": world, "pods": DIST_PODS, "steps": DIST_STEPS,
+              "dp_mode": "fsdp" if fsdp else "replicated",
+              "states_bitwise_stacked": states_ok,
+              "records_equal_stacked": records_ok,
+              "launches_equal_stacked": launches_ok,
+              "state_bytes_ok": bytes_ok,
+              "stacked_state_bytes": stacked["state_bytes"][0],
+              "stacked": [{k: rec[k] for k in keys + ("step_s",)}
+                          for rec in stacked["records"]],
+              "stacked_launches": stacked["launches"],
+              "init_launches": stacked["init_launches"]})
+        if not (states_ok and records_ok and launches_ok and bytes_ok):
+            fail(f"{phase}: states {states_ok}, records {records_ok}, "
+                 f"launches {launches_ok}, state bytes {bytes_ok}")
+
+
 def dist_paths(dev) -> None:
     """Phases ``dist_sync``, ``dist_main`` (4 gloo ranks on the one card,
     one peer a rank) and ``dist_nccl_sync``, ``dist_nccl_main`` (nccl at a
@@ -5212,6 +5352,11 @@ def dist_paths(dev) -> None:
     the embedding's shape (``DIST_RS``), plain and with the 8-bit wire,
     each rank's shard bitwise its stacked row.
 
+    ``dist_pod_sync``, ``dist_pod_main``, ``dist_pod_fsdp_main`` (gloo's
+    world, last): the same ranks as a ``(pod 2, data 2)`` grid of groups,
+    the syncs and :func:`dist_pod_jobs` against the stacked 2 x 2 grid
+    (see :func:`_dist_pod_held`).
+
     Both worlds start at once and run their launcher first; both stacked
     sides run in this process meanwhile, during the ranks' start-up and
     cold first step. A world's second step waits for a file (``--wait-for``)
@@ -5241,14 +5386,18 @@ def dist_paths(dev) -> None:
                  "--save-params", "main"]
         if not full:
             return flags
-        # the gloo world also trains FSDP over its ranks and
-        # reduce-scatters the embedding's shape
+        # the gloo world also trains FSDP over its ranks, reduce-scatters
+        # the embedding's shape, and runs it all again as a pod grid
         return flags + ["--full", f"{ARENA_BUCKETS},{BUCKET}",
                         "--rs", "%d,%d" % DIST_RS, "--train", json.dumps({
                             "name": "fsdp", "state": True,
                             "argv": _dist_train_argv(world)
                             + ["--dp-mode", "fsdp", "--dist-backend",
-                               backend]})]
+                               backend]}),
+                        "--pods", f"1,{DIST_PODS}", "--pod-rate",
+                        str(DIST_POD_RATE)] + [
+            arg for job in dist_pod_jobs(world).values()
+            for arg in ("--pod-train", json.dumps(job))]
 
     free_card()
     t0 = time.perf_counter()
@@ -5281,6 +5430,7 @@ def dist_paths(dev) -> None:
                        out / backend / "main.pt", times)
             if backend == "gloo":
                 _dist_fsdp_held(reports)
+                _dist_pod_held(reports, want)
     finally:
         for proc in (p for ranks in procs for p in ranks):
             if proc.poll() is None:

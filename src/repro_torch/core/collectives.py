@@ -37,28 +37,37 @@ the transposes are copies.
 ``collective_permute`` sites in its HLO.
 
 **Over a process group (one rank a peer).** ``Grid(group=pg)`` (or
-:func:`rank_grid`) puts the data axis on the ranks of a
-``torch.distributed`` process group, one peer a rank, as the reference
-puts one on each device: a stack's leading axis holds this rank's one row,
-and each primitive gives that row of the stacked form's result, bit for
-bit. ``axis_size`` is the group's size, ``axis_index``, ``per_peer``,
-``take_rows`` and ``put_rows`` read the rank's own entry, ``all_to_all``
-is ``all_to_all_single``, ``all_gather`` is ``all_gather_into_tensor``
-(the list form on gloo), :func:`all_gather_dim` the same gather of a
-rank's tensor concatenated along one of its dims (the FSDP weight
-gather's, the reference's ``all_gather(..., axis=dim, tiled=True)``),
-``ppermute`` an ``all_to_all_single`` whose split
-sizes name the rank's one destination and one source (a rank no pair
-names receives zeros; ``permutes`` counts each call once, as above).
-``pmean`` and ``pmax`` gather every row and reduce them here, the sum in
-rank order (a library ``all_reduce`` reorders its adds) and the max
-through ``amax`` (NaN passes, where NCCL's ``fmaxf`` may drop it). The
-module counters ``dist_bytes`` (bytes this rank sends) and ``dist_s``
-(host seconds inside the library's calls) measure the traffic. Over gloo
-a call returns when its data has moved, so ``dist_s`` is the whole wait;
-an NCCL call returns once its work is queued on the card, so there
-``dist_s`` is the enqueue only. This form holds one pod at tp 1: pods and tp over ranks are
-later slices (ROADMAP A18c).
+:func:`rank_grid`) puts the peers on the ranks of a ``torch.distributed``
+process group, one peer a rank, as the reference puts one on each device:
+a stack's leading axis holds this rank's one row, and each primitive gives
+that row of the stacked form's result, bit for bit. With ``pods=G`` the
+group's G * N ranks are the ``(pod, data)`` grid, pod-major (rank ``g * N
++ i``, the order of ``P(('pod', 'data'))``), and the grid carries two more
+groups made from it (:func:`rank_grid`, the same ``new_group`` calls on
+every rank): the data group of this rank's pod (ranks ``g * N ... g * N +
+N - 1``) and the pod group of its data index (ranks ``i, N + i, ...``).
+Each primitive runs in the group of its ``axis``: ``DATA`` the data group,
+``POD`` the pod group, ``BOTH`` the whole grid. ``axis_size`` is that
+group's size, ``axis_index``, ``per_peer``, ``take_rows`` and ``put_rows``
+read the rank's own entry (its index on the axis: ``r mod N`` on the data
+axis, ``r div N`` on the pod axis), ``all_to_all`` is
+``all_to_all_single``, ``all_gather`` is ``all_gather_into_tensor`` (the
+list form on gloo), :func:`all_gather_dim` the same gather of a rank's
+tensor concatenated along one of its dims (the FSDP weight gather's over
+the whole grid, the reference's ``all_gather(..., axis=dim, tiled=True)``
+over ``('pod', 'data')``), ``ppermute`` an ``all_to_all_single`` in the
+data group whose split sizes name the rank's one destination and one
+source (a rank no pair names receives zeros; ``permutes`` counts each call
+once, as above). ``pmean`` and ``pmax`` gather every row of the axis and
+reduce them here, the sum in index order (a library ``all_reduce``
+reorders its adds) and the max through ``amax`` (NaN passes, where NCCL's
+``fmaxf`` may drop it). The module counters ``dist_bytes`` (bytes this
+rank sends; ``dist_axis_bytes`` the same by the axis whose group carried
+them) and ``dist_s`` (host seconds inside the library's calls) measure the
+traffic. Over gloo a call returns when its data has moved, so
+``dist_s`` is the whole wait; an NCCL call returns once its work is queued
+on the card, so there ``dist_s`` is the enqueue only. This form runs at tp
+1: tp over ranks is a later slice (ROADMAP A18c).
 """
 from __future__ import annotations
 
@@ -76,6 +85,8 @@ BOTH = (POD, DATA)
 permutes = 0
 dist_bytes = 0           # bytes this rank sent through the process group
 dist_s = 0.0             # host seconds inside the process group's calls
+# dist_bytes by the axis whose group carried them: "data", "pod", "both"
+dist_axis_bytes: dict[str, int] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,25 +94,40 @@ class Grid:
     """The layout of a stack's P peers: T tp groups (``tp``) of G pods
     (``pods``) of N data peers, ordered ``(model, pod, data)``. N is what a
     stack's P leaves, P / (T * G). With ``group`` (a ``torch.distributed``
-    process group) the N data peers are the group's ranks, one a rank, and
-    a stack holds this rank's row alone."""
+    process group of G * N ranks, pod-major) the peers are the group's
+    ranks, one a rank, and a stack holds this rank's row alone;
+    ``data_group`` and ``pod_group`` are this rank's data and pod groups,
+    made from ``group`` once a (group, pods) (:func:`_subgroups`)."""
     pods: int = 1
     tp: int = 1
     group: Any = None
+    data_group: Any = dataclasses.field(default=None, init=False,
+                                        compare=False, repr=False)
+    pod_group: Any = dataclasses.field(default=None, init=False,
+                                       compare=False, repr=False)
 
     def __post_init__(self):
         if self.pods < 1 or self.tp < 1:
             raise ValueError(f"pods and tp must be positive, got "
                              f"{self.pods} and {self.tp}")
-        if self.group is not None and (self.pods, self.tp) != (1, 1):
+        if self.group is None:
+            return
+        if self.tp != 1:
             raise ValueError(
-                f"a process group holds one pod at tp 1, got {self.pods} "
-                f"pods and tp {self.tp} (pods and tp over ranks: ROADMAP "
-                "A18c)")
+                f"a process group runs at tp 1, got tp {self.tp} (tp over "
+                "ranks: ROADMAP A18c)")
+        if self.ranks % self.pods:
+            raise ValueError(f"{self.ranks} ranks do not fill {self.pods} "
+                             "pods")
+        data, pod = ((self.group, None) if self.pods == 1
+                     else _subgroups(self.group, self.pods))
+        object.__setattr__(self, "data_group", data)
+        object.__setattr__(self, "pod_group", pod)
 
     @property
     def rank(self) -> int:
-        """This process's data index: its rank in ``group`` (0 without)."""
+        """This process's index on the whole grid, pod-major (``g * N +
+        i``): its rank in ``group`` (0 without)."""
         if self.group is None:
             return 0
         import torch.distributed as dist
@@ -109,11 +135,28 @@ class Grid:
 
     @property
     def ranks(self) -> int:
-        """The group's size (1 without a group)."""
+        """The group's size, G * N (1 without a group)."""
         if self.group is None:
             return 1
         import torch.distributed as dist
         return dist.get_world_size(self.group)
+
+    def index_on(self, axis) -> int:
+        """This rank's index on ``axis``: its data index ``r mod N``, its
+        pod index ``r div N``, or ``r`` on ``BOTH``."""
+        _check_axis(axis)
+        r, n = self.rank, self.ranks // self.pods
+        if axis == BOTH:
+            return r
+        return r % n if axis == DATA else r // n
+
+    def axis_group(self, axis):
+        """The process group an ``axis`` collective runs in: the data
+        group, the pod group (None with one pod) or the whole grid."""
+        _check_axis(axis)
+        if axis == BOTH:
+            return self.group
+        return self.data_group if axis == DATA else self.pod_group
 
     @property
     def blocks(self) -> int:
@@ -122,12 +165,12 @@ class Grid:
 
     def data_size(self, p: int) -> int:
         """N, the data peers of each pod of a stack of ``p`` peers (the
-        group's ranks, where a stack holds one)."""
+        data group's ranks, where a stack holds one)."""
         if self.group is not None:
             if p != 1:
                 raise ValueError(f"a process group's stack holds this "
                                  f"rank's one row, got {p}")
-            return self.ranks
+            return self.ranks // self.pods
         if p % self.blocks:
             raise ValueError(f"{p} peers do not fill {self.tp} x "
                              f"{self.pods} pods")
@@ -158,11 +201,38 @@ class Grid:
 ONE = Grid()
 
 
-def rank_grid(group=None) -> Grid:
+def rank_grid(group=None, pods: int = 1) -> Grid:
     """The grid of a process group's ranks, one peer a rank (the default
-    group when None)."""
+    group when None): ``pods`` pods of the group's size / ``pods`` data
+    peers, pod-major. Every rank must call it alike: over pods it makes the
+    data and pod groups (``dist.new_group``), once a (group, pods)."""
     import torch.distributed as dist
-    return Grid(group=dist.group.WORLD if group is None else group)
+    return Grid(pods=pods, group=dist.group.WORLD if group is None
+                else group)
+
+
+_subgroup_cache: dict = {}
+
+
+def _subgroups(group, pods: int):
+    """``(data group, pod group)`` of this rank on the pod-major grid of
+    ``group``'s ranks, made once a (group, pods): every rank makes every
+    data group (``g * N ... g * N + N - 1``), then every pod group (``i, N
+    + i, ...``), in that order, as ``dist.new_group`` asks."""
+    import torch.distributed as dist
+    cache_key = (id(group), pods)
+    if cache_key not in _subgroup_cache:
+        ranks = dist.get_process_group_ranks(group)
+        n, me = len(ranks) // pods, dist.get_rank(group)
+        backend = dist.get_backend(group)
+        made = [dist.new_group([ranks[g * n + i] for i in range(n)],
+                               backend=backend) for g in range(pods)]
+        made += [dist.new_group([ranks[g * n + i] for g in range(pods)],
+                                backend=backend) for i in range(n)]
+        # the group is kept beside its subgroups, so its id stays its own
+        _subgroup_cache[cache_key] = (group, made[me // n],
+                                      made[pods + me % n])
+    return _subgroup_cache[cache_key][1:]
 
 
 @functools.lru_cache(maxsize=512)
@@ -177,9 +247,10 @@ def per_peer(values: tuple[int, ...], device: torch.device,
              grid: Grid = ONE) -> torch.Tensor:
     """``(P,)`` index tensor of a per-data-index table ``values`` (length
     N): peer ``b * N + i`` reads ``values[i]`` in every block b of the
-    grid (over a process group: the rank's own entry, ``(1,)``)."""
+    grid (over a process group: the rank's own entry, its data index's,
+    ``(1,)``)."""
     if grid.group is not None:
-        return index((values[grid.rank],), device)
+        return index((values[grid.index_on(DATA)],), device)
     return index(tuple(values) * grid.blocks, device)
 
 
@@ -201,7 +272,7 @@ def axis_index(x: torch.Tensor, grid: Grid = ONE,
     """Each peer's own index on ``axis``, ``(P,)``."""
     n = axis_size(x, grid)
     if grid.group is not None:
-        return index((0 if axis == POD else grid.rank,), x.device)
+        return index((grid.index_on(axis),), x.device)
     peers = torch.arange(x.shape[0], device=x.device)
     return {DATA: peers % n, POD: (peers // n) % grid.pods,
             BOTH: peers % (grid.pods * n)}[axis]
@@ -218,62 +289,71 @@ def on_grid(rows: torch.Tensor, x: torch.Tensor, grid: Grid = ONE,
     return rows.index_select(0, axis_index(x, grid, axis))
 
 
-def _dist_call(fn, sent: int) -> None:
-    """Run one call of the process group's library, counting the bytes this
-    rank sends and the host seconds until it returns."""
+def _dist_call(fn, sent: int, axis) -> None:
+    """Run one call of the process group's library in ``axis``'s group,
+    counting the bytes this rank sends (also by axis) and the host seconds
+    until it returns."""
     global dist_bytes, dist_s
     t0 = time.perf_counter()
     fn()
     dist_s += time.perf_counter() - t0
     dist_bytes += sent
+    name = "both" if axis == BOTH else axis
+    dist_axis_bytes[name] = dist_axis_bytes.get(name, 0) + sent
 
 
-def _is_gloo(grid: Grid) -> bool:
+def _is_gloo(pg) -> bool:
     import torch.distributed as dist
-    return dist.get_backend(grid.group) == "gloo"
+    return dist.get_backend(pg) == "gloo"
 
 
-def gather_peers(x: torch.Tensor, grid: Grid = ONE) -> torch.Tensor:
-    """Every data peer's row of a ``(P, ...)`` stack, ``(N, ...)`` in index
-    order: the stack itself, or over a process group every rank's one row
-    gathered (the stacked form's stack, bit for bit)."""
+def gather_peers(x: torch.Tensor, grid: Grid = ONE,
+                 axis=DATA) -> torch.Tensor:
+    """Every ``axis`` peer's row of a ``(P, ...)`` stack, ``(n, ...)`` in
+    index order: the stack itself, or over a process group every rank's one
+    row gathered in the axis's group (the stacked form's stack, bit for
+    bit; the row itself on the pod axis of one pod)."""
     if grid.group is None:
         return x
+    pg = grid.axis_group(axis)
+    if pg is None:
+        return x
     import torch.distributed as dist
-    n = axis_size(x, grid)
+    n = axis_size(x, grid, axis)
     row = x[0].contiguous()
     out = torch.empty((n, *row.shape), dtype=row.dtype, device=row.device)
     nbytes = row.numel() * row.element_size()
-    if _is_gloo(grid):
+    if _is_gloo(pg):
         _dist_call(lambda: dist.all_gather(list(out.unbind(0)), row,
-                                           group=grid.group), nbytes)
+                                           group=pg), nbytes, axis)
     else:
-        _dist_call(lambda: dist.all_gather_into_tensor(out, row,
-                                                       group=grid.group),
-                   nbytes)
+        _dist_call(lambda: dist.all_gather_into_tensor(out, row, group=pg),
+                   nbytes, axis)
     return out
 
 
-def all_gather_dim(x: torch.Tensor, dim: int,
-                   grid: Grid = ONE) -> torch.Tensor:
+def all_gather_dim(x: torch.Tensor, dim: int, grid: Grid = ONE,
+                   axis=BOTH) -> torch.Tensor:
     """Tiled all_gather of one rank's tensor along its dim ``dim``: every
-    rank's ``x`` concatenated along ``dim`` in rank order, held by every
-    rank (a reliable gather, through :func:`gather_peers`). ``x`` itself
-    without a process group, where a tensor is already whole."""
+    ``axis`` rank's ``x`` concatenated along ``dim`` in index order (on
+    ``BOTH`` the whole grid, pod-major), held by every rank (a reliable
+    gather, through :func:`gather_peers`). ``x`` itself without a process
+    group, where a tensor is already whole."""
     if grid.group is None:
         return x
-    rows = gather_peers(x.unsqueeze(0), grid)
+    rows = gather_peers(x.unsqueeze(0), grid, axis)
     return rows.movedim(0, dim).flatten(dim, dim + 1)
 
 
-def _all_to_all_rows(x: torch.Tensor, grid: Grid) -> torch.Tensor:
-    """``(1, n, S)`` -> ``(1, n, S)`` over a process group: row j goes to
-    rank j, row i of the result came from rank i."""
+def _all_to_all_rows(x: torch.Tensor, grid: Grid, axis) -> torch.Tensor:
+    """``(1, n, S)`` -> ``(1, n, S)`` over ``axis``'s process group: row j
+    goes to its rank j, row i of the result came from its rank i."""
     import torch.distributed as dist
     send = x[0].contiguous()
     out = torch.empty_like(send)
-    _dist_call(lambda: dist.all_to_all_single(out, send, group=grid.group),
-               send.numel() * send.element_size())
+    _dist_call(lambda: dist.all_to_all_single(
+        out, send, group=grid.axis_group(axis)),
+        send.numel() * send.element_size(), axis)
     return out.unsqueeze(0)
 
 
@@ -288,7 +368,9 @@ def all_to_all(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
                          f"got {x.shape[1]}")
     s, tp, pods = x.shape[2], grid.tp, grid.pods
     if grid.group is not None:
-        return x if axis == POD else _all_to_all_rows(x, grid)
+        if grid.axis_group(axis) is None:
+            return x
+        return _all_to_all_rows(x, grid, axis)
     if axis == POD:                   # (t, h, i, g) -> (t, g, i, h)
         if pods == 1:
             return x
@@ -310,8 +392,9 @@ def all_gather(own: torch.Tensor, grid: Grid = ONE,
     p, tp, pods = own.shape[0], grid.tp, grid.pods
     n = axis_size(own, grid, axis)
     if grid.group is not None:
-        return own if axis == POD else gather_peers(own, grid).reshape(
-            1, n * own.shape[-1])
+        if grid.axis_group(axis) is None:
+            return own
+        return gather_peers(own, grid, axis).reshape(1, n * own.shape[-1])
     if axis == POD:
         if pods == 1:
             return own
@@ -362,9 +445,9 @@ def pmean(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
     ``(P, ...)``."""
     n = axis_size(x, grid, axis)
     if grid.group is not None:
-        if axis == POD:
+        if grid.axis_group(axis) is None:
             return x
-        return mean_of(_sum_in_order(gather_peers(x, grid), 0), n)
+        return mean_of(_sum_in_order(gather_peers(x, grid, axis), 0), n)
     if n == x.shape[0]:
         return mean_of(_sum_in_order(x, 0), n).expand_as(x)
     xs = _grouped(x, grid, axis)
@@ -376,9 +459,9 @@ def pmax(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:
     peer gives NaN)."""
     n = axis_size(x, grid, axis)
     if grid.group is not None:
-        if axis == POD:
+        if grid.axis_group(axis) is None:
             return x
-        return gather_peers(x, grid).amax(dim=0, keepdim=True)
+        return gather_peers(x, grid, axis).amax(dim=0, keepdim=True)
     if n == x.shape[0]:
         return x.amax(dim=0, keepdim=True).expand_as(x)
     xs = _grouped(x, grid, axis)
@@ -435,11 +518,11 @@ def ppermute(x: torch.Tensor, perm, grid: Grid = ONE) -> torch.Tensor:
 
 def _ppermute_rows(x: torch.Tensor, pairs, grid: Grid) -> torch.Tensor:
     """``ppermute`` of a one-row stack over a process group: one
-    ``all_to_all_single`` every rank joins, its split sizes naming this
-    rank's destination and source (a self pair is a copy); zeros where no
-    pair names the rank as a destination."""
+    ``all_to_all_single`` every rank of the data group joins, its split
+    sizes naming this rank's destination and source (a self pair is a
+    copy); zeros where no pair names the rank as a destination."""
     import torch.distributed as dist
-    rank, n = grid.rank, grid.ranks
+    rank, n = grid.index_on(DATA), grid.data_size(1)
     dst = next((d for s_, d in pairs if s_ == rank), None)
     src = next((s_ for s_, d in pairs if d == rank), None)
     if src is None:
@@ -456,6 +539,6 @@ def _ppermute_rows(x: torch.Tensor, pairs, grid: Grid) -> torch.Tensor:
     recv = out if sum(out_splits) else out.new_empty((0,))
     _dist_call(lambda: dist.all_to_all_single(
         recv.view(-1), send.view(-1) if sum(in_splits) else send.new_empty(
-            (0,)), out_splits, in_splits, group=grid.group),
-        sum(in_splits) * send.element_size())
+            (0,)), out_splits, in_splits, group=grid.data_group),
+        sum(in_splits) * send.element_size(), DATA)
     return out

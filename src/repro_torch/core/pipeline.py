@@ -325,10 +325,11 @@ class SyncContext:
         """``(len(own), n, s)``: receiver r's arrival mask in row r, its own
         row ``own[r]`` kept; in a batched sync each bucket's masks over its
         ``s / B`` entries, interleaved. Over a process group the rank draws
-        its own receiver's mask alone, ``(1, n, s)``."""
+        its own receiver's mask alone, ``(1, n, s)``: its data index's,
+        the same in every pod."""
         rows = list(enumerate(own))
         if self.grid.group is not None:
-            rows = [rows[self.grid.rank]]
+            rows = [rows[self.grid.index_on(collectives.DATA)]]
         if self.buckets is None:
             return draw_masks(self.draws, [(self.bucket, r, i)
                                            for r, i in rows], n, s)
@@ -343,8 +344,8 @@ class SyncContext:
         (the reference's ``pmean`` of dropped/total over ``data_axes()``:
         every pod draws the data axis's masks alike, so the mean over the N
         receivers is the mean over both axes). Over a process group every
-        rank's count is gathered first, so each rank holds the same
-        value."""
+        rank's count is gathered over the data group first (each pod's
+        counts are alike), so each rank holds the same value."""
         if "total" not in self.stats:
             return torch.zeros(())
         dropped = collectives.gather_peers(self.stats["dropped"], self.grid)
@@ -1118,6 +1119,10 @@ class TarTopology(Topology):
                                    g.device).to(torch.float32)[:, None]
             mask = on.expand(n, n, s) if mask is None else mask * on
         if mask is not None:
+            if grid.group is not None and axis != collectives.DATA:
+                # a rank draws its data index's receiver (arrival_masks)
+                raise ValueError("over a process group a reduce-scatter "
+                                 "models drops on the data axis only")
             mask = collectives.on_grid(mask, g, grid, axis)
         shard_index = (None if n == p
                        else collectives.axis_index(g, grid, axis))

@@ -54,7 +54,10 @@ a time and keeps its slice (``train/elastic.py``); ``--ckpt-dir`` gathers
 the shards one leaf at a time and rank 0 writes the full leaves, the
 format the one-process form writes, and ``--resume`` hands each rank its
 slice of them, so either form resumes the other's checkpoints (at the same
-world size; resuming over ranks at another is a later slice). ``--tp``,
+world size; resuming over ranks at another is a later slice). The
+launcher has no pod flag (nor the reference's): the ``(pod, data)`` grid
+over ranks runs through ``build_train_step(..., group=)`` on a pod mesh
+(``tools/distcheck.py --pod-train``). ``--tp``,
 ``--production-mesh``, ``--sync-mode vmap``, ``--recovery``,
 ``--transport`` and ``--adaptive`` over ranks raise (later slices of
 ROADMAP A18c).
@@ -274,9 +277,9 @@ def _rank_setup(args):
     for flag, refused in RANK_REFUSED:
         if refused(args):
             raise ValueError(
-                f"{flag} over ranks is a later slice of ROADMAP A18c: one "
-                "rank a peer runs replicated data parallelism and FSDP on "
-                "one pod at tp 1")
+                f"{flag} over ranks is a later slice of ROADMAP A18c (over "
+                "ranks the launcher refuses "
+                + ", ".join(f for f, _ in RANK_REFUSED) + ")")
     if args.dp is not None and args.dp != world:
         raise ValueError(f"--dp {args.dp} under torchrun with a world of "
                          f"{world}: one peer a rank")

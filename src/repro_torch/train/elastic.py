@@ -10,9 +10,11 @@ controller re-forms the membership). What remains is state surgery:
 * replicated params: nothing to do — every survivor holds the full state.
 * fsdp shards: concatenate old shards along each leaf's fsdp dim and
   re-split by the new axis size (``reshard``). One rank a peer under FSDP
-  (``launch/train.py`` under ``torchrun``) takes its shard of each leaf
-  through the same slicing (``rank_piece``, ``rank_tree``) and puts the
-  ranks' shards back together through the same join
+  (``launch/train.py`` under ``torchrun``, or ``build_train_step(...,
+  group=)`` on a ``(pod, data)`` grid of G x N ranks) takes its shard of
+  each leaf through the same slicing, G x N pieces pod-major, rank ``g * N
+  + i`` the piece of that index (``rank_piece``, ``rank_tree``), and puts
+  the ranks' shards back together through the same join
   (``gather_rank_tree``), for its checkpoints.
 * data pipeline: deterministic (step, host, n_hosts) indexing re-partitions
   the global stream automatically (data/pipeline.py).
@@ -117,8 +119,9 @@ def rank_tree(full: Any, dims: list, n: int, rank: int,
 
 def gather_rank_tree(tree: Any, dims: list, grid, *, keep: bool) -> Any:
     """The full tree of the ranks' shards (a process group's
-    ``collectives.Grid``): each sharded leaf gathered from every rank and
-    joined along its dim, one leaf at a time; every rank must call it.
+    ``collectives.Grid``): each sharded leaf gathered from every rank of
+    the whole grid, pod-major, and joined along its dim, one leaf at a
+    time; every rank must call it.
     Where ``keep``, the full leaves are copied to the host and returned as
     a tree; elsewhere None (each gathered leaf is dropped at once)."""
     from repro_torch.core import collectives

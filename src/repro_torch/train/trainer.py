@@ -82,22 +82,25 @@ stale cache ``stale`` ``(B, E)`` feeds the fill, and the step returns the
 next state (this step's synced arena as the cache, the new residuals).
 
 One rank a peer (``build_train_step(..., group=)``, the launcher under
-``torchrun``): the data axis is a ``torch.distributed`` process group's
-ranks (``collectives.rank_grid``), each rank runs its own rows of the
-global batch once and the syncs cross processes. Replicated: the rank packs
-a ``(1, B, bucket_elems)`` arena; every rank then holds the same synced
-arena, so the guard, norm, clip and update above run on each rank alike
-and the replicas stay bitwise equal. FSDP (ZeRO-3): the rank holds only its
-shard of every sharded leaf (its slice along the leaf's ``fsdp_dim``,
-``train/elastic.py``) and of that leaf's optimizer state; the gather
-builds the full weight from the ranks' shards (``collectives.
-all_gather_dim``), a fresh leaf a site, the deferred VJP reduce-scatters
-the rank's ``(1, *shape)`` gradient over the group and keeps the rank's
+``torchrun``): the peers are a ``torch.distributed`` process group's ranks
+(``collectives.rank_grid``), pod-major over ``(pod, data)`` (``pure_dp``'s
+``model`` axis or a ``pod`` axis as the pods: rank ``g * N + i``, each pod
+a data group, each data index a pod group), each rank runs its own rows of
+the global batch once and the syncs cross processes. Replicated: the rank
+packs a ``(1, B, bucket_elems)`` arena; every rank then holds the same
+synced arena, so the guard, norm, clip and update above run on each rank
+alike and the replicas stay bitwise equal. FSDP (ZeRO-3): the rank holds
+only its shard of every sharded leaf (its pod-major slice along the leaf's
+``fsdp_dim``, ``train/elastic.py``) and of that leaf's optimizer state; the
+gather builds the full weight from every rank's shard over the whole grid
+(``collectives.all_gather_dim``), a fresh leaf a site, the deferred VJP
+reduce-scatters the rank's ``(1, *shape)`` gradient, the pod hop in its pod
+group and then the data hop in its data group, and keeps the rank's
 reduced shard, and the update runs on the shards in place. The global norm
 sums the squares of each rank's own shards, gathers the per-rank partial
-sums and adds them as the stacked form adds its per-shard ones, so norm,
-clip and every shard are bitwise the stacked form's. One pod, tp 1 only;
-pods and tp over ranks are later slices (ROADMAP A18c).
+sums over the whole grid and adds them as the stacked form adds its
+per-shard ones, so norm, clip and every shard are bitwise the stacked
+form's. At tp 1 only; tp over ranks is a later slice (ROADMAP A18c).
 
 The loss metric is the mean over peers; ``loss_frac`` the mean over
 receivers. ``tc.transport_override`` swaps the spec's transport for the
@@ -236,15 +239,16 @@ def sharded_global_norm(grads, specs, sizes,
     exactly the axes its leaf is sharded on, leaves grouped by their
     sharded-axes set (one sum a group), so replicated leaves count once.
     Over a process group (``grid.group``) a sharded leaf is this rank's
-    shard: each group's per-rank partial sum is gathered, in rank order,
-    into the vector the stacked form sums."""
+    shard: each group's per-rank partial sum is gathered over the whole
+    grid, in pod-major rank order, into the vector the stacked form
+    sums."""
     whole = grid.group is None
     groups = _summed_groups(
         (_spec_axes(s), _shard_sumsq(g, s, sizes, whole))
         for g, s in zip(tree_leaves(grads), _spec_leaves(specs)))
     if not whole:
-        groups = {axes: collectives.gather_peers(ss, grid) if ss.dim()
-                  else ss for axes, ss in groups.items()}
+        groups = {axes: collectives.gather_peers(ss, grid, collectives.BOTH)
+                  if ss.dim() else ss for axes, ss in groups.items()}
     return torch.sqrt(_psum_group_total(groups))
 
 
@@ -309,9 +313,10 @@ class FsdpGather:
     tp).
 
     Over a process group (one rank a peer) ``w`` is this rank's shard: the
-    gather builds the full weight from every rank's shard
-    (:func:`collectives.all_gather_dim`), a stack holds the rank's one row,
-    and ``reduce`` yields ``w`` with the rank's reduced shard gradient."""
+    gather builds the full weight from every rank's shard over the whole
+    grid, pod-major (:func:`collectives.all_gather_dim`), a stack holds the
+    rank's one row, each hop runs in the rank's group of its axis, and
+    ``reduce`` yields ``w`` with the rank's reduced shard gradient."""
 
     def __init__(self, cfg: OptiReduceConfig, hops,
                  grid: collectives.Grid = collectives.ONE,
@@ -433,8 +438,8 @@ def _check_rank_form(tc: TrainConfig, names, shape) -> None:
     """Raise on what the one-rank-a-peer form does not run yet, each with
     its ROADMAP item (A18c's later slices)."""
     refused = [
-        ("pod" in names or tc.pure_dp, "pods (G > 1) over ranks"),
-        (shape.get("model", 1) > 1, "tensor parallelism (--tp) over ranks"),
+        (shape.get("model", 1) > 1 and not tc.pure_dp,
+         "tensor parallelism (--tp) over ranks"),
         (tc.sync_mode == "vmap", "--sync-mode vmap over ranks"),
         (tc.sync.recovery != "none", "--recovery over ranks"),
         (tc.transport_override is not None, "--transport over ranks")]
@@ -442,7 +447,8 @@ def _check_rank_form(tc: TrainConfig, names, shape) -> None:
         if bad:
             raise ValueError(f"{what} is a later slice of ROADMAP A18c: "
                              "one rank a peer runs replicated data "
-                             "parallelism and FSDP on one pod at tp 1")
+                             "parallelism and FSDP over (pod, data) at "
+                             "tp 1")
 
 
 def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
@@ -465,9 +471,10 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
     ``filled`` metric, the lost wire entries the stale cache filled.
 
     ``group`` (a ``torch.distributed`` process group) runs one peer a
-    rank: the mesh's data axis is the group's ranks, this rank runs the
+    rank: the mesh's pod and data axes are the group's ranks, pod-major
+    (``collectives.rank_grid(group, pods=G)``), this rank runs the
     forward and backward pass of its own rows of the global batch once and
-    syncs over the group (``collectives.rank_grid``). Replicated, it packs
+    syncs over the grid's groups. Replicated, it packs
     a ``(1, B, bucket_elems)`` arena; under FSDP ``params`` and
     ``opt_state`` hold this rank's shard of every sharded leaf
     (``train/elastic.py``: ``rank_piece``) and the rest whole. Every
@@ -505,10 +512,13 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         local_peers = tuple(range(peers))
     else:
         _check_rank_form(tc, names, shape)
-        grid = collectives.rank_grid(group)
-        if grid.ranks != peers:
-            raise ValueError(f"a {peers}-peer data axis over a process "
-                             f"group of {grid.ranks} ranks")
+        import torch.distributed as dist
+        if dist.get_world_size(group) != peers:
+            raise ValueError(f"a grid of {peers} peers ({pods} pods) over a "
+                             f"process group of "
+                             f"{dist.get_world_size(group)} ranks")
+        # one peer a rank, pod-major: the rank's rows of the global batch
+        grid = collectives.rank_grid(group, pods=pods)
         local_peers = (grid.rank,)
     fsdp = tc.dp_mode == "fsdp"
     fsdp_axes = dp_axes if fsdp else None
@@ -739,8 +749,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         params, opt_state = opt.update(grads, opt_state, params,
                                        tc.optimizer.lr, step)
         metrics = {
-            "loss": collectives.gather_peers(torch.stack(losses),
-                                             grid).mean(),
+            "loss": collectives.gather_peers(torch.stack(losses), grid,
+                                             collectives.BOTH).mean(),
             "grad_norm": gnorm,
             "loss_frac": loss_frac,
             "skipped": skipped.to(torch.float32),

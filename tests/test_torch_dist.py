@@ -24,7 +24,8 @@ each other and to the stacked form's, and rank 0's records (loss,
 loss_frac, grad_norm, skipped) equal the stacked run's. Under FSDP each
 rank's parameters and AdamW moments are slice r of the stacked form's,
 its replicated leaves equal, its state bytes its shard's alone. The flags
-this form does not run yet raise.
+this form does not run yet raise, and so does a pod grid larger than the
+world (``tests/test_torch_dist_pods.py`` runs the pod grid over ranks).
 """
 import json
 import shutil
@@ -222,25 +223,33 @@ def one_rank_group(tmp_path):
     dist.destroy_process_group()
 
 
-TRAINER_REFUSED = {"fsdp_pure_dp": dict(dp_mode="fsdp", pure_dp=True),
-                   "fsdp_tp": dict(dp_mode="fsdp", tp=2),
-                   "pure_dp": dict(pure_dp=True),
-                   "vmap": dict(sync_mode="vmap"),
-                   "recovery": dict(recovery="stale"),
-                   "transport": dict(transport_override=object())}
+# the pure_dp cases: a grid of 2 pods (the (data 1, model 2) mesh's model
+# axis) over a world of one rank, which the pod grid over ranks refuses by
+# its size
+MISMATCH = r"a grid of 2 peers \(2 pods\) over a process group of 1 ranks"
+TRAINER_REFUSED = {"fsdp_pure_dp": (dict(dp_mode="fsdp", pure_dp=True),
+                                    MISMATCH),
+                   "fsdp_tp": (dict(dp_mode="fsdp", tp=2), "A18c"),
+                   "pure_dp": (dict(pure_dp=True), MISMATCH),
+                   "vmap": (dict(sync_mode="vmap"), "A18c"),
+                   "recovery": (dict(recovery="stale"), "A18c"),
+                   "transport": (dict(transport_override=object()), "A18c")}
 
 
 @pytest.mark.parametrize("case", list(TRAINER_REFUSED))
 def test_trainer_refuses_later_slices(one_rank_group, case):
+    """The later slices of A18c raise naming it; a pod grid whose size is
+    not the world's raises on the mismatch."""
     from repro_torch.configs import get_smoke
     from repro_torch.core.pipeline import OptiReduceConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train.trainer import TrainConfig, build_train_step
-    kw = dict(TRAINER_REFUSED[case])
+    kw, match = TRAINER_REFUSED[case]
+    kw = dict(kw)
     sync = OptiReduceConfig(recovery=kw.pop("recovery", "none"))
     tp = kw.pop("tp", 2 if kw.get("pure_dp") else 1)
     mesh = make_host_mesh(dp=1, tp=tp)
-    with pytest.raises(ValueError, match="A18c"):
+    with pytest.raises(ValueError, match=match):
         build_train_step(get_smoke("gpt2-paper"), TrainConfig(sync=sync, **kw),
                          mesh, device="cpu", group=one_rank_group)
 

@@ -6,6 +6,9 @@ sets torchrun's environment: ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
 
   PYTHONPATH=src torchrun --nproc-per-node 4 tools/distcheck.py \\
       build/distcheck --device cpu --arena 3,6000 --block 256
+  PYTHONPATH=src torchrun --nproc-per-node 4 tools/distcheck.py \\
+      build/distcheck --device cpu --pods 2 --arena 3,6000 --block 256 \\
+      --rs 512,64
 
 Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
 ``--device cpu`` (no card raises), joins the default process group
@@ -43,10 +46,27 @@ Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
   dim), plain and with the 8-bit wire (:func:`rs_cases`): each rank's
   reduced shard.
 
-:func:`sync_cases`, :func:`rs_cases` and :func:`watch_steps` on the
-stacked grid give the other side (``watch_steps(shards=)`` digests each
-rank's slice of the stacked form's state, ``train/elastic.py``'s);
-:func:`tree_digest` and :func:`digest` compare them.
+- ``--pods G1,G2,...`` (default 1): the grids the sync cases above run
+  on. G = 1 is the flat grid; G > 1 the same world as a ``(pod G, data
+  N)`` grid of G x N ranks, pod-major (``collectives.rank_grid(pods=G)``,
+  its groups made once), its cases named ``pods<G>:<case>``: the small
+  arena at ``--pod-rate`` through every strategy in ``scan`` and
+  ``pipelined`` and :data:`POD_POLICIES`, :data:`POD_FULL_STRATEGIES` on
+  the full arena, ``pmax`` over a NaN and ``pmean`` over the pod axis and
+  over both (:func:`pod_primitive_cases`), and the reduce-scatter over
+  both hops, pod first (reliable), then data (drops at ``--rate``). Then
+  each ``--pod-train`` JSON (:func:`pod_train`: ``build_train_step`` with
+  ``pure_dp`` on a ``(data N, model G)`` mesh, since no launcher has a
+  pod flag): its records, each step's digest of the parameters and
+  optimizer state, launches, state bytes, bytes sent, host s in the
+  group's calls, step s and peak bytes, and with ``"ckpt_dir"`` the
+  checkpoint of its last step (the stacked format).
+
+:func:`grid_cases`, :func:`pod_train` and :func:`watch_steps` on the
+stacked grid give the other side (``watch_steps(shards=)`` and a stacked
+FSDP ``pod_train`` digest each rank's slice of the stacked form's state,
+``train/elastic.py``'s); :func:`tree_digest` and :func:`digest` compare
+them.
 """
 from __future__ import annotations
 
@@ -59,6 +79,7 @@ import socket
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -101,8 +122,19 @@ POLICIES = (("optireduce", {"active_peers": (0, 1, 3)}, "scan"),
             ("optireduce_rounds", {"shard_weights": (2, 2, 2, 1)}, "scan"),
             ("gloo_ring", {"shard_weights": (2, 2, 2, 1)}, "scan"),
             ("optireduce_rounds", {"dead_links": ((1, 2),)}, "pipelined"))
+# the policies on a pod grid of 2 data peers (a dead link there has no
+# relay)
+POD_POLICIES = (("optireduce", {"active_peers": (0,)}, "scan"),
+                ("optireduce_rounds", {"active_peers": (1,)}, "pipelined"),
+                ("tar_rounds_q", {"active_peers": (0,)}, "scan"),
+                ("ring_ht", {"active_peers": (0,)}, "pipelined"),
+                ("gloo_ring", {"active_peers": (1,)}, "scan"),
+                ("tar_rounds", {"shard_weights": (2, 1)}, "pipelined"),
+                ("optireduce_rounds", {"shard_weights": (2, 1)}, "scan"),
+                ("gloo_ring", {"shard_weights": (1, 2)}, "pipelined"))
 SMALL = 1 << 20                 # results up to this many elements are kept
 FULL_STRATEGIES = ("optireduce", "optireduce_q")   # on the full arena
+POD_FULL_STRATEGIES = ("optireduce_q",)            # ... of a pod grid
 
 
 def digest(t: torch.Tensor) -> str:
@@ -112,10 +144,12 @@ def digest(t: torch.Tensor) -> str:
 
 
 def tree_digest(tree) -> str:
-    """SHA-256 over a tree's leaves' bytes, in tree order."""
+    """SHA-256 over a tree's leaves' digests, in tree order (the leaves
+    copied and hashed on 4 threads: ``hashlib`` lets go of the GIL)."""
     h = hashlib.sha256()
-    for leaf in tree_leaves(tree):
-        h.update(digest(leaf).encode())
+    with ThreadPoolExecutor(4) as pool:
+        for d in pool.map(digest, tree_leaves(tree)):
+            h.update(d.encode())
     return h.hexdigest()
 
 
@@ -135,23 +169,27 @@ def peer_rows(rows, buckets: int, elems: int, seed: int,
     return torch.stack(out)
 
 
-def cases(strategies=None, policies: bool = True, modes=MODES):
-    """``(name, strategy, policy kwargs, mode)`` of every sync case."""
+def cases(strategies=None, policies=POLICIES, modes=MODES):
+    """``(name, strategy, policy kwargs, mode)`` of every sync case
+    (``policies``: a table like :data:`POLICIES`, or none)."""
     for s in strategies or strategy_names():
         for mode in modes:
             yield f"{s}/{mode}", s, {}, mode
-    if policies:
-        for s, kw, mode in POLICIES:
-            name = ",".join(f"{k}={v}" for k, v in kw.items())
-            yield f"{s}/{mode}/{name}", s, kw, mode
+    for s, kw, mode in policies or ():
+        name = ",".join(f"{k}={v}" for k, v in kw.items())
+        yield f"{s}/{mode}/{name}", s, kw, mode
+
+
+def _pod_axis(grid: collectives.Grid) -> str | None:
+    return "pod" if grid.pods > 1 else None
 
 
 def sync_cases(x: torch.Tensor, grid: collectives.Grid, *, rate: float,
                block: int, packet: int, strategies=None,
-               policies: bool = True, modes=MODES):
+               policies=POLICIES, modes=MODES):
     """Yield ``(name, synced stack, loss fraction, launches)`` of each case
     on the ``(P, B, E)`` stack ``x`` over ``grid`` (the draws keyed on
-    ``key(5)``)."""
+    ``key(5)``; on a grid of pods the configs name the pod axis)."""
     for name, strategy, kw, mode in cases(strategies, policies, modes):
         cfg = OptiReduceConfig(strategy=strategy, hadamard_block=block,
                                packet_elems=packet, incast=2, **kw)
@@ -159,7 +197,8 @@ def sync_cases(x: torch.Tensor, grid: collectives.Grid, *, rate: float,
                  and "shard_weights" not in kw)
         cfg = OptiReduceConfig(strategy=strategy, hadamard_block=block,
                                packet_elems=packet, incast=2,
-                               drop_rate=rate if lossy else 0.0, **kw)
+                               drop_rate=rate if lossy else 0.0,
+                               pod_axis=_pod_axis(grid), **kw)
         ctx = SyncContext(cfg=cfg, draws=ThreefryDraws(keys.key(5), cfg,
                                                        x.device), grid=grid)
         before = counts()
@@ -178,17 +217,23 @@ def rs_cases(x: torch.Tensor, grid: collectives.Grid, *, rate: float,
     FSDP reduce-scatter (``rs_spec``: TAR stage 1 with tail drops at
     ``rate``) of ``x`` in bf16, the trainer's gradient dtype, along dim 1
     of each peer's tensor, once per entry of :data:`RS_BITS` (the draws
-    keyed on ``key(5)``, the site ``()``)."""
+    keyed on ``key(5)``, the site ``()``). On a grid of pods the trainer's
+    two hops: the pod hop first, reliable, then the data hop."""
     g = x.to(torch.bfloat16)
     for name, bits in RS_BITS:
         cfg = OptiReduceConfig(strategy="optireduce", hadamard_block=block,
                                packet_elems=packet, drop_rate=rate,
-                               rs_wire_bits=bits)
+                               rs_wire_bits=bits, pod_axis=_pod_axis(grid))
         ctx = SyncContext(cfg=cfg, draws=ThreefryDraws(keys.key(5), cfg,
                                                        x.device),
                           bucket=(), grid=grid)
+        hops = [(collectives.DATA, rs_spec(cfg))]
+        if grid.pods > 1:
+            hops.insert(0, (collectives.POD, rs_spec(cfg, with_drops=False)))
         before = counts()
-        y = rs_spec(cfg).reduce_scatter(g, collectives.DATA, 1, ctx)
+        y = g
+        for axis, spec in hops:
+            y = spec.reduce_scatter(y, axis, 1, ctx)
         frac = float(ctx.loss_fraction())
         after = counts()
         yield name, y, frac, {k: after[k] - before[k] for k in after}
@@ -210,6 +255,20 @@ def primitive_cases(x: torch.Tensor, grid: collectives.Grid):
     v[rows == 1, 3] = float("nan")
     yield "pmax_nan", collectives.pmax(v, grid)
     yield "ppermute_partial", collectives.ppermute(v, permute_pairs(n), grid)
+
+
+def pod_primitive_cases(x: torch.Tensor, grid: collectives.Grid):
+    """Yield ``(name, result)`` on a grid of pods: ``pmax`` over both axes
+    of the first 64 entries of bucket 0 with peer 1's (pod-major) entry 3
+    made NaN (every peer must hold NaN there), and ``pmean`` of them over
+    the pod axis and over both."""
+    v = x[:, 0, :64].clone()
+    v[collectives.axis_index(v, grid, collectives.BOTH) == 1, 3] = \
+        float("nan")
+    yield "pmax_nan", collectives.pmax(v, grid, collectives.BOTH)
+    w = x[:, 0, :64]
+    yield "pmean_pod", collectives.pmean(w, grid, collectives.POD)
+    yield "pmean_both", collectives.pmean(w, grid, collectives.BOTH)
 
 
 def state_bytes(tree) -> int:
@@ -302,6 +361,127 @@ def watch_steps(keep: bool = False, wait_for: str | None = None, *,
         copies.clear()
 
 
+def _step_digest(leaves: list, dims, shards: int | None):
+    """A step's digest of the parameters and optimizer state: one, or with
+    ``shards`` the list of each rank's digest of its FSDP slices
+    (``elastic.split_leaf``, pod-major)."""
+    if shards is None:
+        return tree_digest(leaves)
+    return [tree_digest([elastic.split_leaf(leaf, d, shards)[r]
+                         for leaf, d in zip(leaves, dims)])
+            for r in range(shards)]
+
+
+def pod_train(job: dict, device, group=None, *, keep: bool = False) -> dict:
+    """Train as ``job`` says on the ``(pod G, data N)`` grid, through
+    ``build_train_step`` with ``pure_dp`` on ``make_host_mesh(dp=N,
+    tp=G)`` (its ``model`` axis the pods; with ``"mesh": "pod"`` on
+    ``HostMesh(("pod", "data"), (G, N))``): the stacked form (``group``
+    None) or one rank a peer over ``group``'s G x N ranks, pod-major (under
+    FSDP each rank drawing its shards as ``launch/train.py`` does).
+
+    ``job``: ``name``, ``arch`` (``smoke``: its smoke config), ``pods``
+    (G), ``peers`` (G x N), ``strategy``, ``dp_mode``, ``steps``,
+    ``seq_len``, ``global_batch``, ``drop_rate`` (tail), ``block``,
+    ``bucket_elems``, ``lr``, ``skip_threshold``, ``sync_mode``, ``seed``,
+    and optionally ``kernel_mode``, ``ckpt_dir`` (save the last step's
+    state there, the stacked format, rank 0 writing) and ``resume`` (start
+    from its newest checkpoint). Returns the records (loss, loss_frac, grad_norm, skipped,
+    step_s, dist_bytes and dist_axis_bytes, dist_s, peak_bytes on the
+    card), each step's digest of the parameters and optimizer state
+    (stacked FSDP: each rank's slice digests), launches and state bytes,
+    and the init's launches; with ``keep``, each step's leaves of the
+    parameters and optimizer state, copied to the host."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import HostMesh, make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.trainer import TrainConfig, build_train_step
+
+    device = torch.device(device)
+    cfg = (get_smoke if job.get("smoke") else get_config)(job["arch"])
+    world, pods = job["peers"], job["pods"]
+    tc = TrainConfig(
+        sync=OptiReduceConfig(strategy=job["strategy"],
+                              drop_rate=job["drop_rate"],
+                              drop_pattern="tail",
+                              hadamard_block=job["block"],
+                              skip_threshold=job["skip_threshold"]),
+        optimizer=OptimizerConfig(lr=job["lr"]), dp_mode=job["dp_mode"],
+        sync_mode=job["sync_mode"], bucket_elems=job["bucket_elems"],
+        seq_chunk=min(512, job["seq_len"]),
+        pure_dp=job.get("mesh") != "pod", kernel_mode=job.get("kernel_mode"))
+    mesh = (HostMesh(("pod", "data"), (pods, world // pods))
+            if job.get("mesh") == "pod"
+            else make_host_mesh(dp=world // pods, tp=pods))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=job["seq_len"],
+                                  global_batch=job["global_batch"],
+                                  seed=job["seed"]))
+    k = keys.key(job["seed"])
+    fsdp = job["dp_mode"] == "fsdp"
+    rank = 0 if group is None else dist.get_rank(group)
+    sharded = fsdp and group is not None
+    dims = elastic.fsdp_dims(cfg) if fsdp else None
+    before = counts()
+    params = init_params(k, cfg, device=device, keep=(
+        (lambda i, w: elastic.rank_piece(w, dims[i], world, rank))
+        if sharded else None))
+    init_launches = {n: v - before[n] for n, v in counts().items()}
+    step_fn, opt = build_train_step(cfg, tc, mesh, device=device,
+                                    group=group)
+    state = opt.init(params)
+    if fsdp:
+        dims = dims + elastic.state_dims(cfg, state, opt.state_like_params)
+    start = 0
+    if job.get("resume"):
+        start, (params, state), _ = ckpt_lib.restore(
+            job["ckpt_dir"], (params, state),
+            device="cpu" if sharded else device)
+        if sharded:
+            params, state = elastic.rank_tree((params, state), dims, world,
+                                              rank, device)
+    shards = world if fsdp and group is None else None
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out = {"records": [], "digests": [], "launches": [], "state_bytes": [],
+           "init_launches": init_launches, "leaves": []}
+    for step in range(start, job["steps"]):
+        batch = data.host_batch(step, 0, 1)
+        sent, held = collectives.dist_bytes, collectives.dist_s
+        by_axis = dict(collectives.dist_axis_bytes)
+        before = counts()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch, step, k)
+        rec = {n: float(v) for n, v in metrics.items()}   # waits for it
+        rec["step_s"] = time.perf_counter() - t0
+        after = counts()
+        rec["dist_bytes"] = collectives.dist_bytes - sent
+        rec["dist_s"] = collectives.dist_s - held
+        rec["dist_axis_bytes"] = {a: v - by_axis.get(a, 0) for a, v in
+                                  collectives.dist_axis_bytes.items()}
+        if device.type == "cuda":
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        out["records"].append(rec)
+        out["launches"].append({n: after[n] - before[n] for n in after})
+        out["state_bytes"].append(state_bytes((params, state)))
+        leaves = tree_leaves((params, state))
+        out["digests"].append(_step_digest(leaves, dims, shards))
+        if keep:
+            out["leaves"].append([t.detach().cpu().clone() for t in leaves])
+    if job.get("ckpt_dir") and not job.get("resume"):
+        tree = (params, state)
+        if sharded:       # every rank joins each leaf's gather
+            tree = elastic.gather_rank_tree(tree, dims, collectives.rank_grid(
+                group, pods=pods), keep=rank == 0)
+        if rank == 0:
+            ckpt_lib.save(job["ckpt_dir"], job["steps"], tree)
+    return out
+
+
 def ready_path(wait_for, rank: int) -> str:
     """The file rank ``rank`` writes when its first step is done on the
     card and it waits for ``wait_for``."""
@@ -323,16 +503,48 @@ def await_ready(procs, wait_for, *, timeout: float = 600.0) -> None:
         time.sleep(0.05)
 
 
-def arenas(args) -> list:
-    """``(case prefix, (B, E), strategies, small)`` of each arena asked
-    for: the small one through every case, the full one (``full:``)
-    through :data:`FULL_STRATEGIES` in ``pipelined`` mode."""
-    out = []
-    if args.arena:
-        out.append(("", args.arena, None, True))
-    if args.full:
-        out.append(("full:", args.full, FULL_STRATEGIES, False))
-    return out
+def grid_cases(grid: collectives.Grid, rows, device, *, world: int,
+               arena=None, full=None, rs=None, rate: float,
+               pod_rate: float, block: int, packet: int):
+    """Yield ``(name, result, loss fraction, launches)`` of every sync
+    case on ``grid`` over the seeded arenas' ``rows`` (this rank's
+    ``[rank]``, or every peer's on the stacked grid): the small ``arena``
+    through every strategy in each mode, the policies (:data:`POLICIES` at
+    4 flat peers, :data:`POD_POLICIES` at 2 data peers a pod) and the
+    primitives (loss fraction and launches None), the ``full`` arena
+    through :data:`FULL_STRATEGIES` (:data:`POD_FULL_STRATEGIES` on pods)
+    in ``pipelined`` mode, and the reduce-scatter of ``rs``. On a grid of
+    G > 1 pods the names take the prefix ``pods<G>:`` and the small arena
+    drops at ``pod_rate``."""
+    pods, n = grid.pods, world // grid.pods
+    prefix = "" if pods == 1 else f"pods{pods}:"
+    if arena:
+        x = peer_rows(rows, *arena, 0, device)
+        policies = (POLICIES if (pods, n) == (1, 4) else POD_POLICIES
+                    if pods > 1 and n == 2 else None)
+        for name, y, frac, launched in sync_cases(
+                x, grid, rate=rate if pods == 1 else pod_rate, block=block,
+                packet=packet, policies=policies):
+            yield prefix + name, y, frac, launched
+        prims = primitive_cases if pods == 1 else pod_primitive_cases
+        for name, y in prims(x, grid):
+            yield prefix + name, y, None, None
+        del x
+    if full:
+        x = peer_rows(rows, *full, 0, device)
+        for name, y, frac, launched in sync_cases(
+                x, grid, rate=rate, block=block, packet=packet,
+                strategies=FULL_STRATEGIES if pods == 1
+                else POD_FULL_STRATEGIES, policies=None,
+                modes=("pipelined",)):
+            yield prefix + "full:" + name, y, frac, launched
+        del x
+    if rs:
+        x = peer_rows(rows, *rs, 1, device)
+        for name, y, frac, launched in rs_cases(x, grid, rate=rate,
+                                                block=block, packet=packet):
+            yield prefix + name, y, frac, launched
+        del x
 
 
 def _pair(text: str) -> tuple[int, int]:
@@ -342,14 +554,14 @@ def _pair(text: str) -> tuple[int, int]:
 
 def run(args, device) -> None:
     """Join the default group over ``--backend``, run the ``--train``
-    launcher runs and the arenas' sync cases, leave the group, and write
+    launcher runs, the arenas' sync cases on each grid of ``--pods`` and
+    the ``--pod-train`` runs, leave the group, and write
     ``OUT/rank<r>.json`` (and ``.npz``)."""
     import torch.distributed as dist
     from repro_torch.launch import train as launch_train
     backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
     dist.init_process_group(backend)
     rank, world = dist.get_rank(), dist.get_world_size()
-    grid = collectives.rank_grid()
     out_dir = Path(args.out)
     report = {"rank": rank, "world": world, "backend": backend,
               "device": str(device), "sync": {}, "train": {}}
@@ -374,44 +586,28 @@ def run(args, device) -> None:
                 "launches": {k: after[k] - before[k] for k in after}}
             if keep and rank == 0:
                 torch.save(seen["params"], out_dir / f"{job['name']}.pt")
-        for prefix, (b, e), strategies, small in arenas(args):
-            x = peer_rows([rank], b, e, 0, device)
+        for pods in args.pods:
+            grid = collectives.rank_grid(pods=pods)
             sent, held = collectives.dist_bytes, collectives.dist_s
-            for name, y, frac, launched in sync_cases(
-                    x, grid, rate=args.rate, block=args.block,
-                    packet=args.packet, strategies=strategies,
-                    policies=small and world == 4,
-                    modes=MODES if small else ("pipelined",)):
-                report["sync"][prefix + name] = {
-                    "digest": digest(y), "loss_frac": frac,
-                    "launches": launched,
-                    "dist_bytes": collectives.dist_bytes - sent,
-                    "dist_s": collectives.dist_s - held}
-                sent, held = collectives.dist_bytes, collectives.dist_s
-                if y.numel() <= SMALL:
-                    arrays[prefix + name] = y.cpu().numpy()
-                del y
-            if small:
-                for name, y in primitive_cases(x, grid):
-                    report["sync"][name] = {"digest": digest(y)}
-                    arrays[name] = y.cpu().numpy()
-            del x
-        if args.rs:
-            x = peer_rows([rank], *args.rs, 1, device)
-            sent, held = collectives.dist_bytes, collectives.dist_s
-            for name, y, frac, launched in rs_cases(
-                    x, grid, rate=args.rate, block=args.block,
+            for name, y, frac, launched in grid_cases(
+                    grid, [rank], device, world=world, arena=args.arena,
+                    full=args.full, rs=args.rs, rate=args.rate,
+                    pod_rate=args.rate if args.pod_rate is None
+                    else args.pod_rate, block=args.block,
                     packet=args.packet):
-                report["sync"][name] = {
-                    "digest": digest(y), "loss_frac": frac,
-                    "launches": launched,
-                    "dist_bytes": collectives.dist_bytes - sent,
-                    "dist_s": collectives.dist_s - held}
+                entry = report["sync"][name] = {"digest": digest(y)}
+                if launched is not None:
+                    entry.update(loss_frac=frac, launches=launched,
+                                 dist_bytes=collectives.dist_bytes - sent,
+                                 dist_s=collectives.dist_s - held)
                 sent, held = collectives.dist_bytes, collectives.dist_s
                 if y.numel() <= SMALL:
                     arrays[name] = y.float().cpu().numpy()
                 del y
-            del x
+        for spec in args.pod_train:
+            job = json.loads(spec)
+            report["train"][job["name"]] = pod_train(job, device,
+                                                     dist.group.WORLD)
     finally:
         dist.destroy_process_group()
     if arrays:
@@ -430,6 +626,14 @@ def main(argv=None) -> int:
     ap.add_argument("--arena", type=_pair, default=None, metavar="B,E")
     ap.add_argument("--full", type=_pair, default=None, metavar="B,E")
     ap.add_argument("--rs", type=_pair, default=None, metavar="R,C")
+    ap.add_argument("--pods", type=lambda t: [int(v) for v in t.split(",")],
+                    default=[1], metavar="G1,G2,...",
+                    help="the grids the sync cases run on (1: flat)")
+    ap.add_argument("--pod-rate", type=float, default=None,
+                    help="the small arena's drop rate on a grid of pods "
+                         "(default --rate)")
+    ap.add_argument("--pod-train", action="append", default=[],
+                    help="JSON of a pod_train run")
     ap.add_argument("--block", type=int, default=256)
     ap.add_argument("--packet", type=int, default=64)
     ap.add_argument("--rate", type=float, default=0.05)
