@@ -254,9 +254,9 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     bytes; the output (128, 256) in vocab; no kernel of the repo launched
     (serving reaches none);
 52. ``serve_families``: ``serve.generate`` at full width and depth on
-    glm4-9b (B 32, prompt 256, 64 new), qwen2-moe-a2.7b (B 32, prompt 64,
-    32 new) and mamba2-1.3b (B 32, prompt 128, 64 new), bf16: the same
-    numbers, tokens in vocab;
+    glm4-9b (B 32, prompt 64, 64 new: its 256-token prompt was cut to pay
+    for 75.), qwen2-moe-a2.7b (B 32, prompt 64, 32 new) and mamba2-1.3b
+    (B 32, prompt 128, 64 new), bf16: the same numbers, tokens in vocab;
 53. ``serve_prefill``: ``prefill_step`` on gpt2-paper at B 32 and a
     1024-token prompt against the teacher-forced loop: the share of first
     tokens that agree, the fp32 logit margins, the caches within 0.05 of
@@ -401,7 +401,30 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     (reliable, unrotated) then the data hop; after every step each rank's
     state bitwise its slice of the stacked state, 174 B1 and 87 B2 a
     step, the state bytes its quarter's count;
-75. ``seconds``: the script's wall clock, whole and by group of phases.
+75. ``dist_tp_main``: the launcher under torchrun with ``--dp 2 --tp 2``
+    on gloo's 4 ranks, last in their world (tensor parallelism over ranks:
+    rank ``i * 2 + t`` holds only its tp shard of every tp-sharded leaf
+    and of its AdamW moments, the model's tp sums run in its tp group, its
+    arena syncs in its data group), gpt2-paper at full width,
+    ``optireduce``, tail drops 0.01, ``pipelined``, 2 steps, against the
+    stacked launcher's same flags (``--dp 2 --tp 2`` as one process, in
+    the parent while the ranks start): each rank's launches a step exactly
+    ``2 x TP_BUCKETS`` B1, ``TP_BUCKETS`` B2 and ``2 x TP_BUCKETS`` T1
+    (one normal leaf each of T1 at init) and none else; after each step
+    the leaves replicated over tp (and their moments) bitwise equal on
+    every rank, each rank's state (a strided sample of its shards, the
+    replicated leaves whole) bitwise its data replica's; every rank's loss
+    and grad norm within ``DIST_TP_REL`` relative of the stacked run's
+    (bf16 partial sums in another order); each rank's parameter shards
+    after the 2 steps within ``DIST_TP_PARAM_TOL`` (4 x lr) of the stacked
+    ones' tp slices, beyond a bf16 step of the stacked entry a step (each
+    form rounds it each step); state bytes a rank its shard's count; per
+    rank and
+    step host ms, peak bytes, state bytes, bytes sent by axis (data,
+    model) and host s in gloo's calls;
+76. ``seconds``: the script's wall clock, whole and by group of phases,
+    with ``dist_tp_main``'s seconds inside the ``dist`` group (its ranks'
+    run and its stacked side).
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -716,10 +739,10 @@ def main() -> int:
     sync_strategies(dev, counters)
     lap("strategies")
 
-    # 67.-74. one rank a peer over a process group (ROADMAP A18c): 4 gloo
-    # ranks on the card, flat and as a 2 x 2 pod grid, then nccl at the
-    # card count
-    dist_paths(dev)
+    # 67.-75. one rank a peer over a process group (ROADMAP A18c): 4 gloo
+    # ranks on the card, flat, as a 2 x 2 pod grid and as a (data 2, model
+    # 2) tp grid, then nccl at the card count
+    dist_tp = dist_paths(dev)
     lap("dist")
 
     # 8., 17. the same trainer on the card and on the CPU, same params and
@@ -787,13 +810,16 @@ def main() -> int:
     finish_netsim(netsim)
     lap("netsim_wait")
     emit({"phase": "seconds", "total": marks[-1] - marks[0],
-          "by_group": laps, "dryrun_own_s": dryrun_s})
+          "by_group": laps, "dryrun_own_s": dryrun_s,
+          "in_dist": {f"dist_tp_main_{k}": v for k, v in dist_tp.items()
+                      if k != "launches"}})
 
     kernels.append({
         "name": "fwht", "route": "cuda",
         "source": "src/repro_torch/kernels/fwht/csrc/fwht.cu",
         "replaces": "src/repro/kernels/fwht/fwht.py:130",
         "launches": launches["optireduce"]["fwht"],
+        "dist_tp_main_launches": dist_tp["launches"]["fwht"],
         "max_abs_err": b1["max_abs_err"],
         "ms": b1["ms"], "plain_ms": b1["plain_ms"],
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
@@ -803,6 +829,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/masked_sum/csrc/masked_mean.cu",
         "replaces": "src/repro/kernels/masked_sum/masked_sum.py:68",
         "launches": launches["optireduce"]["masked_mean"],
+        "dist_tp_main_launches": dist_tp["launches"]["masked_mean"],
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
@@ -842,6 +869,7 @@ def main() -> int:
         "replaces": "none (jax.random threefry2x32 draws: "
                     "src/repro/core/hadamard.py:23, core/drops.py:38)",
         "launches": launches["draws"]["optireduce"]["threefry"],
+        "dist_tp_main_launches": dist_tp["launches"]["threefry"],
         "max_abs_err": t1["max_abs_err"], "ms": t1["ms"],
         "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"], "library_ms": None})
@@ -3717,7 +3745,7 @@ SERVE_MAIN = ("--arch", "gpt2-paper", "--batch", "128", "--prompt-len",
               "128", "--max-new", "128")
 SERVE_MAIN_STEPS = 255
 # arch -> (batch, prompt, new); each at full depth through ``generate``
-SERVE_FAMILIES = {"glm4-9b": (32, 256, 64), "qwen2-moe-a2.7b": (32, 64, 32),
+SERVE_FAMILIES = {"glm4-9b": (32, 64, 64), "qwen2-moe-a2.7b": (32, 64, 32),
                   "mamba2-1.3b": (32, 128, 64)}
 SERVE_WARMUP = 4           # decode steps left out of the median
 PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW = 32, 1024, 32
@@ -5008,6 +5036,16 @@ DIST_POD_RATE = 0.05
 # what the ranks hold against the stacked pod grid's per-step launches
 DIST_POD_PHASES = {"pod_main": ("dist_pod_main", "pod_main"),
                    "pod_fsdp": ("dist_pod_fsdp_main", "fsdp_main")}
+# tp over gloo's 4 ranks: (data 2, model 2); the loss and grad norm against
+# the stacked form's (bf16 partial sums added in another order), and the
+# parameters after the steps: an AdamW step moves an entry ~lr, a small
+# gradient's sign may flip, and each form rounds the entry to bf16 after
+# each step (half a bf16 step each), so within 4 x lr and one bf16 step a
+# step of the stacked entry
+DIST_TP_REL = 1e-2
+DIST_TP_LR = 3e-4                  # the launcher's default
+DIST_TP_PARAM_TOL = 4 * DIST_TP_LR
+DIST_TP_STRIDE = 997               # the shards' digest: every 997th entry
 
 
 def _distcheck():
@@ -5023,6 +5061,15 @@ def _dist_train_argv(world: int) -> list:
     argv = train_argv("optireduce")
     argv[argv.index("--dp") + 1] = str(world)
     return argv + ["--steps", str(DIST_STEPS), "--sync-mode", "pipelined"]
+
+
+def dist_tp_argv(world: int, ranks: bool) -> list:
+    """The launcher's flags of ``dist_tp_main``: ``dist_main``'s at ``--dp
+    world / TP --tp TP`` (under torchrun, ``ranks``, over gloo)."""
+    argv = _dist_train_argv(world)
+    argv[argv.index("--dp") + 1] = str(world // TP)
+    return argv + ["--tp", str(TP)] + (["--dist-backend", "gloo"] if ranks
+                                       else [])
 
 
 def dist_pod_jobs(world: int) -> dict:
@@ -5066,10 +5113,19 @@ def _stacked_side(dev, world: int, full: bool) -> dict:
                 [distcheck.digest(row) for row in y], frac, launched)
             del y
         free_card()
+    tp = None
     if full:
         for name, job in dist_pod_jobs(world).items():
             pods[name] = distcheck.pod_train(job, dev)
             free_card()
+        t0 = time.perf_counter()
+        with distcheck.watch_steps(keep=True) as seen:
+            records = launch_train.run(dist_tp_argv(world, ranks=False))
+        runtime.set_kernel_mode(None)
+        tp = {"records": records, "params": seen["params"],
+              "launches": seen["launches"],
+              "seconds": time.perf_counter() - t0}
+        free_card()
     before = distcheck.counts()
     with distcheck.watch_steps(keep=True) as seen:
         records = launch_train.run(_dist_train_argv(world))
@@ -5078,7 +5134,7 @@ def _stacked_side(dev, world: int, full: bool) -> dict:
     free_card()
     return {"sync": sync, "records": records, "digests": seen["digests"],
             "params": seen["params"], "pod_sync": pod_sync, "pods": pods,
-            "launches": {k: after[k] - before[k] for k in after}}
+            "tp": tp, "launches": {k: after[k] - before[k] for k in after}}
 
 
 def _dist_held(phases: tuple, world: int, want: dict, reports: list,
@@ -5319,7 +5375,101 @@ def _dist_pod_held(reports: list, want: dict) -> None:
                  f"launches {launches_ok}, state bytes {bytes_ok}")
 
 
-def dist_paths(dev) -> None:
+def _dist_tp_held(reports: list, want: dict, out: Path) -> dict:
+    """Phase ``dist_tp_main``: gloo's ranks as the ``(data 2, model 2)``
+    grid, the launcher with ``--tp 2`` (:func:`dist_tp_argv`), against the
+    stacked launcher's same steps (``want``): launches a rank a step and at
+    init, the replicated leaves bitwise equal on every rank, each rank's
+    state its data replica's, records within ``DIST_TP_REL``, the
+    parameter shards within ``DIST_TP_PARAM_TOL`` of the stacked slices,
+    state bytes a rank ``TP_LOCAL`` entries of bf16 and two fp32 moments.
+    A shard's entry is held to ``DIST_TP_PARAM_TOL`` beyond one bf16 step
+    a step at the stacked entry (both forms round it to bf16 each step).
+    Returns rank 0's launches a step and the seconds of the ranks' run, of
+    its stacked side and of these checks."""
+    t0 = time.perf_counter()
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import tp_dims
+    from repro_torch.train import elastic
+    cfg = get_config("gpt2-paper")
+    runs = [rep["train"]["tp_main"] for rep in reports]
+    world = len(runs)
+    per_step = {"fwht": 2 * TP_BUCKETS, "masked_mean": TP_BUCKETS,
+                "threefry": 2 * TP_BUCKETS}
+    at_init = {"threefry": _normal_leaves(cfg)}
+    launches_ok = all(
+        all(step[k] == per_step.get(k, 0) for k in step)
+        and all(n == at_init.get(k, 0)
+                for k, n in run["other_launches"].items())
+        for run in runs for step in run["step_launches"])
+    replicated_ok = all(run["replicated"] == runs[0]["replicated"]
+                        for run in runs)
+    replicas_ok = all(runs[r]["digests"] == runs[r + TP]["digests"]
+                      for r in range(world - TP))
+    rel = max(abs(rec[k] - ref[k]) / abs(ref[k])
+              for run in runs for rec, ref in zip(run["records"],
+                                                   want["records"])
+              for k in ("loss", "grad_norm"))
+    count = TP_LOCAL * (2 + 2 * 4)
+    bytes_ok = all(b == count for run in runs for b in run["state_bytes"])
+    dims = tp_dims(cfg, TP)
+    gap, excess = 0.0, -math.inf
+    for r in range(world):
+        shards = torch.load(out / f"tp_main.rank{r}.pt")
+        for x, full, d in zip(shards, want["params"], dims):
+            piece = (full if d is None else elastic.split_leaf(
+                full, d, TP)[r % TP]).float()
+            diff = (x.float() - piece).abs()
+            # a bf16 step at the stacked entry: 2^(e - 8), |b| = m 2^e
+            step = torch.where(piece == 0, 0.0, torch.ldexp(
+                torch.ones_like(piece), torch.frexp(piece).exponent - 8))
+            gap = max(gap, float(diff.max()))
+            excess = max(excess, float((diff - DIST_STEPS * step).max()))
+        del shards
+    for r, run in enumerate(runs):
+        for i, rec in enumerate(run["records"]):
+            emit({"phase": "dist_tp_main_step", "rank": r, "step": i,
+                  "loss": rec["loss"], "loss_frac": rec["loss_frac"],
+                  "grad_norm": rec["grad_norm"],
+                  "step_ms": rec["step_s"] * 1e3,
+                  "peak_bytes": rec.get("peak_bytes"),
+                  "state_bytes": run["state_bytes"][i],
+                  "dist_bytes": rec["dist_bytes"],
+                  "dist_axis_bytes": rec["dist_axis_bytes"],
+                  "dist_s": rec["dist_s"],
+                  "launches": run["step_launches"][i]})
+    seconds = max(run["run_s"][1] - run["run_s"][0] for run in runs)
+    emit({"phase": "dist_tp_main", "backend": reports[0]["backend"],
+          "ranks": world, "dp": world // TP, "tp": TP, "steps": DIST_STEPS,
+          "launches_ok": launches_ok, "per_step_want": per_step,
+          "init_want": at_init,
+          "init_launches": [run["other_launches"] for run in runs],
+          "replicated_bitwise_equal": replicated_ok,
+          "data_replicas_bitwise_equal": replicas_ok,
+          "records_max_rel_diff": rel, "records_tolerance": DIST_TP_REL,
+          "params_max_abs_diff": gap,
+          "params_max_beyond_bf16_steps": excess,
+          "params_tolerance": DIST_TP_PARAM_TOL,
+          "state_bytes_a_rank": count, "state_bytes_ok": bytes_ok,
+          "ranks_s": seconds, "stacked_s": want["seconds"],
+          "stacked": [{k: rec[k] for k in ("loss", "loss_frac", "grad_norm",
+                                           "step_s")}
+                      for rec in want["records"]],
+          "stacked_launches": want["launches"]})
+    if not (launches_ok and replicated_ok and replicas_ok and bytes_ok
+            and rel <= DIST_TP_REL and excess <= DIST_TP_PARAM_TOL):
+        fail(f"dist_tp_main: launches {launches_ok}, replicated "
+             f"{replicated_ok}, data replicas {replicas_ok}, records "
+             f"{rel} (tolerance {DIST_TP_REL}), params {excess} beyond a "
+             f"bf16 step a step (tolerance {DIST_TP_PARAM_TOL}), state bytes "
+             f"{bytes_ok} ({count} expected)")
+    return {"launches": runs[0]["step_launches"][-1], "ranks_s": seconds,
+            "stacked_s": want["seconds"],
+            "checks_s": time.perf_counter() - t0}
+
+
+def dist_paths(dev) -> dict:
     """Phases ``dist_sync``, ``dist_main`` (4 gloo ranks on the one card,
     one peer a rank) and ``dist_nccl_sync``, ``dist_nccl_main`` (nccl at a
     world of ``torch.cuda.device_count()``, one rank a card), each world
@@ -5353,9 +5503,12 @@ def dist_paths(dev) -> None:
     each rank's shard bitwise its stacked row.
 
     ``dist_pod_sync``, ``dist_pod_main``, ``dist_pod_fsdp_main`` (gloo's
-    world, last): the same ranks as a ``(pod 2, data 2)`` grid of groups,
-    the syncs and :func:`dist_pod_jobs` against the stacked 2 x 2 grid
-    (see :func:`_dist_pod_held`).
+    world, after those): the same ranks as a ``(pod 2, data 2)`` grid of
+    groups, the syncs and :func:`dist_pod_jobs` against the stacked 2 x 2
+    grid (see :func:`_dist_pod_held`). ``dist_tp_main`` (gloo's world,
+    last): the ranks as a ``(data 2, model 2)`` grid, the launcher at
+    ``--tp 2`` (see :func:`_dist_tp_held`); returned: its launches a rank
+    a step and its seconds.
 
     Both worlds start at once and run their launcher first; both stacked
     sides run in this process meanwhile, during the ranks' start-up and
@@ -5397,7 +5550,10 @@ def dist_paths(dev) -> None:
                         "--pods", f"1,{DIST_PODS}", "--pod-rate",
                         str(DIST_POD_RATE)] + [
             arg for job in dist_pod_jobs(world).values()
-            for arg in ("--pod-train", json.dumps(job))]
+            for arg in ("--pod-train", json.dumps(job))] + [
+            "--tp-train", json.dumps({
+                "name": "tp_main", "argv": dist_tp_argv(world, ranks=True),
+                "stride": DIST_TP_STRIDE, "save_last": True})]
 
     free_card()
     t0 = time.perf_counter()
@@ -5431,6 +5587,7 @@ def dist_paths(dev) -> None:
             if backend == "gloo":
                 _dist_fsdp_held(reports)
                 _dist_pod_held(reports, want)
+                tp = _dist_tp_held(reports, want["tp"], out / backend)
     finally:
         for proc in (p for ranks in procs for p in ranks):
             if proc.poll() is None:
@@ -5438,6 +5595,7 @@ def dist_paths(dev) -> None:
                 proc.wait()
     shutil.rmtree(out, ignore_errors=True)
     free_card()
+    return tp
 
 
 PORTED_KERNELS = ("fwht_rows_kernel", "masked_mean_vec4", "ht_kernel",

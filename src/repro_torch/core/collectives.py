@@ -66,8 +66,22 @@ rank sends; ``dist_axis_bytes`` the same by the axis whose group carried
 them) and ``dist_s`` (host seconds inside the library's calls) measure the
 traffic. Over gloo a call returns when its data has moved, so
 ``dist_s`` is the whole wait; an NCCL call returns once its work is queued
-on the card, so there ``dist_s`` is the enqueue only. This form runs at tp
-1: tp over ranks is a later slice (ROADMAP A18c).
+on the card, so there ``dist_s`` is the enqueue only.
+
+With ``tp=T`` (one pod) the group's N * T ranks are the reference's
+``("data", "model")`` mesh, model innermost: rank ``r = i * T + t`` is
+data index i, tp index t, so a tp group is T adjacent ranks. The grid
+makes each data index's tp group (the ``MODEL`` axis) and each tp index's
+data group (ranks ``t, T + t, ...``), once; ``DATA`` and ``BOTH`` run in
+the data group, ``MODEL`` in the tp group. ``Grid.rank`` and
+``index_on(DATA)`` are the data index ``r // T``, which keys the batch
+rows and the masks, so every tp rank of a data index draws that index's,
+as every tp group of the stacked form does; ``index_on(MODEL)`` is ``r mod
+T``. A stack holds the rank's one row: the grid's ``tp_rows`` is 1, and
+the sync sees one tp group (the codecs' grids ungrouped). :func:`psum`
+over ``MODEL`` gathers the tp group's rows and adds them in rank order in
+their dtype (no library ``all_reduce``), as ``pmean`` does. Pods and tp
+together over ranks are a later slice (ROADMAP A18c).
 """
 from __future__ import annotations
 
@@ -80,12 +94,14 @@ import torch
 
 DATA = "data"
 POD = "pod"
+MODEL = "model"
 BOTH = (POD, DATA)
 
 permutes = 0
 dist_bytes = 0           # bytes this rank sent through the process group
 dist_s = 0.0             # host seconds inside the process group's calls
-# dist_bytes by the axis whose group carried them: "data", "pod", "both"
+# dist_bytes by the axis whose group carried them: "data", "pod", "both",
+# "model"
 dist_axis_bytes: dict[str, int] = {}
 
 
@@ -94,10 +110,11 @@ class Grid:
     """The layout of a stack's P peers: T tp groups (``tp``) of G pods
     (``pods``) of N data peers, ordered ``(model, pod, data)``. N is what a
     stack's P leaves, P / (T * G). With ``group`` (a ``torch.distributed``
-    process group of G * N ranks, pod-major) the peers are the group's
-    ranks, one a rank, and a stack holds this rank's row alone;
-    ``data_group`` and ``pod_group`` are this rank's data and pod groups,
-    made from ``group`` once a (group, pods) (:func:`_subgroups`)."""
+    process group of G * N ranks, pod-major, or of N * T ranks, model
+    innermost) the peers are the group's ranks, one a rank, and a stack
+    holds this rank's row alone; ``data_group``, ``pod_group`` and
+    ``model_group`` are this rank's data, pod and tp groups, made from
+    ``group`` once a (group, pods, tp) (:func:`_subgroups`)."""
     pods: int = 1
     tp: int = 1
     group: Any = None
@@ -105,6 +122,8 @@ class Grid:
                                         compare=False, repr=False)
     pod_group: Any = dataclasses.field(default=None, init=False,
                                        compare=False, repr=False)
+    model_group: Any = dataclasses.field(default=None, init=False,
+                                         compare=False, repr=False)
 
     def __post_init__(self):
         if self.pods < 1 or self.tp < 1:
@@ -112,56 +131,76 @@ class Grid:
                              f"{self.pods} and {self.tp}")
         if self.group is None:
             return
-        if self.tp != 1:
+        if self.pods > 1 and self.tp > 1:
             raise ValueError(
-                f"a process group runs at tp 1, got tp {self.tp} (tp over "
-                "ranks: ROADMAP A18c)")
-        if self.ranks % self.pods:
-            raise ValueError(f"{self.ranks} ranks do not fill {self.pods} "
-                             "pods")
-        data, pod = ((self.group, None) if self.pods == 1
-                     else _subgroups(self.group, self.pods))
+                f"pods x tp over ranks ({self.pods} pods, tp {self.tp}) is "
+                "a later slice of ROADMAP A18c: a process group runs pods "
+                "or tp groups, not both")
+        if self.ranks % (self.pods * self.tp):
+            raise ValueError(
+                f"{self.ranks} ranks do not fill {self.pods} pods"
+                if self.tp == 1 else
+                f"{self.ranks} ranks do not fill tp groups of {self.tp}")
+        data, pod, model = ((self.group, None, None)
+                            if self.pods == self.tp == 1
+                            else _subgroups(self.group, self.pods, self.tp))
         object.__setattr__(self, "data_group", data)
         object.__setattr__(self, "pod_group", pod)
+        object.__setattr__(self, "model_group", model)
 
     @property
     def rank(self) -> int:
-        """This process's index on the whole grid, pod-major (``g * N +
-        i``): its rank in ``group`` (0 without)."""
+        """This process's index on the ``(pod, data)`` grid, pod-major
+        (``g * N + i``): its rank in ``group`` over T (0 without)."""
         if self.group is None:
             return 0
         import torch.distributed as dist
-        return dist.get_rank(self.group)
+        return dist.get_rank(self.group) // self.tp
 
     @property
     def ranks(self) -> int:
-        """The group's size, G * N (1 without a group)."""
+        """The group's size, G * N * T (1 without a group)."""
         if self.group is None:
             return 1
         import torch.distributed as dist
         return dist.get_world_size(self.group)
 
+    @property
+    def tp_rows(self) -> int:
+        """The tp groups a stack holds: T, or 1 over a process group (a
+        rank's row is one tp rank's)."""
+        return 1 if self.group is not None else self.tp
+
     def index_on(self, axis) -> int:
         """This rank's index on ``axis``: its data index ``r mod N``, its
-        pod index ``r div N``, or ``r`` on ``BOTH``."""
+        pod index ``r div N`` or ``r`` on ``BOTH`` (r its ``(pod, data)``
+        index, :attr:`rank`), its tp index on ``MODEL``."""
         _check_axis(axis)
-        r, n = self.rank, self.ranks // self.pods
+        if axis == MODEL:
+            if self.group is None:
+                return 0
+            import torch.distributed as dist
+            return dist.get_rank(self.group) % self.tp
+        r, n = self.rank, self.ranks // (self.pods * self.tp)
         if axis == BOTH:
             return r
         return r % n if axis == DATA else r // n
 
     def axis_group(self, axis):
         """The process group an ``axis`` collective runs in: the data
-        group, the pod group (None with one pod) or the whole grid."""
+        group, the pod group (None with one pod), the whole ``(pod,
+        data)`` grid, or the tp group (None at tp 1)."""
         _check_axis(axis)
         if axis == BOTH:
-            return self.group
-        return self.data_group if axis == DATA else self.pod_group
+            return self.group if self.tp == 1 else self.data_group
+        return {DATA: self.data_group, POD: self.pod_group,
+                MODEL: self.model_group}[axis]
 
     @property
     def blocks(self) -> int:
-        """The data axis's blocks of N contiguous peers: T * G."""
-        return self.tp * self.pods
+        """The data axis's blocks of N contiguous peers of a stack: T * G
+        (G over a process group)."""
+        return self.tp_rows * self.pods
 
     def data_size(self, p: int) -> int:
         """N, the data peers of each pod of a stack of ``p`` peers (the
@@ -170,7 +209,7 @@ class Grid:
             if p != 1:
                 raise ValueError(f"a process group's stack holds this "
                                  f"rank's one row, got {p}")
-            return self.ranks // self.pods
+            return self.ranks // (self.pods * self.tp)
         if p % self.blocks:
             raise ValueError(f"{p} peers do not fill {self.tp} x "
                              f"{self.pods} pods")
@@ -178,14 +217,14 @@ class Grid:
 
     def by_group(self, x: torch.Tensor) -> torch.Tensor:
         """A ``(P, ...)`` stack as ``(T, G * N, ...)``, a tp group a row (a
-        view)."""
-        return x.view(self.tp, -1, *x.shape[1:])
+        view; one row over a process group)."""
+        return x.view(self.tp_rows, -1, *x.shape[1:])
 
     def group_rows(self, x: torch.Tensor) -> torch.Tensor:
         """One row of each tp group of a ``(P, ...)`` stack whose rows are
         equal within each group (a pmax over ``BOTH``): ``(...)`` when
-        T = 1, else ``(T, ...)``."""
-        if self.tp == 1:
+        the stack holds one tp group, else ``(T, ...)``."""
+        if self.tp_rows == 1:
             return x[0]
         return x[::x.shape[0] // self.tp]
 
@@ -193,7 +232,7 @@ class Grid:
                       device: torch.device) -> torch.Tensor:
         """``(P,)``: each of ``p`` peers' tp group times ``stride``, where
         its group's rows start in a ``(T * stride, ...)`` table."""
-        per_group = p // self.tp
+        per_group = p // self.tp_rows
         return index(tuple(q // per_group * stride for q in range(p)),
                      device)
 
@@ -201,37 +240,51 @@ class Grid:
 ONE = Grid()
 
 
-def rank_grid(group=None, pods: int = 1) -> Grid:
+def rank_grid(group=None, pods: int = 1, tp: int = 1) -> Grid:
     """The grid of a process group's ranks, one peer a rank (the default
     group when None): ``pods`` pods of the group's size / ``pods`` data
-    peers, pod-major. Every rank must call it alike: over pods it makes the
-    data and pod groups (``dist.new_group``), once a (group, pods)."""
+    peers, pod-major, or data peers of ``tp`` tp ranks each, model
+    innermost. Every rank must call it alike: over pods or tp it makes the
+    subgroups (``dist.new_group``), once a (group, pods, tp)."""
     import torch.distributed as dist
-    return Grid(pods=pods, group=dist.group.WORLD if group is None
+    return Grid(pods=pods, tp=tp, group=dist.group.WORLD if group is None
                 else group)
 
 
 _subgroup_cache: dict = {}
 
 
-def _subgroups(group, pods: int):
-    """``(data group, pod group)`` of this rank on the pod-major grid of
-    ``group``'s ranks, made once a (group, pods): every rank makes every
-    data group (``g * N ... g * N + N - 1``), then every pod group (``i, N
-    + i, ...``), in that order, as ``dist.new_group`` asks."""
+def _subgroups(group, pods: int, tp: int = 1):
+    """``(data group, pod group, tp group)`` of this rank on the grid of
+    ``group``'s ranks, made once a (group, pods, tp), every rank making
+    every group in the same order, as ``dist.new_group`` asks. Pods
+    (pod-major, rank ``g * N + i``): every data group (``g * N ... g * N +
+    N - 1``), then every pod group (``i, N + i, ...``); no tp group. tp
+    (model innermost, rank ``i * T + t``): every tp group (``i * T ... i *
+    T + T - 1``), then every data group (``t, T + t, ...``); no pod
+    group."""
     import torch.distributed as dist
-    cache_key = (id(group), pods)
+    cache_key = (id(group), pods, tp)
     if cache_key not in _subgroup_cache:
         ranks = dist.get_process_group_ranks(group)
-        n, me = len(ranks) // pods, dist.get_rank(group)
+        me = dist.get_rank(group)
         backend = dist.get_backend(group)
-        made = [dist.new_group([ranks[g * n + i] for i in range(n)],
-                               backend=backend) for g in range(pods)]
-        made += [dist.new_group([ranks[g * n + i] for g in range(pods)],
-                                backend=backend) for i in range(n)]
+        if tp == 1:
+            n = len(ranks) // pods
+            made = [dist.new_group([ranks[g * n + i] for i in range(n)],
+                                   backend=backend) for g in range(pods)]
+            made += [dist.new_group([ranks[g * n + i] for g in range(pods)],
+                                    backend=backend) for i in range(n)]
+            mine = (made[me // n], made[pods + me % n], None)
+        else:
+            n = len(ranks) // tp
+            made = [dist.new_group([ranks[i * tp + t] for t in range(tp)],
+                                   backend=backend) for i in range(n)]
+            made += [dist.new_group([ranks[i * tp + t] for i in range(n)],
+                                    backend=backend) for t in range(tp)]
+            mine = (made[n + me % tp], None, made[me // tp])
         # the group is kept beside its subgroups, so its id stays its own
-        _subgroup_cache[cache_key] = (group, made[me // n],
-                                      made[pods + me % n])
+        _subgroup_cache[cache_key] = (group, *mine)
     return _subgroup_cache[cache_key][1:]
 
 
@@ -255,16 +308,18 @@ def per_peer(values: tuple[int, ...], device: torch.device,
 
 
 def _check_axis(axis) -> None:
-    if axis not in (DATA, POD, BOTH):
+    if axis not in (DATA, POD, BOTH, MODEL):
         raise ValueError(f"unknown peer axis {axis!r}; one of "
-                         f"{DATA!r}, {POD!r}, {BOTH!r}")
+                         f"{DATA!r}, {POD!r}, {BOTH!r}, {MODEL!r}")
 
 
 def axis_size(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> int:
-    """The size of ``axis`` on the grid of ``x``'s P peers: N, G or G * N."""
+    """The size of ``axis`` on the grid of ``x``'s P peers: N, G, G * N
+    or T."""
     _check_axis(axis)
     n = grid.data_size(x.shape[0])
-    return {DATA: n, POD: grid.pods, BOTH: grid.pods * n}[axis]
+    return {DATA: n, POD: grid.pods, BOTH: grid.pods * n,
+            MODEL: grid.tp}[axis]
 
 
 def axis_index(x: torch.Tensor, grid: Grid = ONE,
@@ -275,7 +330,8 @@ def axis_index(x: torch.Tensor, grid: Grid = ONE,
         return index((grid.index_on(axis),), x.device)
     peers = torch.arange(x.shape[0], device=x.device)
     return {DATA: peers % n, POD: (peers // n) % grid.pods,
-            BOTH: peers % (grid.pods * n)}[axis]
+            BOTH: peers % (grid.pods * n),
+            MODEL: peers // (grid.pods * n)}[axis]
 
 
 def on_grid(rows: torch.Tensor, x: torch.Tensor, grid: Grid = ONE,
@@ -298,7 +354,7 @@ def _dist_call(fn, sent: int, axis) -> None:
     fn()
     dist_s += time.perf_counter() - t0
     dist_bytes += sent
-    name = "both" if axis == BOTH else axis
+    name = "both" if axis == BOTH else axis    # "data", "pod", "model"
     dist_axis_bytes[name] = dist_axis_bytes.get(name, 0) + sent
 
 
@@ -438,6 +494,23 @@ def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
     for part in parts[1:]:
         total = total + part
     return total.unsqueeze(dim)
+
+
+def psum(x: torch.Tensor, grid: Grid = ONE, axis=MODEL) -> torch.Tensor:
+    """Sum over ``axis`` in index order and in ``x``'s dtype, held by every
+    peer on it: ``(P, ...)`` -> ``(P, ...)``. Over a process group the
+    axis's rows are gathered and added here (a library ``all_reduce``
+    reorders its adds), so every rank holds the same bits; on stacked peers
+    the model axis alone (the T tp groups' rows at each peer)."""
+    if grid.group is not None:
+        if grid.axis_group(axis) is None:
+            return x
+        return _sum_in_order(gather_peers(x, grid, axis), 0)
+    if axis != MODEL:
+        raise ValueError(f"psum of stacked peers sums the model axis, not "
+                         f"{axis!r}")
+    xs = x.reshape(grid.tp, -1, *x.shape[1:])
+    return _sum_in_order(xs, 0).expand_as(xs).reshape(x.shape)
 
 
 def pmean(x: torch.Tensor, grid: Grid = ONE, axis=DATA) -> torch.Tensor:

@@ -522,10 +522,10 @@ class HTQuant(Codec):
         lo, step = enc.lo.view(-1, nblk), enc.step.view(-1, nblk)
         if shard_index is None:
             return lo, step
-        if grid.tp > 1:
+        if grid.tp_rows > 1:
             # receiver r of tp group t reads row t * n + shard_index[r]
             shard_index = shard_index + grid.group_offsets(
-                shard_index.shape[0], lo.shape[0] // grid.tp,
+                shard_index.shape[0], lo.shape[0] // grid.tp_rows,
                 shard_index.device)
         return lo[shard_index], step[shard_index]
 
@@ -579,7 +579,7 @@ class HTQuant(Codec):
         block = ctx.cfg.hadamard_block
         shape = gathered.shape
         # each tp group's peers read their group's grids
-        groups, nblk = ctx.grid.tp, enc.lo.shape[-1]
+        groups, nblk = ctx.grid.tp_rows, enc.lo.shape[-1]
         step = enc.step.view(groups, 1, nblk, 1)
         lo = enc.lo.view(groups, 1, nblk, 1)
         vals = (gathered.reshape(groups, -1, nblk, block).to(torch.float32)

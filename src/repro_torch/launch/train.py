@@ -54,13 +54,19 @@ a time and keeps its slice (``train/elastic.py``); ``--ckpt-dir`` gathers
 the shards one leaf at a time and rank 0 writes the full leaves, the
 format the one-process form writes, and ``--resume`` hands each rank its
 slice of them, so either form resumes the other's checkpoints (at the same
-world size; resuming over ranks at another is a later slice). The
-launcher has no pod flag (nor the reference's): the ``(pod, data)`` grid
-over ranks runs through ``build_train_step(..., group=)`` on a pod mesh
-(``tools/distcheck.py --pod-train``). ``--tp``,
-``--production-mesh``, ``--sync-mode vmap``, ``--recovery``,
-``--transport`` and ``--adaptive`` over ranks raise (later slices of
-ROADMAP A18c).
+world size; resuming over ranks at another is a later slice). ``--dp N
+--tp T`` under torchrun takes a world of N x T, rank ``i * T + t`` data
+index i and tp rank t (the reference's ``("data", "model")`` mesh, model
+innermost): each rank holds only its tp shard of every tp-sharded leaf and
+of its moments (drawn a full leaf at a time, checkpointed as full leaves
+gathered over its tp group), and the model's tp sums run in its tp group;
+the dense family, replicated. The launcher has no pod flag (nor the
+reference's): the ``(pod, data)`` grid over ranks runs through
+``build_train_step(..., group=)`` on a pod mesh (``tools/distcheck.py
+--pod-train``). ``--production-mesh``, ``--sync-mode vmap``,
+``--recovery``, ``--transport``, ``--adaptive``, and with ``--tp``
+``--dp-mode fsdp``, ``--seq-parallel`` and the MoE, SSM, hybrid and
+frontend families over ranks raise (later slices of ROADMAP A18c).
 On the card every Hadamard encode/decode, every drop-compensated mean and,
 with ``--strategy optireduce_q``, every quantization stage (grid pass,
 stage-1 codes, dequant + mean, stage-2 codes) is a launch of the port's
@@ -101,6 +107,8 @@ Example:
       --arch gpt2-paper --steps 3 --drop-rate 0.01 --dist-backend gloo
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --smoke --device cpu --steps 2 --drop-rate 0.01 --dp-mode fsdp
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --smoke --device cpu --dist-backend gloo --dp 2 --tp 2 --steps 2
 """
 from __future__ import annotations
 
@@ -130,6 +138,7 @@ from repro_torch.kernels.runtime import MODES as KERNEL_MODES
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import init_params
+from repro_torch.models.transformer import check_tp_ranks
 from repro_torch.net import (HostRing, RendezvousClient, RendezvousServer,
                              bernoulli_drops)
 from repro_torch.optim.optimizers import OptimizerConfig
@@ -254,8 +263,9 @@ def prefix_embeds(cfg, args, step: int) -> np.ndarray:
 
 # flags the one-rank-a-peer form refuses: each is a later slice of A18c
 RANK_REFUSED = (
-    ("--tp", lambda a: a.tp != 1), ("--production-mesh",
-                                     lambda a: a.production_mesh),
+    ("--production-mesh", lambda a: a.production_mesh),
+    ("--dp-mode fsdp with --tp (FSDP x TP)",
+     lambda a: a.tp != 1 and a.dp_mode == "fsdp"),
     ("--sync-mode vmap", lambda a: a.sync_mode == "vmap"),
     ("--recovery", lambda a: a.recovery != "none"),
     ("--transport", lambda a: a.transport != "lossy"),
@@ -280,9 +290,15 @@ def _rank_setup(args):
                 f"{flag} over ranks is a later slice of ROADMAP A18c (over "
                 "ranks the launcher refuses "
                 + ", ".join(f for f, _ in RANK_REFUSED) + ")")
-    if args.dp is not None and args.dp != world:
-        raise ValueError(f"--dp {args.dp} under torchrun with a world of "
-                         f"{world}: one peer a rank")
+    if args.tp != 1:
+        check_tp_ranks(get_smoke(args.arch) if args.smoke
+                       else get_config(args.arch),
+                       seq_parallel=args.seq_parallel)
+    if world % args.tp or (args.dp is not None
+                           and args.dp * args.tp != world):
+        raise ValueError(f"--dp {args.dp} --tp {args.tp} under torchrun "
+                         f"with a world of {world}: one peer a rank, the "
+                         "world --dp x --tp")
     device = resolve_device(args.device)
     if device.type == "cuda" and device.index is None:
         local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
@@ -312,7 +328,8 @@ def run(argv=None) -> list[dict]:
     misses so far) and ``wire_error`` (1 when the bridge worker failed since
     the last step). Under torchrun each rank returns its own records, with
     ``dist_bytes`` (bytes the rank sent through the process group in the
-    step), ``dist_s`` (host seconds inside its calls: over gloo the whole
+    step; ``dist_axis_bytes`` the same by axis: "data", "model", ...),
+    ``dist_s`` (host seconds inside its calls: over gloo the whole
     wait, over NCCL the enqueue only) and, on the card,
     ``peak_bytes`` (``torch.cuda.max_memory_allocated`` so far); only rank
     0 prints."""
@@ -336,7 +353,7 @@ def _run(ap, args, group, device) -> list[dict]:
         leader = rank == 0
     else:
         leader = True
-    dp = ranks or (4 if args.dp is None else args.dp)
+    dp = ranks // args.tp if ranks else (4 if args.dp is None else args.dp)
     mesh = (make_production_mesh() if args.production_mesh
             else make_host_mesh(dp=dp, tp=args.tp))
     tp = mesh.shape.get("model", 1)
@@ -415,18 +432,25 @@ def _run(ap, args, group, device) -> list[dict]:
                                       seed=args.seed))
         key = make_key(args.seed)
         # FSDP over ranks: this rank's shard of each leaf, cut from the
-        # full leaf as it is drawn
-        sharded = group is not None and args.dp_mode == "fsdp"
-        dims = elastic.fsdp_dims(cfg, tp) if sharded else None
+        # full leaf as it is drawn; tp over ranks: its tp chunk (of n, its
+        # piece, over the axis whose group joins them)
+        sharded = group is not None and (args.dp_mode == "fsdp" or tp > 1)
+        dims = pieces = piece = axis = None
+        if sharded and tp > 1:
+            dims, pieces, piece = elastic.tp_dims(cfg, tp), tp, rank % tp
+            axis = collectives.MODEL
+        elif sharded:
+            dims, pieces, piece = elastic.fsdp_dims(cfg, tp), ranks, rank
         params = init_params(key, cfg, device=device, tp=tp, keep=(
-            (lambda i, w: elastic.rank_piece(w, dims[i], ranks, rank))
+            (lambda i, w: elastic.rank_piece(w, dims[i], pieces, piece))
             if sharded else None))
         step_fn, opt = build_train_step(cfg, tc, mesh, device=device,
                                         group=group)
         opt_state = opt.init(params)
         if sharded:
-            dims = dims + elastic.state_dims(cfg, opt_state,
-                                             opt.state_like_params, tp)
+            dims = dims + elastic.state_dims(
+                cfg, opt_state, opt.state_like_params, tp,
+                dims=dims if tp > 1 else None)
         rec_state = None
         if args.recovery != "none":
             plan = BucketPlan.for_tree(params, tc.bucket_elems)
@@ -446,8 +470,8 @@ def _run(ap, args, group, device) -> list[dict]:
             tree = ckpt_tree()
             if sharded:       # every rank joins each leaf's gather
                 tree = elastic.gather_rank_tree(
-                    tree, dims, collectives.rank_grid(group),
-                    keep=ckpt is not None)
+                    tree, dims, collectives.rank_grid(group, tp=tp),
+                    keep=ckpt is not None, axis=axis)
             if ckpt is not None:
                 ckpt.save(label, tree)
 
@@ -457,8 +481,8 @@ def _run(ap, args, group, device) -> list[dict]:
                     args.ckpt_dir, ckpt_tree(),
                     device="cpu" if sharded else device)
                 if sharded:   # this rank's slice of each full leaf
-                    restored = elastic.rank_tree(restored, dims, ranks, rank,
-                                                 device)
+                    restored = elastic.rank_tree(restored, dims, pieces,
+                                                 piece, device)
                 if rec_state is None:
                     params, opt_state = restored
                 else:
@@ -509,6 +533,7 @@ def _run(ap, args, group, device) -> list[dict]:
             st0 = tracer.now() if tracer is not None else 0.0
             t_step = time.perf_counter()
             sent, held = collectives.dist_bytes, collectives.dist_s
+            by_axis = dict(collectives.dist_axis_bytes)
             if rec_state is None:
                 params, opt_state, metrics = step_fn(params, opt_state, batch,
                                                      step, key)
@@ -520,6 +545,9 @@ def _run(ap, args, group, device) -> list[dict]:
             if group is not None:
                 m["dist_bytes"] = collectives.dist_bytes - sent
                 m["dist_s"] = collectives.dist_s - held
+                m["dist_axis_bytes"] = {
+                    a: v - by_axis.get(a, 0)
+                    for a, v in collectives.dist_axis_bytes.items()}
                 if device.type == "cuda":
                     import torch
                     m["peak_bytes"] = torch.cuda.max_memory_allocated(device)

@@ -13,7 +13,15 @@ head attends with the K / V head ``kv_heads`` names (the reference's
 row-parallel products (``wo``, ``w_down``) are T partial products over the
 weights' T row chunks, each rounded to the activation dtype, reduced by
 ``pctx.reduce_output`` (a psum in rank order, scattered over the sequence
-under SP).
+under SP). Over ranks (``pctx.over_ranks()``) the weights are this rank's
+shards: its ``Hq/T`` padded q heads against its slices of ``wq``, ``wk``
+and ``wv`` (``kv_heads`` then names its local K / V head of each of its q
+heads), its column chunks of ``w_gate`` and ``w_up``, one partial product
+of its rows of ``wo`` and ``w_down`` before the sum over the tp group; the
+replicated input of the column-parallel products goes through
+``pctx.copy_tp``, and so do ``wk`` and ``wv`` where they are replicated
+over tp (``kv_shared``): each rank's gradient of them is its own q heads'
+part.
 
 The KV cache holds the post-RoPE K and V before any expansion to the q
 heads, ``(B, S, H_cache, dh)``; under tensor parallelism it is the global
@@ -165,8 +173,9 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor,
                  pctx: ParallelCtx) -> torch.Tensor:
     """``x @ w`` with ``w`` row-parallel over the tp ranks: rank t's
     partial product of its chunk of x's last dim and w's rows, rounded to
-    x's dtype, ``(T, B, S, D)``, then ``pctx.reduce_output``."""
-    t = pctx.tp_size()
+    x's dtype, ``(T, B, S, D)``, then ``pctx.reduce_output`` (over ranks
+    ``x`` and ``w`` are the rank's chunks, its one partial product)."""
+    t = pctx.tp_rows()
     b, s, k = x.shape
     parts = torch.matmul(x.reshape(b * s, t, k // t).transpose(0, 1),
                          w.to(x.dtype).reshape(t, k // t, w.shape[-1]))
@@ -182,19 +191,25 @@ def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
                     pctx: ParallelCtx | None = None,
                     kv_heads: torch.Tensor | None = None,
                     cache_heads: torch.Tensor | None = None,
-                    collect_kv: bool = False):
+                    collect_kv: bool = False, kv_shared: bool = False):
     """Full causal attention for training and prefill. x: (B, S, D); w
     holds wq (D, Hq*dh), wk/wv (D, Hkv*dh), wo (Hq*dh, D), ``head_dim`` and
     ``attn_chunk``. Under tensor parallelism ``kv_heads`` (int64 ``(Hq,)``)
-    gives each q head's K / V head, and ``wo`` is row-parallel. With
+    gives each q head's K / V head, and ``wo`` is row-parallel; over ranks
+    ``kv_shared`` says ``wk`` and ``wv`` are replicated over tp. With
     ``collect_kv`` also returns the post-RoPE ``KVCache`` before expansion
     (the heads ``cache_heads`` selects, when given)."""
     b, s, _ = x.shape
     dh = w["head_dim"]
     attn_chunk = w.get("attn_chunk", 0)
+    wk, wv = w["wk"], w["wv"]
+    if pctx is not None:
+        x = pctx.copy_tp(x)
+        if kv_shared:
+            wk, wv = pctx.copy_tp(wk), pctx.copy_tp(wv)
     q = x @ w["wq"].to(x.dtype)
-    k = x @ w["wk"].to(x.dtype)
-    v = x @ w["wv"].to(x.dtype)
+    k = x @ wk.to(x.dtype)
+    v = x @ wv.to(x.dtype)
     hq, hkv = q.shape[-1] // dh, k.shape[-1] // dh
     q = apply_rope(q.reshape(b, s, hq, dh), positions, theta=rope_theta)
     k = apply_rope(k.reshape(b, s, hkv, dh), positions, theta=rope_theta)
@@ -303,6 +318,8 @@ def gated_mlp(x: torch.Tensor, w: dict, *, activation: str = "silu",
     """SwiGLU (or GELU-gated) MLP; under tensor parallelism ``w_gate`` and
     ``w_up`` column-parallel, ``w_down`` row-parallel."""
     act = activation_fn(activation)
+    if pctx is not None:
+        x = pctx.copy_tp(x)
     g = x @ w["w_gate"].to(x.dtype)
     u = x @ w["w_up"].to(x.dtype)
     if _tp(pctx):

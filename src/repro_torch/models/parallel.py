@@ -30,6 +30,22 @@ every shard's contribution in the backward pass (Megatron's "f") by
 construction, from the one activation. ``tp_index`` is the ``(T,)`` rank
 index of the stack.
 
+Over ranks (``tp_grid``: a ``core.collectives.Grid`` of process-group
+ranks with a model axis, one tp rank a process, the reference's
+``shard_map`` body one rank a device) a rank holds only its own shard of
+every tp-sharded weight, and a value that differs across the tp ranks is
+this rank's ``(1, ...)`` row of the stack (``tp_rows`` is 1, ``tp_index``
+the rank's own ``(1,)`` index). ``psum_tp`` gathers the tp group's rows
+and adds them in rank order in their dtype; its backward is the identity
+(Megatron's "g"). ``copy_tp`` is its mate ("f"): the identity forward, the
+same ordered sum over the tp group backward; it goes on the replicated
+activation at the input of every column-parallel product, and on a
+weight replicated over tp whose gradient each rank takes only a part of
+(the K / V projections under ``kv_replicated``). ``pmax_tp`` gathers the
+rows' max, without a gradient (every caller detaches it, as the stacked
+form does). On one card (``tp_grid`` None) every method keeps its stacked
+behaviour.
+
 Sequence parallelism (``sp``, Megatron-SP): the residual stream between
 sublayers is sharded over tp along the sequence, a ``(T, B, S/T, D)`` stack
 of the ranks' slices. ``gather_seq`` puts the slices back together at a
@@ -46,9 +62,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Mapping
+from typing import Any, Callable, Mapping
 
 import torch
+
+from repro_torch.core import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,30 +81,62 @@ class ParallelCtx:
     # serving: MoE expert weights stay sharded over the dp axes and the
     # expert activations are psum'd instead (``models/moe.py``)
     moe_stationary: bool = False
+    # the tp ranks are processes: a Grid whose model axis holds them
+    tp_grid: Any = None
 
     def tp_size(self) -> int:
         return self.sizes.get(self.tp_axis, 1) if self.tp_axis else 1
 
+    def over_ranks(self) -> bool:
+        """Whether the tp ranks are processes, this one holding its own
+        shards (``tp_grid`` and T > 1)."""
+        return self.tp_grid is not None and self.tp_size() > 1
+
+    def tp_rows(self) -> int:
+        """The rows of a value that differs across the tp ranks: T on one
+        card, this rank's one over ranks."""
+        return 1 if self.over_ranks() else self.tp_size()
+
     def tp_index(self, device=None) -> torch.Tensor:
-        """The tp ranks of a ``(T, ...)`` stack, ``(T,)``."""
+        """The tp ranks of a ``(T, ...)`` stack, ``(T,)``; over ranks this
+        rank's own, ``(1,)``."""
+        if self.over_ranks():
+            return torch.tensor([self.tp_grid.index_on(collectives.MODEL)],
+                                device=device)
         return torch.arange(self.tp_size(), device=device)
 
     def psum_tp(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of a ``(T, ...)`` stack over the tp ranks, in rank order and
         in its dtype (each add rounded, as a psum of that dtype rounds):
-        the one value every rank holds."""
+        the one value every rank holds. Over ranks ``x`` is this rank's
+        ``(1, ...)`` row, summed over the tp group (backward: the
+        identity)."""
         if not self.tp_axis:
             return x
+        if self.over_ranks():
+            return _SumOverTp.apply(x, self.tp_grid)
         out = x[0]
         for t in range(1, x.shape[0]):
             out = out + x[t]
         return out
 
     def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
-        """Max of a ``(T, ...)`` stack over the tp ranks."""
+        """Max of a ``(T, ...)`` stack over the tp ranks (over ranks of
+        this rank's ``(1, ...)`` row over the tp group, no gradient)."""
         if not self.tp_axis:
             return x
+        if self.over_ranks():
+            return collectives.pmax(x.detach(), self.tp_grid,
+                                    collectives.MODEL)[0]
         return x.amax(dim=0)
+
+    def copy_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's "f": ``x`` itself, whose gradient over ranks is summed
+        over the tp group in rank order (on one card the autograd of the
+        one activation sums it already)."""
+        if not self.over_ranks():
+            return x
+        return _CopyToTp.apply(x, self.tp_grid)
 
     def seq_sharded(self) -> bool:
         """Whether the residual stream runs as sequence slices (SP over
@@ -165,6 +215,35 @@ class ParallelCtx:
         full = torch.cat(pods.unbind(1), dim=axis + 1)  # (G, *gathered)
         return full[:, None].expand(g, n, *full.shape[1:]).reshape(
             g * n, *full.shape[1:])
+
+
+class _SumOverTp(torch.autograd.Function):
+    """Megatron's "g" over the tp group: this rank's ``(1, ...)`` row ->
+    the rows' ordered sum; the gradient passes through unchanged, since
+    every rank computes the same one downstream."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        return collectives.psum(x, grid, collectives.MODEL)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.unsqueeze(0), None
+
+
+class _CopyToTp(torch.autograd.Function):
+    """Megatron's "f" over the tp group: the identity, whose gradient is
+    the ordered sum of every tp rank's."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid = grid
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.psum(g.unsqueeze(0), ctx.grid,
+                                collectives.MODEL)[0], None
 
 
 # A no-parallelism context for single-peer use and references.

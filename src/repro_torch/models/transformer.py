@@ -59,6 +59,16 @@ replicated ``frontend_proj``, put before the tokens, and the whole stream
 sliced, so prefix and tokens together must split over T (the reference
 truncates instead: ROADMAP C). At T = 1 every product is the plain one.
 
+Over ranks (``pctx.over_ranks()``: one tp rank a process, the
+reference's ``shard_map`` body) the tree holds this rank's shard of every
+tp-sharded leaf, its chunk t of the tp dim (``train/elastic.py``): the
+embedding looks up its own ``(V_pad/T, D)`` rows and sums over the tp
+group, the head is its ``(D, V_pad/T)`` columns, the attention runs its
+``Hq/T`` q heads with the K / V heads ``_kv_maps`` gives shard t, and each
+stack over the tp dim is the rank's one row (``models/parallel.py``). It
+runs the dense family without sequence parallelism; the rest raises
+(:func:`check_tp_ranks`, later slices of ROADMAP A18c).
+
 FSDP (``param_table(cfg, fsdp_axes=...)``): a leaf's ``fsdp_dim`` is the dim
 the reference shards over the fsdp axes: ``embed`` on dim 1, the
 projections on their input dim (``wo``, ``w_down``, ``out_proj`` and the
@@ -101,6 +111,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives
 from repro_torch.core.keys import Key, normal, split, uniform
 from repro_torch.kernels.threefry.ref import log_xla
 
@@ -216,23 +227,57 @@ class TpLayout:
 class KvMaps(NamedTuple):
     """Head maps under tensor parallelism (int64 tensors): each q head's
     K / V projection head, the cache's heads (None: all) and each q head's
-    cache head."""
+    cache head; ``shared``: the K / V projections are replicated over tp
+    (``kv_replicated``)."""
     q_kv: torch.Tensor
     cache: torch.Tensor | None
-    q_cache: torch.Tensor
+    q_cache: torch.Tensor | None
+    shared: bool = False
 
 
-def _kv_maps(cfg: ModelConfig, t: int, device) -> KvMaps | None:
+def _kv_maps(cfg: ModelConfig, t: int, device,
+             shard: int | None = None) -> KvMaps | None:
+    """The head maps at tp ``t`` over the global heads, or with ``shard``
+    those of that tp rank's own heads (over ranks: its q heads' K / V
+    heads in its own, or the replicated, projection; no cache maps)."""
     if t == 1:
         return None
     lay = TpLayout.build(cfg, t)
-    heads, q_cache = lay.cache_heads(cfg)
 
     def as_tensor(v):
         return None if v is None else torch.tensor(v, dtype=torch.long,
                                                    device=device)
+    if shard is not None:
+        hq_l = lay.heads_pad // t
+        own = lay.kv_heads(cfg)[shard * hq_l:(shard + 1) * hq_l]
+        if not lay.kv_replicated:          # into the shard's own K / V heads
+            own = [h - shard * (lay.kv_pad // t) for h in own]
+        return KvMaps(as_tensor(own), None, None, lay.kv_replicated)
+    heads, q_cache = lay.cache_heads(cfg)
     return KvMaps(as_tensor(lay.kv_heads(cfg)), as_tensor(heads),
                   as_tensor(q_cache))
+
+
+def check_tp_ranks(cfg: ModelConfig, *, seq_parallel: bool = False) -> None:
+    """Raise on what tp over ranks does not run yet for ``cfg``, naming its
+    later slice of ROADMAP A18c: sequence parallelism, then the MoE, SSM,
+    hybrid and frontend-prefix families (one rank a tp rank runs the dense
+    family)."""
+    what = None
+    if seq_parallel:
+        what = "--seq-parallel over tp ranks"
+    elif cfg.n_experts and cfg.ssm_heads:
+        what = f"the hybrid family over tp ranks ({cfg.name})"
+    elif cfg.n_experts:
+        what = f"the MoE family over tp ranks ({cfg.name})"
+    elif cfg.ssm_heads:
+        what = f"the SSM family over tp ranks ({cfg.name})"
+    elif cfg.frontend:
+        what = f"the frontend-prefix family over tp ranks ({cfg.name})"
+    if what is not None:
+        raise ValueError(f"{what} is a later slice of ROADMAP A18c: one "
+                         "rank a tp rank runs the dense family, replicated, "
+                         "one pod")
 
 
 class Leaf(NamedTuple):
@@ -526,7 +571,8 @@ def _layer(x: torch.Tensor, positions: torch.Tensor | None,
                 h, aw, positions=positions, rope_theta=cfg.rope_theta,
                 pctx=pctx, kv_heads=kv.q_kv if kv else None,
                 cache_heads=kv.cache if kv else None,
-                collect_kv=collect_state)
+                collect_kv=collect_state,
+                kv_shared=bool(kv and kv.shared))
             if collect_state:
                 att, new_state = att
         x = x + att
@@ -571,15 +617,20 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
     vocab range of the ``(V_pad, D)`` table (rank t's local row ``token -
     t * V_pad / T`` is the global row ``token``, so one gather serves
     every rank), zeroes the others, and the ranks' rows are summed over tp
-    (one of them non-zero)."""
-    rows = emb[tokens].to(cfg.param_dtype)
+    (one of them non-zero). Over ranks ``emb`` is the rank's own ``(V_pad
+    / T, D)`` rows, read at ``token - t * V_pad / T``."""
     t = pctx.tp_size()
     if t == 1:
-        return rows
-    v_local = emb.shape[0] // t
+        return emb[tokens].to(cfg.param_dtype)
+    v_local = emb.shape[0] // pctx.tp_rows()
     lo = (pctx.tp_index(tokens.device) * v_local)[:, None, None]
     valid = (tokens[None] >= lo) & (tokens[None] < lo + v_local)  # (T, B, S)
-    ranks = torch.where(valid[..., None], rows[None],
+    if pctx.over_ranks():
+        rows = emb[(tokens[None] - lo).clamp(0, v_local - 1)].to(
+            cfg.param_dtype)
+    else:
+        rows = emb[tokens].to(cfg.param_dtype)[None]
+    ranks = torch.where(valid[..., None], rows,
                         torch.zeros((), dtype=rows.dtype, device=rows.device))
     return pctx.psum_tp(ranks)
 
@@ -603,6 +654,13 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
     (``KVCache`` / ``SSMState``) stacked over the repeats."""
     pctx = pctx or SINGLE
     t = pctx.tp_size()
+    shard = None
+    if pctx.over_ranks():
+        check_tp_ranks(cfg, seq_parallel=pctx.sp)
+        if collect_state:
+            raise ValueError("serving over ranks is a later slice of "
+                             "ROADMAP A18c: prefill runs as one process")
+        shard = pctx.tp_grid.index_on(collectives.MODEL)
     tokens = batch["tokens"].long()
     emb = _maybe_gather(pctx, params["embed"], 1, (), "embed")
     x = embed_tokens(emb, tokens, cfg, pctx)
@@ -615,7 +673,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    kv = _kv_maps(cfg, t, tokens.device)
+    kv = _kv_maps(cfg, t, tokens.device, shard)
     if t > 1:
         if pctx.seq_sharded():
             if s % t:
@@ -673,10 +731,11 @@ def _chunk_loss_tp(x_chunk: torch.Tensor, y_chunk: torch.Tensor,
                    head: torch.Tensor, pctx: ParallelCtx
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The vocab-parallel softmax: each rank's logits over its vocab range
-    (one GEMM over the global head, viewed ``(T, B, c, V/T)``), the max
-    detached and ``pmax_tp``'d, the exp-sum and the picked logit
-    ``psum_tp``'d."""
-    t = pctx.tp_size()
+    (one GEMM over the global head, viewed ``(T, B, c, V/T)``; over ranks
+    the rank's ``(D, V/T)`` head, its one row), the max detached and
+    ``pmax_tp``'d, the exp-sum and the picked logit ``psum_tp``'d."""
+    t = pctx.tp_rows()
+    x_chunk = pctx.copy_tp(x_chunk)
     logits = x_chunk.to(torch.float32) @ head.to(torch.float32)
     b, c, vp = logits.shape
     v_local = vp // t

@@ -16,6 +16,11 @@ controller re-forms the membership). What remains is state surgery:
   + i`` the piece of that index (``rank_piece``, ``rank_tree``), and puts
   the ranks' shards back together through the same join
   (``gather_rank_tree``), for its checkpoints.
+* tp shards over ranks: the same functions along each leaf's tp dim
+  (``transformer.tp_dims``), T pieces, tp rank t the t-th: init keeps
+  rank t's chunk of each full leaf as it is drawn, a checkpoint gathers
+  each leaf's chunks over the tp group (``axis=MODEL``) into the full
+  leaf, the stacked format, and ``--resume`` cuts them again.
 * data pipeline: deterministic (step, host, n_hosts) indexing re-partitions
   the global stream automatically (data/pipeline.py).
 
@@ -29,7 +34,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import _map_table, param_table
+from repro_torch.models.transformer import _map_table, param_table, tp_dims
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
@@ -40,15 +45,17 @@ def fsdp_dims(cfg: ModelConfig, tp: int = 1) -> list[int | None]:
 
 
 def state_dims(cfg: ModelConfig, opt_state: Any, like_params: bool,
-               tp: int = 1) -> list[int | None]:
+               tp: int = 1, *, dims: list | None = None
+               ) -> list[int | None]:
     """Each leaf's fsdp dim of an optimizer state, in tree order: the
     parameters' dims once for each parameter-shaped tree it holds
     (``like_params``: AdamW's two moments, momentum's one), else None for
-    every leaf (a state replicated whole)."""
+    every leaf (a state replicated whole). ``dims``: the parameters' dims
+    to repeat instead of their fsdp dims (their tp dims, for tp shards)."""
     n = len(tree_leaves(opt_state))
     if not like_params:
         return [None] * n
-    dims = fsdp_dims(cfg, tp)
+    dims = fsdp_dims(cfg, tp) if dims is None else dims
     if n % len(dims):
         raise ValueError(f"an optimizer state of {n} leaves is not whole "
                          f"trees of {len(dims)} parameters")
@@ -117,18 +124,21 @@ def rank_tree(full: Any, dims: list, n: int, rank: int,
         for leaf, dim in zip(tree_leaves(full), dims)])
 
 
-def gather_rank_tree(tree: Any, dims: list, grid, *, keep: bool) -> Any:
+def gather_rank_tree(tree: Any, dims: list, grid, *, keep: bool,
+                     axis=None) -> Any:
     """The full tree of the ranks' shards (a process group's
     ``collectives.Grid``): each sharded leaf gathered from every rank of
-    the whole grid, pod-major, and joined along its dim, one leaf at a
-    time; every rank must call it.
+    ``axis`` (default the whole ``(pod, data)`` grid, pod-major; ``MODEL``
+    the tp group) and joined along its dim, one leaf at a time; every rank
+    must call it.
     Where ``keep``, the full leaves are copied to the host and returned as
     a tree; elsewhere None (each gathered leaf is dropped at once)."""
     from repro_torch.core import collectives
+    axis = collectives.BOTH if axis is None else axis
     leaves = []
     for leaf, dim in zip(tree_leaves(tree), dims):
         full = leaf if dim is None else collectives.all_gather_dim(
-            leaf, dim, grid)
+            leaf, dim, grid, axis)
         if keep:
             leaves.append(full.detach().to("cpu", copy=True))
         del full

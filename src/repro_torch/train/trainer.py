@@ -100,7 +100,28 @@ reduced shard, and the update runs on the shards in place. The global norm
 sums the squares of each rank's own shards, gathers the per-rank partial
 sums over the whole grid and adds them as the stacked form adds its
 per-shard ones, so norm, clip and every shard are bitwise the stacked
-form's. At tp 1 only; tp over ranks is a later slice (ROADMAP A18c).
+form's.
+
+Tensor parallelism over ranks (a ``model`` axis of T > 1 with ``group``
+of N x T ranks, ``collectives.rank_grid(group, tp=T)``: rank ``i * T +
+t``, each data index's tp group and each tp index's data group): each rank
+holds only its tp shard of every tp-sharded leaf and of its AdamW moments
+(``train/elastic.py``) and runs its own shards' forward and backward pass
+on its data index's rows, the row-parallel sums and their backward
+reduces in its tp group (``models/parallel.py``). It packs a ``(1, B,
+bucket_elems)`` arena of its local leaves, the plan the stacked form makes
+from tp rank 0's local shapes, and syncs it in its data group with the
+draws every tp rank of the index draws alike. After the sync the leaves
+replicated over tp take tp rank 0's synced values (gathered over the tp
+group), as the stacked form reads them; the norm sums each model-sharded
+run's per-rank sums of squares over the tp group in rank order and reads
+the replicated runs once, so every rank of a tp group holds the same norm
+and clip, and the replicated leaves stay bitwise equal across the tp group
+and the data replicas. The dense family, replicated, one pod; FSDP x TP,
+sequence parallelism, pods x tp, Adafactor and the other families over tp
+ranks raise (later slices of ROADMAP A18c). A step is not bitwise the
+stacked one: a rank's "f" adds T partial input gradients where the
+stacked form runs one GEMM.
 
 The loss metric is the mean over peers; ``loss_frac`` the mean over
 receivers. ``tc.transport_override`` swaps the spec's transport for the
@@ -130,7 +151,8 @@ from repro_torch.kernels import runtime as kernel_runtime
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm_loss, param_specs, param_table
 from repro_torch.models.parallel import ParallelCtx
-from repro_torch.models.transformer import _map_table, tp_dims
+from repro_torch.models.transformer import (_map_table, check_tp_ranks,
+                                            tp_dims)
 from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -262,8 +284,9 @@ def _spec_leaves(specs) -> list[tuple]:
     return [specs]
 
 
-def packed_global_norm(ranks: torch.Tensor, plan: BucketPlan,
-                       specs) -> torch.Tensor:
+def packed_global_norm(ranks: torch.Tensor, plan: BucketPlan, specs,
+                       grid: collectives.Grid = collectives.ONE
+                       ) -> torch.Tensor:
     """:func:`sharded_global_norm` over the T tp ranks' packed ``(T, B,
     bucket_elems)`` arenas of one data peer (T = 1 without tensor
     parallelism), over their ``plan.total`` real entries (the zero-padded
@@ -271,7 +294,11 @@ def packed_global_norm(ranks: torch.Tensor, plan: BucketPlan,
     or both not, coalesce into one contiguous run, one sum of squares a
     run: a run sharded over ``model`` sums every tp rank's arena (one
     partial sum a shard); any other run is read once, from tp rank 0's.
-    The data axes shard nothing here: the arena holds full tensors."""
+    The data axes shard nothing here: the arena holds full tensors. Over
+    tp ranks (``grid`` with a model group) ``ranks`` is this rank's ``(1,
+    B, bucket_elems)`` arena: each run's sum of squares is taken here, and
+    a sharded run's sums are gathered over the tp group and added in rank
+    order, so every tp rank holds the same norm."""
     flat = ranks.reshape(ranks.shape[0], -1)
     runs: list[tuple[bool, int, int]] = []
     for off, size, s in zip(plan.offsets, plan.sizes, _spec_leaves(specs)):
@@ -280,12 +307,42 @@ def packed_global_norm(ranks: torch.Tensor, plan: BucketPlan,
             runs[-1] = (on_tp, runs[-1][1], off + size)
         else:
             runs.append((on_tp, off, off + size))
+    if grid.tp_rows != grid.tp:                    # tp ranks over a group
+        own = torch.stack([torch.sum(torch.square(
+            flat[0, a:b].to(torch.float32))) for _, a, b in runs])
+        summed = collectives.psum(own[None], grid, collectives.MODEL)[0]
+        parts = [summed[i] if on_tp else own[i]
+                 for i, (on_tp, _, _) in enumerate(runs)]
+    else:
+        parts = [torch.sum(torch.square(
+            (flat[:, a:b] if on_tp else flat[0, a:b]).to(torch.float32)))
+            for on_tp, a, b in runs]
     total = None
-    for on_tp, a, b in runs:
-        rows = flat[:, a:b] if on_tp else flat[0, a:b]
-        ss = torch.sum(torch.square(rows.to(torch.float32)))
+    for ss in parts:
         total = ss if total is None else total + ss
     return torch.sqrt(total)
+
+
+def _replicated_from_tp0(g: torch.Tensor, plan: BucketPlan, leaf_tp: list,
+                        grid: collectives.Grid) -> torch.Tensor:
+    """Over tp ranks: this rank's synced ``(1, B, bucket_elems)`` arena
+    with the entries of every leaf replicated over tp (``leaf_tp`` None)
+    replaced by tp rank 0's, gathered over the tp group (its data group's
+    sync rounds them with its own shards' entries), as the stacked form
+    reads tp rank 0's."""
+    g = g.contiguous()
+    flat = g.view(-1)
+    spans = [(off, off + size) for off, size, d
+             in zip(plan.offsets, plan.sizes, leaf_tp) if d is None]
+    if not spans:
+        return g
+    own = torch.cat([flat[a:b] for a, b in spans])
+    first = collectives.gather_peers(own[None], grid, collectives.MODEL)[0]
+    at = 0
+    for a, b in spans:
+        flat[a:b] = first[at:at + b - a]
+        at += b - a
+    return g
 
 
 def _local(batch: dict, rows: slice, device: torch.device) -> dict:
@@ -434,21 +491,28 @@ ADAFACTOR_FSDP = (
     "replicated or another optimizer")
 
 
-def _check_rank_form(tc: TrainConfig, names, shape) -> None:
+def _check_rank_form(cfg: ModelConfig, tc: TrainConfig, pod_axis,
+                     tp: int) -> None:
     """Raise on what the one-rank-a-peer form does not run yet, each with
     its ROADMAP item (A18c's later slices)."""
     refused = [
-        (shape.get("model", 1) > 1 and not tc.pure_dp,
-         "tensor parallelism (--tp) over ranks"),
+        (tp > 1 and tc.dp_mode == "fsdp", "FSDP x TP over ranks"),
+        (tp > 1 and pod_axis is not None, "pods x tp over ranks"),
         (tc.sync_mode == "vmap", "--sync-mode vmap over ranks"),
         (tc.sync.recovery != "none", "--recovery over ranks"),
-        (tc.transport_override is not None, "--transport over ranks")]
+        (tc.transport_override is not None, "--transport over ranks"),
+        # its factored statistics of a leaf span the leaf's tp shards
+        (tp > 1 and tc.optimizer.name == "adafactor",
+         "Adafactor over tp ranks")]
     for bad, what in refused:
         if bad:
             raise ValueError(f"{what} is a later slice of ROADMAP A18c: "
                              "one rank a peer runs replicated data "
                              "parallelism and FSDP over (pod, data) at "
-                             "tp 1")
+                             "tp 1, and the dense family replicated over "
+                             "(data, model)")
+    if tp > 1:
+        check_tp_ranks(cfg, seq_parallel=tc.seq_parallel)
 
 
 def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
@@ -507,18 +571,21 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         tp = shape.get("model", 1)
     pods = shape[pod_axis] if pod_axis else 1
     peers = pods * (shape[data_axis] if data_axis else 1)
+    over_ranks = group is not None and tp > 1
     if group is None:
         grid = collectives.Grid(pods, tp)
         local_peers = tuple(range(peers))
     else:
-        _check_rank_form(tc, names, shape)
+        _check_rank_form(cfg, tc, pod_axis, tp)
         import torch.distributed as dist
-        if dist.get_world_size(group) != peers:
-            raise ValueError(f"a grid of {peers} peers ({pods} pods) over a "
-                             f"process group of "
+        if dist.get_world_size(group) != peers * tp:
+            raise ValueError(f"a grid of {peers} peers ({pods} pods"
+                             + (f", tp {tp}" if tp > 1 else "")
+                             + ") over a process group of "
                              f"{dist.get_world_size(group)} ranks")
-        # one peer a rank, pod-major: the rank's rows of the global batch
-        grid = collectives.rank_grid(group, pods=pods)
+        # one peer a rank (pod-major, or data-major over tp ranks): the
+        # rank's data index's rows of the global batch
+        grid = collectives.rank_grid(group, pods=pods, tp=tp)
         local_peers = (grid.rank,)
     fsdp = tc.dp_mode == "fsdp"
     fsdp_axes = dp_axes if fsdp else None
@@ -562,7 +629,17 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
     leaf_tp = tp_dims(cfg, tp)
     pctx = ParallelCtx(tp_axis="model" if tp > 1 else None,
                        dp_axis=data_axis, pod_axis=pod_axis, fsdp=fsdp,
-                       sizes=shape, sp=tc.seq_parallel and tp > 1)
+                       sizes=shape, sp=tc.seq_parallel and tp > 1,
+                       tp_grid=grid if over_ranks else None)
+
+    def local_rows(g: torch.Tensor, d: int | None) -> torch.Tensor:
+        """A leaf's tp ranks' local tensors, ``(T, *local)``; over ranks
+        this rank's own, ``(1, *local)``."""
+        return g[None] if over_ranks else to_tp(g, d, tp)
+
+    def from_rows(x: torch.Tensor, d: int | None) -> torch.Tensor:
+        """Inverse of ``local_rows`` on synced values."""
+        return x[0] if over_ranks else from_tp(x, d)
     if fsdp:
         fsdp_mask = _fsdp_leaf_mask(cfg, fsdp_axes)
         site_tp = _site_tp_dims(cfg, tp)
@@ -582,12 +659,12 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         for p in leaves:
             p.requires_grad_(True)
         # the plan of one tp rank's local leaves (the whole tree at tp = 1)
-        local_like = [to_tp(p, d, tp)[0] for p, d in zip(leaves, leaf_tp)]
+        local_like = [local_rows(p, d)[0] for p, d in zip(leaves, leaf_tp)]
         plan = BucketPlan.for_tree(tree_unflatten(params, local_like),
                                    tc.bucket_elems)
         arena_dtype = torch.float32 if n_micro == 1 else tc.accum_dtype
-        arena = torch.zeros((tp * len(local_peers), plan.num_buckets,
-                             plan.bucket_elems),
+        arena = torch.zeros((grid.tp_rows * len(local_peers),
+                             plan.num_buckets, plan.bucket_elems),
                             dtype=arena_dtype, device=device)
         ranks = grid.by_group(arena)
         losses = []
@@ -604,7 +681,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                 grads = [torch.zeros_like(p) if g is None else g
                          for p, g in zip(leaves, grads)]
                 # each tp rank's local gradients into its own row
-                grads = [to_tp(g, d, tp) for g, d in zip(grads, leaf_tp)]
+                grads = [local_rows(g, d) for g, d in zip(grads, leaf_tp)]
                 plan.pack_into(ranks[:, row], tree_unflatten(params, grads),
                                accumulate=i > 0)
                 loss_p = loss_p + loss.detach()
@@ -635,6 +712,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         # every peer of a tp group holds the same synced arena: peer 0's,
         # one (B, E) arena a tp rank
         g = grid.by_group(synced)[:, 0]
+        if over_ranks:
+            g = _replicated_from_tp0(g, plan, leaf_tp, grid)
         if tc.guard:
             gscale, skipped = guard_scale(
                 loss_frac, skip_threshold=sync_cfg.skip_threshold)
@@ -642,13 +721,13 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
             gscale = torch.ones((), device=device)
             skipped = torch.zeros((), dtype=torch.bool, device=device)
         gscale = gscale.to(device)
-        gnorm = gscale * packed_global_norm(g, plan, p_specs)
+        gnorm = gscale * packed_global_norm(g, plan, p_specs, grid)
         clip = torch.clamp(tc.optimizer.grad_clip
                            / torch.clamp(gnorm, min=1e-9), max=1.0)
         # each tp rank's synced slice into its chunk of the global
         # gradient; the replicated leaves read tp rank 0's
         grads = tree_unflatten(params, [
-            from_tp(x, d) for x, d in zip(
+            from_rows(x, d) for x, d in zip(
                 tree_leaves(plan.unpack(g * (gscale * clip))), leaf_tp)])
         return grads, losses, loss_frac, gnorm, skipped, new_rec
 

@@ -187,7 +187,9 @@ def test_rank0_steps_are_the_stacked_steps(ranks, stacked, run):
         assert {k: a[k] for k in METRICS} == {k: b[k] for k in METRICS}
 
 
-REFUSED = [["--tp", "2"], ["--production-mesh"],
+# "--tp": tp over ranks runs (tests/test_torch_dist_tp.py); with
+# --seq-parallel it is a later slice
+REFUSED = [["--tp", "2", "--seq-parallel"], ["--production-mesh"],
            ["--dp-mode", "fsdp", "--tp", "2"],
            ["--dp-mode", "fsdp", "--production-mesh"],
            ["--sync-mode", "vmap"], ["--recovery", "stale"],

@@ -353,9 +353,11 @@ def one_rank_group(tmp_path):
 
 @pytest.mark.parametrize("case", ["pods_over_one_rank", "tp"])
 def test_grid_refuses_what_the_world_does_not_hold(one_rank_group, case):
-    """A pod grid takes its pods from the group's ranks: 2 pods do not fit
-    a world of one rank; tp over ranks is a later slice."""
-    match = "do not fill 2 pods" if case == "pods_over_one_rank" else "A18c"
+    """A pod grid takes its pods from the group's ranks, a tp grid its tp
+    groups: neither 2 pods nor a tp group of 2 fit a world of one rank
+    (tp over ranks: ``tests/test_torch_dist_tp.py``)."""
+    match = ("do not fill 2 pods" if case == "pods_over_one_rank"
+             else "do not fill tp groups of 2")
     kw = {"pods": 2} if case == "pods_over_one_rank" else {"tp": 2}
     with pytest.raises(ValueError, match=match):
         collectives.Grid(group=one_rank_group, **kw)

@@ -9,6 +9,10 @@ sets torchrun's environment: ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
   PYTHONPATH=src torchrun --nproc-per-node 4 tools/distcheck.py \\
       build/distcheck --device cpu --pods 2 --arena 3,6000 --block 256 \\
       --rs 512,64
+  PYTHONPATH=src torchrun --nproc-per-node 4 tools/distcheck.py \\
+      build/distcheck --device cpu --tp 2 --arena 3,6000 --block 256 \\
+      --tp-train '{"name": "tp", "argv": ["--smoke", "--device", "cpu", \\
+      "--dp", "2", "--tp", "2", "--steps", "2"]}'
 
 Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
 ``--device cpu`` (no card raises), joins the default process group
@@ -46,6 +50,18 @@ Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
   dim), plain and with the 8-bit wire (:func:`rs_cases`): each rank's
   reduced shard.
 
+- ``--tp T``: the world as a ``(data N, model T)`` grid of ranks, model
+  innermost (``collectives.rank_grid(tp=T)``: rank ``i * T + t`` is
+  stacked row ``t * N + i``, :func:`tp_stacked_rows`), after the pod
+  grids: its
+  row of the small arena through :data:`TP_STRATEGIES` in ``scan`` and
+  ``pipelined`` (the data-axis sync of each tp group) and
+  :func:`tp_primitive_cases`, named ``tp<T>:<case>``. Then, last, each
+  ``--tp-train`` JSON (:func:`tp_train`: the launcher with ``--dp N --tp
+  T`` on the world, one tp rank a process): its records, each step's
+  digests of the rank's state and of its leaves replicated over tp,
+  launches, state bytes, and with ``"save"`` each step's leaves in
+  ``OUT/<name>.rank<r>.pt``.
 - ``--pods G1,G2,...`` (default 1): the grids the sync cases above run
   on. G = 1 is the flat grid; G > 1 the same world as a ``(pod G, data
   N)`` grid of G x N ranks, pod-major (``collectives.rank_grid(pods=G)``,
@@ -135,6 +151,7 @@ POD_POLICIES = (("optireduce", {"active_peers": (0,)}, "scan"),
 SMALL = 1 << 20                 # results up to this many elements are kept
 FULL_STRATEGIES = ("optireduce", "optireduce_q")   # on the full arena
 POD_FULL_STRATEGIES = ("optireduce_q",)            # ... of a pod grid
+TP_STRATEGIES = ("optireduce", "optireduce_q")     # on a grid of tp groups
 
 
 def digest(t: torch.Tensor) -> str:
@@ -271,6 +288,28 @@ def pod_primitive_cases(x: torch.Tensor, grid: collectives.Grid):
     yield "pmean_both", collectives.pmean(w, grid, collectives.BOTH)
 
 
+def tp_primitive_cases(x: torch.Tensor, grid: collectives.Grid):
+    """Yield ``(name, result)`` on a grid of tp groups: ``psum`` over the
+    model axis of the first 64 entries of bucket 0 (every tp rank holding
+    its group's ordered sum), and ``pmax`` over the data axis of them with
+    data index 1's entry 3 made NaN (every peer of its tp group must hold
+    NaN there)."""
+    v = x[:, 0, :64].clone()
+    yield "psum_model", collectives.psum(v, grid, collectives.MODEL)
+    v[collectives.axis_index(v, grid) == 1, 3] = float("nan")
+    yield "pmax_nan", collectives.pmax(v, grid)
+
+
+def tp_stacked_rows(world: int, tp: int,
+                    rank: int | None = None) -> list[int]:
+    """The stacked rows of the ``(data N, model T)`` grid's ranks (rank
+    ``i * T + t`` is stacked row ``t * N + i``, model outermost): every
+    rank's in rank order, or ``rank``'s alone."""
+    n = world // tp
+    rows = [(r % tp) * n + r // tp for r in range(world)]
+    return rows if rank is None else [rows[rank]]
+
+
 def state_bytes(tree) -> int:
     """Bytes of the distinct storages a tree's tensors live in: what a
     rank holds of it, views counted once and whole."""
@@ -284,7 +323,8 @@ def state_bytes(tree) -> int:
 @contextlib.contextmanager
 def watch_steps(keep: bool = False, wait_for: str | None = None, *,
                 state: bool = False, shards: int | None = None,
-                steps: int | None = None):
+                steps: int | None = None, tp: int = 1, stride: int = 1,
+                keep_steps: bool = False):
     """Wrap the training launcher's ``build_train_step``: after each step a
     copy of the parameters (with ``state``, and of the optimizer state) on
     their device (a copy only, so the launcher's step time barely moves),
@@ -299,13 +339,18 @@ def watch_steps(keep: bool = False, wait_for: str | None = None, *,
     With ``shards=n`` a step's digest is instead the list of the n
     workers' digests of their FSDP slices (``elastic.split_leaf``): what
     rank r of the one-rank-a-peer form must hold. ``steps`` copies only
-    the first so many steps. With ``wait_for``, the first step
+    the first so many steps. With ``tp`` > 1 the replicated leaves are
+    those replicated over tp (``elastic.tp_dims``), and ``stride`` > 1
+    digests every stride-th entry of each tp-sharded leaf (the replicated
+    ones whole); ``keep_steps`` keeps every step's leaves on the host in
+    ``seen["leaves"]``. With ``wait_for``, the first step
     ends by waiting for the card to finish it, writing
     :func:`ready_path` and waiting until ``wait_for`` exists (both waits
     are ``seen["wait_s"]``)."""
     from repro_torch.launch import train as launch_train
     seen = {"digests": [], "params": None, "starts": [], "wait_s": 0.0,
-            "state_bytes": [], "replicated": [], "launches": []}
+            "state_bytes": [], "replicated": [], "launches": [],
+            "leaves": [], "last": None}
     copies = []
     dims = []
     inner = launch_train.build_train_step
@@ -322,8 +367,10 @@ def watch_steps(keep: bool = False, wait_for: str | None = None, *,
             seen["state_bytes"].append(state_bytes((out[0], out[1])))
             if (state or shards) and not dims:
                 cfg = args[0]           # build_train_step(cfg, tc, ...)
-                dims.extend(elastic.fsdp_dims(cfg) + (elastic.state_dims(
-                    cfg, out[1], opt.state_like_params) if state else []))
+                own = elastic.tp_dims(cfg, tp) if tp > 1 else None
+                dims.extend((own or elastic.fsdp_dims(cfg)) + (
+                    elastic.state_dims(cfg, out[1], opt.state_like_params,
+                                       dims=own) if state else []))
             if wait_for and len(copies) == 0:
                 t0 = time.perf_counter()
                 leaf = tree_leaves(out[0])[0]
@@ -334,9 +381,16 @@ def watch_steps(keep: bool = False, wait_for: str | None = None, *,
                 while not os.path.exists(wait_for):
                     time.sleep(0.05)
                 seen["wait_s"] = time.perf_counter() - t0
+            seen["last"] = out[0]       # updated in place: the last step's
             if steps is None or len(copies) < steps:
-                copies.append([p.detach().clone() for p in tree_leaves(
-                    (out[0], out[1]) if state else out[0])])
+                leaves = tree_leaves((out[0], out[1]) if state else out[0])
+                if keep_steps:
+                    seen["leaves"].append([p.detach().cpu().clone()
+                                           for p in leaves])
+                copies.append([
+                    p.detach().reshape(-1)[::stride].clone()
+                    if stride > 1 and d is not None else p.detach().clone()
+                    for p, d in zip(leaves, dims or [None] * len(leaves))])
             return out
         return watched, opt
 
@@ -482,6 +536,50 @@ def pod_train(job: dict, device, group=None, *, keep: bool = False) -> dict:
     return out
 
 
+def tp_train(job: dict, out_dir=None, rank: int = 0) -> dict:
+    """Run the training launcher with ``job["argv"]`` (``--dp N --tp T``:
+    under torchrun one tp rank a process, else the stacked form) and
+    report each step's records, digest of the parameters and optimizer
+    state the process holds (every ``job["stride"]``-th entry of each
+    tp-sharded leaf, default all) and of its leaves replicated over tp
+    (whole), its launches, the state bytes and the launches of the rest of
+    the run (the init's draws). With ``job["save"]`` each step's leaves
+    go to ``out_dir/<name>.rank<r>.pt`` (a list over steps of the
+    parameters' and the state's leaves, on the host; without ``out_dir``
+    in the report's ``leaves``), with ``job["save_last"]`` the last step's
+    parameters alone (a list of leaves). On the card the peak-memory
+    counter is reset first."""
+    from repro_torch.launch import train as launch_train
+    argv = job["argv"]
+    tp = int(argv[argv.index("--tp") + 1])
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    with watch_steps(state=True, tp=tp, stride=job.get("stride", 1),
+                     keep_steps=job.get("save", False)) as seen:
+        t0 = time.time()
+        records = launch_train.run(argv)
+        t1 = time.time()
+    after = counts()
+    total = {k: after[k] - before[k] for k in after}
+    rest = {k: v - sum(step[k] for step in seen["launches"])
+            for k, v in total.items()}
+    out = {"records": records, "digests": seen["digests"],
+           "replicated": seen["replicated"],
+           "state_bytes": seen["state_bytes"],
+           "step_launches": seen["launches"], "other_launches": rest,
+           "starts": seen["starts"], "run_s": [t0, t1]}
+    path = Path(out_dir or ".") / f"{job['name']}.rank{rank}.pt"
+    if job.get("save") and out_dir is None:
+        out["leaves"] = seen["leaves"]
+    elif job.get("save"):
+        torch.save(seen["leaves"], path)
+    elif job.get("save_last"):
+        torch.save([p.detach().cpu() for p in tree_leaves(seen["last"])],
+                   path)
+    return out
+
+
 def ready_path(wait_for, rank: int) -> str:
     """The file rank ``rank`` writes when its first step is done on the
     card and it waits for ``wait_for``."""
@@ -516,8 +614,18 @@ def grid_cases(grid: collectives.Grid, rows, device, *, world: int,
     in ``pipelined`` mode, and the reduce-scatter of ``rs``. On a grid of
     G > 1 pods the names take the prefix ``pods<G>:`` and the small arena
     drops at ``pod_rate``."""
-    pods, n = grid.pods, world // grid.pods
-    prefix = "" if pods == 1 else f"pods{pods}:"
+    pods, tp, n = grid.pods, grid.tp, world // (grid.pods * grid.tp)
+    prefix = ("" if pods == tp == 1 else f"pods{pods}:" if pods > 1
+              else f"tp{tp}:")
+    if tp > 1:                         # the small arena alone
+        x = peer_rows(rows, *arena, 0, device)
+        for name, y, frac, launched in sync_cases(
+                x, grid, rate=rate, block=block, packet=packet,
+                strategies=TP_STRATEGIES, policies=None):
+            yield prefix + name, y, frac, launched
+        for name, y in tp_primitive_cases(x, grid):
+            yield prefix + name, y, None, None
+        return
     if arena:
         x = peer_rows(rows, *arena, 0, device)
         policies = (POLICIES if (pods, n) == (1, 4) else POD_POLICIES
@@ -586,11 +694,15 @@ def run(args, device) -> None:
                 "launches": {k: after[k] - before[k] for k in after}}
             if keep and rank == 0:
                 torch.save(seen["params"], out_dir / f"{job['name']}.pt")
-        for pods in args.pods:
-            grid = collectives.rank_grid(pods=pods)
+        grids = [(collectives.rank_grid(pods=pods), [rank])
+                 for pods in args.pods]
+        if args.tp > 1:
+            grids.append((collectives.rank_grid(tp=args.tp),
+                          tp_stacked_rows(world, args.tp, rank)))
+        for grid, rows in grids:
             sent, held = collectives.dist_bytes, collectives.dist_s
             for name, y, frac, launched in grid_cases(
-                    grid, [rank], device, world=world, arena=args.arena,
+                    grid, rows, device, world=world, arena=args.arena,
                     full=args.full, rs=args.rs, rate=args.rate,
                     pod_rate=args.rate if args.pod_rate is None
                     else args.pod_rate, block=args.block,
@@ -608,6 +720,9 @@ def run(args, device) -> None:
             job = json.loads(spec)
             report["train"][job["name"]] = pod_train(job, device,
                                                      dist.group.WORLD)
+        for spec in args.tp_train:
+            job = json.loads(spec)
+            report["train"][job["name"]] = tp_train(job, out_dir, rank)
     finally:
         dist.destroy_process_group()
     if arrays:
@@ -634,6 +749,12 @@ def main(argv=None) -> int:
                          "(default --rate)")
     ap.add_argument("--pod-train", action="append", default=[],
                     help="JSON of a pod_train run")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="T > 1: the small arena's tp cases on the (data, "
+                         "model) grid of the world's ranks, model innermost")
+    ap.add_argument("--tp-train", action="append", default=[],
+                    help='JSON of a tp_train run {"name": ..., "argv": '
+                         '[...], "save": ..., "stride": ...}')
     ap.add_argument("--block", type=int, default=256)
     ap.add_argument("--packet", type=int, default=64)
     ap.add_argument("--rate", type=float, default=0.05)
