@@ -247,16 +247,17 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     (mamba2-1.3b's profile was cut to pay for the restarted steps of the
     card-vs-CPU cases);
 51. ``serve_main``: ``repro_torch.launch.serve`` (its ``main``) on the
-    card, gpt2-paper at full width, ``--batch 128 --prompt-len 128
-    --max-new 128`` (255 decode steps, a 1.21 GB bf16 KV cache; the
-    896-token prompt was cut to pay for 72.-74.): its two lines, tok/s, ms
-    a decode step (CUDA events, median after 4), the cache's and the peak
-    bytes; the output (128, 256) in vocab; no kernel of the repo launched
-    (serving reaches none);
+    card, gpt2-paper at full width, ``--batch 128 --prompt-len 64
+    --max-new 128`` (191 decode steps, a 0.91 GB bf16 KV cache; the
+    896-token prompt was cut to 128 to pay for 72.-74. and to 64 for
+    76.): its two lines, tok/s, ms a decode step (CUDA events, median
+    after 4), the cache's and the peak bytes; the output (128, 192) in
+    vocab; no kernel of the repo launched (serving reaches none);
 52. ``serve_families``: ``serve.generate`` at full width and depth on
-    glm4-9b (B 32, prompt 64, 64 new: its 256-token prompt was cut to pay
-    for 75.), qwen2-moe-a2.7b (B 32, prompt 64, 32 new) and mamba2-1.3b
-    (B 32, prompt 128, 64 new), bf16: the same numbers, tokens in vocab;
+    glm4-9b (B 32, prompt 64, 32 new: its 256-token prompt was cut to pay
+    for 75., its 64 new for 76.), qwen2-moe-a2.7b (B 32, prompt 64, 32
+    new) and mamba2-1.3b (B 32, prompt 64, 64 new: its 128-token prompt
+    was cut to pay for 76.), bf16: the same numbers, tokens in vocab;
 53. ``serve_prefill``: ``prefill_step`` on gpt2-paper at B 32 and a
     1024-token prompt against the teacher-forced loop: the share of first
     tokens that agree, the fp32 logit margins, the caches within 0.05 of
@@ -422,9 +423,23 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     rank and
     step host ms, peak bytes, state bytes, bytes sent by axis (data,
     model) and host s in gloo's calls;
-76. ``seconds``: the script's wall clock, whole and by group of phases,
-    with ``dist_tp_main``'s seconds inside the ``dist`` group (its ranks'
-    run and its stacked side).
+76. ``dist_tp_fsdp_main``: the same launcher flags with ``--dp-mode fsdp``
+    (FSDP x TP over ranks: rank ``i * 2 + t`` holds only data shard i of
+    tp chunk t of every leaf sharded over both, and of its AdamW moments;
+    the gather builds its tp chunk over its data group, each site's
+    reduce-scatter runs in its data group), after ``dist_tp_main`` in
+    gloo's world, against the stacked ``--dp 2 --tp 2 --dp-mode fsdp``
+    run beside it: each rank's launches a step exactly 174 B1 and 87 B2
+    (``TP_PER_STEP["tp_fsdp"]``, the stacked step's too) and the stacked
+    step's T1, none else, one T1 a normal leaf at init; after each step
+    the leaves no rank shards (the norms, and their moments) bitwise equal
+    on every rank; loss and grad norm within ``DIST_TP_REL``; each rank's
+    blocks within ``DIST_TP_PARAM_TOL`` beyond a bf16 step a step of the
+    stacked blocks; state bytes a rank :func:`tp_rank_state_bytes`; the
+    same rows per rank and step as ``dist_tp_main``;
+77. ``seconds``: the script's wall clock, whole and by group of phases,
+    with ``dist_tp_main``'s and ``dist_tp_fsdp_main``'s seconds inside the
+    ``dist`` group (their ranks' run and their stacked side).
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -739,9 +754,9 @@ def main() -> int:
     sync_strategies(dev, counters)
     lap("strategies")
 
-    # 67.-75. one rank a peer over a process group (ROADMAP A18c): 4 gloo
+    # 67.-76. one rank a peer over a process group (ROADMAP A18c): 4 gloo
     # ranks on the card, flat, as a 2 x 2 pod grid and as a (data 2, model
-    # 2) tp grid, then nccl at the card count
+    # 2) tp grid, replicated and FSDP x TP, then nccl at the card count
     dist_tp = dist_paths(dev)
     lap("dist")
 
@@ -811,15 +826,17 @@ def main() -> int:
     lap("netsim_wait")
     emit({"phase": "seconds", "total": marks[-1] - marks[0],
           "by_group": laps, "dryrun_own_s": dryrun_s,
-          "in_dist": {f"dist_tp_main_{k}": v for k, v in dist_tp.items()
-                      if k != "launches"}})
+          "in_dist": {f"dist_{run}_{k}": v for run, held in dist_tp.items()
+                      for k, v in held.items() if k != "launches"}})
 
     kernels.append({
         "name": "fwht", "route": "cuda",
         "source": "src/repro_torch/kernels/fwht/csrc/fwht.cu",
         "replaces": "src/repro/kernels/fwht/fwht.py:130",
         "launches": launches["optireduce"]["fwht"],
-        "dist_tp_main_launches": dist_tp["launches"]["fwht"],
+        "dist_tp_main_launches": dist_tp["tp_main"]["launches"]["fwht"],
+        "dist_tp_fsdp_main_launches":
+            dist_tp["tp_fsdp_main"]["launches"]["fwht"],
         "max_abs_err": b1["max_abs_err"],
         "ms": b1["ms"], "plain_ms": b1["plain_ms"],
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
@@ -829,7 +846,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/masked_sum/csrc/masked_mean.cu",
         "replaces": "src/repro/kernels/masked_sum/masked_sum.py:68",
         "launches": launches["optireduce"]["masked_mean"],
-        "dist_tp_main_launches": dist_tp["launches"]["masked_mean"],
+        "dist_tp_main_launches": dist_tp["tp_main"]["launches"]["masked_mean"],
+        "dist_tp_fsdp_main_launches":
+            dist_tp["tp_fsdp_main"]["launches"]["masked_mean"],
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
@@ -869,7 +888,9 @@ def main() -> int:
         "replaces": "none (jax.random threefry2x32 draws: "
                     "src/repro/core/hadamard.py:23, core/drops.py:38)",
         "launches": launches["draws"]["optireduce"]["threefry"],
-        "dist_tp_main_launches": dist_tp["launches"]["threefry"],
+        "dist_tp_main_launches": dist_tp["tp_main"]["launches"]["threefry"],
+        "dist_tp_fsdp_main_launches":
+            dist_tp["tp_fsdp_main"]["launches"]["threefry"],
         "max_abs_err": t1["max_abs_err"], "ms": t1["ms"],
         "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"], "library_ms": None})
@@ -3322,9 +3343,9 @@ MP_PER_STEP = {
 MP_UDP_CHECK = ("--elems", "4096", "--drop-rate", "0.05", "--drop-seed",
                 "3", "--deadline", "1.0")
 MP_KILL_STEPS = 8
-# s before each step's fence: a respawned worker takes ~7 s to start on the
-# card (interpreter, torch, CUDA context, warm-up), and the parent respawns
-# it at the third step's fence; at 2 s it rejoined only at the last step
+# s before each step's fence: the parent starts the respawned worker at the
+# death (interpreter, torch, CUDA context) and releases it to join at the
+# third step's fence; its restore and warm-up then hold the next fence
 MP_KILL_SLEEP = "3"
 
 
@@ -3511,8 +3532,10 @@ def multiproc_paths(dev, counters: dict) -> None:
           "rejoiner_steps": [s["step"] for s in rejoiner.get("steps", [])],
           "survivor_trails": trails,
           "skipped_after_kill": {r: ranks[r]["steps"][kill_step + 1]
-                                 ["skipped"] for r in trails}})
+                                 ["skipped"] for r in trails
+                                 if len(trails[r]) > kill_step + 1}})
     ok = (len(killed) == 1 and sorted(ranks) == list(range(PEERS))
+          and all(len(t) == MP_KILL_STEPS for t in trails.values())
           and rejoiner.get("resumed_from") == kill_step - 1
           and rejoiner["start_step"] > kill_step
           and rejoiner["steps"]
@@ -3739,14 +3762,17 @@ def check_families_against_cpu(dev) -> None:
 
 
 # ------------------------------------------------------ serving (A21)
-# a 128-token prompt and 128 new: 255 decode steps (a 896-token prompt, to
-# GPT-2's 1024-token context, was cut to pay for the pod grid over ranks)
+# a 64-token prompt and 128 new: 191 decode steps (a 896-token prompt, to
+# GPT-2's 1024-token context, was cut to 128 to pay for the pod grid over
+# ranks, and to 64 for FSDP x TP over ranks)
 SERVE_MAIN = ("--arch", "gpt2-paper", "--batch", "128", "--prompt-len",
-              "128", "--max-new", "128")
-SERVE_MAIN_STEPS = 255
+              "64", "--max-new", "128")
+SERVE_MAIN_STEPS = 191
 # arch -> (batch, prompt, new); each at full depth through ``generate``
-SERVE_FAMILIES = {"glm4-9b": (32, 64, 64), "qwen2-moe-a2.7b": (32, 64, 32),
-                  "mamba2-1.3b": (32, 128, 64)}
+# (glm4-9b's 64 new and mamba2-1.3b's 128-token prompt were cut to 32 and
+# 64 to pay for FSDP x TP over ranks)
+SERVE_FAMILIES = {"glm4-9b": (32, 64, 32), "qwen2-moe-a2.7b": (32, 64, 32),
+                  "mamba2-1.3b": (32, 64, 64)}
 SERVE_WARMUP = 4           # decode steps left out of the median
 PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW = 32, 1024, 32
 GRID_STEPS = 16            # teacher-forced steps of a grid plan
@@ -3830,8 +3856,9 @@ def serve_main(counters: dict) -> None:
     """Phase ``serve_main``: ``repro_torch.launch.serve.main`` on the card,
     gpt2-paper at full width, ``SERVE_MAIN`` (``SERVE_MAIN_STEPS`` decode
     steps, the prompt teacher-forced): the launcher's two lines, tok/s, ms
-    a step, the KV cache's and the peak bytes; the output (128, 256) in
-    vocab, no kernel of the repo launched (the serving path has none)."""
+    a step, the KV cache's and the peak bytes; the output (128, prompt +
+    new) in vocab, no kernel of the repo launched (the serving path has
+    none)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch_serve
@@ -3847,7 +3874,9 @@ def serve_main(counters: dict) -> None:
         rc = launch_serve.main(list(SERVE_MAIN))
     lines = out.getvalue().splitlines()
     m = re.match(r"generated \((\d+), (\d+)\) in ([0-9.]+)s", lines[0])
-    if rc != 0 or not m or (m.group(1), m.group(2)) != ("128", "256"):
+    seq = sum(int(SERVE_MAIN[SERVE_MAIN.index(flag) + 1])
+              for flag in ("--prompt-len", "--max-new"))
+    if rc != 0 or not m or (m.group(1), m.group(2)) != ("128", str(seq)):
         fail(f"serve_main: rc {rc}, lines {lines}")
     sample = json.loads(lines[1].removeprefix("sample: "))
     cfg = get_config("gpt2-paper")
@@ -5087,6 +5116,44 @@ def dist_pod_jobs(world: int) -> dict:
             "pod_fsdp": {**base, "name": "pod_fsdp", "dp_mode": "fsdp"}}
 
 
+# the tp grid's launcher runs over gloo's ranks: name -> flags past
+# dist_tp_argv
+DIST_TP_RUNS = {"tp_main": [], "tp_fsdp_main": ["--dp-mode", "fsdp"]}
+
+
+def _stacked_tp(world: int) -> dict:
+    """The stacked side of ``dist_tp_main`` and ``dist_tp_fsdp_main``: the
+    launcher at ``--dp world / TP --tp TP`` as one process, replicated and
+    FSDP x TP (``DIST_TP_RUNS``): each run's records, last parameters (on
+    the host), launches a step and seconds."""
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import train as launch_train
+    distcheck = _distcheck()
+    tp = {}
+    for run, extra in DIST_TP_RUNS.items():
+        t0 = time.perf_counter()
+        with distcheck.watch_steps(keep=True) as seen:
+            records = launch_train.run(dist_tp_argv(world, ranks=False)
+                                       + extra)
+        runtime.set_kernel_mode(None)
+        tp[run] = {"records": records, "params": seen["params"],
+                   "launches": seen["launches"],
+                   "seconds": time.perf_counter() - t0}
+        del seen
+        free_card()
+    return tp
+
+
+def dist_tp_jobs(world: int) -> list:
+    """The ``--tp-train`` flags of gloo's world: each of ``DIST_TP_RUNS``
+    under torchrun, a strided digest of the shards, the last parameters
+    saved."""
+    return [arg for run, extra in DIST_TP_RUNS.items()
+            for arg in ("--tp-train", json.dumps({
+                "name": run, "argv": dist_tp_argv(world, ranks=True) + extra,
+                "stride": DIST_TP_STRIDE, "save_last": True}))]
+
+
 def _stacked_side(dev, world: int, full: bool) -> dict:
     """The stacked form's side of the ``dist_*`` phases at ``world`` peers:
     each sync case's row digests, loss fraction and launches on the arenas
@@ -5113,19 +5180,12 @@ def _stacked_side(dev, world: int, full: bool) -> dict:
                 [distcheck.digest(row) for row in y], frac, launched)
             del y
         free_card()
-    tp = None
+    tp = {}
     if full:
         for name, job in dist_pod_jobs(world).items():
             pods[name] = distcheck.pod_train(job, dev)
             free_card()
-        t0 = time.perf_counter()
-        with distcheck.watch_steps(keep=True) as seen:
-            records = launch_train.run(dist_tp_argv(world, ranks=False))
-        runtime.set_kernel_mode(None)
-        tp = {"records": records, "params": seen["params"],
-              "launches": seen["launches"],
-              "seconds": time.perf_counter() - t0}
-        free_card()
+        tp = _stacked_tp(world)
     before = distcheck.counts()
     with distcheck.watch_steps(keep=True) as seen:
         records = launch_train.run(_dist_train_argv(world))
@@ -5375,16 +5435,40 @@ def _dist_pod_held(reports: list, want: dict) -> None:
                  f"launches {launches_ok}, state bytes {bytes_ok}")
 
 
-def _dist_tp_held(reports: list, want: dict, out: Path) -> dict:
-    """Phase ``dist_tp_main``: gloo's ranks as the ``(data 2, model 2)``
-    grid, the launcher with ``--tp 2`` (:func:`dist_tp_argv`), against the
-    stacked launcher's same steps (``want``): launches a rank a step and at
-    init, the replicated leaves bitwise equal on every rank, each rank's
-    state its data replica's, records within ``DIST_TP_REL``, the
-    parameter shards within ``DIST_TP_PARAM_TOL`` of the stacked slices,
-    state bytes a rank ``TP_LOCAL`` entries of bf16 and two fp32 moments.
-    A shard's entry is held to ``DIST_TP_PARAM_TOL`` beyond one bf16 step
-    a step at the stacked entry (both forms round it to bf16 each step).
+def tp_rank_state_bytes(world: int, fsdp: bool) -> int:
+    """Bytes of parameters and AdamW moments one of ``world`` ranks holds
+    on gpt2-paper at ``--dp world / TP --tp TP``: its tp chunk of each
+    tp-sharded leaf (``TP_LOCAL`` entries a rank), under FSDP x TP of that
+    its data shard (and its data shard of a leaf sharded over data only),
+    bf16 and two fp32 moments, the rest whole."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import _map_table, param_table
+    cfg = get_config("gpt2-paper")
+    leaves = []
+    _map_table(leaves.append, param_table(cfg, tp=TP, fsdp_axes=("data",)))
+    itemsize = torch.empty((), dtype=cfg.param_dtype).element_size()
+    entries = sum(math.prod(leaf.shape)
+                  // (1 if leaf.tp_dim is None else TP)
+                  // (1 if leaf.fsdp_dim is None or not fsdp
+                      else world // TP) for leaf in leaves)
+    return entries * (itemsize + 2 * 4)
+
+
+def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
+    """Phase ``dist_<run>``: gloo's ranks as the ``(data 2, model 2)``
+    grid, the launcher with ``--tp 2`` (:func:`dist_tp_argv`; ``tp_main``
+    replicated, ``tp_fsdp_main`` with ``--dp-mode fsdp``), against the
+    stacked launcher's same steps (``want``): launches a rank a step
+    (replicated: ``2 x TP_BUCKETS`` B1, ``TP_BUCKETS`` B2 and ``2 x
+    TP_BUCKETS`` T1; FSDP x TP: ``TP_PER_STEP["tp_fsdp"]``'s B1 and B2 and
+    the stacked step's T1, the stacked step's the same) and at init, the
+    leaves no rank shards bitwise equal on every rank, each rank's state
+    its data replica's (replicated), records within ``DIST_TP_REL``, each
+    rank's piece of the parameters (its tp chunk; under FSDP x TP the data
+    shard of it) within ``DIST_TP_PARAM_TOL`` of the stacked one's,
+    beyond one bf16 step a step at the stacked entry (both forms round it
+    to bf16 each step), state bytes a rank :func:`tp_rank_state_bytes`.
     Returns rank 0's launches a step and the seconds of the ranks' run, of
     its stacked side and of these checks."""
     t0 = time.perf_counter()
@@ -5393,33 +5477,46 @@ def _dist_tp_held(reports: list, want: dict, out: Path) -> dict:
     from repro_torch.models.transformer import tp_dims
     from repro_torch.train import elastic
     cfg = get_config("gpt2-paper")
-    runs = [rep["train"]["tp_main"] for rep in reports]
+    phase = f"dist_{run}"
+    fsdp = run == "tp_fsdp_main"
+    runs = [rep["train"][run] for rep in reports]
     world = len(runs)
-    per_step = {"fwht": 2 * TP_BUCKETS, "masked_mean": TP_BUCKETS,
-                "threefry": 2 * TP_BUCKETS}
+    if fsdp:
+        per_step = {**TP_PER_STEP["tp_fsdp"],
+                    "threefry": want["launches"][0]["threefry"]}
+    else:
+        per_step = {"fwht": 2 * TP_BUCKETS, "masked_mean": TP_BUCKETS,
+                    "threefry": 2 * TP_BUCKETS}
     at_init = {"threefry": _normal_leaves(cfg)}
     launches_ok = all(
         all(step[k] == per_step.get(k, 0) for k in step)
         and all(n == at_init.get(k, 0)
-                for k, n in run["other_launches"].items())
-        for run in runs for step in run["step_launches"])
-    replicated_ok = all(run["replicated"] == runs[0]["replicated"]
-                        for run in runs)
-    replicas_ok = all(runs[r]["digests"] == runs[r + TP]["digests"]
-                      for r in range(world - TP))
+                for k, n in run_["other_launches"].items())
+        for run_ in runs for step in run_["step_launches"]) and (
+        not fsdp or all(all(step[k] == per_step.get(k, 0) for k in step)
+                        for step in want["launches"]))
+    replicated_ok = all(run_["replicated"] == runs[0]["replicated"]
+                        for run_ in runs)
+    # replicated: rank r and r + TP hold one state; FSDP x TP: each its own
+    replicas_ok = all((runs[r]["digests"] == runs[r + TP]["digests"])
+                      != fsdp for r in range(world - TP))
     rel = max(abs(rec[k] - ref[k]) / abs(ref[k])
-              for run in runs for rec, ref in zip(run["records"],
-                                                   want["records"])
+              for run_ in runs for rec, ref in zip(run_["records"],
+                                                    want["records"])
               for k in ("loss", "grad_norm"))
-    count = TP_LOCAL * (2 + 2 * 4)
-    bytes_ok = all(b == count for run in runs for b in run["state_bytes"])
-    dims = tp_dims(cfg, TP)
+    count = tp_rank_state_bytes(world, fsdp)
+    bytes_ok = all(b == count for run_ in runs for b in run_["state_bytes"])
+    tp_d = tp_dims(cfg, TP)
+    fs_d = elastic.fsdp_dims(cfg, TP) if fsdp else [None] * len(tp_d)
     gap, excess = 0.0, -math.inf
     for r in range(world):
-        shards = torch.load(out / f"tp_main.rank{r}.pt")
-        for x, full, d in zip(shards, want["params"], dims):
-            piece = (full if d is None else elastic.split_leaf(
-                full, d, TP)[r % TP]).float()
+        shards = torch.load(out / f"{run}.rank{r}.pt")
+        for x, full, a, b in zip(shards, want["params"], tp_d, fs_d):
+            piece = full if a is None else elastic.split_leaf(full, a,
+                                                              TP)[r % TP]
+            if b is not None:
+                piece = elastic.split_leaf(piece, b, world // TP)[r // TP]
+            piece = piece.float()
             diff = (x.float() - piece).abs()
             # a bf16 step at the stacked entry: 2^(e - 8), |b| = m 2^e
             step = torch.where(piece == 0, 0.0, torch.ldexp(
@@ -5427,26 +5524,28 @@ def _dist_tp_held(reports: list, want: dict, out: Path) -> dict:
             gap = max(gap, float(diff.max()))
             excess = max(excess, float((diff - DIST_STEPS * step).max()))
         del shards
-    for r, run in enumerate(runs):
-        for i, rec in enumerate(run["records"]):
-            emit({"phase": "dist_tp_main_step", "rank": r, "step": i,
+    for r, run_ in enumerate(runs):
+        for i, rec in enumerate(run_["records"]):
+            emit({"phase": f"{phase}_step", "rank": r, "step": i,
                   "loss": rec["loss"], "loss_frac": rec["loss_frac"],
                   "grad_norm": rec["grad_norm"],
                   "step_ms": rec["step_s"] * 1e3,
                   "peak_bytes": rec.get("peak_bytes"),
-                  "state_bytes": run["state_bytes"][i],
+                  "state_bytes": run_["state_bytes"][i],
                   "dist_bytes": rec["dist_bytes"],
                   "dist_axis_bytes": rec["dist_axis_bytes"],
                   "dist_s": rec["dist_s"],
-                  "launches": run["step_launches"][i]})
-    seconds = max(run["run_s"][1] - run["run_s"][0] for run in runs)
-    emit({"phase": "dist_tp_main", "backend": reports[0]["backend"],
+                  "launches": run_["step_launches"][i]})
+    seconds = max(run_["run_s"][1] - run_["run_s"][0] for run_ in runs)
+    emit({"phase": phase, "backend": reports[0]["backend"],
           "ranks": world, "dp": world // TP, "tp": TP, "steps": DIST_STEPS,
+          "dp_mode": "fsdp" if fsdp else "replicated",
           "launches_ok": launches_ok, "per_step_want": per_step,
           "init_want": at_init,
-          "init_launches": [run["other_launches"] for run in runs],
+          "init_launches": [run_["other_launches"] for run_ in runs],
           "replicated_bitwise_equal": replicated_ok,
-          "data_replicas_bitwise_equal": replicas_ok,
+          "data_replicas_bitwise_equal": None if fsdp else replicas_ok,
+          "ranks_states_differ": replicas_ok if fsdp else None,
           "records_max_rel_diff": rel, "records_tolerance": DIST_TP_REL,
           "params_max_abs_diff": gap,
           "params_max_beyond_bf16_steps": excess,
@@ -5459,11 +5558,12 @@ def _dist_tp_held(reports: list, want: dict, out: Path) -> dict:
           "stacked_launches": want["launches"]})
     if not (launches_ok and replicated_ok and replicas_ok and bytes_ok
             and rel <= DIST_TP_REL and excess <= DIST_TP_PARAM_TOL):
-        fail(f"dist_tp_main: launches {launches_ok}, replicated "
-             f"{replicated_ok}, data replicas {replicas_ok}, records "
-             f"{rel} (tolerance {DIST_TP_REL}), params {excess} beyond a "
-             f"bf16 step a step (tolerance {DIST_TP_PARAM_TOL}), state bytes "
-             f"{bytes_ok} ({count} expected)")
+        fail(f"{phase}: launches {launches_ok}, replicated "
+             f"{replicated_ok}, data replicas (or distinct states) "
+             f"{replicas_ok}, records {rel} (tolerance {DIST_TP_REL}), "
+             f"params {excess} beyond a bf16 step a step (tolerance "
+             f"{DIST_TP_PARAM_TOL}), state bytes {bytes_ok} ({count} "
+             "expected)")
     return {"launches": runs[0]["step_launches"][-1], "ranks_s": seconds,
             "stacked_s": want["seconds"],
             "checks_s": time.perf_counter() - t0}
@@ -5505,10 +5605,11 @@ def dist_paths(dev) -> dict:
     ``dist_pod_sync``, ``dist_pod_main``, ``dist_pod_fsdp_main`` (gloo's
     world, after those): the same ranks as a ``(pod 2, data 2)`` grid of
     groups, the syncs and :func:`dist_pod_jobs` against the stacked 2 x 2
-    grid (see :func:`_dist_pod_held`). ``dist_tp_main`` (gloo's world,
-    last): the ranks as a ``(data 2, model 2)`` grid, the launcher at
-    ``--tp 2`` (see :func:`_dist_tp_held`); returned: its launches a rank
-    a step and its seconds.
+    grid (see :func:`_dist_pod_held`). ``dist_tp_main`` and
+    ``dist_tp_fsdp_main`` (gloo's world, last): the ranks as a ``(data 2,
+    model 2)`` grid, the launcher at ``--tp 2``, replicated and with
+    ``--dp-mode fsdp`` (see :func:`_dist_tp_held`); returned: each run's
+    launches a rank a step and its seconds.
 
     Both worlds start at once and run their launcher first; both stacked
     sides run in this process meanwhile, during the ranks' start-up and
@@ -5550,10 +5651,7 @@ def dist_paths(dev) -> dict:
                         "--pods", f"1,{DIST_PODS}", "--pod-rate",
                         str(DIST_POD_RATE)] + [
             arg for job in dist_pod_jobs(world).values()
-            for arg in ("--pod-train", json.dumps(job))] + [
-            "--tp-train", json.dumps({
-                "name": "tp_main", "argv": dist_tp_argv(world, ranks=True),
-                "stride": DIST_TP_STRIDE, "save_last": True})]
+            for arg in ("--pod-train", json.dumps(job))] + dist_tp_jobs(world)
 
     free_card()
     t0 = time.perf_counter()
@@ -5587,7 +5685,9 @@ def dist_paths(dev) -> dict:
             if backend == "gloo":
                 _dist_fsdp_held(reports)
                 _dist_pod_held(reports, want)
-                tp = _dist_tp_held(reports, want["tp"], out / backend)
+                tp = {run: _dist_tp_held(reports, want["tp"][run],
+                                         out / backend, run)
+                      for run in want["tp"]}
     finally:
         for proc in (p for ranks in procs for p in ranks):
             if proc.poll() is None:

@@ -80,8 +80,12 @@ as every tp group of the stacked form does; ``index_on(MODEL)`` is ``r mod
 T``. A stack holds the rank's one row: the grid's ``tp_rows`` is 1, and
 the sync sees one tp group (the codecs' grids ungrouped). :func:`psum`
 over ``MODEL`` gathers the tp group's rows and adds them in rank order in
-their dtype (no library ``all_reduce``), as ``pmean`` does. Pods and tp
-together over ranks are a later slice (ROADMAP A18c).
+their dtype (no library ``all_reduce``), as ``pmean`` does. With one pod
+``BOTH`` is the data group, so the FSDP weight gather over ``BOTH``
+(FSDP x TP over ranks) joins the data shards of the rank's own tp chunk,
+and a checkpoint's gather of a leaf cut both ways runs over ``BOTH``, then
+``MODEL``. Pods and tp together over ranks are a later slice (ROADMAP
+A18c).
 """
 from __future__ import annotations
 

@@ -35,15 +35,18 @@ rank R SIGKILL itself after the step-S phase-1 fence (mid-step: the
 survivors' receive deadlines expire and the step completes *degraded*);
 the coordinator's EOF detection frees the slot, survivors drain the death
 event at their next step fence and force-eject R through the ControlPlane.
-With ``--restart``, the parent respawns the dead uid once the group has
-moved past the crash step; the fresh process restores from ``--ckpt-dir``
+With ``--restart``, the parent starts the dead uid's new process at once
+and releases it to join once the group has moved past the crash step (its
+start, imports and CUDA context, runs before the release, so a slow start
+cannot outlast the run); the fresh process restores from ``--ckpt-dir``
 (``train/checkpoint.py``), rejoins — claiming the freed slot, required
 only from its ``since`` step boundary — and readmits through PROBATION.
 
 Each worker writes a JSON report (per-step output checksums, observed
 loss, live set, detector statuses, membership generation; beside the
-reference's keys, ``start_s`` — seconds from the worker's start to its
-first fence — and each step's host ``step_s``); the parent merges them
+reference's keys, ``start_s`` — seconds from the worker's start, or a
+respawned worker's release, to its first fence — and each step's host
+``step_s``); the parent merges them
 into ``--report``. On CUDA the parent builds every kernel before the
 first worker starts, so no worker, and no respawned rank, compiles inside
 the run.
@@ -284,9 +287,32 @@ def _thread_crash(client) -> None:
     raise _Killed()
 
 
+def _await_release(args) -> float:
+    """A respawned worker's start: import what the worker loop needs (and
+    create the CUDA context), then wait until the parent creates
+    ``--join-file``. Its join then follows its release at once, however
+    long its start took, so it can never miss the run it rejoins. Returns
+    the ``time.monotonic()`` of the release."""
+    import torch
+
+    from repro_torch.core import keys, pipeline  # noqa: F401
+    from repro_torch.net import HostPeer  # noqa: F401
+    from repro_torch.runtime import ControlPlane  # noqa: F401
+    from repro_torch.train import checkpoint  # noqa: F401
+    if args.device.startswith("cuda"):
+        torch.cuda.init()
+    deadline = time.monotonic() + args.timeout
+    while not os.path.exists(args.join_file):
+        if time.monotonic() > deadline:
+            raise SystemExit(f"multiproc worker {args.uid}: not released "
+                             f"in {args.timeout}s")
+        time.sleep(0.02)
+    return time.monotonic()
+
+
 def _worker_main(args) -> int:
     """``--worker`` subprocess entry (udp backend only)."""
-    t0 = time.monotonic()
+    t0 = _await_release(args) if args.join_file else time.monotonic()
     from repro_torch.net import (RendezvousClient, UdpProcessBackend,
                                  bernoulli_drops)
 
@@ -309,8 +335,8 @@ def _worker_main(args) -> int:
 
 
 # ----------------------------------------------------------------- parent
-def _spawn(args, uid: int, rendezvous: str, report_file: str
-           ) -> subprocess.Popen:
+def _spawn(args, uid: int, rendezvous: str, report_file: str,
+           join_file: str | None = None) -> subprocess.Popen:
     cmd = [sys.executable, "-m", "repro_torch.launch.multiproc", "--worker",
            "--uid", str(uid), "--rendezvous", rendezvous,
            "--report-file", report_file, "--device", args.device,
@@ -331,6 +357,8 @@ def _spawn(args, uid: int, rendezvous: str, report_file: str
         cmd += ["--ckpt-dir", args.ckpt_dir]
     if args.trace_dir:
         cmd += ["--trace-dir", args.trace_dir]
+    if join_file:
+        cmd += ["--join-file", join_file]
     env = dict(os.environ)
     # make `python -m repro_torch.launch.multiproc` resolvable in the child
     # even when the parent found the package via a sys.path edit
@@ -357,13 +385,14 @@ def _launch_udp(args) -> dict:
     procs: dict[int, tuple[subprocess.Popen, str]] = {}
     report_files: list[str] = []
 
-    def spawn(uid: int, attempt: int) -> None:
+    def spawn(uid: int, attempt: int, join_file: str | None = None) -> None:
         path = os.path.join(reports_dir, f"uid{uid}_a{attempt}.json")
         report_files.append(path)
-        procs[uid] = (_spawn(args, uid, rdv, path), path)
+        procs[uid] = (_spawn(args, uid, rdv, path, join_file), path)
 
     deadline = time.monotonic() + args.timeout
     respawned = False
+    release = os.path.join(reports_dir, "release")
     want_restart = args.restart and args.kill_rank >= 0
     failures: list[str] = []
     try:
@@ -381,23 +410,24 @@ def _launch_udp(args) -> dict:
                     continue
                 del procs[uid]
                 if rc == -signal.SIGKILL and want_restart and not respawned:
-                    # the scripted victim: respawn once the coordinator has
-                    # processed the death (slot freed) and the survivors
-                    # have finished the post-crash step — a step-(k+1)
-                    # fence arrival means every survivor drained the death
-                    # event at its step-(k+1) boundary (the step's phase
-                    # barriers cannot all release otherwise), so the
-                    # ejection is observed at every rank before the rejoin
-                    # can race a fence
+                    # the scripted victim: its new process starts now and
+                    # waits for the release below before it joins
                     respawned = True
-                    while (server is not None
-                           and (len(server.live_ranks()) >= args.nprocs
-                                or server.latest_step() <= args.kill_step + 1)
-                           and time.monotonic() < deadline):
-                        time.sleep(0.05)
-                    spawn(uid, 1)
+                    spawn(uid, 1, join_file=release)
                 elif rc != 0:
                     failures.append(f"uid {uid} exited {rc}")
+            # release the respawned process once the coordinator has
+            # processed the death (slot freed) and the survivors have
+            # finished the post-crash step — a step-(k+1) fence arrival
+            # means every survivor drained the death event at its
+            # step-(k+1) boundary (the step's phase barriers cannot all
+            # release otherwise), so the ejection is observed at every rank
+            # before the rejoin can race a fence
+            if respawned and not os.path.exists(release) and (
+                    server is None
+                    or (len(server.live_ranks()) < args.nprocs
+                        and server.latest_step() > args.kill_step + 1)):
+                open(release, "w").close()
             time.sleep(0.05)
     finally:
         # a timeout or an error here must not leave workers behind
@@ -558,6 +588,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--uid", type=int, default=-1, help=argparse.SUPPRESS)
     ap.add_argument("--report-file", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--join-file", default=None, help=argparse.SUPPRESS)
     return ap
 
 

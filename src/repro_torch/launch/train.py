@@ -47,7 +47,7 @@ sync's collectives go over a ``torch.distributed`` process group,
 on one card) or ``gloo`` (the default on the CPU; it stages CUDA tensors
 through the host). Rank 0 prints and writes the report, trace and
 checkpoints. This form runs replicated data parallelism and, with
-``--dp-mode fsdp``, ZeRO-3 on one pod at tp 1 in ``--sync-mode scan`` or
+``--dp-mode fsdp``, ZeRO-3 on one pod in ``--sync-mode scan`` or
 ``pipelined``. Under FSDP each rank holds only its shard of every sharded
 leaf and of its optimizer state: it draws the parameters one full leaf at
 a time and keeps its slice (``train/elastic.py``); ``--ckpt-dir`` gathers
@@ -60,13 +60,19 @@ index i and tp rank t (the reference's ``("data", "model")`` mesh, model
 innermost): each rank holds only its tp shard of every tp-sharded leaf and
 of its moments (drawn a full leaf at a time, checkpointed as full leaves
 gathered over its tp group), and the model's tp sums run in its tp group;
-the dense family, replicated. The launcher has no pod flag (nor the
-reference's): the ``(pod, data)`` grid over ranks runs through
+the dense family. With ``--dp-mode fsdp`` as well (FSDP x TP) rank ``i *
+T + t`` holds only data shard i of tp chunk t of every leaf sharded over
+both, and of its moments: init cuts both from each full leaf as it is
+drawn, a checkpoint gathers each leaf over the data group and then over
+the tp group into the full leaf, and ``--resume`` cuts them again
+(``train/elastic.py``'s ``rank_cuts``). The launcher has no pod flag (nor
+the reference's): the ``(pod, data)`` grid over ranks runs through
 ``build_train_step(..., group=)`` on a pod mesh (``tools/distcheck.py
 --pod-train``). ``--production-mesh``, ``--sync-mode vmap``,
 ``--recovery``, ``--transport``, ``--adaptive``, and with ``--tp``
-``--dp-mode fsdp``, ``--seq-parallel`` and the MoE, SSM, hybrid and
-frontend families over ranks raise (later slices of ROADMAP A18c).
+``--seq-parallel`` and the MoE, SSM, hybrid and frontend families over
+ranks raise (later slices of ROADMAP A18c), as do pods x tp and Adafactor
+over tp ranks in ``build_train_step``.
 On the card every Hadamard encode/decode, every drop-compensated mean and,
 with ``--strategy optireduce_q``, every quantization stage (grid pass,
 stage-1 codes, dequant + mean, stage-2 codes) is a launch of the port's
@@ -109,6 +115,9 @@ Example:
       --smoke --device cpu --steps 2 --drop-rate 0.01 --dp-mode fsdp
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --smoke --device cpu --dist-backend gloo --dp 2 --tp 2 --steps 2
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --smoke --device cpu --dist-backend gloo --dp 2 --tp 2 --steps 2 \\
+      --dp-mode fsdp
 """
 from __future__ import annotations
 
@@ -264,8 +273,6 @@ def prefix_embeds(cfg, args, step: int) -> np.ndarray:
 # flags the one-rank-a-peer form refuses: each is a later slice of A18c
 RANK_REFUSED = (
     ("--production-mesh", lambda a: a.production_mesh),
-    ("--dp-mode fsdp with --tp (FSDP x TP)",
-     lambda a: a.tp != 1 and a.dp_mode == "fsdp"),
     ("--sync-mode vmap", lambda a: a.sync_mode == "vmap"),
     ("--recovery", lambda a: a.recovery != "none"),
     ("--transport", lambda a: a.transport != "lossy"),
@@ -431,26 +438,22 @@ def _run(ap, args, group, device) -> list[dict]:
                                       global_batch=args.global_batch,
                                       seed=args.seed))
         key = make_key(args.seed)
-        # FSDP over ranks: this rank's shard of each leaf, cut from the
-        # full leaf as it is drawn; tp over ranks: its tp chunk (of n, its
-        # piece, over the axis whose group joins them)
+        # over ranks under FSDP or tp: this rank's piece of each leaf (its
+        # FSDP shard, its tp chunk, or under FSDP x TP the shard of its tp
+        # chunk), cut from the full leaf as it is drawn
         sharded = group is not None and (args.dp_mode == "fsdp" or tp > 1)
-        dims = pieces = piece = axis = None
-        if sharded and tp > 1:
-            dims, pieces, piece = elastic.tp_dims(cfg, tp), tp, rank % tp
-            axis = collectives.MODEL
-        elif sharded:
-            dims, pieces, piece = elastic.fsdp_dims(cfg, tp), ranks, rank
+        cuts = (elastic.rank_cuts(cfg, ranks=ranks, rank=rank, tp=tp,
+                                  fsdp=args.dp_mode == "fsdp")
+                if sharded else None)
         params = init_params(key, cfg, device=device, tp=tp, keep=(
-            (lambda i, w: elastic.rank_piece(w, dims[i], pieces, piece))
-            if sharded else None))
+            (lambda i, w: elastic.cut_piece(w, cuts[i])) if sharded
+            else None))
         step_fn, opt = build_train_step(cfg, tc, mesh, device=device,
                                         group=group)
         opt_state = opt.init(params)
         if sharded:
-            dims = dims + elastic.state_dims(
-                cfg, opt_state, opt.state_like_params, tp,
-                dims=dims if tp > 1 else None)
+            cuts = cuts + elastic.state_dims(
+                cfg, opt_state, opt.state_like_params, dims=cuts)
         rec_state = None
         if args.recovery != "none":
             plan = BucketPlan.for_tree(params, tc.bucket_elems)
@@ -468,10 +471,10 @@ def _run(ap, args, group, device) -> list[dict]:
 
         def save(label: int) -> None:
             tree = ckpt_tree()
-            if sharded:       # every rank joins each leaf's gather
-                tree = elastic.gather_rank_tree(
-                    tree, dims, collectives.rank_grid(group, tp=tp),
-                    keep=ckpt is not None, axis=axis)
+            if sharded:       # every rank joins each leaf's gathers
+                tree = elastic.gather_cut_tree(
+                    tree, cuts, collectives.rank_grid(group, tp=tp),
+                    keep=ckpt is not None)
             if ckpt is not None:
                 ckpt.save(label, tree)
 
@@ -480,9 +483,8 @@ def _run(ap, args, group, device) -> list[dict]:
                 start_step, restored, _ = ckpt_lib.restore(
                     args.ckpt_dir, ckpt_tree(),
                     device="cpu" if sharded else device)
-                if sharded:   # this rank's slice of each full leaf
-                    restored = elastic.rank_tree(restored, dims, pieces,
-                                                 piece, device)
+                if sharded:   # this rank's piece of each full leaf
+                    restored = elastic.cut_tree(restored, cuts, device)
                 if rec_state is None:
                     params, opt_state = restored
                 else:

@@ -13,14 +13,16 @@ controller re-forms the membership). What remains is state surgery:
   (``launch/train.py`` under ``torchrun``, or ``build_train_step(...,
   group=)`` on a ``(pod, data)`` grid of G x N ranks) takes its shard of
   each leaf through the same slicing, G x N pieces pod-major, rank ``g * N
-  + i`` the piece of that index (``rank_piece``, ``rank_tree``), and puts
-  the ranks' shards back together through the same join
-  (``gather_rank_tree``), for its checkpoints.
+  + i`` the piece of that index, and puts the ranks' shards back together
+  through the same join, for its checkpoints.
 * tp shards over ranks: the same functions along each leaf's tp dim
-  (``transformer.tp_dims``), T pieces, tp rank t the t-th: init keeps
-  rank t's chunk of each full leaf as it is drawn, a checkpoint gathers
-  each leaf's chunks over the tp group (``axis=MODEL``) into the full
-  leaf, the stacked format, and ``--resume`` cuts them again.
+  (``transformer.tp_dims``), T pieces, tp rank t the t-th; under FSDP x
+  TP both cuts, the tp chunk first, then its data shard. One rank's cuts
+  of every leaf are :func:`rank_cuts`: init keeps the rank's piece of each
+  full leaf as it is drawn (:func:`cut_piece`), a checkpoint gathers each
+  leaf's pieces back into the full leaf, the stacked format
+  (:func:`gather_cut_tree`: over the data group, then over the tp group),
+  and ``--resume`` cuts them again (:func:`cut_tree`).
 * data pipeline: deterministic (step, host, n_hosts) indexing re-partitions
   the global stream automatically (data/pipeline.py).
 
@@ -50,8 +52,9 @@ def state_dims(cfg: ModelConfig, opt_state: Any, like_params: bool,
     """Each leaf's fsdp dim of an optimizer state, in tree order: the
     parameters' dims once for each parameter-shaped tree it holds
     (``like_params``: AdamW's two moments, momentum's one), else None for
-    every leaf (a state replicated whole). ``dims``: the parameters' dims
-    to repeat instead of their fsdp dims (their tp dims, for tp shards)."""
+    every leaf (a state replicated whole). ``dims``: the parameters' entries
+    to repeat instead of their fsdp dims (a rank's :func:`rank_cuts`, or
+    their tp dims)."""
     n = len(tree_leaves(opt_state))
     if not like_params:
         return [None] * n
@@ -85,17 +88,6 @@ def join_leaf(parts: list, dim: int | None) -> torch.Tensor:
     return parts[0] if dim is None else torch.cat(parts, dim=dim)
 
 
-def rank_piece(leaf: torch.Tensor, dim: int | None, n: int,
-               rank: int) -> torch.Tensor:
-    """What worker ``rank`` of ``n`` holds of a full leaf: its shard along
-    ``dim`` as a contiguous copy of its own, so the full leaf can be
-    freed (the leaf itself when replicated)."""
-    if dim is None:
-        return leaf
-    return split_leaf(leaf, dim, n)[rank].clone(
-        memory_format=torch.contiguous_format)
-
-
 def gather_shards(shard_trees: list, cfg: ModelConfig, tp: int = 1) -> Any:
     """Reassemble full params from the per-worker fsdp shards."""
     flats = [tree_leaves(t) for t in shard_trees]
@@ -115,30 +107,65 @@ def reshard(full_params: Any, cfg: ModelConfig, new_n: int, *, tp: int = 1
     return [tree_unflatten(full_params, s) for s in shards]
 
 
-def rank_tree(full: Any, dims: list, n: int, rank: int,
-              device: torch.device | str) -> Any:
-    """Worker ``rank``'s tree of ``n`` on ``device``: :func:`rank_piece`
-    of every leaf (``dims`` in tree order), one leaf at a time."""
-    return tree_unflatten(full, [
-        rank_piece(leaf, dim, n, rank).to(device)
-        for leaf, dim in zip(tree_leaves(full), dims)])
-
-
-def gather_rank_tree(tree: Any, dims: list, grid, *, keep: bool,
-                     axis=None) -> Any:
-    """The full tree of the ranks' shards (a process group's
-    ``collectives.Grid``): each sharded leaf gathered from every rank of
-    ``axis`` (default the whole ``(pod, data)`` grid, pod-major; ``MODEL``
-    the tp group) and joined along its dim, one leaf at a time; every rank
-    must call it.
-    Where ``keep``, the full leaves are copied to the host and returned as
-    a tree; elsewhere None (each gathered leaf is dropped at once)."""
+def rank_cuts(cfg: ModelConfig, *, ranks: int, rank: int, tp: int = 1,
+              fsdp: bool = False) -> list[tuple]:
+    """What rank ``rank`` of ``ranks`` holds of each leaf, in tree order:
+    the cuts that take its piece from the full leaf, applied in order, each
+    ``(dim, pieces, this rank's piece, the collectives axis whose group
+    holds the other pieces)``.
+    Over tp ranks (rank ``i * T + t`` of the ``(data, model)`` grid) tp
+    chunk t of T along the leaf's tp dim (the ``MODEL`` group); under FSDP
+    then data shard i of the N along its fsdp dim (``BOTH``: the data
+    group over tp ranks, the whole ``(pod, data)`` grid at tp 1, where
+    ``i`` is the rank). A leaf with neither dim is held whole (``()``)."""
     from repro_torch.core import collectives
-    axis = collectives.BOTH if axis is None else axis
+    tp_d = tp_dims(cfg, tp)                  # all None at tp 1
+    fs_d = fsdp_dims(cfg, tp) if fsdp else [None] * len(tp_d)
+    cuts = []
+    for a, b in zip(tp_d, fs_d):
+        leaf = []
+        if a is not None:
+            leaf.append((a, tp, rank % tp, collectives.MODEL))
+        if b is not None:
+            leaf.append((b, ranks // tp, rank // tp, collectives.BOTH))
+        cuts.append(tuple(leaf))
+    return cuts
+
+
+def cut_piece(leaf: torch.Tensor, cuts) -> torch.Tensor:
+    """The rank's piece of a full leaf (:func:`rank_cuts`; None or ``()``:
+    the leaf itself) as a contiguous copy of its own, so the full leaf can
+    be freed."""
+    if not cuts:
+        return leaf
+    for dim, n, piece, _ in cuts:
+        leaf = split_leaf(leaf, dim, n)[piece]
+    return leaf.clone(memory_format=torch.contiguous_format)
+
+
+def cut_tree(full: Any, cuts: list, device: torch.device | str) -> Any:
+    """The rank's tree on ``device``: :func:`cut_piece` of every leaf
+    (``cuts`` in tree order), one leaf at a time."""
+    return tree_unflatten(full, [cut_piece(leaf, c).to(device)
+                                 for leaf, c in zip(tree_leaves(full), cuts)])
+
+
+def gather_cut_tree(tree: Any, cuts: list, grid, *, keep: bool) -> Any:
+    """The full tree of the ranks' pieces (a process group's
+    ``collectives.Grid``): each leaf's cuts undone in reverse order, the
+    pieces of each gathered from every rank of its axis and joined along
+    its dim (under FSDP x TP the data group's shards of the tp chunk
+    first, then the tp group's chunks), one leaf at a time; a leaf
+    replicated over an axis reads this rank's copy. Every rank must call
+    it. Where ``keep``, the full leaves are copied to the host and
+    returned as a tree; elsewhere None (each gathered leaf is dropped at
+    once)."""
+    from repro_torch.core import collectives
     leaves = []
-    for leaf, dim in zip(tree_leaves(tree), dims):
-        full = leaf if dim is None else collectives.all_gather_dim(
-            leaf, dim, grid, axis)
+    for leaf, leaf_cuts in zip(tree_leaves(tree), cuts):
+        full = leaf
+        for dim, _, _, axis in reversed(leaf_cuts or ()):
+            full = collectives.all_gather_dim(full, dim, grid, axis)
         if keep:
             leaves.append(full.detach().to("cpu", copy=True))
         del full

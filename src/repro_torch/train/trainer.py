@@ -117,10 +117,17 @@ group), as the stacked form reads them; the norm sums each model-sharded
 run's per-rank sums of squares over the tp group in rank order and reads
 the replicated runs once, so every rank of a tp group holds the same norm
 and clip, and the replicated leaves stay bitwise equal across the tp group
-and the data replicas. The dense family, replicated, one pod; FSDP x TP,
-sequence parallelism, pods x tp, Adafactor and the other families over tp
-ranks raise (later slices of ROADMAP A18c). A step is not bitwise the
-stacked one: a rank's "f" adds T partial input gradients where the
+and the data replicas. FSDP x TP over ranks: the rank holds only block
+``(i, t)`` of every leaf sharded over both (data shard i of tp chunk t,
+``train/elastic.py``'s ``rank_cuts``) and of its moments; the gather
+builds its tp chunk over its data group, the deferred VJP reduce-scatters
+its tp-local gradient in its data group (a site replicated over tp takes
+tp rank 0's reduced shard), the small leaves sync in the data group and
+take tp rank 0's values, and the norm gathers every rank's partial sums
+over the whole grid in the stacked form's order. The dense family, one
+pod; sequence parallelism, pods x tp, Adafactor and the other families
+over tp ranks raise (later slices of ROADMAP A18c). A step is not bitwise
+the stacked one: a rank's "f" adds T partial input gradients where the
 stacked form runs one GEMM.
 
 The loss metric is the mean over peers; ``loss_frac`` the mean over
@@ -132,6 +139,8 @@ it, its masks being irreproducible at the sender).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import math
 from typing import Any, Callable
 
@@ -254,24 +263,60 @@ def _shard_sumsq(g: torch.Tensor, spec, sizes,
 
 
 def sharded_global_norm(grads, specs, sizes,
-                        grid: collectives.Grid = collectives.ONE
-                        ) -> torch.Tensor:
+                        grid: collectives.Grid = collectives.ONE,
+                        axes: dict | None = None) -> torch.Tensor:
     """Global L2 norm of a gradient tree whose leaves are sharded per
     ``specs`` over axes of ``sizes``: each shard's squared sum, summed over
     exactly the axes its leaf is sharded on, leaves grouped by their
     sharded-axes set (one sum a group), so replicated leaves count once.
     Over a process group (``grid.group``) a sharded leaf is this rank's
-    shard: each group's per-rank partial sum is gathered over the whole
-    grid, in pod-major rank order, into the vector the stacked form
-    sums."""
+    piece: every rank's partial sums are gathered and laid out as the
+    stacked form's per-shard vectors (:func:`_rank_partials`), so every
+    rank adds the stacked form's values in its order and holds the same
+    norm. ``axes`` maps a spec's axis names to the grid's axes where they
+    differ (``pure_dp``'s ``model`` axis is the pod axis)."""
+    leaf_specs = _spec_leaves(specs)
     whole = grid.group is None
-    groups = _summed_groups(
-        (_spec_axes(s), _shard_sumsq(g, s, sizes, whole))
-        for g, s in zip(tree_leaves(grads), _spec_leaves(specs)))
+    sums = [_shard_sumsq(g, s, sizes, whole)
+            for g, s in zip(tree_leaves(grads), leaf_specs)]
     if not whole:
-        groups = {axes: collectives.gather_peers(ss, grid, collectives.BOTH)
-                  if ss.dim() else ss for axes, ss in groups.items()}
-    return torch.sqrt(_psum_group_total(groups))
+        sums = _rank_partials(sums, leaf_specs, grid, axes or {})
+    return torch.sqrt(_psum_group_total(_summed_groups(
+        zip(map(_spec_axes, leaf_specs), sums))))
+
+
+def _rank_partials(sums: list, specs: list, grid: collectives.Grid,
+                   axes: dict) -> list:
+    """Over a process group: each sharded leaf's ``(1,)`` partial sum of
+    this rank as the stacked form's ``(k,)`` vector of every rank's, all
+    leaves' in one gather over the tp group and one over the ``(pod,
+    data)`` grid. Position k of a leaf is the shard its sharded dims'
+    indices name, in dim order, each dim's axes pod-major, as
+    :func:`_shard_sumsq` lays them out; an axis the leaf is not sharded on
+    reads the rank at index 0 (a leaf replicated over tp: tp rank 0's)."""
+    at = [i for i, ss in enumerate(sums) if ss.dim()]
+    if not at:
+        return sums
+    own = torch.cat([sums[i] for i in at])[None]
+    # (ranks, m): the tp group's rows, then the grid's, rank (g * N + i)
+    # * T + t
+    rows = collectives.gather_peers(own, grid, collectives.MODEL)
+    rows = collectives.gather_peers(rows.reshape(1, -1), grid,
+                                    collectives.BOTH).reshape(-1, len(at))
+    size = {collectives.POD: grid.pods, collectives.MODEL: grid.tp,
+            collectives.DATA: grid.ranks // (grid.pods * grid.tp)}
+    out = list(sums)
+    for col, i in enumerate(at):
+        names = [axes.get(a, a) for a in _spec_axes(specs[i])]
+        ranks = []
+        for idx in itertools.product(*(range(size[a]) for a in names)):
+            on = dict(zip(names, idx))
+            ranks.append((on.get(collectives.POD, 0) * size[collectives.DATA]
+                          + on.get(collectives.DATA, 0)) * grid.tp
+                         + on.get(collectives.MODEL, 0))
+        out[i] = rows[:, col].index_select(
+            0, collectives.index(tuple(ranks), rows.device))
+    return out
 
 
 def _spec_leaves(specs) -> list[tuple]:
@@ -323,6 +368,19 @@ def packed_global_norm(ranks: torch.Tensor, plan: BucketPlan, specs,
     return torch.sqrt(total)
 
 
+def _tp0_values(parts: list, grid: collectives.Grid) -> list:
+    """Over tp ranks: tp rank 0's values of tensors every tp rank holds a
+    copy of, one gather over the tp group for all of them (carried in the
+    widest of their dtypes, which holds each exactly)."""
+    if not parts:
+        return []
+    wide = functools.reduce(torch.promote_types, (p.dtype for p in parts))
+    own = torch.cat([p.reshape(-1).to(wide) for p in parts])
+    first = collectives.gather_peers(own[None], grid, collectives.MODEL)[0]
+    return [x.view(p.shape).to(p.dtype) for x, p in zip(
+        first.split([p.numel() for p in parts]), parts)]
+
+
 def _replicated_from_tp0(g: torch.Tensor, plan: BucketPlan, leaf_tp: list,
                         grid: collectives.Grid) -> torch.Tensor:
     """Over tp ranks: this rank's synced ``(1, B, bucket_elems)`` arena
@@ -334,14 +392,9 @@ def _replicated_from_tp0(g: torch.Tensor, plan: BucketPlan, leaf_tp: list,
     flat = g.view(-1)
     spans = [(off, off + size) for off, size, d
              in zip(plan.offsets, plan.sizes, leaf_tp) if d is None]
-    if not spans:
-        return g
-    own = torch.cat([flat[a:b] for a, b in spans])
-    first = collectives.gather_peers(own[None], grid, collectives.MODEL)[0]
-    at = 0
-    for a, b in spans:
-        flat[a:b] = first[at:at + b - a]
-        at += b - a
+    for (a, b), first in zip(spans, _tp0_values(
+            [flat[a:b] for a, b in spans], grid)):
+        flat[a:b] = first
     return g
 
 
@@ -370,16 +423,23 @@ class FsdpGather:
     tp).
 
     Over a process group (one rank a peer) ``w`` is this rank's shard: the
-    gather builds the full weight from every rank's shard over the whole
-    grid, pod-major (:func:`collectives.all_gather_dim`), a stack holds the
-    rank's one row, each hop runs in the rank's group of its axis, and
-    ``reduce`` yields ``w`` with the rank's reduced shard gradient."""
+    gather builds the full weight from every rank's shard over the fsdp
+    axes, pod-major (:func:`collectives.all_gather_dim` over ``BOTH``: the
+    whole ``(pod, data)`` grid, or over tp ranks the rank's data group,
+    which gives the forward pass the rank's whole tp chunk), a stack holds
+    the rank's one row (over tp ranks its tp-local gradient as it is),
+    each hop runs in the rank's group of its axis, and ``reduce`` yields
+    ``w`` with the rank's reduced shard gradient; a site whose weight is
+    replicated over tp takes tp rank 0's reduced shard (gathered over the
+    tp group), as the stacked form reads it."""
 
     def __init__(self, cfg: OptiReduceConfig, hops,
                  grid: collectives.Grid = collectives.ONE,
                  tp_dims: dict | None = None):
         self.cfg, self.hops, self.grid = cfg, hops, grid
         self.tp_dims = tp_dims or {}  # site name -> the weight's tp dim
+        # the tp ranks are processes: a site's gradient is this rank's own
+        self.tp_ranks = grid.tp_rows != grid.tp
         self.taken: dict = {}     # this forward: site -> (leaf, dim, view)
         self.stacks: dict = {}    # site -> ((T*P, *local) stack, dim, view)
 
@@ -403,10 +463,11 @@ class FsdpGather:
         grads = torch.autograd.grad(
             loss, [self.taken[site][0] for site in order] + list(inputs))
         for site, g in zip(order, grads):
-            local = to_tp(g, self.tp_dims.get(site[0]), self.grid.tp)
+            local = (g[None] if self.tp_ranks else
+                     to_tp(g, self.tp_dims.get(site[0]), self.grid.tp))
             if site not in self.stacks:
                 _, dim, w = self.taken[site]
-                self.stacks[site] = (g.new_empty((self.grid.tp * peers,
+                self.stacks[site] = (g.new_empty((self.grid.tp_rows * peers,
                                                   *local.shape[1:])), dim, w)
             self.grid.by_group(self.stacks[site][0])[:, peer] = local
         self.taken = {}
@@ -424,7 +485,14 @@ class FsdpGather:
                 g = hop.reduce_scatter(g, axis, dim, ctx)
             local = torch.stack([torch.cat(r.unbind(0), dim=dim)
                                  for r in self.grid.by_group(g).unbind(0)])
-            yield w, from_tp(local, self.tp_dims.get(name)).to(stack.dtype)
+            d = self.tp_dims.get(name)
+            if not self.tp_ranks:
+                out = from_tp(local, d)
+            elif d is None:
+                out = _tp0_values([local[0]], self.grid)[0]
+            else:
+                out = local[0]
+            yield w, out.to(stack.dtype)
 
 
 def make_fsdp_gather(sync_cfg: OptiReduceConfig, fsdp_axes, data_axis: str,
@@ -496,7 +564,6 @@ def _check_rank_form(cfg: ModelConfig, tc: TrainConfig, pod_axis,
     """Raise on what the one-rank-a-peer form does not run yet, each with
     its ROADMAP item (A18c's later slices)."""
     refused = [
-        (tp > 1 and tc.dp_mode == "fsdp", "FSDP x TP over ranks"),
         (tp > 1 and pod_axis is not None, "pods x tp over ranks"),
         (tc.sync_mode == "vmap", "--sync-mode vmap over ranks"),
         (tc.sync.recovery != "none", "--recovery over ranks"),
@@ -509,8 +576,8 @@ def _check_rank_form(cfg: ModelConfig, tc: TrainConfig, pod_axis,
             raise ValueError(f"{what} is a later slice of ROADMAP A18c: "
                              "one rank a peer runs replicated data "
                              "parallelism and FSDP over (pod, data) at "
-                             "tp 1, and the dense family replicated over "
-                             "(data, model)")
+                             "tp 1, and the dense family replicated or "
+                             "FSDP over (data, model)")
     if tp > 1:
         check_tp_ranks(cfg, seq_parallel=tc.seq_parallel)
 
@@ -541,7 +608,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
     syncs over the grid's groups. Replicated, it packs
     a ``(1, B, bucket_elems)`` arena; under FSDP ``params`` and
     ``opt_state`` hold this rank's shard of every sharded leaf
-    (``train/elastic.py``: ``rank_piece``) and the rest whole. Every
+    (``train/elastic.py``: ``rank_cuts``) and the rest whole. Every
     decision after the sync reads values every rank holds bitwise (the
     synced arena or norm, the gathered loss fraction), so the replicas, or
     the shards against the stacked form's slices, stay equal; ``loss`` is
@@ -752,7 +819,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
             grad = [torch.zeros_like(p) if m else None
                     for p, m in zip(leaves, fsdp_mask)]
             bufs = {ptr: (leaves[j], grad[j]) for ptr, j in owners.items()}
-            small_g = [torch.empty((tp * rows, *to_tp(p, d, tp).shape[1:]),
+            small_g = [torch.empty((grid.tp_rows * rows,
+                                    *local_rows(p, d).shape[1:]),
                                    dtype=p.dtype, device=device)
                        for p, d in zip(small, small_tp)]
             for row, peer in enumerate(local_peers):
@@ -762,7 +830,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                                remat=tc.remat, pctx=step_pctx)
                 for stack, g, d in zip(small_g, gather.backward(
                         loss, row, rows, small), small_tp):
-                    grid.by_group(stack)[:, row] = to_tp(g, d, tp)
+                    grid.by_group(stack)[:, row] = local_rows(g, d)
                 loss_p[row] += loss.detach()
             # the deferred VJP over all peers; sites sharing a leaf add
             for w, g in gather.reduce(site_draws):
@@ -786,9 +854,16 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
         if small:
             synced = sync_pytree(small_acc, ctx, bucket_elems=tc.bucket_elems,
                                  mode=tc.sync_mode, spec=spec)
-            # each tp group's peer 0, put back together over tp
-            it = iter(from_tp(grid.by_group(x)[:, 0], d)
-                      for x, d in zip(synced, small_tp))
+            # each tp group's peer 0, put back together over tp (over tp
+            # ranks, the leaves replicated over tp tp rank 0's)
+            small_out = [from_rows(grid.by_group(x)[:, 0], d)
+                         for x, d in zip(synced, small_tp)]
+            if over_ranks:
+                on_tp0 = [i for i, d in enumerate(small_tp) if d is None]
+                for i, x in zip(on_tp0, _tp0_values(
+                        [small_out[i] for i in on_tp0], grid)):
+                    small_out[i] = x
+            it = iter(small_out)
             acc = [next(it) if a is None else a for a in acc]
         grads = tree_unflatten(params, acc)
         loss_frac = ctx.loss_fraction().to(device)
@@ -797,7 +872,9 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None, *,
                 grads, loss_frac, skip_threshold=sync_cfg.skip_threshold)
         else:
             skipped = torch.zeros((), dtype=torch.bool, device=device)
-        gnorm = sharded_global_norm(grads, p_specs, shape, grid)
+        gnorm = sharded_global_norm(grads, p_specs, shape, grid,
+                                    {pod_axis: collectives.POD}
+                                    if pod_axis else None)
         clip = torch.clamp(tc.optimizer.grad_clip
                            / torch.clamp(gnorm, min=1e-9), max=1.0)
         grads = tree_map(lambda g_: g_ * clip.to(g_.dtype), grads)

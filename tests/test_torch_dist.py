@@ -187,10 +187,11 @@ def test_rank0_steps_are_the_stacked_steps(ranks, stacked, run):
         assert {k: a[k] for k in METRICS} == {k: b[k] for k in METRICS}
 
 
-# "--tp": tp over ranks runs (tests/test_torch_dist_tp.py); with
-# --seq-parallel it is a later slice
+# "--tp": tp over ranks runs (tests/test_torch_dist_tp.py), and with
+# --dp-mode fsdp (tests/test_torch_dist_tp_fsdp.py); with --seq-parallel
+# either is a later slice
 REFUSED = [["--tp", "2", "--seq-parallel"], ["--production-mesh"],
-           ["--dp-mode", "fsdp", "--tp", "2"],
+           ["--dp-mode", "fsdp", "--tp", "2", "--seq-parallel"],
            ["--dp-mode", "fsdp", "--production-mesh"],
            ["--sync-mode", "vmap"], ["--recovery", "stale"],
            ["--transport", "inproc"], ["--adaptive"]]
@@ -231,7 +232,10 @@ def one_rank_group(tmp_path):
 MISMATCH = r"a grid of 2 peers \(2 pods\) over a process group of 1 ranks"
 TRAINER_REFUSED = {"fsdp_pure_dp": (dict(dp_mode="fsdp", pure_dp=True),
                                     MISMATCH),
-                   "fsdp_tp": (dict(dp_mode="fsdp", tp=2), "A18c"),
+                   # FSDP x TP runs; with sequence parallelism it is a
+                   # later slice
+                   "fsdp_tp": (dict(dp_mode="fsdp", tp=2,
+                                    seq_parallel=True), "A18c"),
                    "pure_dp": (dict(pure_dp=True), MISMATCH),
                    "vmap": (dict(sync_mode="vmap"), "A18c"),
                    "recovery": (dict(recovery="stale"), "A18c"),

@@ -40,7 +40,8 @@ against the reference (its ``tp = 2`` loss, its ``tp = 1`` gradients:
 its tp gradients are wrong, ROADMAP C), with ``tests/test_torch_tp_step.py``'s
 tolerances: loss and grad_norm 1e-5 relative, AdamW's moments 1e-6 and
 1e-7 absolute, parameters 1e-1 x lr. The refused combinations raise
-naming their slice of ROADMAP A18c.
+naming their slice of ROADMAP A18c (FSDP x TP runs:
+``tests/test_torch_dist_tp_fsdp.py``).
 """
 import json
 import os
@@ -385,13 +386,15 @@ def test_rank_holds_its_tp_shard_bytes(ranks):
 
 def test_init_shards_put_together_are_the_stacked_init():
     """Each tp rank draws the full leaves and keeps its chunk
-    (``elastic.rank_piece`` along ``tp_dims``); the chunks joined are the
-    stacked form's init, bit for bit."""
+    (``elastic.rank_cuts``: tp rank t's along ``tp_dims``); the chunks
+    joined are the stacked form's init, bit for bit."""
     cfg = get_smoke("smollm-360m")
     dims = tp_dims(cfg, TP)
+    cuts = [elastic.rank_cuts(cfg, ranks=TP, rank=t, tp=TP)
+            for t in range(TP)]
     pieces = [tree_leaves(init_params(torch_key(0), cfg, device="cpu",
-                                      tp=TP, keep=lambda i, w, t=t:
-                                      elastic.rank_piece(w, dims[i], TP, t)))
+                                      tp=TP, keep=lambda i, w, c=cuts[t]:
+                                      elastic.cut_piece(w, c[i])))
               for t in range(TP)]
     whole = tree_leaves(init_params(torch_key(0), cfg, device="cpu", tp=TP))
     for got, want in zip(_assembled(pieces, dims), whole):
@@ -431,7 +434,10 @@ def test_checkpoint_is_the_shards_put_together(ranks, stacked, tmp_path):
 
 # ---------------------------------------------------------------- refused
 LAUNCHER_REFUSED = {
-    "fsdp_x_tp": (["--dp-mode", "fsdp"], "FSDP x TP"),
+    # FSDP x TP runs (tests/test_torch_dist_tp_fsdp.py), not for the MoE
+    # family
+    "fsdp_x_tp": (["--dp-mode", "fsdp", "--arch", "qwen2-moe-a2.7b"],
+                  "the MoE family"),
     "seq_parallel": (["--seq-parallel"], "--seq-parallel over tp ranks"),
     "moe": (["--arch", "qwen2-moe-a2.7b"], "the MoE family"),
     "ssm": (["--arch", "mamba2-1.3b"], "the SSM family"),
@@ -442,9 +448,9 @@ LAUNCHER_REFUSED = {
 
 @pytest.mark.parametrize("case", list(LAUNCHER_REFUSED))
 def test_launcher_refuses_later_tp_slices(monkeypatch, case):
-    """Under torchrun ``--tp`` with FSDP, sequence parallelism or a
-    non-dense family raises naming its slice of A18c, before the process
-    group is joined."""
+    """Under torchrun ``--tp`` with sequence parallelism or a non-dense
+    family (with or without FSDP) raises naming its slice of A18c, before
+    the process group is joined."""
     flags, what = LAUNCHER_REFUSED[case]
     monkeypatch.setenv("WORLD_SIZE", str(WORLD))
     with pytest.raises(ValueError, match=f"{what}.*ROADMAP A18c"):
@@ -469,7 +475,8 @@ def one_rank_group(tmp_path):
 
 
 TRAINER_REFUSED = {
-    "fsdp_x_tp": ({"dp_mode": "fsdp"}, "gpt2-paper", "FSDP x TP"),
+    # FSDP x TP runs, not on a grid of pods
+    "fsdp_x_tp": ({"dp_mode": "fsdp"}, "gpt2-paper", "pods x tp"),
     "seq_parallel": ({"seq_parallel": True}, "gpt2-paper",
                      "--seq-parallel over tp ranks"),
     "pods_x_tp": ({}, "gpt2-paper", "pods x tp"),
@@ -493,7 +500,8 @@ def test_trainer_refuses_later_tp_slices(one_rank_group, case):
     kw = dict(kw)
     opt = OptimizerConfig(name=kw.pop("optimizer", "adamw"))
     mesh = (HostMesh(("pod", "data", "model"), (2, 1, TP))
-            if case == "pods_x_tp" else make_host_mesh(dp=1, tp=TP))
+            if case in ("pods_x_tp", "fsdp_x_tp")
+            else make_host_mesh(dp=1, tp=TP))
     with pytest.raises(ValueError, match=f"{what}.*ROADMAP A18c"):
         build_train_step(get_smoke(arch), TrainConfig(optimizer=opt, **kw),
                          mesh, device="cpu", group=one_rank_group)

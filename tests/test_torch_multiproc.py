@@ -48,6 +48,7 @@ import signal  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
+import threading  # noqa: E402
 import time  # noqa: E402
 
 import jax  # noqa: E402
@@ -396,3 +397,29 @@ def test_sigkill_helper_uses_sigkill():
     src = mp._sigkill_self.__code__.co_names
     assert "SIGKILL" in src and "kill" in src
     assert signal.SIGKILL == 9
+
+
+@pytest.mark.parametrize("released", [True, False], ids=["released",
+                                                          "never"])
+def test_a_respawned_worker_joins_only_once_released(tmp_path, released):
+    """A respawned worker does its start (imports, device) first and then
+    waits for the parent's join file: its join follows the release however
+    long the start took, and without a release it gives up at --timeout."""
+    release = tmp_path / "release"
+    args = mp.build_parser().parse_args(
+        ["--worker", "--device", "cpu", "--join-file", str(release),
+         "--timeout", "20" if released else "0.3"])
+    if not released:
+        with pytest.raises(SystemExit, match="not released in 0.3s"):
+            mp._await_release(args)
+        return
+    out = {}
+    waiter = threading.Thread(
+        target=lambda: out.setdefault("t", mp._await_release(args)))
+    waiter.start()
+    time.sleep(0.3)
+    assert waiter.is_alive()                  # no join before the release
+    before = time.monotonic()
+    release.touch()
+    waiter.join(10)
+    assert not waiter.is_alive() and out["t"] >= before

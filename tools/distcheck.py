@@ -58,7 +58,8 @@ Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
   ``pipelined`` (the data-axis sync of each tp group) and
   :func:`tp_primitive_cases`, named ``tp<T>:<case>``. Then, last, each
   ``--tp-train`` JSON (:func:`tp_train`: the launcher with ``--dp N --tp
-  T`` on the world, one tp rank a process): its records, each step's
+  T`` on the world, one tp rank a process, FSDP x TP with ``--dp-mode
+  fsdp``): its records, each step's
   digests of the rank's state and of its leaves replicated over tp,
   launches, state bytes, and with ``"save"`` each step's leaves in
   ``OUT/<name>.rank<r>.pt``.
@@ -324,7 +325,7 @@ def state_bytes(tree) -> int:
 def watch_steps(keep: bool = False, wait_for: str | None = None, *,
                 state: bool = False, shards: int | None = None,
                 steps: int | None = None, tp: int = 1, stride: int = 1,
-                keep_steps: bool = False):
+                keep_steps: bool = False, fsdp: bool = False):
     """Wrap the training launcher's ``build_train_step``: after each step a
     copy of the parameters (with ``state``, and of the optimizer state) on
     their device (a copy only, so the launcher's step time barely moves),
@@ -340,9 +341,10 @@ def watch_steps(keep: bool = False, wait_for: str | None = None, *,
     workers' digests of their FSDP slices (``elastic.split_leaf``): what
     rank r of the one-rank-a-peer form must hold. ``steps`` copies only
     the first so many steps. With ``tp`` > 1 the replicated leaves are
-    those replicated over tp (``elastic.tp_dims``), and ``stride`` > 1
-    digests every stride-th entry of each tp-sharded leaf (the replicated
-    ones whole); ``keep_steps`` keeps every step's leaves on the host in
+    those replicated over tp (``elastic.tp_dims``; with ``fsdp``, FSDP x
+    TP, those neither tp nor FSDP shards), and ``stride`` > 1 digests
+    every stride-th entry of each sharded leaf (the replicated ones
+    whole); ``keep_steps`` keeps every step's leaves on the host in
     ``seen["leaves"]``. With ``wait_for``, the first step
     ends by waiting for the card to finish it, writing
     :func:`ready_path` and waiting until ``wait_for`` exists (both waits
@@ -368,6 +370,9 @@ def watch_steps(keep: bool = False, wait_for: str | None = None, *,
             if (state or shards) and not dims:
                 cfg = args[0]           # build_train_step(cfg, tc, ...)
                 own = elastic.tp_dims(cfg, tp) if tp > 1 else None
+                if own and fsdp:    # a leaf held whole has neither dim
+                    own = [b if a is None else a for a, b in zip(
+                        own, elastic.fsdp_dims(cfg, tp))]
                 dims.extend((own or elastic.fsdp_dims(cfg)) + (
                     elastic.state_dims(cfg, out[1], opt.state_like_params,
                                        dims=own) if state else []))
@@ -480,24 +485,25 @@ def pod_train(job: dict, device, group=None, *, keep: bool = False) -> dict:
     rank = 0 if group is None else dist.get_rank(group)
     sharded = fsdp and group is not None
     dims = elastic.fsdp_dims(cfg) if fsdp else None
+    cuts = elastic.rank_cuts(cfg, ranks=world, rank=rank, fsdp=True)
     before = counts()
     params = init_params(k, cfg, device=device, keep=(
-        (lambda i, w: elastic.rank_piece(w, dims[i], world, rank))
-        if sharded else None))
+        (lambda i, w: elastic.cut_piece(w, cuts[i])) if sharded else None))
     init_launches = {n: v - before[n] for n, v in counts().items()}
     step_fn, opt = build_train_step(cfg, tc, mesh, device=device,
                                     group=group)
     state = opt.init(params)
     if fsdp:
         dims = dims + elastic.state_dims(cfg, state, opt.state_like_params)
+        cuts = cuts + elastic.state_dims(cfg, state, opt.state_like_params,
+                                         dims=cuts)
     start = 0
     if job.get("resume"):
         start, (params, state), _ = ckpt_lib.restore(
             job["ckpt_dir"], (params, state),
             device="cpu" if sharded else device)
         if sharded:
-            params, state = elastic.rank_tree((params, state), dims, world,
-                                              rank, device)
+            params, state = elastic.cut_tree((params, state), cuts, device)
     shards = world if fsdp and group is None else None
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -529,7 +535,7 @@ def pod_train(job: dict, device, group=None, *, keep: bool = False) -> dict:
     if job.get("ckpt_dir") and not job.get("resume"):
         tree = (params, state)
         if sharded:       # every rank joins each leaf's gather
-            tree = elastic.gather_rank_tree(tree, dims, collectives.rank_grid(
+            tree = elastic.gather_cut_tree(tree, cuts, collectives.rank_grid(
                 group, pods=pods), keep=rank == 0)
         if rank == 0:
             ckpt_lib.save(job["ckpt_dir"], job["steps"], tree)
@@ -537,12 +543,13 @@ def pod_train(job: dict, device, group=None, *, keep: bool = False) -> dict:
 
 
 def tp_train(job: dict, out_dir=None, rank: int = 0) -> dict:
-    """Run the training launcher with ``job["argv"]`` (``--dp N --tp T``:
-    under torchrun one tp rank a process, else the stacked form) and
-    report each step's records, digest of the parameters and optimizer
-    state the process holds (every ``job["stride"]``-th entry of each
-    tp-sharded leaf, default all) and of its leaves replicated over tp
-    (whole), its launches, the state bytes and the launches of the rest of
+    """Run the training launcher with ``job["argv"]`` (``--dp N --tp T``,
+    with ``--dp-mode fsdp`` FSDP x TP: under torchrun one tp rank a
+    process, else the stacked form) and report each step's records, digest
+    of the parameters and optimizer state the process holds (every
+    ``job["stride"]``-th entry of each sharded leaf, default all) and of
+    its leaves replicated over tp (whole; under FSDP those no rank
+    shards), its launches, the state bytes and the launches of the rest of
     the run (the init's draws). With ``job["save"]`` each step's leaves
     go to ``out_dir/<name>.rank<r>.pt`` (a list over steps of the
     parameters' and the state's leaves, on the host; without ``out_dir``
@@ -552,11 +559,12 @@ def tp_train(job: dict, out_dir=None, rank: int = 0) -> dict:
     from repro_torch.launch import train as launch_train
     argv = job["argv"]
     tp = int(argv[argv.index("--tp") + 1])
+    fsdp = "--dp-mode" in argv and argv[argv.index("--dp-mode") + 1] == "fsdp"
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.reset_peak_memory_stats()
     before = counts()
     with watch_steps(state=True, tp=tp, stride=job.get("stride", 1),
-                     keep_steps=job.get("save", False)) as seen:
+                     keep_steps=job.get("save", False), fsdp=fsdp) as seen:
         t0 = time.time()
         records = launch_train.run(argv)
         t1 = time.time()
