@@ -254,10 +254,11 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     after 4), the cache's and the peak bytes; the output (128, 192) in
     vocab; no kernel of the repo launched (serving reaches none);
 52. ``serve_families``: ``serve.generate`` at full width and depth on
-    glm4-9b (B 32, prompt 64, 32 new: its 256-token prompt was cut to pay
-    for 75., its 64 new for 76.), qwen2-moe-a2.7b (B 32, prompt 64, 32
-    new) and mamba2-1.3b (B 32, prompt 64, 64 new: its 128-token prompt
-    was cut to pay for 76.), bf16: the same numbers, tokens in vocab;
+    glm4-9b (B 32, prompt 32, 32 new: its 256-token prompt was cut to pay
+    for 75. and 77., its 64 new for 76.), qwen2-moe-a2.7b (B 32, prompt
+    32, 32 new: its 64-token prompt cut for 77.) and mamba2-1.3b (B 32,
+    prompt 64, 32 new: its 128-token prompt was cut to pay for 76., its
+    64 new for 77.), bf16: the same numbers, tokens in vocab;
 53. ``serve_prefill``: ``prefill_step`` on gpt2-paper at B 32 and a
     1024-token prompt against the teacher-forced loop: the share of first
     tokens that agree, the fp32 logit margins, the caches within 0.05 of
@@ -291,7 +292,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 58. ``tp_serve_families``: ``generate`` over tp at full width:
     qwen2-moe-a2.7b (24 layers, tp 8: 60 experts padded to 64; B 32,
     prompt 64, 32 new), mamba2-1.3b (48 layers, tp 2; B 32, 128, 64) and
-    jamba-v0.1-52b (8 of 32 layers, tp 2; B 8, 256, 32): tok/s, ms a step,
+    jamba-v0.1-52b (8 of 32 layers, tp 2; B 8, 128, 32: its 256-token
+    prompt cut to pay for 77.): tok/s, ms a step,
     state and peak bytes; then, in fp32, 16 teacher-forced
     ``build_serve_step`` steps at dp 1 x tp T against tp 1 on the same
     weights: tokens agreed, layer 1's written rows or SSM states within
@@ -437,9 +439,37 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     blocks within ``DIST_TP_PARAM_TOL`` beyond a bf16 step a step of the
     stacked blocks; state bytes a rank :func:`tp_rank_state_bytes`; the
     same rows per rank and step as ``dist_tp_main``;
-77. ``seconds``: the script's wall clock, whole and by group of phases,
-    with ``dist_tp_main``'s and ``dist_tp_fsdp_main``'s seconds inside the
-    ``dist`` group (their ranks' run and their stacked side).
+77. ``dist_moe_main``: the MoE family over the ranks, after
+    ``dist_tp_fsdp_main`` in gloo's world: the launcher with ``--dp 2 --tp
+    2`` (:func:`dist_moe_argv`) on qwen2-moe-a2.7b at full width (d 2048,
+    60 experts top-4, 4 shared, vocab 151,936, bf16), cut to 1 of 24
+    layers (``DIST_MOE_LAYERS``), ``optireduce``, tail drops 0.01,
+    ``pipelined``, AdamW, seq 128, global batch 8, 2 steps, each tp rank
+    holding and computing only its 30 experts, the whole router. Held as
+    ``dist_tp_main`` is (launches a rank a step exactly 2 B1, 1 B2 and 2
+    T1 a bucket of its local leaves, the stacked step's too, one T1 a
+    normal leaf at init; the leaves replicated over tp bitwise on every
+    rank; records within ``DIST_TP_REL``; shards within
+    ``DIST_TP_PARAM_TOL`` beyond a bf16 step a step; state bytes
+    :func:`tp_rank_state_bytes`), and beside it ``dist_moe_main_router``:
+    each rank's router and its first moment against the stacked run's
+    (:func:`_dist_moe_router_held`). The stacked runs of both MoE phases
+    go first in the parent, while the ranks wait at their first step of
+    ``dist_main`` for the release (their card memory then a few GB of
+    gpt2-paper's): the stacked side's peak and the ranks' (about 7 GB a
+    rank here) never meet on the card;
+78. ``dist_moe_fsdp_main``: the same with ``--dp-mode fsdp`` (each rank
+    holding data shard i of tp chunk t of every leaf, its experts' among
+    them), held as ``dist_tp_fsdp_main`` is, and ``dist_moe_fsdp_main_router``;
+79. ``seconds``: the script's wall clock, whole and by group of phases,
+    with the tp and MoE phases' seconds inside the ``dist`` group (their
+    ranks' run and their stacked side).
+
+The ranks' per-step digests of their state in the ``dist_*`` phases, and
+the stacked sides', cover each leaf's ``distcheck.sample`` at
+``DIST_STRIDE``: every 997th entry's bytes and a checksum of every entry,
+taken on the card (a change of any one entry changes the checksum); the
+leaves replicated under FSDP or tp are digested whole.
 
 Then the ``{"kernels": [...]}`` line, and last the device line. Any error,
 disagreement past the stated tolerance or missing launch exits non-zero.
@@ -754,9 +784,10 @@ def main() -> int:
     sync_strategies(dev, counters)
     lap("strategies")
 
-    # 67.-76. one rank a peer over a process group (ROADMAP A18c): 4 gloo
+    # 67.-78. one rank a peer over a process group (ROADMAP A18c): 4 gloo
     # ranks on the card, flat, as a 2 x 2 pod grid and as a (data 2, model
-    # 2) tp grid, replicated and FSDP x TP, then nccl at the card count
+    # 2) tp grid, replicated and FSDP x TP, the dense and the MoE family,
+    # then nccl at the card count
     dist_tp = dist_paths(dev)
     lap("dist")
 
@@ -837,6 +868,9 @@ def main() -> int:
         "dist_tp_main_launches": dist_tp["tp_main"]["launches"]["fwht"],
         "dist_tp_fsdp_main_launches":
             dist_tp["tp_fsdp_main"]["launches"]["fwht"],
+        "dist_moe_main_launches": dist_tp["moe_main"]["launches"]["fwht"],
+        "dist_moe_fsdp_main_launches":
+            dist_tp["moe_fsdp_main"]["launches"]["fwht"],
         "max_abs_err": b1["max_abs_err"],
         "ms": b1["ms"], "plain_ms": b1["plain_ms"],
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
@@ -849,6 +883,10 @@ def main() -> int:
         "dist_tp_main_launches": dist_tp["tp_main"]["launches"]["masked_mean"],
         "dist_tp_fsdp_main_launches":
             dist_tp["tp_fsdp_main"]["launches"]["masked_mean"],
+        "dist_moe_main_launches":
+            dist_tp["moe_main"]["launches"]["masked_mean"],
+        "dist_moe_fsdp_main_launches":
+            dist_tp["moe_fsdp_main"]["launches"]["masked_mean"],
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
@@ -891,6 +929,10 @@ def main() -> int:
         "dist_tp_main_launches": dist_tp["tp_main"]["launches"]["threefry"],
         "dist_tp_fsdp_main_launches":
             dist_tp["tp_fsdp_main"]["launches"]["threefry"],
+        "dist_moe_main_launches":
+            dist_tp["moe_main"]["launches"]["threefry"],
+        "dist_moe_fsdp_main_launches":
+            dist_tp["moe_fsdp_main"]["launches"]["threefry"],
         "max_abs_err": t1["max_abs_err"], "ms": t1["ms"],
         "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"], "library_ms": None})
@@ -2507,7 +2549,7 @@ def a15_paths(dev, counters: dict) -> None:
 
     distcheck = _distcheck()
     with distcheck.watch_steps(state=True, shards=DIST_RANKS,
-                               steps=DIST_STEPS) as seen:
+                               steps=DIST_STEPS, stride=DIST_STRIDE) as seen:
         counts, records = train_main_path(
             "optireduce", 4, counters, phase="fsdp_main",
             extra=("--dp-mode", "fsdp"), loss_seen=False)
@@ -3770,9 +3812,11 @@ SERVE_MAIN = ("--arch", "gpt2-paper", "--batch", "128", "--prompt-len",
 SERVE_MAIN_STEPS = 191
 # arch -> (batch, prompt, new); each at full depth through ``generate``
 # (glm4-9b's 64 new and mamba2-1.3b's 128-token prompt were cut to 32 and
-# 64 to pay for FSDP x TP over ranks)
-SERVE_FAMILIES = {"glm4-9b": (32, 64, 32), "qwen2-moe-a2.7b": (32, 64, 32),
-                  "mamba2-1.3b": (32, 64, 64)}
+# 64 to pay for FSDP x TP over ranks; glm4-9b's and qwen2-moe's 64-token
+# prompts to 32 and mamba2-1.3b's 64 new to 32 for the MoE family over
+# ranks)
+SERVE_FAMILIES = {"glm4-9b": (32, 32, 32), "qwen2-moe-a2.7b": (32, 32, 32),
+                  "mamba2-1.3b": (32, 64, 32)}
 SERVE_WARMUP = 4           # decode steps left out of the median
 PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW = 32, 1024, 32
 GRID_STEPS = 16            # teacher-forced steps of a grid plan
@@ -4386,9 +4430,10 @@ TP_SERVE_TOL = {"qwen2-moe-a2.7b": 1e-5, "mamba2-1.3b": 1e-1,
 TP_SERVE_FP64_ARCHS = ("mamba2-1.3b",)
 TP_SERVE_FP64_TOL = 1e-8
 # arch -> (layers, tp, batch, prompt, new): generate over tp at full width
+# (jamba's 256-token prompt cut to 128 for the MoE family over ranks)
 TP_SERVE_FAMILIES = {"qwen2-moe-a2.7b": (None, 8, 32, 64, 32),
                      "mamba2-1.3b": (None, 2, 32, 128, 64),
-                     "jamba-v0.1-52b": (8, 2, 8, 256, 32)}
+                     "jamba-v0.1-52b": (8, 2, 8, 128, 32)}
 NON_DENSE = ("qwen2-moe-a2.7b", "arctic-480b", "mamba2-1.3b",
              "jamba-v0.1-52b", "llava-next-mistral-7b", "musicgen-medium")
 DRYRUN_TIMEOUT_S = 600
@@ -5074,7 +5119,25 @@ DIST_POD_PHASES = {"pod_main": ("dist_pod_main", "pod_main"),
 DIST_TP_REL = 1e-2
 DIST_TP_LR = 3e-4                  # the launcher's default
 DIST_TP_PARAM_TOL = 4 * DIST_TP_LR
-DIST_TP_STRIDE = 997               # the shards' digest: every 997th entry
+# the ranks' per-step digests of their state and the stacked sides': each
+# leaf's every 997th entry and a checksum of all its entries, taken on the
+# card (distcheck.sample), where a SHA-256 of every byte on the host took
+# 1.5 GB a rank a step (dist_pod_main); the replicated leaves under FSDP
+# and tp whole
+DIST_STRIDE = 997
+# the MoE family over gloo's 4 ranks as (data 2, model 2): qwen2-moe-a2.7b
+# at full width (d 2048, 60 experts top-4, 4 shared, vocab 151,936, bf16),
+# cut to 1 of 24 layers as TP_FAMILIES_MAIN cuts it, replicated and FSDP
+# x TP. A rank's router gradient covers only its own experts' slots until
+# the tp group's sum; in bf16 each rank's part is rounded before that sum
+# and the second step starts from parameters that differ by it, so the
+# router's first moment after 2 steps is held within DIST_MOE_ROUTER_REL of
+# the stacked moment's largest entry: tools/moe_router_gap.py reads 0.85%
+# after one step and 4.9% after two on the CPU (bf16), and 111-127% when
+# the sum is left out
+DIST_MOE_ARCH = "qwen2-moe-a2.7b"
+DIST_MOE_LAYERS = 1
+DIST_MOE_ROUTER_REL = 0.25
 
 
 def _distcheck():
@@ -5111,47 +5174,84 @@ def dist_pod_jobs(world: int) -> dict:
             "global_batch": 8, "drop_rate": DIST_RATE, "block": BLOCK,
             "bucket_elems": BUCKET, "lr": 3e-4, "skip_threshold": 0.10,
             "sync_mode": "pipelined", "seed": 0, "kernel_mode": "kernel",
-            "strategy": "optireduce_2d"}
+            "strategy": "optireduce_2d", "stride": DIST_STRIDE}
     return {"pod_main": {**base, "name": "pod_main", "dp_mode": "replicated"},
             "pod_fsdp": {**base, "name": "pod_fsdp", "dp_mode": "fsdp"}}
 
 
 # the tp grid's launcher runs over gloo's ranks: name -> flags past
-# dist_tp_argv
+# dist_tp_argv; then the MoE family's, name -> flags past dist_moe_argv
 DIST_TP_RUNS = {"tp_main": [], "tp_fsdp_main": ["--dp-mode", "fsdp"]}
+DIST_MOE_RUNS = {"moe_main": [], "moe_fsdp_main": ["--dp-mode", "fsdp"]}
 
 
-def _stacked_tp(world: int) -> dict:
-    """The stacked side of ``dist_tp_main`` and ``dist_tp_fsdp_main``: the
-    launcher at ``--dp world / TP --tp TP`` as one process, replicated and
-    FSDP x TP (``DIST_TP_RUNS``): each run's records, last parameters (on
-    the host), launches a step and seconds."""
+def dist_moe_argv(world: int, ranks: bool) -> list:
+    """The launcher's flags of ``dist_moe_main``: ``dist_tp_main``'s on
+    ``DIST_MOE_ARCH`` (its depth cut by :func:`_moe_config`)."""
+    argv = dist_tp_argv(world, ranks)
+    argv[argv.index("--arch") + 1] = DIST_MOE_ARCH
+    return argv
+
+
+@contextlib.contextmanager
+def _moe_config():
+    """The launcher reads ``DIST_MOE_ARCH`` at ``DIST_MOE_LAYERS`` layers."""
+    from repro_torch.launch import train as launch_train
+    full_config = launch_train.get_config
+    launch_train.get_config = lambda _: full_width(DIST_MOE_ARCH,
+                                                   DIST_MOE_LAYERS)
+    try:
+        yield
+    finally:
+        launch_train.get_config = full_config
+
+
+def _stacked_tp(world: int, moe: bool = False) -> dict:
+    """The stacked side of ``dist_tp_main`` and ``dist_tp_fsdp_main`` (with
+    ``moe``, of ``dist_moe_main`` and ``dist_moe_fsdp_main``): the launcher
+    at ``--dp world / TP --tp TP`` as one process, replicated and FSDP x TP
+    (``DIST_TP_RUNS``, ``DIST_MOE_RUNS``): each run's records, last
+    parameters (on the host), launches a step and seconds; with ``moe``
+    also the last parameters and moments of each leaf replicated over tp
+    (the router, the norms; on the host)."""
     from repro_torch.kernels import runtime
     from repro_torch.launch import train as launch_train
     distcheck = _distcheck()
     tp = {}
-    for run, extra in DIST_TP_RUNS.items():
+    runs, argv = ((DIST_MOE_RUNS, dist_moe_argv) if moe
+                  else (DIST_TP_RUNS, dist_tp_argv))
+    for run, extra in runs.items():
         t0 = time.perf_counter()
-        with distcheck.watch_steps(keep=True) as seen:
-            records = launch_train.run(dist_tp_argv(world, ranks=False)
-                                       + extra)
+        # no step's copy: the stacked tp runs' digests are not compared
+        with (_moe_config() if moe else contextlib.nullcontext()), \
+                distcheck.watch_steps(keep=True, steps=0) as seen:
+            records = launch_train.run(argv(world, ranks=False) + extra)
         runtime.set_kernel_mode(None)
         tp[run] = {"records": records, "params": seen["params"],
                    "launches": seen["launches"],
                    "seconds": time.perf_counter() - t0}
+        if moe:
+            tp[run]["replicated"] = distcheck.replicated_leaves(
+                seen["cfg"], TP, seen["last"], seen["last_state"])
         del seen
         free_card()
     return tp
 
 
 def dist_tp_jobs(world: int) -> list:
-    """The ``--tp-train`` flags of gloo's world: each of ``DIST_TP_RUNS``
-    under torchrun, a strided digest of the shards, the last parameters
-    saved."""
-    return [arg for run, extra in DIST_TP_RUNS.items()
-            for arg in ("--tp-train", json.dumps({
-                "name": run, "argv": dist_tp_argv(world, ranks=True) + extra,
-                "stride": DIST_TP_STRIDE, "save_last": True}))]
+    """The ``--tp-train`` flags of gloo's world: each of ``DIST_TP_RUNS``,
+    then each of ``DIST_MOE_RUNS`` (at ``DIST_MOE_LAYERS`` layers), under
+    torchrun, a strided digest of the shards, the last parameters saved
+    (and for the MoE runs the leaves replicated over tp with their
+    moments)."""
+    jobs = [{"name": run, "argv": dist_tp_argv(world, ranks=True) + extra,
+             "stride": DIST_STRIDE, "save_last": True}
+            for run, extra in DIST_TP_RUNS.items()]
+    jobs += [{"name": run, "argv": dist_moe_argv(world, ranks=True) + extra,
+              "stride": DIST_STRIDE, "save_last": True,
+              "save_replicated": True, "layers": DIST_MOE_LAYERS}
+             for run, extra in DIST_MOE_RUNS.items()]
+    return [arg for job in jobs for arg in ("--tp-train", json.dumps(job))]
 
 
 def _stacked_side(dev, world: int, full: bool) -> dict:
@@ -5185,9 +5285,9 @@ def _stacked_side(dev, world: int, full: bool) -> dict:
         for name, job in dist_pod_jobs(world).items():
             pods[name] = distcheck.pod_train(job, dev)
             free_card()
-        tp = _stacked_tp(world)
+        tp = {**_stacked_tp(world), **_stacked_tp(world, moe=True)}
     before = distcheck.counts()
-    with distcheck.watch_steps(keep=True) as seen:
+    with distcheck.watch_steps(keep=True, stride=DIST_STRIDE) as seen:
         records = launch_train.run(_dist_train_argv(world))
     after = distcheck.counts()
     runtime.set_kernel_mode(None)     # the launcher left it at 'kernel'
@@ -5435,16 +5535,17 @@ def _dist_pod_held(reports: list, want: dict) -> None:
                  f"launches {launches_ok}, state bytes {bytes_ok}")
 
 
-def tp_rank_state_bytes(world: int, fsdp: bool) -> int:
+def tp_rank_state_bytes(world: int, fsdp: bool, cfg=None) -> int:
     """Bytes of parameters and AdamW moments one of ``world`` ranks holds
-    on gpt2-paper at ``--dp world / TP --tp TP``: its tp chunk of each
-    tp-sharded leaf (``TP_LOCAL`` entries a rank), under FSDP x TP of that
+    on ``cfg`` (gpt2-paper by default) at ``--dp world / TP --tp TP``: its
+    tp chunk of each tp-sharded leaf (``TP_LOCAL`` entries a rank on
+    gpt2-paper; a rank's ``E_pad / TP`` experts), under FSDP x TP of that
     its data shard (and its data shard of a leaf sharded over data only),
     bf16 and two fp32 moments, the rest whole."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import _map_table, param_table
-    cfg = get_config("gpt2-paper")
+    cfg = cfg or get_config("gpt2-paper")
     leaves = []
     _map_table(leaves.append, param_table(cfg, tp=TP, fsdp_axes=("data",)))
     itemsize = torch.empty((), dtype=cfg.param_dtype).element_size()
@@ -5458,11 +5559,13 @@ def tp_rank_state_bytes(world: int, fsdp: bool) -> int:
 def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
     """Phase ``dist_<run>``: gloo's ranks as the ``(data 2, model 2)``
     grid, the launcher with ``--tp 2`` (:func:`dist_tp_argv`; ``tp_main``
-    replicated, ``tp_fsdp_main`` with ``--dp-mode fsdp``), against the
-    stacked launcher's same steps (``want``): launches a rank a step
-    (replicated: ``2 x TP_BUCKETS`` B1, ``TP_BUCKETS`` B2 and ``2 x
-    TP_BUCKETS`` T1; FSDP x TP: ``TP_PER_STEP["tp_fsdp"]``'s B1 and B2 and
-    the stacked step's T1, the stacked step's the same) and at init, the
+    replicated, ``tp_fsdp_main`` with ``--dp-mode fsdp``; ``moe_main`` and
+    ``moe_fsdp_main`` the same on ``DIST_MOE_ARCH``, :func:`dist_moe_argv`),
+    against the stacked launcher's same steps (``want``): launches a rank
+    a step (replicated: 2 B1, 1 B2 and 2 T1 a bucket of the rank's local
+    leaves, ``TP_BUCKETS`` on gpt2-paper, and on the MoE the stacked
+    step's the same; FSDP x TP: the stacked step's B1, B2 and T1,
+    ``TP_PER_STEP["tp_fsdp"]``'s B1 and B2 on gpt2-paper) and at init, the
     leaves no rank shards bitwise equal on every rank, each rank's state
     its data replica's (replicated), records within ``DIST_TP_REL``, each
     rank's piece of the parameters (its tp chunk; under FSDP x TP the data
@@ -5476,25 +5579,32 @@ def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import tp_dims
     from repro_torch.train import elastic
-    cfg = get_config("gpt2-paper")
+    moe = run in DIST_MOE_RUNS
+    cfg = (full_width(DIST_MOE_ARCH, DIST_MOE_LAYERS) if moe
+           else get_config("gpt2-paper"))
     phase = f"dist_{run}"
-    fsdp = run == "tp_fsdp_main"
+    fsdp = run in ("tp_fsdp_main", "moe_fsdp_main")
     runs = [rep["train"][run] for rep in reports]
     world = len(runs)
     if fsdp:
-        per_step = {**TP_PER_STEP["tp_fsdp"],
-                    "threefry": want["launches"][0]["threefry"]}
+        stacked = want["launches"][0]
+        per_step = {k: stacked[k] for k in ("fwht", "masked_mean",
+                                            "threefry")}
+        if not moe:
+            per_step.update(TP_PER_STEP["tp_fsdp"])
     else:
-        per_step = {"fwht": 2 * TP_BUCKETS, "masked_mean": TP_BUCKETS,
-                    "threefry": 2 * TP_BUCKETS}
+        buckets = local_buckets(cfg, TP, BUCKET)[0]
+        per_step = {"fwht": 2 * buckets, "masked_mean": buckets,
+                    "threefry": 2 * buckets}
     at_init = {"threefry": _normal_leaves(cfg)}
     launches_ok = all(
         all(step[k] == per_step.get(k, 0) for k in step)
         and all(n == at_init.get(k, 0)
                 for k, n in run_["other_launches"].items())
         for run_ in runs for step in run_["step_launches"]) and (
-        not fsdp or all(all(step[k] == per_step.get(k, 0) for k in step)
-                        for step in want["launches"]))
+        not (fsdp or moe) or all(all(step[k] == per_step.get(k, 0)
+                                     for k in step)
+                                 for step in want["launches"]))
     replicated_ok = all(run_["replicated"] == runs[0]["replicated"]
                         for run_ in runs)
     # replicated: rank r and r + TP hold one state; FSDP x TP: each its own
@@ -5504,14 +5614,18 @@ def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
               for run_ in runs for rec, ref in zip(run_["records"],
                                                     want["records"])
               for k in ("loss", "grad_norm"))
-    count = tp_rank_state_bytes(world, fsdp)
+    count = tp_rank_state_bytes(world, fsdp, cfg)
     bytes_ok = all(b == count for run_ in runs for b in run_["state_bytes"])
     tp_d = tp_dims(cfg, TP)
     fs_d = elastic.fsdp_dims(cfg, TP) if fsdp else [None] * len(tp_d)
     gap, excess = 0.0, -math.inf
+    # on the card: on the host the MoE runs' 440,924,160 entries a rank
+    # took 14-28 s of the parent's time
+    dev = torch.device("cuda")
+    fulls = [p.to(dev) for p in want["params"]]
     for r in range(world):
-        shards = torch.load(out / f"{run}.rank{r}.pt")
-        for x, full, a, b in zip(shards, want["params"], tp_d, fs_d):
+        shards = torch.load(out / f"{run}.rank{r}.pt", map_location=dev)
+        for x, full, a, b in zip(shards, fulls, tp_d, fs_d):
             piece = full if a is None else elastic.split_leaf(full, a,
                                                               TP)[r % TP]
             if b is not None:
@@ -5524,6 +5638,8 @@ def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
             gap = max(gap, float(diff.max()))
             excess = max(excess, float((diff - DIST_STEPS * step).max()))
         del shards
+    del fulls
+    free_card()
     for r, run_ in enumerate(runs):
         for i, rec in enumerate(run_["records"]):
             emit({"phase": f"{phase}_step", "rank": r, "step": i,
@@ -5569,6 +5685,64 @@ def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
             "checks_s": time.perf_counter() - t0}
 
 
+def _dist_moe_router_held(want: dict, out: Path, run: str, world: int
+                          ) -> dict:
+    """Phase ``dist_<run>_router`` (``moe_main``, ``moe_fsdp_main``): each
+    rank's router and its AdamW first moment after the last step against
+    the stacked run's (its data shard of them under FSDP x TP). A rank's
+    router gradient reaches only its own experts' slots; ``copy_tp`` sums
+    it over the tp group, so the moment must be within
+    ``DIST_MOE_ROUTER_REL`` of the stacked moment's largest entry (a rank's
+    own share alone is off by more than the whole moment), the router within
+    ``DIST_TP_PARAM_TOL`` beyond a bf16 step a step. The norms' moments
+    are recorded beside it."""
+    import torch
+    from repro_torch.models.transformer import _walk, param_table
+    from repro_torch.train import elastic
+    cfg = full_width(DIST_MOE_ARCH, DIST_MOE_LAYERS)
+    fsdp = run == "moe_fsdp_main"
+    table = param_table(cfg, tp=TP)
+    fs_all = elastic.fsdp_dims(cfg, TP)
+    reps = [(name, d) for (name, leaf), d in zip(_walk(table), fs_all)
+            if leaf.tp_dim is None]
+    stacked = want["replicated"]
+    n = len(reps)
+    gaps = {"router_m_rel": 0.0, "router_beyond_bf16_steps": -math.inf,
+            "norms_m_rel": 0.0}
+    for r in range(world):
+        got = torch.load(out / f"{run}.rank{r}.rep.pt")
+
+        def piece(x, d):
+            return (elastic.split_leaf(x, d, world // TP)[r // TP]
+                    if fsdp and d is not None else x).float()
+        for j, (name, d) in enumerate(reps):
+            m_want = piece(stacked["state"][j], d)
+            m_rel = float((got["state"][j].float() - m_want).abs().max()
+                          / m_want.abs().max())
+            key = "router_m_rel" if name == "router" else "norms_m_rel"
+            gaps[key] = max(gaps[key], m_rel)
+            if name == "router":
+                w_want = piece(stacked["params"][j], d)
+                step = torch.where(w_want == 0, 0.0, torch.ldexp(
+                    torch.ones_like(w_want),
+                    torch.frexp(w_want).exponent - 8))
+                diff = (got["params"][j].float() - w_want).abs()
+                gaps["router_beyond_bf16_steps"] = max(
+                    gaps["router_beyond_bf16_steps"],
+                    float((diff - DIST_STEPS * step).max()))
+        if len(got["state"]) != 2 * n:
+            fail(f"dist_{run}_router: rank {r} saved {len(got['state'])} "
+                 f"moments of {n} replicated leaves")
+    emit({"phase": f"dist_{run}_router", "ranks": world,
+          "routers": sum(name == "router" for name, _ in reps), **gaps,
+          "tolerance": {"router_m_rel": DIST_MOE_ROUTER_REL,
+                        "router_beyond_bf16_steps": DIST_TP_PARAM_TOL}})
+    if not (gaps["router_m_rel"] <= DIST_MOE_ROUTER_REL
+            and gaps["router_beyond_bf16_steps"] <= DIST_TP_PARAM_TOL):
+        fail(f"dist_{run}_router: {gaps}")
+    return gaps
+
+
 def dist_paths(dev) -> dict:
     """Phases ``dist_sync``, ``dist_main`` (4 gloo ranks on the one card,
     one peer a rank) and ``dist_nccl_sync``, ``dist_nccl_main`` (nccl at a
@@ -5606,9 +5780,11 @@ def dist_paths(dev) -> dict:
     world, after those): the same ranks as a ``(pod 2, data 2)`` grid of
     groups, the syncs and :func:`dist_pod_jobs` against the stacked 2 x 2
     grid (see :func:`_dist_pod_held`). ``dist_tp_main`` and
-    ``dist_tp_fsdp_main`` (gloo's world, last): the ranks as a ``(data 2,
-    model 2)`` grid, the launcher at ``--tp 2``, replicated and with
-    ``--dp-mode fsdp`` (see :func:`_dist_tp_held`); returned: each run's
+    ``dist_tp_fsdp_main`` (gloo's world): the ranks as a ``(data 2, model
+    2)`` grid, the launcher at ``--tp 2``, replicated and with
+    ``--dp-mode fsdp`` (see :func:`_dist_tp_held`); then, last,
+    ``dist_moe_main`` and ``dist_moe_fsdp_main``, the same on the MoE
+    family (and :func:`_dist_moe_router_held`); returned: each tp run's
     launches a rank a step and its seconds.
 
     Both worlds start at once and run their launcher first; both stacked
@@ -5636,7 +5812,7 @@ def dist_paths(dev) -> dict:
                  str(DIST_THREADS), "--wait-for", str(out / backend / "go"),
                  "--train", json.dumps({
                      "name": "main", "argv": _dist_train_argv(world)
-                     + ["--dist-backend", backend]}),
+                     + ["--dist-backend", backend], "stride": DIST_STRIDE}),
                  "--save-params", "main"]
         if not full:
             return flags
@@ -5645,6 +5821,7 @@ def dist_paths(dev) -> dict:
         return flags + ["--full", f"{ARENA_BUCKETS},{BUCKET}",
                         "--rs", "%d,%d" % DIST_RS, "--train", json.dumps({
                             "name": "fsdp", "state": True,
+                            "stride": DIST_STRIDE,
                             "argv": _dist_train_argv(world)
                             + ["--dp-mode", "fsdp", "--dist-backend",
                                backend]}),
@@ -5688,6 +5865,9 @@ def dist_paths(dev) -> dict:
                 tp = {run: _dist_tp_held(reports, want["tp"][run],
                                          out / backend, run)
                       for run in want["tp"]}
+                for run in DIST_MOE_RUNS:
+                    _dist_moe_router_held(want["tp"][run], out / backend,
+                                          run, world)
     finally:
         for proc in (p for ranks in procs for p in ranks):
             if proc.poll() is None:

@@ -19,6 +19,26 @@ adds a zero into its clamped slot, so the scatter-add (``index_put`` with
 non-zero value.
 Routing runs in fp32; the expert products in the activation dtype.
 
+Over ranks (``pctx.over_ranks()``: one tp rank a process) a rank holds only
+its own ``E_local = E_pad / T`` experts, ``we_gate`` / ``we_up`` ``(E_local,
+D, F)`` and ``we_down`` ``(E_local, F, D)``, and the whole router. It routes
+every token of its data index with the whole router as above (the same
+capacity, from the global ``E_pad`` and the local token count, so the same
+assignments overflow), dispatches only the assignments whose expert lies in
+its own range ``[t E_local, (t+1) E_local)`` into an ``(E_local, C, D)``
+buffer (the reference's ``is_local``, ``safe_e``, ``safe_p``), runs the
+expert products on its own chunk, and forms its partial output as the
+stacked form forms row t of its stack: its weighted slots added in fp32 (at
+least) in slot order, rounded once; ``reduce_output`` then sums the partials
+over the tp group. Both the block's input and the router go through
+``pctx.copy_tp`` (Megatron's "f"): the K gates of a token are a softmax of
+its K logits, so the gradient of every logit, and through it of the input
+and the router, couples the token's K slots, while a rank's loss reaches
+only the slots of its own experts. Each rank's input and router gradients
+are therefore partial sums, and "f" adds them over the tp group, so every tp
+rank holds the whole router gradient before the trainer takes tp rank 0's
+copy of a leaf replicated over tp.
+
 While decoding on the peer grid (``serve/engine.py``) two more forms are
 the reference's. Under the batch-sharded plan each of the P data peers
 routes its own B/P rows' tokens (``peers``): the capacity comes from the
@@ -39,6 +59,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import collectives
 
 from .layers import activation_fn
 from .parallel import SINGLE, ParallelCtx
@@ -91,7 +113,8 @@ def moe_block(x: torch.Tensor, w: dict, *, top_k: int, n_experts: int,
               peers: int = 1, weights_stationary: bool = False,
               pctx: ParallelCtx | None = None) -> torch.Tensor:
     """x: (B, S, D). w: router (D, E_pad); we_gate / we_up (E_pad, D, F),
-    we_down (E_pad, F, D). ``peers``: the batch's rows are that many data
+    we_down (E_pad, F, D) (over ranks the rank's ``E_local`` experts of
+    them, :func:`_own_experts`). ``peers``: the batch's rows are that many data
     peers' (peer-major), each routed on its own. ``weights_stationary``:
     the expert products run on the D-slices of ``pctx``'s data peers.
     Returns (B, S, D)."""
@@ -100,9 +123,14 @@ def moe_block(x: torch.Tensor, w: dict, *, top_k: int, n_experts: int,
     b, s, d = x.shape
     if b % peers:
         raise ValueError(f"batch {b} does not split over {peers} peers")
+    router = w["router"]
+    if pctx.over_ranks():
+        x, router = pctx.copy_tp(x), pctx.copy_tp(router)
     xt = x.reshape(peers, b // peers * s, d)
-    r = route(xt, w["router"], top_k=top_k, n_experts=n_experts,
+    r = route(xt, router, top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor)
+    if pctx.over_ranks():
+        return _own_experts(xt, r, w, act, pctx).reshape(b, s, d)
     e_pad = w["router"].shape[-1]
     safe_p = r.pos.clamp(0, r.capacity - 1)
     group = torch.arange(peers, device=x.device)[:, None, None].expand_as(
@@ -153,6 +181,39 @@ def moe_block(x: torch.Tensor, w: dict, *, top_k: int, n_experts: int,
     parts = torch.zeros((t * n_tok, d), dtype=acc, device=x.device).index_add(
         0, rows.reshape(-1), weighted.reshape(-1, d).to(acc))
     return pctx.reduce_output(parts.to(xt.dtype).view(t, b, s, d))
+
+
+def _own_experts(xt: torch.Tensor, r: Routing, w: dict, act,
+                 pctx: ParallelCtx) -> torch.Tensor:
+    """Over ranks: this tp rank's experts on their assignments of ``xt``
+    (``(G, T, D)``, routed as ``r``), its partial output summed over the tp
+    group, ``(G, T, D)``."""
+    e_local = w["we_gate"].shape[0]
+    local = r.gate_idx - pctx.tp_grid.index_on(collectives.MODEL) * e_local
+    own = (local >= 0) & (local < e_local) & r.keep            # (G, T, K)
+    safe_e = local.clamp(0, e_local - 1)
+    safe_p = r.pos.clamp(0, r.capacity - 1)
+    groups, _, d = xt.shape
+    group = torch.arange(groups, device=xt.device)[:, None, None].expand_as(
+        r.gate_idx)
+    zero = torch.zeros((), dtype=xt.dtype, device=xt.device)
+    contrib = torch.where(own[..., None], xt[:, :, None, :], zero)
+    buf = torch.zeros((groups, e_local, r.capacity, d), dtype=xt.dtype,
+                      device=xt.device).index_put(
+        (group, safe_e, safe_p), contrib, accumulate=True)  # (G, E_l, C, D)
+    g = torch.matmul(buf, w["we_gate"].to(xt.dtype))
+    u = torch.matmul(buf, w["we_up"].to(xt.dtype))
+    out_buf = torch.matmul(act(g) * u, w["we_down"].to(xt.dtype))
+    gathered = torch.where(own[..., None], out_buf[group, safe_e, safe_p],
+                           zero)
+    weighted = gathered * r.gates[..., None].to(xt.dtype)     # (G, T, K, D)
+    # the slots in order, in fp32 (at least), rounded once: the stacked
+    # form's row of this rank (its other ranks' slots add zeros there)
+    acc = torch.promote_types(xt.dtype, torch.float32)
+    part = weighted[:, :, 0].to(acc)
+    for k in range(1, weighted.shape[2]):
+        part = part + weighted[:, :, k].to(acc)
+    return pctx.reduce_output(part.to(xt.dtype)[None])
 
 
 def moe_aux_loss(logits_f32: torch.Tensor, gate_idx: torch.Tensor,

@@ -43,7 +43,8 @@ over ``model``: ``wq``, ``w_gate``, ``w_up``, ``ws_gate``, ``ws_up`` (and
 ``router``, ``wB``, ``wC``, ``frontend_proj`` and the norms replicated
 (each rank's partial gradient of a replicated leaf sums by construction:
 one activation feeds every rank). The MoE computes all experts and splits
-its output by the rank that owns each expert (``models/moe.py``). The
+its output by the rank that owns each expert (``models/moe.py``; over
+ranks a rank computes only its own). The
 weights stay stored once, global: tp rank t's shard is the t-th of T
 contiguous chunks of the tp dim, a view (``P(..., "model")``'s cut). A
 column-parallel product runs as one GEMM over the global weight (no
@@ -65,9 +66,10 @@ tp-sharded leaf, its chunk t of the tp dim (``train/elastic.py``): the
 embedding looks up its own ``(V_pad/T, D)`` rows and sums over the tp
 group, the head is its ``(D, V_pad/T)`` columns, the attention runs its
 ``Hq/T`` q heads with the K / V heads ``_kv_maps`` gives shard t, and each
-stack over the tp dim is the rank's one row (``models/parallel.py``). It
-runs the dense family without sequence parallelism; the rest raises
-(:func:`check_tp_ranks`, later slices of ROADMAP A18c).
+stack over the tp dim is the rank's one row (``models/parallel.py``); the
+MoE holds and computes only the rank's own experts (``models/moe.py``). It
+runs the dense and MoE families without sequence parallelism; the rest
+raises (:func:`check_tp_ranks`, later slices of ROADMAP A18c).
 
 FSDP (``param_table(cfg, fsdp_axes=...)``): a leaf's ``fsdp_dim`` is the dim
 the reference shards over the fsdp axes: ``embed`` on dim 1, the
@@ -260,24 +262,22 @@ def _kv_maps(cfg: ModelConfig, t: int, device,
 
 def check_tp_ranks(cfg: ModelConfig, *, seq_parallel: bool = False) -> None:
     """Raise on what tp over ranks does not run yet for ``cfg``, naming its
-    later slice of ROADMAP A18c: sequence parallelism, then the MoE, SSM,
-    hybrid and frontend-prefix families (one rank a tp rank runs the dense
-    family)."""
+    later slice of ROADMAP A18c: the SSM, hybrid and frontend-prefix
+    families and sequence parallelism (one rank a tp rank runs the dense
+    and MoE families, replicated or FSDP over the data ranks, one pod)."""
     what = None
     if seq_parallel:
         what = "--seq-parallel over tp ranks"
     elif cfg.n_experts and cfg.ssm_heads:
         what = f"the hybrid family over tp ranks ({cfg.name})"
-    elif cfg.n_experts:
-        what = f"the MoE family over tp ranks ({cfg.name})"
     elif cfg.ssm_heads:
         what = f"the SSM family over tp ranks ({cfg.name})"
     elif cfg.frontend:
         what = f"the frontend-prefix family over tp ranks ({cfg.name})"
     if what is not None:
         raise ValueError(f"{what} is a later slice of ROADMAP A18c: one "
-                         "rank a tp rank runs the dense family, replicated, "
-                         "one pod")
+                         "rank a tp rank runs the dense and MoE families, "
+                         "replicated or FSDP over the data ranks, one pod")
 
 
 class Leaf(NamedTuple):

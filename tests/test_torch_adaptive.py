@@ -8,7 +8,9 @@ loss fraction is 0 on both sides, so the policy sequence does not depend on
 the draws: the ``adaptive:`` lines, where they fall among the steps, and
 the ``--report`` JSON must be equal, exactly. At a drop rate above 0 the
 port's launcher is held to the policies its own ``ControlPlane`` emits on
-the loss fractions the run observed.
+the loss fractions the run observed. The child starts before the file's
+first test and runs while the port's launcher runs do, each on one torch
+thread.
 """
 import contextlib
 import io
@@ -22,6 +24,7 @@ if not hasattr(pltpu, "TPUCompilerParams"):      # renamed in newer jax
     pltpu.TPUCompilerParams = pltpu.CompilerParams
 
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.obs import report  # noqa: E402
@@ -57,17 +60,62 @@ print("child OK")
 """
 
 
-@pytest.fixture(scope="module")
-def ref(tmp_path_factory):
+@pytest.fixture(autouse=True)
+def one_thread():
+    """gpt2-smoke is too small to gain from torch's intra-op threads, and
+    under the suite's parallel workers those threads contend for the
+    cores; one thread a test, the worker's setting restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def child(tmp_path_factory):
+    """The reference's launcher runs, in a child started before the file's
+    first test: it runs while the port's do."""
     out = tmp_path_factory.mktemp("torch_adaptive")
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", CHILD, str(out),
-                           json.dumps(RUNS), json.dumps(COMMON)], env=env,
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stdout + "\n" + proc.stderr
+    with open(out / "child.log", "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", CHILD, str(out),
+                                 json.dumps(RUNS), json.dumps(COMMON)],
+                                env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        yield proc, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.fixture(scope="module")
+def port(child, tmp_path_factory):
+    """The port's runs of ``RUNS``, each with its report: (records, stdout,
+    report), while the reference's child runs."""
+    out = tmp_path_factory.mktemp("torch_adaptive_port")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runs = {}
+        for name, extra in RUNS.items():
+            rep = out / f"{name}.json"
+            records, stdout = _run([*COMMON, "--device", "cpu", "--report",
+                                    str(rep), *extra])
+            with open(rep) as f:
+                runs[name] = (records, stdout, json.load(f))
+        return runs
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ref(child, port):
+    proc, out = child
+    assert proc.wait(timeout=600) == 0, (out / "child.log").read_text()
     with open(out / "ref.json") as f:
         return json.load(f)
 
@@ -90,19 +138,6 @@ def _decisions(stdout):
         elif line.startswith("adaptive:"):
             out.append(line)
     return out
-
-
-@pytest.mark.parametrize("name", sorted(RUNS))
-def test_adaptive_lines_and_report_match_reference(ref, name, tmp_path):
-    rep = tmp_path / "report.json"
-    records, stdout = _run([*COMMON, "--device", "cpu", "--report", str(rep),
-                            *RUNS[name]])
-    assert len(records) == 6 and all(r["loss_frac"] == 0 for r in records)
-    want = _decisions(ref[name]["stdout"])
-    assert _decisions(stdout) == want
-    assert any(line.startswith("adaptive:") for line in want)
-    with open(rep) as f:
-        assert json.load(f) == ref[name]["report"]
 
 
 def test_lossy_run_follows_its_own_control_plane():
@@ -147,3 +182,13 @@ def test_trace_holds_one_step_span_a_step(tmp_path):
     assert payload["otherData"]["strategy"] == "optireduce"
     rep = report.merge_report([payload])
     assert rep["tables"]["step"]["merged"]["count"] == 3
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_adaptive_lines_and_report_match_reference(ref, port, name):
+    records, stdout, report_json = port[name]
+    assert len(records) == 6 and all(r["loss_frac"] == 0 for r in records)
+    want = _decisions(ref[name]["stdout"])
+    assert _decisions(stdout) == want
+    assert any(line.startswith("adaptive:") for line in want)
+    assert report_json == ref[name]["report"]

@@ -41,7 +41,8 @@ its tp gradients are wrong, ROADMAP C), with ``tests/test_torch_tp_step.py``'s
 tolerances: loss and grad_norm 1e-5 relative, AdamW's moments 1e-6 and
 1e-7 absolute, parameters 1e-1 x lr. The refused combinations raise
 naming their slice of ROADMAP A18c (FSDP x TP runs:
-``tests/test_torch_dist_tp_fsdp.py``).
+``tests/test_torch_dist_tp_fsdp.py``; the MoE family:
+``tests/test_torch_dist_moe.py``).
 """
 import json
 import os
@@ -434,12 +435,14 @@ def test_checkpoint_is_the_shards_put_together(ranks, stacked, tmp_path):
 
 # ---------------------------------------------------------------- refused
 LAUNCHER_REFUSED = {
-    # FSDP x TP runs (tests/test_torch_dist_tp_fsdp.py), not for the MoE
-    # family
-    "fsdp_x_tp": (["--dp-mode", "fsdp", "--arch", "qwen2-moe-a2.7b"],
-                  "the MoE family"),
+    # FSDP x TP runs (tests/test_torch_dist_tp_fsdp.py), the MoE family
+    # too (tests/test_torch_dist_moe.py), not for the hybrid family
+    "fsdp_x_tp": (["--dp-mode", "fsdp", "--arch", "jamba-v0.1-52b"],
+                  "the hybrid family"),
     "seq_parallel": (["--seq-parallel"], "--seq-parallel over tp ranks"),
-    "moe": (["--arch", "qwen2-moe-a2.7b"], "the MoE family"),
+    # the MoE family runs over tp ranks, not with sequence parallelism
+    "moe": (["--arch", "qwen2-moe-a2.7b", "--seq-parallel"],
+            "--seq-parallel over tp ranks"),
     "ssm": (["--arch", "mamba2-1.3b"], "the SSM family"),
     "hybrid": (["--arch", "jamba-v0.1-52b"], "the hybrid family"),
     "frontend": (["--arch", "llava-next-mistral-7b"],
@@ -448,9 +451,9 @@ LAUNCHER_REFUSED = {
 
 @pytest.mark.parametrize("case", list(LAUNCHER_REFUSED))
 def test_launcher_refuses_later_tp_slices(monkeypatch, case):
-    """Under torchrun ``--tp`` with sequence parallelism or a non-dense
-    family (with or without FSDP) raises naming its slice of A18c, before
-    the process group is joined."""
+    """Under torchrun ``--tp`` with sequence parallelism or the SSM, hybrid
+    or frontend-prefix family (with or without FSDP) raises naming its
+    slice of A18c, before the process group is joined."""
     flags, what = LAUNCHER_REFUSED[case]
     monkeypatch.setenv("WORLD_SIZE", str(WORLD))
     with pytest.raises(ValueError, match=f"{what}.*ROADMAP A18c"):
@@ -482,7 +485,9 @@ TRAINER_REFUSED = {
     "pods_x_tp": ({}, "gpt2-paper", "pods x tp"),
     "adafactor": ({"optimizer": "adafactor"}, "gpt2-paper",
                   "Adafactor over tp ranks"),
-    "moe": ({}, "qwen2-moe-a2.7b", "the MoE family"),
+    # the MoE family runs over tp ranks, not with sequence parallelism
+    "moe": ({"seq_parallel": True}, "qwen2-moe-a2.7b",
+            "--seq-parallel over tp ranks"),
     "ssm": ({}, "mamba2-1.3b", "the SSM family"),
     "hybrid": ({}, "jamba-v0.1-52b", "the hybrid family"),
     "frontend": ({}, "musicgen-medium", "the frontend-prefix family")}

@@ -7,7 +7,9 @@ so ``python -m repro_torch.launch.train --smoke --device cpu --steps 3
 weights, as the reference's launcher on 4 host devices. The reference runs
 once, in one child, for ``optireduce``, ``optireduce_q``, ``--sync-mode
 vmap`` and ``--optimizer adafactor``; the child wraps its ``jax.jit`` to
-record each step's metrics before they are rounded for the log. Per step: ``loss_frac`` exactly, the loss and the gradient norm
+record each step's metrics before they are rounded for the log; the
+port's four runs go on in this process meanwhile, on one torch thread.
+Per step: ``loss_frac`` exactly, the loss and the gradient norm
 within ``REL`` (fp32 arithmetic in another order, over three updates).
 ``init_params`` (in process, every family): the uniform ``a_log`` leaves
 bit for bit; normal leaves are a draw within 2 ulp times a std, so within
@@ -25,6 +27,7 @@ if not hasattr(pltpu, "TPUCompilerParams"):      # renamed in newer jax
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from repro.configs import get_smoke as jget_smoke  # noqa: E402
 from repro.models import init_params as jinit  # noqa: E402
@@ -88,32 +91,56 @@ print("child OK")
 """
 
 
-@pytest.fixture(scope="module")
-def ref(tmp_path_factory):
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The smoke model is too small to gain from torch's intra-op threads,
+    and under the suite's parallel workers those threads contend for the
+    cores; one thread a test, the worker's setting restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def child(tmp_path_factory):
+    """The reference's runs, in a child started before the file's first
+    test: it runs while the init checks and the port's runs do."""
     out = tmp_path_factory.mktemp("torch_draws_launch") / "ref.json"
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", CHILD, str(out),
-                           json.dumps(RUNS), json.dumps(COMMON)], env=env,
-                          capture_output=True, text=True, timeout=900)
-    assert proc.returncode == 0, proc.stdout + "\n" + proc.stderr
+    with open(out.with_suffix(".log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", CHILD, str(out),
+                                 json.dumps(RUNS), json.dumps(COMMON)],
+                                env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        yield proc, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.fixture(scope="module")
+def port(child):
+    """The port's launcher runs, while the reference's child runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return {name: train.run([*COMMON, "--device", "cpu", *extra])
+                for name, extra in RUNS.items()}
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ref(child, port):
+    proc, out = child
+    assert proc.wait(timeout=900) == 0, out.with_suffix(".log").read_text()
     with open(out) as f:
         return json.load(f)
-
-
-@pytest.mark.parametrize("name", sorted(RUNS))
-def test_launcher_matches_reference_without_injection(ref, name):
-    records = train.run([*COMMON, "--device", "cpu", *RUNS[name]])
-    want = ref[name]
-    assert len(records) == len(want) == 3
-    assert any(w["loss_frac"] > 0 for w in want)
-    for got, w in zip(records, want):
-        assert got["loss_frac"] == w["loss_frac"]
-        assert got["skipped"] == w["skipped"]
-        assert got["loss"] == pytest.approx(w["loss"], rel=REL)
-        assert got["grad_norm"] == pytest.approx(w["grad_norm"], rel=REL)
 
 
 def _ulp(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -159,3 +186,16 @@ def test_init_params_match_reference(arch):
             # scaled by std: one more rounding, so 3 ulp of the leaf
             assert _ulp(g32, w32).max() <= 3, init
             assert np.mean(g32 != w32) < 1e-3
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_launcher_matches_reference_without_injection(ref, port, name):
+    records = port[name]
+    want = ref[name]
+    assert len(records) == len(want) == 3
+    assert any(w["loss_frac"] > 0 for w in want)
+    for got, w in zip(records, want):
+        assert got["loss_frac"] == w["loss_frac"]
+        assert got["skipped"] == w["skipped"]
+        assert got["loss"] == pytest.approx(w["loss"], rel=REL)
+        assert got["grad_norm"] == pytest.approx(w["grad_norm"], rel=REL)

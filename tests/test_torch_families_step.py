@@ -13,7 +13,8 @@ gradient; AdamW's decay still moves it), all from ``init_params(PRNGKey(0),
 port's key path folded into ``PRNGKey`` in this process), as
 ``tests/test_torch_fsdp.py`` does. ``skip_threshold`` is 0.9, as there: a
 smoke model's small buckets lose whole rows to a timed-out receiver, and
-the guard would skip the step.
+the guard would skip the step. The child writes the initial parameters
+first and goes on with its steps while the port's steps run.
 
 Tolerances: loss and grad_norm 1e-5 relative, loss_frac 1e-7 (the same
 masks); the AdamW moments within 1e-4 of each leaf's largest magnitude
@@ -34,6 +35,7 @@ import math  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import time  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -80,7 +82,7 @@ from repro.models import init_params
 from repro.optim.optimizers import OptimizerConfig
 from repro.train.trainer import TrainConfig, build_train_step
 
-out_path = sys.argv[1]
+out_path, init_path = sys.argv[1], sys.argv[11]
 step_cases = eval(sys.argv[2])
 peers, block, bucket = (int(v) for v in sys.argv[3:6])
 rate, skip, lr = (float(v) for v in sys.argv[6:9])
@@ -92,6 +94,8 @@ for arch in sorted({a for a, _ in step_cases}):
     for i, leaf in enumerate(jax.tree.leaves(init_params(key,
                                                         get_smoke(arch)))):
         save[f"init/{arch}/{i}"] = np.asarray(leaf)
+np.savez(out_path + ".tmp.npz", **save)
+os.replace(out_path + ".tmp.npz", init_path)     # the port starts from it
 for arch, mode in step_cases:
     cfg = get_smoke(arch)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
@@ -155,19 +159,59 @@ class JaxDraws:
 
 
 @pytest.fixture(scope="module")
-def ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("torch_families_step") / "ref.npz"
+def child(tmp_path_factory):
+    """The reference's child, started first: ``(proc, out)``."""
+    out = tmp_path_factory.mktemp("torch_families_step")
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run(
-        [sys.executable, "-c", CHILD, str(out), repr(STEP_CASES),
-         *(str(v) for v in (PEERS, BLOCK, BUCKET, RATE, SKIP, LR, STEP_SEQ,
-                            STEP_BATCH))],
-        env=env, capture_output=True, text=True, timeout=900)
-    assert proc.returncode == 0, proc.stdout + "\n" + proc.stderr
-    with np.load(out) as z:
+    with open(out / "child.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CHILD, str(out / "ref.npz"),
+             repr(STEP_CASES),
+             *(str(v) for v in (PEERS, BLOCK, BUCKET, RATE, SKIP, LR,
+                                STEP_SEQ, STEP_BATCH)),
+             str(out / "init.npz")],
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        yield proc, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _finished(proc, out) -> None:
+    assert proc.wait(timeout=900) == 0, (out / "child.log").read_text()
+
+
+@pytest.fixture(scope="module")
+def port(child):
+    """The port's step of every case, from the reference's initial
+    parameters, while the child runs its steps."""
+    proc, out = child
+    t0 = time.monotonic()
+    while not (out / "init.npz").exists():
+        if proc.poll() is not None:
+            _finished(proc, out)
+        assert time.monotonic() - t0 < 900, "no initial parameters"
+        time.sleep(0.2)
+    with np.load(out / "init.npz") as z:
+        init = dict(z)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return {case: _run_step(init, *case) for case in STEP_CASES}, init
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ref(child, port):
+    proc, out = child
+    _finished(proc, out)
+    with np.load(out / "ref.npz") as z:
         return dict(z)
 
 
@@ -217,8 +261,8 @@ def _run_step(ref, arch, mode):
 
 
 @pytest.mark.parametrize("arch,mode", STEP_CASES)
-def test_train_step_matches_reference(ref, arch, mode):
-    metrics, params, state = _run_step(ref, arch, mode)
+def test_train_step_matches_reference(ref, port, arch, mode):
+    (metrics, params, state), init = port[0][arch, mode], port[1]
     pre = f"step/{arch}/{mode}"
     for k in ("loss", "grad_norm"):
         assert metrics[k] == pytest.approx(float(ref[f"{pre}/metric/{k}"]),
@@ -245,7 +289,7 @@ def test_train_step_matches_reference(ref, arch, mode):
         assert ok.all(), (f"{pre} leaf {i}", float(err.max()))
     if "frontend_proj" in params:
         # no gradient reaches it; AdamW's decoupled decay still moves it
-        w0 = _port_params(ref, arch)["frontend_proj"]
+        w0 = _port_params(init, arch)["frontend_proj"]
         assert not state.m["frontend_proj"].any()
         torch.testing.assert_close(params["frontend_proj"],
                                    w0 * (1 - LR * ocfg.weight_decay))

@@ -20,6 +20,10 @@ grad_norm 1e-5 relative, loss_frac 1e-7 (the same masks), the AdamW first
 moment 1e-6 absolute, the parameters 5e-2 x lr. The recovery state carries
 the gradient before the clip, ten times the moment's scale: the stale cache
 (the synced arena) and the residuals within 1e-5 absolute.
+
+The port runs on one torch thread, and each of its runs once for the file
+(:func:`port_runs`): the exact comparison of ``scan`` with ``pipelined``
+reuses the pipelined run the reference comparison holds.
 """
 import os
 import subprocess
@@ -168,6 +172,30 @@ def ref(tmp_path_factory):
         return dict(z)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """gpt2-smoke is too small to gain from torch's intra-op threads, and
+    under the suite's parallel workers those threads contend for the
+    cores; one thread a test, the worker's setting restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def port_runs(ref):
+    """``(case, sync_mode) -> _run_port(ref, case, sync_mode=...)``, each
+    run once for the file."""
+    runs = {}
+
+    def run(case, sync_mode="pipelined"):
+        if (case, sync_mode) not in runs:
+            runs[case, sync_mode] = _run_port(ref, case, sync_mode=sync_mode)
+        return runs[case, sync_mode]
+    return run
+
+
 def _port_params(ref):
     like = init_params(torch_key(0), get_smoke("gpt2-paper"),
                        device="cpu")
@@ -211,8 +239,8 @@ def _run_port(ref, case, *, sync_mode="pipelined"):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_recovery_steps_match_reference(ref, case):
-    history = _run_port(ref, case)
+def test_recovery_steps_match_reference(ref, port_runs, case):
+    history = port_runs(case)
     mode = CASES[case][2]
     for step, (metrics, leaves, moments, rec) in enumerate(history):
         for k in ("loss", "grad_norm"):
@@ -246,9 +274,9 @@ def test_recovery_steps_match_reference(ref, case):
                                        err_msg=f"step {step} leaf {i}")
 
 
-def test_scan_and_pipelined_agree_exactly_with_stale(ref):
-    piped = _run_port(ref, "ef_burst", sync_mode="pipelined")
-    scanned = _run_port(ref, "ef_burst", sync_mode="scan")
+def test_scan_and_pipelined_agree_exactly_with_stale(port_runs):
+    piped = port_runs("ef_burst", sync_mode="pipelined")
+    scanned = port_runs("ef_burst", sync_mode="scan")
     for (m_a, p_a, _, r_a), (m_b, p_b, _, r_b) in zip(piped, scanned):
         assert m_a == m_b
         for a, b in zip(p_a, p_b):

@@ -23,7 +23,9 @@ Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
 - ``train``: for each ``--train`` JSON ``{"name": ..., "argv": [...]}``,
   the training launcher's records (``launch/train.run``), each step's
   digest of the parameters (with ``"state": true`` in the JSON, of the
-  parameters and the optimizer state), the bytes of the parameters and
+  parameters and the optimizer state; with ``"stride": s`` of each
+  leaf's :func:`sample`, every s-th entry and a checksum of them all, on
+  the rank's device), the bytes of the parameters and
   optimizer state the rank holds, and each step's launches and start on
   the wall clock (:func:`watch_steps`; on the card the peak-memory counter
   is reset before each run); ``--save-params`` names runs whose last
@@ -59,7 +61,8 @@ Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
   :func:`tp_primitive_cases`, named ``tp<T>:<case>``. Then, last, each
   ``--tp-train`` JSON (:func:`tp_train`: the launcher with ``--dp N --tp
   T`` on the world, one tp rank a process, FSDP x TP with ``--dp-mode
-  fsdp``): its records, each step's
+  fsdp``; one world runs jobs of several layouts in turn, every rank the
+  same jobs; ``"layers"`` cuts a full config's depth): its records, each step's
   digests of the rank's state and of its leaves replicated over tp,
   launches, state bytes, and with ``"save"`` each step's leaves in
   ``OUT/<name>.rank<r>.pt``.
@@ -89,6 +92,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -159,6 +163,41 @@ def digest(t: torch.Tensor) -> str:
     """SHA-256 of a tensor's bytes (its dtype's, row-major)."""
     t = t.detach().contiguous().reshape(-1).view(torch.uint8)
     return hashlib.sha256(t.cpu().numpy().data).hexdigest()
+
+
+CHECKSUM_CHUNK = 1 << 24           # entries a pass of :func:`checksum`
+_INTS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def checksum(t: torch.Tensor) -> torch.Tensor:
+    """Two 64-bit sums over the bits of every entry of ``t``, on its
+    device, ``(2,)`` int64: the plain sum and the sum weighted by 2i + 1.
+    An odd weight is a unit modulo 2^64, so a change of any one entry
+    always changes the weighted sum."""
+    flat = t.detach().contiguous().reshape(-1)
+    bits = flat.view(_INTS[flat.element_size()])
+    sums = torch.zeros(2, dtype=torch.int64, device=flat.device)
+    for lo in range(0, bits.numel(), CHECKSUM_CHUNK):
+        x = bits[lo:lo + CHECKSUM_CHUNK].to(torch.int64)
+        odd = torch.arange(lo, lo + x.numel(), dtype=torch.int64,
+                           device=x.device) * 2 + 1
+        sums += torch.stack([x.sum(), (x * odd).sum()])
+    return sums
+
+
+def sample(t: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """What a digest of ``t`` covers: ``t`` itself at ``stride`` 1; else
+    every ``stride``-th entry's bytes and the :func:`checksum` of all of
+    them, one small uint8 tensor on ``t``'s device (a digest of it moves
+    and hashes a ``stride``-th of ``t``'s bytes)."""
+    t = t.detach()
+    if stride == 1:
+        return t
+    flat = t.contiguous().reshape(-1)
+    # a one-entry slice keeps its stride: copy it to a contiguous one
+    every = flat[::stride].clone(memory_format=torch.contiguous_format)
+    return torch.cat([every.view(torch.uint8),
+                      checksum(flat).view(torch.uint8)])
 
 
 def tree_digest(tree) -> str:
@@ -336,23 +375,27 @@ def watch_steps(keep: bool = False, wait_for: str | None = None, *,
     each step's
     digest goes into ``seen["digests"]``, with ``state`` the digest of the
     leaves FSDP replicates into ``seen["replicated"]``, and, when
-    ``keep``, the last step's copy (on the host) into ``seen["params"]``.
+    ``keep``, the last step's parameters (on the host) into
+    ``seen["params"]``; ``seen["last"]`` and ``seen["last_state"]`` are the
+    live parameters and optimizer state (the last step's), ``seen["cfg"]``
+    the model's config.
     With ``shards=n`` a step's digest is instead the list of the n
     workers' digests of their FSDP slices (``elastic.split_leaf``): what
     rank r of the one-rank-a-peer form must hold. ``steps`` copies only
     the first so many steps. With ``tp`` > 1 the replicated leaves are
     those replicated over tp (``elastic.tp_dims``; with ``fsdp``, FSDP x
-    TP, those neither tp nor FSDP shards), and ``stride`` > 1 digests
-    every stride-th entry of each sharded leaf (the replicated ones
-    whole); ``keep_steps`` keeps every step's leaves on the host in
-    ``seen["leaves"]``. With ``wait_for``, the first step
-    ends by waiting for the card to finish it, writing
-    :func:`ready_path` and waiting until ``wait_for`` exists (both waits
-    are ``seen["wait_s"]``)."""
+    TP, those neither tp nor FSDP shards), and ``stride`` > 1 digests the
+    :func:`sample` of each sharded leaf (the replicated ones whole; of
+    every leaf when neither ``state`` nor ``shards`` says which are
+    sharded), taken on the device after each step; ``keep_steps`` keeps
+    every step's leaves on the host in ``seen["leaves"]``. With
+    ``wait_for``, the first step ends by waiting for the card to finish
+    it, writing :func:`ready_path` and waiting until ``wait_for`` exists
+    (both waits are ``seen["wait_s"]``)."""
     from repro_torch.launch import train as launch_train
     seen = {"digests": [], "params": None, "starts": [], "wait_s": 0.0,
             "state_bytes": [], "replicated": [], "launches": [],
-            "leaves": [], "last": None}
+            "leaves": [], "last": None, "last_state": None, "cfg": None}
     copies = []
     dims = []
     inner = launch_train.build_train_step
@@ -386,16 +429,20 @@ def watch_steps(keep: bool = False, wait_for: str | None = None, *,
                 while not os.path.exists(wait_for):
                     time.sleep(0.05)
                 seen["wait_s"] = time.perf_counter() - t0
-            seen["last"] = out[0]       # updated in place: the last step's
+            # updated in place: the last step's
+            seen["last"], seen["last_state"] = out[0], out[1]
+            seen["cfg"] = args[0]
             if steps is None or len(copies) < steps:
                 leaves = tree_leaves((out[0], out[1]) if state else out[0])
                 if keep_steps:
                     seen["leaves"].append([p.detach().cpu().clone()
                                            for p in leaves])
+                sampled = [d is not None or not dims
+                           for d in dims or [None] * len(leaves)]
                 copies.append([
-                    p.detach().reshape(-1)[::stride].clone()
-                    if stride > 1 and d is not None else p.detach().clone()
-                    for p, d in zip(leaves, dims or [None] * len(leaves))])
+                    sample(p, stride) if stride > 1 and s and not shards
+                    else p.detach().clone()
+                    for p, s in zip(leaves, sampled)])
             return out
         return watched, opt
 
@@ -407,26 +454,43 @@ def watch_steps(keep: bool = False, wait_for: str | None = None, *,
         if shards is None:
             seen["digests"] = [tree_digest(c) for c in copies]
         else:
-            seen["digests"] = [
-                [tree_digest([elastic.split_leaf(leaf, d, shards)[r]
-                              for leaf, d in zip(c, dims)])
-                 for r in range(shards)] for c in copies]
+            seen["digests"] = [_step_digest(c, dims, shards, stride)
+                               for c in copies]
         if state:
             seen["replicated"] = [
                 tree_digest([leaf for leaf, d in zip(c, dims) if d is None])
                 for c in copies]
-        if keep and copies:
-            seen["params"] = [p.cpu() for p in copies[-1]]
+        if keep and seen["last"] is not None:
+            seen["params"] = [p.detach().cpu()
+                              for p in tree_leaves(seen["last"])]
         copies.clear()
 
 
-def _step_digest(leaves: list, dims, shards: int | None):
+def replicated_leaves(cfg, tp: int, params, state) -> dict:
+    """The leaves replicated over tp (the router, the norms) of ``params``
+    and of the optimizer ``state`` (trees like the parameters: AdamW's two
+    moments, momentum's one), tree order, on the host: ``{"params": [...],
+    "state": [...]}``; a rank's own pieces of them under FSDP."""
+    rep = [d is None for d in elastic.tp_dims(cfg, tp)]
+    st = tree_leaves(state)
+    return {"params": [p.detach().cpu() for p, r in zip(tree_leaves(params),
+                                                         rep) if r],
+            "state": [x.detach().cpu() for i, x in enumerate(st)
+                      if rep[i % len(rep)]]}
+
+
+def _step_digest(leaves: list, dims, shards: int | None, stride: int = 1):
     """A step's digest of the parameters and optimizer state: one, or with
     ``shards`` the list of each rank's digest of its FSDP slices
-    (``elastic.split_leaf``, pod-major)."""
+    (``elastic.split_leaf``, pod-major). With ``stride`` > 1 a sharded
+    leaf's (or slice's) :func:`sample`, the others whole; without ``dims``
+    every leaf's sample."""
+    def cover(x, d):
+        return sample(x, stride) if dims is None or d is not None else x
     if shards is None:
-        return tree_digest(leaves)
-    return [tree_digest([elastic.split_leaf(leaf, d, shards)[r]
+        return tree_digest([cover(x, d) for x, d in zip(
+            leaves, dims or [None] * len(leaves))])
+    return [tree_digest([cover(elastic.split_leaf(leaf, d, shards)[r], d)
                          for leaf, d in zip(leaves, dims)])
             for r in range(shards)]
 
@@ -443,7 +507,9 @@ def pod_train(job: dict, device, group=None, *, keep: bool = False) -> dict:
     (G), ``peers`` (G x N), ``strategy``, ``dp_mode``, ``steps``,
     ``seq_len``, ``global_batch``, ``drop_rate`` (tail), ``block``,
     ``bucket_elems``, ``lr``, ``skip_threshold``, ``sync_mode``, ``seed``,
-    and optionally ``kernel_mode``, ``ckpt_dir`` (save the last step's
+    and optionally ``stride`` (the digests of each sharded leaf's
+    :func:`sample`, of every leaf when replicated), ``kernel_mode``,
+    ``ckpt_dir`` (save the last step's
     state there, the stacked format, rank 0 writing) and ``resume`` (start
     from its newest checkpoint). Returns the records (loss, loss_frac, grad_norm, skipped,
     step_s, dist_bytes and dist_axis_bytes, dist_s, peak_bytes on the
@@ -529,7 +595,8 @@ def pod_train(job: dict, device, group=None, *, keep: bool = False) -> dict:
         out["launches"].append({n: after[n] - before[n] for n in after})
         out["state_bytes"].append(state_bytes((params, state)))
         leaves = tree_leaves((params, state))
-        out["digests"].append(_step_digest(leaves, dims, shards))
+        out["digests"].append(_step_digest(leaves, dims, shards,
+                                           job.get("stride", 1)))
         if keep:
             out["leaves"].append([t.detach().cpu().clone() for t in leaves])
     if job.get("ckpt_dir") and not job.get("resume"):
@@ -546,28 +613,39 @@ def tp_train(job: dict, out_dir=None, rank: int = 0) -> dict:
     """Run the training launcher with ``job["argv"]`` (``--dp N --tp T``,
     with ``--dp-mode fsdp`` FSDP x TP: under torchrun one tp rank a
     process, else the stacked form) and report each step's records, digest
-    of the parameters and optimizer state the process holds (every
-    ``job["stride"]``-th entry of each sharded leaf, default all) and of
+    of the parameters and optimizer state the process holds (with
+    ``job["stride"]`` each sharded leaf's :func:`sample`) and of
     its leaves replicated over tp (whole; under FSDP those no rank
     shards), its launches, the state bytes and the launches of the rest of
     the run (the init's draws). With ``job["save"]`` each step's leaves
     go to ``out_dir/<name>.rank<r>.pt`` (a list over steps of the
     parameters' and the state's leaves, on the host; without ``out_dir``
     in the report's ``leaves``), with ``job["save_last"]`` the last step's
-    parameters alone (a list of leaves). On the card the peak-memory
-    counter is reset first."""
+    parameters alone (a list of leaves), with ``job["save_replicated"]``
+    its :func:`replicated_leaves` to ``out_dir/<name>.rank<r>.rep.pt``.
+    ``job["layers"]`` cuts the depth of the full config the launcher reads
+    (``get_config``). On the card the peak-memory counter is reset
+    first."""
     from repro_torch.launch import train as launch_train
     argv = job["argv"]
+    full_config = launch_train.get_config
+    if job.get("layers"):
+        launch_train.get_config = lambda arch: dataclasses.replace(
+            full_config(arch), n_layers=job["layers"])
     tp = int(argv[argv.index("--tp") + 1])
     fsdp = "--dp-mode" in argv and argv[argv.index("--dp-mode") + 1] == "fsdp"
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.reset_peak_memory_stats()
     before = counts()
-    with watch_steps(state=True, tp=tp, stride=job.get("stride", 1),
-                     keep_steps=job.get("save", False), fsdp=fsdp) as seen:
-        t0 = time.time()
-        records = launch_train.run(argv)
-        t1 = time.time()
+    try:
+        with watch_steps(state=True, tp=tp, stride=job.get("stride", 1),
+                         keep_steps=job.get("save", False),
+                         fsdp=fsdp) as seen:
+            t0 = time.time()
+            records = launch_train.run(argv)
+            t1 = time.time()
+    finally:
+        launch_train.get_config = full_config
     after = counts()
     total = {k: after[k] - before[k] for k in after}
     rest = {k: v - sum(step[k] for step in seen["launches"])
@@ -585,6 +663,10 @@ def tp_train(job: dict, out_dir=None, rank: int = 0) -> dict:
     elif job.get("save_last"):
         torch.save([p.detach().cpu() for p in tree_leaves(seen["last"])],
                    path)
+    if job.get("save_replicated"):
+        torch.save(replicated_leaves(seen["cfg"], tp, seen["last"],
+                                     seen["last_state"]),
+                   path.with_suffix(".rep.pt"))
     return out
 
 
@@ -690,7 +772,8 @@ def run(args, device) -> None:
                 torch.cuda.reset_peak_memory_stats(device)
             before = counts()
             with watch_steps(keep, args.wait_for,
-                             state=job.get("state", False)) as seen:
+                             state=job.get("state", False),
+                             stride=job.get("stride", 1)) as seen:
                 records = launch_train.run(job["argv"])
             after = counts()
             report["train"][job["name"]] = {
@@ -702,6 +785,7 @@ def run(args, device) -> None:
                 "launches": {k: after[k] - before[k] for k in after}}
             if keep and rank == 0:
                 torch.save(seen["params"], out_dir / f"{job['name']}.pt")
+            del seen                    # the run's live state with it
         grids = [(collectives.rank_grid(pods=pods), [rank])
                  for pods in args.pods]
         if args.tp > 1:
@@ -767,7 +851,8 @@ def main(argv=None) -> int:
     ap.add_argument("--packet", type=int, default=64)
     ap.add_argument("--rate", type=float, default=0.05)
     ap.add_argument("--train", action="append", default=[],
-                    help='JSON {"name": ..., "argv": [...]}')
+                    help='JSON {"name": ..., "argv": [...], "state": ..., '
+                         '"stride": ...}')
     ap.add_argument("--save-params", action="append", default=[])
     ap.add_argument("--wait-for", default=None, metavar="PATH")
     ap.add_argument("--threads", type=int, default=None)
