@@ -188,7 +188,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     B3-B6); the datagrams and bytes of each kind and the host seconds;
 39. ``wire_main``, ``wire_q``: the launcher at 6.'s full width, gpt2-paper
     cut to 1 of its 12 layers (8 buckets of 6,553,600), with
-    ``--transport inproc`` (2 and 1 steps): 16 B1 + 8 B2, and 8 each of
+    ``--transport inproc`` (1 step each; ``wire_main``'s second was cut
+    to pay for 79.-81.): 16 B1 + 8 B2, and 8 each of
     B1, B3-B6 a step, as on the lossy path; no bridge miss (a call waits
     up to ``WIRE_BRIDGE_TIMEOUT_S``) or error; one ``wire[inproc]`` line a step with 4 peers; the wire's loss_frac within
     0.0075 +- 0.002 (0.01 x 3/4: a receiver's own row never crosses the
@@ -206,7 +207,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     the card against the CPU, same parameters and draws: metrics and
     parameters within ``STEP_TOL``, every bridge mask equal; then 2 steps
     over UDP on the card: loss at most 0.07, no step skipped;
-42. ``profile`` of ``wire_main``'s last step as in 9.;
+42. ``profile`` of ``wire_main``'s one step as in 9. (no unprofiled
+    step beside it);
 43. ``multiproc_inproc``: ``repro_torch.launch.multiproc --backend
     inproc`` on the card, 4 rank-threads each exchanging one gpt2-paper
     bucket (``--elems 6553600 --hadamard-block 1024 --packet-elems 256``)
@@ -232,9 +234,10 @@ Run from the root of a checkout. Phases, each printing one JSON line:
     optireduce, tail drops 0.01, seq 128, global batch 8, AdamW, 2 steps
     each, on smollm-360m (32 layers, 361,821,120 params, 56 buckets),
     qwen2-moe-a2.7b (60 experts top-4 and 4 shared, cut to 1 of 24 layers:
-    881,719,296 params, 135 buckets) and mamba2-1.3b (48 layers,
-    1,343,286,272 params, 205 buckets): loss, loss_frac, step ms, peak
-    bytes; launches exactly 2 B1 and 1 B2 a bucket a step;
+    881,719,296 params, 135 buckets) and mamba2-1.3b (cut to 24 of 48
+    layers to pay for 79.-81.: 723,130,880 params, 111 buckets): loss,
+    loss_frac, step ms, peak bytes; launches exactly 2 B1 and 1 B2 a
+    bucket a step;
 48. ``hybrid_fwd``: jamba-v0.1-52b at full width, one period (8 of 32
     layers, 12,997,268,800 params), a bf16 ``lm_loss`` under
     ``torch.no_grad`` on (8, 128): the loss (finite), ms, peak;
@@ -461,9 +464,35 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 78. ``dist_moe_fsdp_main``: the same with ``--dp-mode fsdp`` (each rank
     holding data shard i of tp chunk t of every leaf, its experts' among
     them), held as ``dist_tp_fsdp_main`` is, and ``dist_moe_fsdp_main_router``;
-79. ``seconds``: the script's wall clock, whole and by group of phases,
-    with the tp and MoE phases' seconds inside the ``dist`` group (their
-    ranks' run and their stacked side).
+79. ``dist_ssm_main``: the SSM family over the ranks, after
+    ``dist_moe_fsdp_main`` in gloo's world: the launcher with ``--dp 2
+    --tp 2`` (:func:`dist_family_argv`) on mamba2-1.3b at full width (d
+    2048, d_inner 4096, 64 heads of 64, state 128, conv 4, vocab 50,280,
+    tied, bf16), cut to 12 of 48 layers (``DIST_SSM_LAYERS``),
+    ``optireduce``, tail drops 0.01, ``pipelined``, AdamW, seq 128, global
+    batch 8, 2 steps, each tp rank holding and running only its 32 heads
+    (its 2,048 channels of ``wx``, ``wz``, ``conv_w`` and ``out_proj``),
+    ``wB``, ``wC`` and the norms whole. Held as ``dist_moe_main`` is (the
+    grad norm recorded beside ``DIST_TP_REL`` where it falls outside:
+    81. holds it), and beside it ``dist_ssm_main_bc``: each rank's ``wB``
+    and ``wC`` and their first moments against the stacked run's
+    (:func:`_dist_summed_held`, ``DIST_SSM_BC_REL``). Its stacked runs go
+    first in the parent with the MoE family's, while the ranks wait at
+    their first step of ``dist_main`` for the release, so the stacked
+    side's peak (about 14 GB) and the ranks' never meet on the card;
+80. ``dist_ssm_fsdp_main``: the same with ``--dp-mode fsdp``, held as
+    ``dist_tp_fsdp_main`` is, and ``dist_ssm_fsdp_main_bc``; each rank
+    keeps its own chunk of ``conv_w``, ``a_log``, ``dt_bias`` and
+    ``d_skip`` (tp-sharded, no FSDP dim: the small bucket's);
+81. ``dist_ssm_float64``: last in gloo's world, one replicated step of the
+    same model at ``--dp 2 --tp 2`` in float64 without drops on the ranks
+    (:func:`dist_ssm_float64_job`), held after 57. against its float64
+    ``--tp 1`` step on the same flags (its records, not run again): loss
+    and grad norm within ``TP_GRAD_TOL``; the stacked ``--tp 2`` float64
+    step's recorded beside them;
+82. ``seconds``: the script's wall clock, whole and by group of phases,
+    with the tp, MoE and SSM phases' seconds inside the ``dist`` group
+    (their ranks' run and their stacked side).
 
 The ranks' per-step digests of their state in the ``dist_*`` phases, and
 the stacked sides', cover each leaf's ``distcheck.sample`` at
@@ -784,11 +813,11 @@ def main() -> int:
     sync_strategies(dev, counters)
     lap("strategies")
 
-    # 67.-78. one rank a peer over a process group (ROADMAP A18c): 4 gloo
+    # 67.-81. one rank a peer over a process group (ROADMAP A18c): 4 gloo
     # ranks on the card, flat, as a 2 x 2 pod grid and as a (data 2, model
-    # 2) tp grid, replicated and FSDP x TP, the dense and the MoE family,
-    # then nccl at the card count
-    dist_tp = dist_paths(dev)
+    # 2) tp grid, replicated and FSDP x TP, the dense, MoE and SSM
+    # families, then nccl at the card count
+    dist_tp, dist_f64 = dist_paths(dev)
     lap("dist")
 
     # 8., 17. the same trainer on the card and on the CPU, same params and
@@ -824,7 +853,13 @@ def main() -> int:
 
     # 57.-60. the non-dense families over tensor parallelism (A21c):
     # training, serving, card vs CPU; the dry run runs beside them all
-    tp_families_paths(counters)
+    tp_families = tp_families_paths(counters)
+    # 81. the ranks' float64 step against tp_families_main's float64 tp 1
+    # step (its records reused)
+    wide = tp_families[DIST_SSM_ARCH]
+    dist_ssm_float64_held(dist_f64, {"records": wide["wide_tp1"],
+                                     "replicated": wide["replicated"]},
+                          wide["wide_tp2"])
     lap("tp_families_main")
     tp_serve_families(dev)
     lap("tp_serve_families")
@@ -860,17 +895,18 @@ def main() -> int:
           "in_dist": {f"dist_{run}_{k}": v for run, held in dist_tp.items()
                       for k, v in held.items() if k != "launches"}})
 
+    def dist_launches(kernel: str) -> dict:
+        """A kernel's launches a rank a step in each tp grid run of gloo's
+        world (rank 0's last step)."""
+        return {f"dist_{run}_launches": held["launches"][kernel]
+                for run, held in dist_tp.items()}
+
     kernels.append({
         "name": "fwht", "route": "cuda",
         "source": "src/repro_torch/kernels/fwht/csrc/fwht.cu",
         "replaces": "src/repro/kernels/fwht/fwht.py:130",
         "launches": launches["optireduce"]["fwht"],
-        "dist_tp_main_launches": dist_tp["tp_main"]["launches"]["fwht"],
-        "dist_tp_fsdp_main_launches":
-            dist_tp["tp_fsdp_main"]["launches"]["fwht"],
-        "dist_moe_main_launches": dist_tp["moe_main"]["launches"]["fwht"],
-        "dist_moe_fsdp_main_launches":
-            dist_tp["moe_fsdp_main"]["launches"]["fwht"],
+        **dist_launches("fwht"),
         "max_abs_err": b1["max_abs_err"],
         "ms": b1["ms"], "plain_ms": b1["plain_ms"],
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
@@ -880,13 +916,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/masked_sum/csrc/masked_mean.cu",
         "replaces": "src/repro/kernels/masked_sum/masked_sum.py:68",
         "launches": launches["optireduce"]["masked_mean"],
-        "dist_tp_main_launches": dist_tp["tp_main"]["launches"]["masked_mean"],
-        "dist_tp_fsdp_main_launches":
-            dist_tp["tp_fsdp_main"]["launches"]["masked_mean"],
-        "dist_moe_main_launches":
-            dist_tp["moe_main"]["launches"]["masked_mean"],
-        "dist_moe_fsdp_main_launches":
-            dist_tp["moe_fsdp_main"]["launches"]["masked_mean"],
+        **dist_launches("masked_mean"),
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
@@ -926,13 +956,7 @@ def main() -> int:
         "replaces": "none (jax.random threefry2x32 draws: "
                     "src/repro/core/hadamard.py:23, core/drops.py:38)",
         "launches": launches["draws"]["optireduce"]["threefry"],
-        "dist_tp_main_launches": dist_tp["tp_main"]["launches"]["threefry"],
-        "dist_tp_fsdp_main_launches":
-            dist_tp["tp_fsdp_main"]["launches"]["threefry"],
-        "dist_moe_main_launches":
-            dist_tp["moe_main"]["launches"]["threefry"],
-        "dist_moe_fsdp_main_launches":
-            dist_tp["moe_fsdp_main"]["launches"]["threefry"],
+        **dist_launches("threefry"),
         "max_abs_err": t1["max_abs_err"], "ms": t1["ms"],
         "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"], "library_ms": None})
@@ -3001,7 +3025,8 @@ def check_tp_shapes(dev, gen) -> None:
 WIRE_PER_BUCKET = {
     # the lossy path's launches: the wire's mask is never None, so every
     # bucket's compensated mean is a B2 (or B5) launch
-    "wire_main": ("optireduce", 2, {"fwht": 2, "masked_mean": 1}),
+    # one step: its second was cut to pay for the SSM family over ranks
+    "wire_main": ("optireduce", 1, {"fwht": 2, "masked_mean": 1}),
     "wire_q": ("optireduce_q", 1, {"fwht": 1, "ht_amax": 1, "ht_quant": 1,
                                    "dequant_mean": 1, "grid_quant": 1}),
     "wire_udp": ("optireduce", 1, {"fwht": 2, "masked_mean": 1}),
@@ -3233,8 +3258,8 @@ def wire_paths(counters: dict) -> None:
             emit_profile(prof, {"strategy": strategy, "arch": "gpt2-paper",
                                 "layers": WIRE_LAYERS, "buckets": buckets,
                                 "peers": PEERS, "transport": "inproc"},
-                         records[-2]["step_s"] * 1e3,
-                         records[-1]["step_s"] * 1e3,
+                         # one step, profiled: none ran without the profiler
+                         None, records[-1]["step_s"] * 1e3,
                          torch.cuda.max_memory_allocated(), 0)
         lines = [ln for ln in out.getvalue().splitlines()
                  if ln.startswith("wire[")]
@@ -3644,11 +3669,12 @@ def elastic_phase(dev) -> None:
 
 # ------------------------------------------- the model families (A21)
 # families_main: (arch, layers) through the launcher at full width; the
-# depth is cut only where 4 peers' training state would not fit the card
+# depth is cut where 4 peers' training state would not fit the card
 # (PERF.md section 4): qwen2-moe-a2.7b to 1 of 24 layers (60 experts of
-# 3 x 2048 x 1408 a layer)
+# 3 x 2048 x 1408 a layer); and mamba2-1.3b to 24 of 48 layers, as its
+# profile ran it, to pay for the SSM family over ranks (dist_ssm_*)
 FAMILIES_MAIN = (("smollm-360m", None), ("qwen2-moe-a2.7b", 1),
-                 ("mamba2-1.3b", None))
+                 ("mamba2-1.3b", 24))
 FAMILIES_STEPS = 2
 HYBRID_LAYERS = 8          # one period of jamba-v0.1-52b (32 layers)
 PREFIX_TOL = 1e-5          # card vs CPU lm_loss with a prefix, relative
@@ -4454,7 +4480,7 @@ def local_buckets(cfg, tp: int, bucket: int) -> tuple[int, int]:
     return max(1, -(-n // bucket)), n
 
 
-def tp_families_paths(counters: dict) -> None:
+def tp_families_paths(counters: dict) -> dict:
     """Phase ``tp_families_main``: the launcher (``--arch``) on each
     ``TP_FAMILIES_MAIN`` model at full width with ``--dp 2 --tp 2``,
     optireduce, tail drops 0.01, seq 128, global batch 8, AdamW,
@@ -4466,17 +4492,23 @@ def tp_families_paths(counters: dict) -> None:
     ``TP_LOSS_TOL`` relative; and one step each at ``--tp 2`` and ``--tp
     1`` without drops on the parameters in fp32 (``TP_GRAD_DTYPE`` where
     fp32 is too narrow): losses within ``TP_LOSS_TOL``, gradient norms
-    within ``TP_GRAD_TOL``."""
+    within ``TP_GRAD_TOL``. Returns each arch's one-step records of those
+    runs (``bf16_tp1``, ``wide_tp2``, ``wide_tp1``), and for
+    ``DIST_SSM_ARCH`` the ``wide_tp1`` step's leaves replicated over tp
+    and their moments (``replicated``; ``dist_ssm_float64`` holds its
+    ranks against them)."""
     import dataclasses
 
     import torch
     from repro_torch.launch import train as launch_train
     from repro_torch.models.transformer import count_params
+    distcheck = _distcheck()
 
     def rel(a, b, k):
         return abs(a[0][k] - b[0][k]) / abs(b[0][k])
 
     full_config = launch_train.get_config
+    records = {}
     for arch, layers, extra in TP_FAMILIES_MAIN:
         cfg = full_width(arch, layers)
         buckets, local = local_buckets(cfg, TP, BUCKET)
@@ -4499,13 +4531,21 @@ def tp_families_paths(counters: dict) -> None:
                     launch_train.get_config = lambda _: dataclasses.replace(
                         cfg, param_dtype=getattr(torch, wide))
                 free_card()
-                runs[name] = train_main_path(
-                    "optireduce", 1, counters,
-                    phase=f"tp_families_{name.replace('wide', wide)}",
-                    arch=arch, loss_seen=False,
-                    extra=("--dp", "2", "--tp", str(tp), *exact))[1]
+                keep = arch == DIST_SSM_ARCH and name == "wide_tp1"
+                with (distcheck.watch_steps(steps=0) if keep
+                      else contextlib.nullcontext()) as seen:
+                    runs[name] = train_main_path(
+                        "optireduce", 1, counters,
+                        phase=f"tp_families_{name.replace('wide', wide)}",
+                        arch=arch, loss_seen=False,
+                        extra=("--dp", "2", "--tp", str(tp), *exact))[1]
+                if keep:
+                    runs["replicated"] = distcheck.replicated_leaves(
+                        seen["cfg"], TP, seen["last"], seen["last_state"])
+                    del seen
         finally:
             launch_train.get_config = full_config
+        records[arch] = runs
         want = {k: 0 for k in counters}
         want.update(fwht=2 * buckets * TP_FAMILIES_STEPS,
                     masked_mean=buckets * TP_FAMILIES_STEPS)
@@ -4529,6 +4569,7 @@ def tp_families_paths(counters: dict) -> None:
                 and gaps[f"grad_norm_{wide}"] <= TP_GRAD_TOL):
             fail(f"tp_families_main {arch}: tp 2 against tp 1 {gaps}")
     free_card()
+    return records
 
 
 def _layer_errs(a_state, b_state, positions) -> list:
@@ -5132,12 +5173,30 @@ DIST_STRIDE = 997
 # the tp group's sum; in bf16 each rank's part is rounded before that sum
 # and the second step starts from parameters that differ by it, so the
 # router's first moment after 2 steps is held within DIST_MOE_ROUTER_REL of
-# the stacked moment's largest entry: tools/moe_router_gap.py reads 0.85%
+# the stacked moment's largest entry: tools/tp_sum_gap.py reads 0.85%
 # after one step and 4.9% after two on the CPU (bf16), and 111-127% when
 # the sum is left out
 DIST_MOE_ARCH = "qwen2-moe-a2.7b"
 DIST_MOE_LAYERS = 1
 DIST_MOE_ROUTER_REL = 0.25
+# the SSM family over gloo's 4 ranks as (data 2, model 2): mamba2-1.3b at
+# full width (d 2048, d_inner 4096, 64 heads of 64, state 128, conv 4,
+# vocab 50,280, tied, bf16), cut to 12 of 48 layers as TP_FAMILIES_MAIN
+# cuts it, replicated and FSDP x TP, each tp rank holding and running its
+# 32 heads. A rank's wB / wC gradient covers only its own heads until the
+# tp group's sum. Random-init Mamba-2 amplifies rounding ~1.2x a layer
+# (ROADMAP C): at this width and depth a bf16 step's gradient is off by a
+# third (tp_families_main's --tp 1 step without drops: grad norm 272.52 in
+# bf16 against 444.04 in float64 on an H100), and two bf16 steps that
+# round in another order lie as far apart, so the bf16 runs'
+# grad norm, blocks and wB / wC moments are recorded and
+# dist_ssm_float64 holds them: in float64 the ranks' step, and wB's and
+# wC's first moments, against the stacked --tp 1 step's within
+# TP_GRAD_TOL (without the sum a rank's moment is its heads' share alone:
+# tools/tp_sum_gap.py --arch mamba2-1.3b reads 33-61% of the largest entry
+# without it, 0.45-0.60% with it, bf16 on the CPU)
+DIST_SSM_ARCH = "mamba2-1.3b"
+DIST_SSM_LAYERS = 12
 
 
 def _distcheck():
@@ -5179,58 +5238,93 @@ def dist_pod_jobs(world: int) -> dict:
             "pod_fsdp": {**base, "name": "pod_fsdp", "dp_mode": "fsdp"}}
 
 
-# the tp grid's launcher runs over gloo's ranks: name -> flags past
-# dist_tp_argv; then the MoE family's, name -> flags past dist_moe_argv
+# the tp grid's launcher runs over gloo's ranks, a family's runs: name ->
+# flags past dist_family_argv
 DIST_TP_RUNS = {"tp_main": [], "tp_fsdp_main": ["--dp-mode", "fsdp"]}
 DIST_MOE_RUNS = {"moe_main": [], "moe_fsdp_main": ["--dp-mode", "fsdp"]}
+DIST_SSM_RUNS = {"ssm_main": [], "ssm_fsdp_main": ["--dp-mode", "fsdp"]}
+# family -> (arch, its depth cut, its runs, the leaves replicated over tp
+# whose gradient the tp group sums, their first moments' bound: None where
+# dist_ssm_float64 holds them); the dense family is dist_tp_argv's
+# gpt2-paper at full depth
+DIST_FAMILIES = {
+    "dense": (None, None, DIST_TP_RUNS, (), None),
+    "moe": (DIST_MOE_ARCH, DIST_MOE_LAYERS, DIST_MOE_RUNS, ("router",),
+            DIST_MOE_ROUTER_REL),
+    "ssm": (DIST_SSM_ARCH, DIST_SSM_LAYERS, DIST_SSM_RUNS, ("wB", "wC"),
+            None)}
+# the ranks' float64 step of the SSM family (dist_ssm_float64)
+DIST_SSM_F64 = "ssm_float64"
 
 
-def dist_moe_argv(world: int, ranks: bool) -> list:
-    """The launcher's flags of ``dist_moe_main``: ``dist_tp_main``'s on
-    ``DIST_MOE_ARCH`` (its depth cut by :func:`_moe_config`)."""
+def dist_family(run: str) -> str:
+    """The family of a tp grid run of gloo's world."""
+    return next(f for f, spec in DIST_FAMILIES.items() if run in spec[2])
+
+
+def dist_family_argv(world: int, ranks: bool, family: str) -> list:
+    """The launcher's flags of a family's tp grid runs: ``dist_tp_main``'s
+    (:func:`dist_tp_argv`) on the family's arch, whose depth the run's
+    config override cuts (:func:`dist_family_config`)."""
     argv = dist_tp_argv(world, ranks)
-    argv[argv.index("--arch") + 1] = DIST_MOE_ARCH
+    arch = DIST_FAMILIES[family][0]
+    if arch is not None:
+        argv[argv.index("--arch") + 1] = arch
     return argv
 
 
-@contextlib.contextmanager
-def _moe_config():
-    """The launcher reads ``DIST_MOE_ARCH`` at ``DIST_MOE_LAYERS`` layers."""
-    from repro_torch.launch import train as launch_train
-    full_config = launch_train.get_config
-    launch_train.get_config = lambda _: full_width(DIST_MOE_ARCH,
-                                                   DIST_MOE_LAYERS)
-    try:
-        yield
-    finally:
-        launch_train.get_config = full_config
+def dist_family_config(family: str) -> dict | None:
+    """The config override (``distcheck.job_config``) of a family's runs:
+    its depth cut, or None."""
+    layers = DIST_FAMILIES[family][1]
+    return None if layers is None else {"n_layers": layers}
 
 
-def _stacked_tp(world: int, moe: bool = False) -> dict:
-    """The stacked side of ``dist_tp_main`` and ``dist_tp_fsdp_main`` (with
-    ``moe``, of ``dist_moe_main`` and ``dist_moe_fsdp_main``): the launcher
-    at ``--dp world / TP --tp TP`` as one process, replicated and FSDP x TP
-    (``DIST_TP_RUNS``, ``DIST_MOE_RUNS``): each run's records, last
-    parameters (on the host), launches a step and seconds; with ``moe``
-    also the last parameters and moments of each leaf replicated over tp
-    (the router, the norms; on the host)."""
+def dist_family_cfg(family: str):
+    """The config a family's runs train."""
+    arch, layers = DIST_FAMILIES[family][:2]
+    return full_width(arch or "gpt2-paper", layers)
+
+
+def dist_ssm_float64_job(world: int) -> dict:
+    """The ``--tp-train`` job of ``dist_ssm_float64``: one replicated step
+    of ``DIST_SSM_ARCH`` at ``DIST_SSM_LAYERS`` layers in float64 without
+    drops, at ``--tp TP`` over the ranks; every flag but ``--tp`` (and the
+    backend) is ``tp_families_main``'s float64 ``--tp 1`` step's (its
+    ``train_main_path`` flags), whose records it is held against."""
+    argv = train_argv("optireduce", arch=DIST_SSM_ARCH) + [
+        "--steps", "1", "--dp", str(world // TP), "--tp", str(TP),
+        "--drop-rate", "0", "--dist-backend", "gloo"]
+    return {"name": DIST_SSM_F64, "argv": argv, "stride": DIST_STRIDE,
+            "save_replicated": True,
+            "config": {"n_layers": DIST_SSM_LAYERS,
+                       "param_dtype": TP_GRAD_DTYPE[DIST_SSM_ARCH]}}
+
+
+def _stacked_tp(world: int, family: str = "dense") -> dict:
+    """The stacked side of a family's tp grid runs (``dist_tp_main`` and
+    ``dist_tp_fsdp_main``, ``dist_moe_*``, ``dist_ssm_*``): the launcher at
+    ``--dp world / TP --tp TP`` as one process, replicated and FSDP x TP
+    (``DIST_FAMILIES``): each run's records, last parameters (on the host),
+    launches a step and seconds; outside the dense family also the last
+    parameters and moments of each leaf replicated over tp (the router or
+    ``wB`` / ``wC``, the norms; on the host)."""
     from repro_torch.kernels import runtime
     from repro_torch.launch import train as launch_train
     distcheck = _distcheck()
     tp = {}
-    runs, argv = ((DIST_MOE_RUNS, dist_moe_argv) if moe
-                  else (DIST_TP_RUNS, dist_tp_argv))
-    for run, extra in runs.items():
+    for run, extra in DIST_FAMILIES[family][2].items():
         t0 = time.perf_counter()
         # no step's copy: the stacked tp runs' digests are not compared
-        with (_moe_config() if moe else contextlib.nullcontext()), \
+        with distcheck.job_config(dist_family_config(family)), \
                 distcheck.watch_steps(keep=True, steps=0) as seen:
-            records = launch_train.run(argv(world, ranks=False) + extra)
+            records = launch_train.run(
+                dist_family_argv(world, False, family) + extra)
         runtime.set_kernel_mode(None)
         tp[run] = {"records": records, "params": seen["params"],
                    "launches": seen["launches"],
                    "seconds": time.perf_counter() - t0}
-        if moe:
+        if family != "dense":
             tp[run]["replicated"] = distcheck.replicated_leaves(
                 seen["cfg"], TP, seen["last"], seen["last_state"])
         del seen
@@ -5239,18 +5333,22 @@ def _stacked_tp(world: int, moe: bool = False) -> dict:
 
 
 def dist_tp_jobs(world: int) -> list:
-    """The ``--tp-train`` flags of gloo's world: each of ``DIST_TP_RUNS``,
-    then each of ``DIST_MOE_RUNS`` (at ``DIST_MOE_LAYERS`` layers), under
+    """The ``--tp-train`` flags of gloo's world: each family's runs
+    (``DIST_FAMILIES``, the depth cut by a config override), under
     torchrun, a strided digest of the shards, the last parameters saved
-    (and for the MoE runs the leaves replicated over tp with their
-    moments)."""
-    jobs = [{"name": run, "argv": dist_tp_argv(world, ranks=True) + extra,
-             "stride": DIST_STRIDE, "save_last": True}
-            for run, extra in DIST_TP_RUNS.items()]
-    jobs += [{"name": run, "argv": dist_moe_argv(world, ranks=True) + extra,
-              "stride": DIST_STRIDE, "save_last": True,
-              "save_replicated": True, "layers": DIST_MOE_LAYERS}
-             for run, extra in DIST_MOE_RUNS.items()]
+    (and outside the dense family the leaves replicated over tp with their
+    moments); then, last, ``dist_ssm_float64``'s step
+    (:func:`dist_ssm_float64_job`)."""
+    jobs = []
+    for family, (_, _, runs, _, _) in DIST_FAMILIES.items():
+        for run, extra in runs.items():
+            job = {"name": run, "argv": dist_family_argv(world, True, family)
+                   + extra, "stride": DIST_STRIDE, "save_last": True}
+            if family != "dense":
+                job.update(save_replicated=True,
+                           config=dist_family_config(family))
+            jobs.append(job)
+    jobs.append(dist_ssm_float64_job(world))
     return [arg for job in jobs for arg in ("--tp-train", json.dumps(job))]
 
 
@@ -5285,7 +5383,8 @@ def _stacked_side(dev, world: int, full: bool) -> dict:
         for name, job in dist_pod_jobs(world).items():
             pods[name] = distcheck.pod_train(job, dev)
             free_card()
-        tp = {**_stacked_tp(world), **_stacked_tp(world, moe=True)}
+        tp = {run: held for family in DIST_FAMILIES
+              for run, held in _stacked_tp(world, family).items()}
     before = distcheck.counts()
     with distcheck.watch_steps(keep=True, stride=DIST_STRIDE) as seen:
         records = launch_train.run(_dist_train_argv(world))
@@ -5559,38 +5658,39 @@ def tp_rank_state_bytes(world: int, fsdp: bool, cfg=None) -> int:
 def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
     """Phase ``dist_<run>``: gloo's ranks as the ``(data 2, model 2)``
     grid, the launcher with ``--tp 2`` (:func:`dist_tp_argv`; ``tp_main``
-    replicated, ``tp_fsdp_main`` with ``--dp-mode fsdp``; ``moe_main`` and
-    ``moe_fsdp_main`` the same on ``DIST_MOE_ARCH``, :func:`dist_moe_argv`),
-    against the stacked launcher's same steps (``want``): launches a rank
-    a step (replicated: 2 B1, 1 B2 and 2 T1 a bucket of the rank's local
-    leaves, ``TP_BUCKETS`` on gpt2-paper, and on the MoE the stacked
-    step's the same; FSDP x TP: the stacked step's B1, B2 and T1,
-    ``TP_PER_STEP["tp_fsdp"]``'s B1 and B2 on gpt2-paper) and at init, the
-    leaves no rank shards bitwise equal on every rank, each rank's state
-    its data replica's (replicated), records within ``DIST_TP_REL``, each
-    rank's piece of the parameters (its tp chunk; under FSDP x TP the data
-    shard of it) within ``DIST_TP_PARAM_TOL`` of the stacked one's,
-    beyond one bf16 step a step at the stacked entry (both forms round it
-    to bf16 each step), state bytes a rank :func:`tp_rank_state_bytes`.
-    Returns rank 0's launches a step and the seconds of the ranks' run, of
-    its stacked side and of these checks."""
+    replicated, ``tp_fsdp_main`` with ``--dp-mode fsdp``; ``moe_*`` and
+    ``ssm_*`` the same on ``DIST_MOE_ARCH`` and ``DIST_SSM_ARCH``,
+    :func:`dist_family_argv`), against the stacked launcher's same steps
+    (``want``): launches a rank a step (replicated: 2 B1, 1 B2 and 2 T1 a
+    bucket of the rank's local leaves, ``TP_BUCKETS`` on gpt2-paper, and
+    outside the dense family the stacked step's the same; FSDP x TP: the
+    stacked step's B1, B2 and T1, ``TP_PER_STEP["tp_fsdp"]``'s B1 and B2
+    on gpt2-paper) and at init, the leaves no rank shards bitwise equal on
+    every rank, each rank's state its data replica's (replicated), the
+    loss and the grad norm within ``DIST_TP_REL``, each rank's piece of the
+    parameters (its tp chunk; under FSDP x TP the data shard of it) within
+    ``DIST_TP_PARAM_TOL`` of the stacked one's, beyond one bf16 step a step
+    at the stacked entry (both forms round it to bf16 each step), state
+    bytes a rank :func:`tp_rank_state_bytes`. On the SSM family the grad
+    norm and the parameters are recorded and ``dist_ssm_float64`` holds
+    the step (random-init Mamba-2's bf16 gradient is rounding-bound at
+    full width: see ``DIST_SSM_ARCH``). Returns rank 0's launches a step and the
+    seconds of the ranks' run, of its stacked side and of these checks."""
     t0 = time.perf_counter()
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models.transformer import tp_dims
     from repro_torch.train import elastic
-    moe = run in DIST_MOE_RUNS
-    cfg = (full_width(DIST_MOE_ARCH, DIST_MOE_LAYERS) if moe
-           else get_config("gpt2-paper"))
+    family = dist_family(run)
+    cfg = dist_family_cfg(family)
     phase = f"dist_{run}"
-    fsdp = run in ("tp_fsdp_main", "moe_fsdp_main")
+    fsdp = run.endswith("_fsdp_main")
     runs = [rep["train"][run] for rep in reports]
     world = len(runs)
     if fsdp:
         stacked = want["launches"][0]
         per_step = {k: stacked[k] for k in ("fwht", "masked_mean",
                                             "threefry")}
-        if not moe:
+        if family == "dense":
             per_step.update(TP_PER_STEP["tp_fsdp"])
     else:
         buckets = local_buckets(cfg, TP, BUCKET)[0]
@@ -5602,18 +5702,20 @@ def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
         and all(n == at_init.get(k, 0)
                 for k, n in run_["other_launches"].items())
         for run_ in runs for step in run_["step_launches"]) and (
-        not (fsdp or moe) or all(all(step[k] == per_step.get(k, 0)
-                                     for k in step)
-                                 for step in want["launches"]))
+        not fsdp and family == "dense"
+        or all(all(step[k] == per_step.get(k, 0) for k in step)
+               for step in want["launches"]))
     replicated_ok = all(run_["replicated"] == runs[0]["replicated"]
                         for run_ in runs)
     # replicated: rank r and r + TP hold one state; FSDP x TP: each its own
     replicas_ok = all((runs[r]["digests"] == runs[r + TP]["digests"])
                       != fsdp for r in range(world - TP))
-    rel = max(abs(rec[k] - ref[k]) / abs(ref[k])
-              for run_ in runs for rec, ref in zip(run_["records"],
-                                                    want["records"])
-              for k in ("loss", "grad_norm"))
+    rel = {k: max(abs(rec[k] - ref[k]) / abs(ref[k])
+                  for run_ in runs for rec, ref in zip(run_["records"],
+                                                        want["records"]))
+           for k in ("loss", "grad_norm")}
+    # the SSM family's bf16 gradient: recorded; dist_ssm_float64 holds it
+    bf16_held = family != "ssm"
     count = tp_rank_state_bytes(world, fsdp, cfg)
     bytes_ok = all(b == count for run_ in runs for b in run_["state_bytes"])
     tp_d = tp_dims(cfg, TP)
@@ -5662,7 +5764,12 @@ def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
           "replicated_bitwise_equal": replicated_ok,
           "data_replicas_bitwise_equal": None if fsdp else replicas_ok,
           "ranks_states_differ": replicas_ok if fsdp else None,
-          "records_max_rel_diff": rel, "records_tolerance": DIST_TP_REL,
+          "records_max_rel_diff": max(rel.values()),
+          "loss_max_rel_diff": rel["loss"],
+          "grad_norm_max_rel_diff": rel["grad_norm"],
+          "grad_norm_and_params_held_by": "this phase" if bf16_held
+          else "dist_ssm_float64",
+          "records_tolerance": DIST_TP_REL,
           "params_max_abs_diff": gap,
           "params_max_beyond_bf16_steps": excess,
           "params_tolerance": DIST_TP_PARAM_TOL,
@@ -5673,7 +5780,9 @@ def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
                       for rec in want["records"]],
           "stacked_launches": want["launches"]})
     if not (launches_ok and replicated_ok and replicas_ok and bytes_ok
-            and rel <= DIST_TP_REL and excess <= DIST_TP_PARAM_TOL):
+            and rel["loss"] <= DIST_TP_REL
+            and (not bf16_held or rel["grad_norm"] <= DIST_TP_REL
+                 and excess <= DIST_TP_PARAM_TOL)):
         fail(f"{phase}: launches {launches_ok}, replicated "
              f"{replicated_ok}, data replicas (or distinct states) "
              f"{replicas_ok}, records {rel} (tolerance {DIST_TP_REL}), "
@@ -5685,29 +5794,37 @@ def _dist_tp_held(reports: list, want: dict, out: Path, run: str) -> dict:
             "checks_s": time.perf_counter() - t0}
 
 
-def _dist_moe_router_held(want: dict, out: Path, run: str, world: int
-                          ) -> dict:
-    """Phase ``dist_<run>_router`` (``moe_main``, ``moe_fsdp_main``): each
-    rank's router and its AdamW first moment after the last step against
-    the stacked run's (its data shard of them under FSDP x TP). A rank's
-    router gradient reaches only its own experts' slots; ``copy_tp`` sums
-    it over the tp group, so the moment must be within
-    ``DIST_MOE_ROUTER_REL`` of the stacked moment's largest entry (a rank's
-    own share alone is off by more than the whole moment), the router within
-    ``DIST_TP_PARAM_TOL`` beyond a bf16 step a step. The norms' moments
-    are recorded beside it."""
+def _dist_summed_held(want: dict, out: Path, run: str, world: int
+                      ) -> dict:
+    """Phase ``dist_<run>_router`` (``moe_main``, ``moe_fsdp_main``) or
+    ``dist_<run>_bc`` (``ssm_main``, ``ssm_fsdp_main``): each rank's leaves
+    replicated over tp whose gradient the tp group sums (the router;
+    ``wB`` and ``wC``) and their AdamW first moments after the last step
+    against the stacked run's (its data shard of them under FSDP x TP). A
+    rank's router gradient reaches only its own experts' slots, its ``wB``
+    / ``wC`` gradient only its own heads; ``copy_tp`` sums it over the tp
+    group, so each moment must be within the family's bound
+    (``DIST_MOE_ROUTER_REL``, ``DIST_SSM_BC_REL``) of the stacked moment's
+    largest entry (a rank's own share alone is off by a third of it and
+    more), the leaf within ``DIST_TP_PARAM_TOL`` beyond a bf16 step a step.
+    The norms' moments are recorded beside them. Where the bound is None
+    (the SSM family) the gaps are recorded and ``dist_ssm_float64`` holds
+    those moments."""
     import torch
     from repro_torch.models.transformer import _walk, param_table
     from repro_torch.train import elastic
-    cfg = full_width(DIST_MOE_ARCH, DIST_MOE_LAYERS)
-    fsdp = run == "moe_fsdp_main"
+    family = dist_family(run)
+    _, _, _, summed, bound = DIST_FAMILIES[family]
+    phase = f"dist_{run}_" + ("router" if family == "moe" else "bc")
+    cfg = dist_family_cfg(family)
+    fsdp = run.endswith("_fsdp_main")
     table = param_table(cfg, tp=TP)
     fs_all = elastic.fsdp_dims(cfg, TP)
     reps = [(name, d) for (name, leaf), d in zip(_walk(table), fs_all)
             if leaf.tp_dim is None]
     stacked = want["replicated"]
     n = len(reps)
-    gaps = {"router_m_rel": 0.0, "router_beyond_bf16_steps": -math.inf,
+    gaps = {"m_rel": 0.0, "beyond_bf16_steps": -math.inf,
             "norms_m_rel": 0.0}
     for r in range(world):
         got = torch.load(out / f"{run}.rank{r}.rep.pt")
@@ -5719,31 +5836,101 @@ def _dist_moe_router_held(want: dict, out: Path, run: str, world: int
             m_want = piece(stacked["state"][j], d)
             m_rel = float((got["state"][j].float() - m_want).abs().max()
                           / m_want.abs().max())
-            key = "router_m_rel" if name == "router" else "norms_m_rel"
+            key = "m_rel" if name in summed else "norms_m_rel"
             gaps[key] = max(gaps[key], m_rel)
-            if name == "router":
+            if name in summed:
                 w_want = piece(stacked["params"][j], d)
                 step = torch.where(w_want == 0, 0.0, torch.ldexp(
                     torch.ones_like(w_want),
                     torch.frexp(w_want).exponent - 8))
                 diff = (got["params"][j].float() - w_want).abs()
-                gaps["router_beyond_bf16_steps"] = max(
-                    gaps["router_beyond_bf16_steps"],
+                gaps["beyond_bf16_steps"] = max(
+                    gaps["beyond_bf16_steps"],
                     float((diff - DIST_STEPS * step).max()))
         if len(got["state"]) != 2 * n:
-            fail(f"dist_{run}_router: rank {r} saved {len(got['state'])} "
-                 f"moments of {n} replicated leaves")
-    emit({"phase": f"dist_{run}_router", "ranks": world,
-          "routers": sum(name == "router" for name, _ in reps), **gaps,
-          "tolerance": {"router_m_rel": DIST_MOE_ROUTER_REL,
-                        "router_beyond_bf16_steps": DIST_TP_PARAM_TOL}})
-    if not (gaps["router_m_rel"] <= DIST_MOE_ROUTER_REL
-            and gaps["router_beyond_bf16_steps"] <= DIST_TP_PARAM_TOL):
-        fail(f"dist_{run}_router: {gaps}")
+            fail(f"{phase}: rank {r} saved {len(got['state'])} moments of "
+                 f"{n} replicated leaves")
+    emit({"phase": phase, "ranks": world, "leaves": list(summed),
+          "count": sum(name in summed for name, _ in reps), **gaps,
+          "tolerance": {"m_rel": bound,
+                        "beyond_bf16_steps": DIST_TP_PARAM_TOL}
+          if bound is not None else "held by dist_ssm_float64"})
+    if bound is not None and not (
+            gaps["m_rel"] <= bound
+            and gaps["beyond_bf16_steps"] <= DIST_TP_PARAM_TOL):
+        fail(f"{phase}: {gaps}")
     return gaps
 
 
-def dist_paths(dev) -> dict:
+def _first_moments(saved: dict) -> list:
+    """AdamW's first moments of the leaves :func:`distcheck.replicated_leaves`
+    saved (its state: the first moments, then the second)."""
+    state = saved["state"]
+    return state[:len(state) // 2]
+
+
+def dist_ssm_float64_held(f64: dict, tp1: dict, tp2: list) -> dict:
+    """Phase ``dist_ssm_float64``: the ranks' one replicated step of
+    ``DIST_SSM_ARCH`` (``DIST_SSM_LAYERS`` layers) in float64 without
+    drops at ``--dp 2 --tp 2`` (:func:`dist_ssm_float64_job`; ``f64``: its
+    reports and each rank's first moments of the leaves replicated over
+    tp), against ``tp_families_main``'s float64 ``--tp 1`` step on the
+    same flags (``tp1``: its records and those moments, reused, not run
+    again): every rank's loss and grad norm within ``TP_GRAD_TOL``
+    relative, and its first moments of ``wB`` and ``wC`` within
+    ``TP_GRAD_TOL`` of the stacked moment's largest entry (a moment after
+    one step is a tenth of the synced gradient; a rank's heads' share
+    alone is off by a third of it and more); the norms' moments and the
+    stacked ``--tp 2`` float64 step (``tp2``) recorded beside them. In
+    float64 only the fp32 arena's, AdamW's and the loss's fp32 rounding is
+    left between tp 2 and tp 1 (about 1e-7); a partial ``wB`` / ``wC``
+    gradient or a wrong head would not shrink with the dtype."""
+    from repro_torch.models.transformer import _walk, param_table
+    runs = f64["runs"]
+    gaps = {k: max(abs(run["records"][0][k] - tp1["records"][0][k])
+                   / abs(tp1["records"][0][k]) for run in runs)
+            for k in ("loss", "grad_norm")}
+    names = [name for name, leaf in _walk(param_table(
+        dist_family_cfg("ssm"), tp=TP)) if leaf.tp_dim is None]
+    m_want = _first_moments(tp1["replicated"])
+    m_rel = {"bc": 0.0, "norms": 0.0}
+    for got in f64["m"]:
+        for name, a, b in zip(names, got, m_want):
+            key = "bc" if name in ("wB", "wC") else "norms"
+            m_rel[key] = max(m_rel[key], float(
+                (a.double() - b.double()).abs().max() / b.abs().max()))
+    vs_tp2 = {k: max(abs(run["records"][0][k] - tp2[0][k]) / abs(tp2[0][k])
+                     for run in runs) for k in ("loss", "grad_norm")}
+    for r, run in enumerate(runs):
+        rec = run["records"][0]
+        emit({"phase": "dist_ssm_float64_step", "rank": r,
+              "loss": rec["loss"], "grad_norm": rec["grad_norm"],
+              "loss_frac": rec["loss_frac"], "step_ms": rec["step_s"] * 1e3,
+              "peak_bytes": rec.get("peak_bytes"),
+              "state_bytes": run["state_bytes"][0],
+              "dist_bytes": rec["dist_bytes"],
+              "dist_axis_bytes": rec["dist_axis_bytes"],
+              "dist_s": rec["dist_s"], "launches": run["step_launches"][0]})
+    emit({"phase": "dist_ssm_float64", "ranks": len(runs), "dp": 2,
+          "tp": TP, "layers": DIST_SSM_LAYERS,
+          "dtype": TP_GRAD_DTYPE[DIST_SSM_ARCH],
+          "stacked_tp1": {k: tp1["records"][0][k]
+                          for k in ("loss", "grad_norm")},
+          "stacked_tp2": {k: tp2[0][k] for k in ("loss", "grad_norm")},
+          "rel_diff_vs_tp1": gaps, "rel_diff_vs_stacked_tp2": vs_tp2,
+          "bc_m_rel_vs_tp1": m_rel["bc"],
+          "norms_m_rel_vs_tp1": m_rel["norms"], "tolerance": TP_GRAD_TOL,
+          "ranks_s": max(run["run_s"][1] - run["run_s"][0]
+                         for run in runs)})
+    if not (all(v <= TP_GRAD_TOL for v in gaps.values())
+            and m_rel["bc"] <= TP_GRAD_TOL):
+        fail(f"dist_ssm_float64: against the stacked tp 1 step {gaps}, "
+             f"wB / wC first moments {m_rel['bc']} (tolerance "
+             f"{TP_GRAD_TOL})")
+    return {**gaps, "bc_m_rel": m_rel["bc"]}
+
+
+def dist_paths(dev) -> tuple[dict, dict]:
     """Phases ``dist_sync``, ``dist_main`` (4 gloo ranks on the one card,
     one peer a rank) and ``dist_nccl_sync``, ``dist_nccl_main`` (nccl at a
     world of ``torch.cuda.device_count()``, one rank a card), each world
@@ -5782,10 +5969,13 @@ def dist_paths(dev) -> dict:
     grid (see :func:`_dist_pod_held`). ``dist_tp_main`` and
     ``dist_tp_fsdp_main`` (gloo's world): the ranks as a ``(data 2, model
     2)`` grid, the launcher at ``--tp 2``, replicated and with
-    ``--dp-mode fsdp`` (see :func:`_dist_tp_held`); then, last,
+    ``--dp-mode fsdp`` (see :func:`_dist_tp_held`); then
     ``dist_moe_main`` and ``dist_moe_fsdp_main``, the same on the MoE
-    family (and :func:`_dist_moe_router_held`); returned: each tp run's
-    launches a rank a step and its seconds.
+    family, and ``dist_ssm_main`` and ``dist_ssm_fsdp_main`` on the SSM
+    family (and :func:`_dist_summed_held`); last the ranks' float64 step
+    of ``dist_ssm_float64``, held later against ``tp_families_main``'s
+    (:func:`dist_ssm_float64_held`). Returned: each tp run's launches a
+    rank a step and its seconds, and the float64 step's reports.
 
     Both worlds start at once and run their launcher first; both stacked
     sides run in this process meanwhile, during the ranks' start-up and
@@ -5865,9 +6055,17 @@ def dist_paths(dev) -> dict:
                 tp = {run: _dist_tp_held(reports, want["tp"][run],
                                          out / backend, run)
                       for run in want["tp"]}
-                for run in DIST_MOE_RUNS:
-                    _dist_moe_router_held(want["tp"][run], out / backend,
-                                          run, world)
+                for run in {**DIST_MOE_RUNS, **DIST_SSM_RUNS}:
+                    _dist_summed_held(want["tp"][run], out / backend, run,
+                                      world)
+                # the float64 step's reports and each rank's first
+                # moments of its leaves replicated over tp (the state's
+                # first half), read before the directory goes
+                f64 = {"runs": [rep["train"][DIST_SSM_F64]
+                                for rep in reports],
+                       "m": [_first_moments(torch.load(
+                           out / backend / f"{DIST_SSM_F64}.rank{r}.rep.pt"))
+                           for r in range(world)]}
     finally:
         for proc in (p for ranks in procs for p in ranks):
             if proc.poll() is None:
@@ -5875,7 +6073,7 @@ def dist_paths(dev) -> dict:
                 proc.wait()
     shutil.rmtree(out, ignore_errors=True)
     free_card()
-    return tp
+    return tp, f64
 
 
 PORTED_KERNELS = ("fwht_rows_kernel", "masked_mean_vec4", "ht_kernel",
@@ -5925,11 +6123,11 @@ def profile_third_step(one, label: dict) -> None:
     emit_profile(prof, label, wall[-1], prof_wall, peak, permutes)
 
 
-def emit_profile(prof, label: dict, wall_ms: float, prof_wall_ms: float,
-                 peak: int, permutes: int) -> None:
+def emit_profile(prof, label: dict, wall_ms: float | None,
+                 prof_wall_ms: float, peak: int, permutes: int) -> None:
     """The ``profile`` row of one profiled step: ``wall_ms`` is the
-    unprofiled step before it, ``prof_wall_ms`` the profiled step's host
-    time."""
+    unprofiled step before it (None where the profiled step is the run's
+    only one), ``prof_wall_ms`` the profiled step's host time."""
     rows = prof.key_averages()
     on_dev = _device_rows(rows)
     busy_ms = sum(_dev_us(r) for r in on_dev) / 1e3
@@ -5950,7 +6148,8 @@ def emit_profile(prof, label: dict, wall_ms: float, prof_wall_ms: float,
                           if "elementwise" in r.key.lower()),
                          key=_dev_us, reverse=True)
     emit({"phase": "profile", **label,
-          "step_ms_unprofiled": wall_ms, "step_ms_profiled": prof_wall_ms,
+          "step_ms_unprofiled": wall_ms if wall_ms is not None
+          else "not measured", "step_ms_profiled": prof_wall_ms,
           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
           # busy over the profiled step's wall time; the second share
           # divides the same busy time by the unprofiled step before it,
@@ -5958,7 +6157,7 @@ def emit_profile(prof, label: dict, wall_ms: float, prof_wall_ms: float,
           "device_idle_share_of_profiled_step": (1 - busy_ms / prof_wall_ms)
           if busy_ms > 0 else "not measured",
           "device_idle_share_of_unprofiled_step": (1 - busy_ms / wall_ms)
-          if busy_ms > 0 else "not measured",
+          if busy_ms > 0 and wall_ms is not None else "not measured",
           "kernel_launches": launches,
           "peak_mem_bytes": peak,
           "permutes": permutes,

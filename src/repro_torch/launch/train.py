@@ -60,18 +60,19 @@ index i and tp rank t (the reference's ``("data", "model")`` mesh, model
 innermost): each rank holds only its tp shard of every tp-sharded leaf and
 of its moments (drawn a full leaf at a time, checkpointed as full leaves
 gathered over its tp group), and the model's tp sums run in its tp group;
-the dense and MoE families (a rank holds and computes only its own
-``E_pad / T`` experts). With ``--dp-mode fsdp`` as well (FSDP x TP) rank ``i *
-T + t`` holds only data shard i of tp chunk t of every leaf sharded over
-both, and of its moments: init cuts both from each full leaf as it is
-drawn, a checkpoint gathers each leaf over the data group and then over
-the tp group into the full leaf, and ``--resume`` cuts them again
+the dense, MoE and SSM families (a rank holds and computes only its own
+``E_pad / T`` experts, its own ``H / T`` SSM heads). With ``--dp-mode
+fsdp`` as well (FSDP x TP) rank ``i * T + t`` holds only data shard i of
+tp chunk t of every leaf sharded over both, and of its moments: init
+cuts both from each full leaf as it is drawn, a checkpoint gathers each
+leaf over the data group and then over the tp group into the full leaf,
+and ``--resume`` cuts them again
 (``train/elastic.py``'s ``rank_cuts``). The launcher has no pod flag (nor
 the reference's): the ``(pod, data)`` grid over ranks runs through
 ``build_train_step(..., group=)`` on a pod mesh (``tools/distcheck.py
 --pod-train``). ``--production-mesh``, ``--sync-mode vmap``,
 ``--recovery``, ``--transport``, ``--adaptive``, and with ``--tp``
-``--seq-parallel`` and the SSM, hybrid and frontend-prefix families over
+``--seq-parallel`` and the hybrid and frontend-prefix families over
 ranks raise (later slices of ROADMAP A18c), as do pods x tp and Adafactor
 over tp ranks in ``build_train_step``.
 On the card every Hadamard encode/decode, every drop-compensated mean and,
@@ -297,8 +298,9 @@ def _rank_setup(args):
             raise ValueError(
                 f"{flag} over ranks is a later slice of ROADMAP A18c (over "
                 "ranks the launcher runs replicated and --dp-mode fsdp, at "
-                "tp 1 and, for the dense and MoE families, at --tp T; it "
-                "refuses " + ", ".join(f for f, _ in RANK_REFUSED) + ")")
+                "tp 1 and, for the dense, MoE and SSM families, at --tp "
+                "T; it refuses "
+                + ", ".join(f for f, _ in RANK_REFUSED) + ")")
     if args.tp != 1:
         check_tp_ranks(get_smoke(args.arch) if args.smoke
                        else get_config(args.arch),

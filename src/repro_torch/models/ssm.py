@@ -8,13 +8,27 @@ psums ``out_proj``'s row-parallel partials; the port runs the tp group's
 heads in one pass over the global weights (every product but ``out_proj``
 is per channel or per head, so the concatenation of the ranks' values is
 the global value) and reduces ``out_proj``'s T partial products as the
-reference's ranks do. It follows the minimal SSD listing of Dao & Gu
-(arXiv:2405.21060): an intra-chunk quadratic term plus an inter-chunk
-state scan, here a loop over the chunks. The reference's three-operand
-einsums run as two-operand ones with the third factor multiplied in first
-(the same sums in another order, fp32 throughout), so no contraction
-materialises a (..., C, C, P) intermediate. ``_segsum`` masks to -inf
-before the ``exp``, so the masked entries' gradient is 0, not ``inf * 0``.
+reference's ranks do.
+
+Over ranks (``pctx.over_ranks()``: one tp rank a process) a rank holds
+and runs only its own ``H / T`` heads: ``wx`` and ``wz`` ``(D, d_inner /
+T)``, ``wdt`` ``(D, H / T)``, ``conv_w`` ``(K, d_inner / T)``, ``a_log``,
+``dt_bias`` and ``d_skip`` ``(H / T,)`` and ``out_proj`` ``(d_inner / T,
+D)``, its one partial product summed over the tp group; ``wB`` and ``wC``
+arrive whole. The block's input goes through ``pctx.copy_tp`` (Megatron's
+"f"), and so do ``wB`` and ``wC``: the one B/C group feeds every head, but
+a rank's B and C feed only its own heads, so each rank's gradient of them
+(and of the input) is its heads' share, and "f" sums the shares over the
+tp group; every tp rank then holds the whole ``wB`` / ``wC`` gradient
+before the trainer takes tp rank 0's copy of a leaf replicated over tp.
+
+It follows the minimal SSD listing of Dao & Gu (arXiv:2405.21060): an
+intra-chunk quadratic term plus an inter-chunk state scan, here a loop
+over the chunks. The reference's three-operand einsums run as two-operand
+ones with the third factor multiplied in first (the same sums in another
+order, fp32 throughout), so no contraction materialises a (..., C, C, P)
+intermediate. ``_segsum`` masks to -inf before the ``exp``, so the masked
+entries' gradient is 0, not ``inf * 0``.
 ``softplus`` is ``logaddexp(x, 0)``, as ``jax.nn.softplus``. Decode carries
 ``(conv_state, ssm_state)`` per layer, constant in the sequence length.
 """
@@ -159,15 +173,21 @@ def mamba2_forward(x: torch.Tensor, w: dict, *,
     Under tensor parallelism ``out_proj`` is row-parallel (its T partial
     products reduced by ``pctx.reduce_output``); every other product is
     per channel or per head, so it runs over the global weights. Returns
-    (y, new_state); the state at the global head count.
+    (y, new_state); the state at the global head count. Over ranks every
+    weight but ``wB`` / ``wC`` is the rank's chunk (see the module's
+    docstring).
     """
     pctx = pctx or SINGLE
     bsz, s, _ = x.shape
     n, g = w["d_state"], w["n_groups"]
+    wb, wc = w["wB"], w["wC"]
+    if pctx.over_ranks():
+        # a rank's B / C feed only its own heads: "f" sums their gradient
+        x, wb, wc = pctx.copy_tp(x), pctx.copy_tp(wb), pctx.copy_tp(wc)
     xz = x @ w["wx"].to(x.dtype)
     z = x @ w["wz"].to(x.dtype)
-    bproj = x @ w["wB"].to(x.dtype)
-    cproj = x @ w["wC"].to(x.dtype)
+    bproj = x @ wb.to(x.dtype)
+    cproj = x @ wc.to(x.dtype)
     dt = x @ w["wdt"].to(x.dtype)
     acc = torch.promote_types(x.dtype, torch.float32)
     dt = dt.to(acc) + w["dt_bias"].to(acc)

@@ -67,9 +67,10 @@ embedding looks up its own ``(V_pad/T, D)`` rows and sums over the tp
 group, the head is its ``(D, V_pad/T)`` columns, the attention runs its
 ``Hq/T`` q heads with the K / V heads ``_kv_maps`` gives shard t, and each
 stack over the tp dim is the rank's one row (``models/parallel.py``); the
-MoE holds and computes only the rank's own experts (``models/moe.py``). It
-runs the dense and MoE families without sequence parallelism; the rest
-raises (:func:`check_tp_ranks`, later slices of ROADMAP A18c).
+MoE holds and computes only the rank's own experts (``models/moe.py``),
+Mamba-2 only the rank's own SSM heads (``models/ssm.py``). It runs the
+dense, MoE and SSM families without sequence parallelism; the rest raises
+(:func:`check_tp_ranks`, later slices of ROADMAP A18c).
 
 FSDP (``param_table(cfg, fsdp_axes=...)``): a leaf's ``fsdp_dim`` is the dim
 the reference shards over the fsdp axes: ``embed`` on dim 1, the
@@ -262,22 +263,21 @@ def _kv_maps(cfg: ModelConfig, t: int, device,
 
 def check_tp_ranks(cfg: ModelConfig, *, seq_parallel: bool = False) -> None:
     """Raise on what tp over ranks does not run yet for ``cfg``, naming its
-    later slice of ROADMAP A18c: the SSM, hybrid and frontend-prefix
-    families and sequence parallelism (one rank a tp rank runs the dense
-    and MoE families, replicated or FSDP over the data ranks, one pod)."""
+    later slice of ROADMAP A18c: the hybrid and frontend-prefix families
+    and sequence parallelism (one rank a tp rank runs the dense, MoE and
+    SSM families, replicated or FSDP over the data ranks, one pod)."""
     what = None
     if seq_parallel:
         what = "--seq-parallel over tp ranks"
     elif cfg.n_experts and cfg.ssm_heads:
         what = f"the hybrid family over tp ranks ({cfg.name})"
-    elif cfg.ssm_heads:
-        what = f"the SSM family over tp ranks ({cfg.name})"
     elif cfg.frontend:
         what = f"the frontend-prefix family over tp ranks ({cfg.name})"
     if what is not None:
         raise ValueError(f"{what} is a later slice of ROADMAP A18c: one "
-                         "rank a tp rank runs the dense and MoE families, "
-                         "replicated or FSDP over the data ranks, one pod")
+                         "rank a tp rank runs the dense, MoE and SSM "
+                         "families, replicated or FSDP over the data "
+                         "ranks, one pod")
 
 
 class Leaf(NamedTuple):

@@ -124,12 +124,14 @@ builds its tp chunk over its data group, the deferred VJP reduce-scatters
 its tp-local gradient in its data group (a site replicated over tp takes
 tp rank 0's reduced shard), the small leaves sync in the data group and
 take tp rank 0's values, and the norm gathers every rank's partial sums
-over the whole grid in the stacked form's order. The dense and MoE
-families (a rank holding only its own experts; the router replicated over
-tp, its gradient summed over the tp group by ``copy_tp``), one pod;
-sequence parallelism, pods x tp, Adafactor and the SSM, hybrid and
-frontend-prefix families over tp ranks raise (later slices of ROADMAP
-A18c). A step is not bitwise
+over the whole grid in the stacked form's order. The dense, MoE and SSM
+families (a rank holding only its own experts or SSM heads; the router,
+``wB`` and ``wC`` replicated over tp, their gradients summed over the tp
+group by ``copy_tp``; Mamba-2's ``conv_w``, ``a_log``, ``dt_bias`` and
+``d_skip``, tp-sharded with no FSDP dim, in the small bucket, each rank
+keeping its own chunk), one pod; sequence parallelism, pods x tp,
+Adafactor and the hybrid and frontend-prefix families over tp ranks raise
+(later slices of ROADMAP A18c). A step is not bitwise
 the stacked one: a rank's "f" adds T partial input gradients where the
 stacked form runs one GEMM.
 
@@ -579,7 +581,7 @@ def _check_rank_form(cfg: ModelConfig, tc: TrainConfig, pod_axis,
             raise ValueError(f"{what} is a later slice of ROADMAP A18c: "
                              "one rank a peer runs replicated data "
                              "parallelism and FSDP over (pod, data) at "
-                             "tp 1, and the dense and MoE families "
+                             "tp 1, and the dense, MoE and SSM families "
                              "replicated or FSDP over (data, model)")
     if tp > 1:
         check_tp_ranks(cfg, seq_parallel=tc.seq_parallel)

@@ -505,15 +505,16 @@ def test_rank_steps_match_the_reference(ranks, ref_result, run):
 # ---------------------------------------------------------------- refusal
 @pytest.mark.parametrize("arch,seq_parallel,what", [
     ("jamba-v0.1-52b", False, "the hybrid family"),
-    ("mamba2-1.3b", False, "the SSM family"),
+    # the SSM family runs over tp ranks (tests/test_torch_dist_ssm.py),
+    # not with sequence parallelism
+    ("mamba2-1.3b", True, "--seq-parallel over tp ranks"),
     ("llava-next-mistral-7b", False, "the frontend-prefix family"),
     ("qwen2-moe-a2.7b", True, "--seq-parallel over tp ranks")])
 def test_check_tp_ranks_refuses_later_slices(arch, seq_parallel, what):
-    """The hybrid, SSM and frontend-prefix families and sequence
-    parallelism over tp ranks still raise, naming their slice and what
-    runs now."""
+    """The hybrid and frontend-prefix families and sequence parallelism
+    over tp ranks still raise, naming their slice and what runs now."""
     with pytest.raises(ValueError, match=f"{what}.*ROADMAP A18c: one rank "
-                       "a tp rank runs the dense and MoE families"):
+                       "a tp rank runs the dense, MoE and SSM families"):
         check_tp_ranks(get_smoke(arch), seq_parallel=seq_parallel)
 
 

@@ -435,15 +435,18 @@ def test_checkpoint_is_the_shards_put_together(ranks, stacked, tmp_path):
 
 # ---------------------------------------------------------------- refused
 LAUNCHER_REFUSED = {
-    # FSDP x TP runs (tests/test_torch_dist_tp_fsdp.py), the MoE family
-    # too (tests/test_torch_dist_moe.py), not for the hybrid family
+    # FSDP x TP runs (tests/test_torch_dist_tp_fsdp.py), the MoE and SSM
+    # families too (tests/test_torch_dist_moe.py, test_torch_dist_ssm.py),
+    # not for the hybrid family
     "fsdp_x_tp": (["--dp-mode", "fsdp", "--arch", "jamba-v0.1-52b"],
                   "the hybrid family"),
     "seq_parallel": (["--seq-parallel"], "--seq-parallel over tp ranks"),
     # the MoE family runs over tp ranks, not with sequence parallelism
     "moe": (["--arch", "qwen2-moe-a2.7b", "--seq-parallel"],
             "--seq-parallel over tp ranks"),
-    "ssm": (["--arch", "mamba2-1.3b"], "the SSM family"),
+    # the SSM family runs over tp ranks, not with sequence parallelism
+    "ssm": (["--arch", "mamba2-1.3b", "--seq-parallel"],
+            "--seq-parallel over tp ranks"),
     "hybrid": (["--arch", "jamba-v0.1-52b"], "the hybrid family"),
     "frontend": (["--arch", "llava-next-mistral-7b"],
                  "the frontend-prefix family")}
@@ -451,9 +454,9 @@ LAUNCHER_REFUSED = {
 
 @pytest.mark.parametrize("case", list(LAUNCHER_REFUSED))
 def test_launcher_refuses_later_tp_slices(monkeypatch, case):
-    """Under torchrun ``--tp`` with sequence parallelism or the SSM, hybrid
-    or frontend-prefix family (with or without FSDP) raises naming its
-    slice of A18c, before the process group is joined."""
+    """Under torchrun ``--tp`` with sequence parallelism or the hybrid or
+    frontend-prefix family (with or without FSDP) raises naming its slice
+    of A18c, before the process group is joined."""
     flags, what = LAUNCHER_REFUSED[case]
     monkeypatch.setenv("WORLD_SIZE", str(WORLD))
     with pytest.raises(ValueError, match=f"{what}.*ROADMAP A18c"):
@@ -488,7 +491,8 @@ TRAINER_REFUSED = {
     # the MoE family runs over tp ranks, not with sequence parallelism
     "moe": ({"seq_parallel": True}, "qwen2-moe-a2.7b",
             "--seq-parallel over tp ranks"),
-    "ssm": ({}, "mamba2-1.3b", "the SSM family"),
+    "ssm": ({"seq_parallel": True}, "mamba2-1.3b",
+            "--seq-parallel over tp ranks"),
     "hybrid": ({}, "jamba-v0.1-52b", "the hybrid family"),
     "frontend": ({}, "musicgen-medium", "the frontend-prefix family")}
 

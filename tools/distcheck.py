@@ -62,7 +62,8 @@ Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
   ``--tp-train`` JSON (:func:`tp_train`: the launcher with ``--dp N --tp
   T`` on the world, one tp rank a process, FSDP x TP with ``--dp-mode
   fsdp``; one world runs jobs of several layouts in turn, every rank the
-  same jobs; ``"layers"`` cuts a full config's depth): its records, each step's
+  same jobs; ``"config"`` overrides fields of the config the launcher
+  reads, :func:`job_config`): its records, each step's
   digests of the rank's state and of its leaves replicated over tp,
   launches, state bytes, and with ``"save"`` each step's leaves in
   ``OUT/<name>.rank<r>.pt``.
@@ -609,6 +610,40 @@ def pod_train(job: dict, device, group=None, *, keep: bool = False) -> dict:
     return out
 
 
+def with_overrides(cfg, overrides: dict | None):
+    """``cfg`` with the fields ``overrides`` names replaced
+    (``dataclasses.replace``); a ``param_dtype`` may be a torch dtype's
+    name (``"float64"``), as JSON carries it."""
+    if not overrides:
+        return cfg
+    fields = dict(overrides)
+    if isinstance(fields.get("param_dtype"), str):
+        fields["param_dtype"] = getattr(torch, fields["param_dtype"])
+    return dataclasses.replace(cfg, **fields)
+
+
+@contextlib.contextmanager
+def job_config(overrides: dict | None):
+    """The training launcher reads every config, full (``get_config``) or
+    smoke (``get_smoke``), with ``overrides`` applied
+    (:func:`with_overrides`: ``{"n_layers": 12}``, ``{"param_dtype":
+    "float64"}``, ``{"ssm_heads": 2, "ssm_head_dim": 64}``)."""
+    from repro_torch.launch import train as launch_train
+    if not overrides:
+        yield
+        return
+    readers = {name: getattr(launch_train, name)
+               for name in ("get_config", "get_smoke")}
+    for name, read in readers.items():
+        setattr(launch_train, name,
+                lambda arch, read=read: with_overrides(read(arch), overrides))
+    try:
+        yield
+    finally:
+        for name, read in readers.items():
+            setattr(launch_train, name, read)
+
+
 def tp_train(job: dict, out_dir=None, rank: int = 0) -> dict:
     """Run the training launcher with ``job["argv"]`` (``--dp N --tp T``,
     with ``--dp-mode fsdp`` FSDP x TP: under torchrun one tp rank a
@@ -623,29 +658,23 @@ def tp_train(job: dict, out_dir=None, rank: int = 0) -> dict:
     in the report's ``leaves``), with ``job["save_last"]`` the last step's
     parameters alone (a list of leaves), with ``job["save_replicated"]``
     its :func:`replicated_leaves` to ``out_dir/<name>.rank<r>.rep.pt``.
-    ``job["layers"]`` cuts the depth of the full config the launcher reads
-    (``get_config``). On the card the peak-memory counter is reset
+    ``job["config"]`` overrides fields of the config the launcher reads
+    (:func:`job_config`). On the card the peak-memory counter is reset
     first."""
     from repro_torch.launch import train as launch_train
     argv = job["argv"]
-    full_config = launch_train.get_config
-    if job.get("layers"):
-        launch_train.get_config = lambda arch: dataclasses.replace(
-            full_config(arch), n_layers=job["layers"])
     tp = int(argv[argv.index("--tp") + 1])
     fsdp = "--dp-mode" in argv and argv[argv.index("--dp-mode") + 1] == "fsdp"
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.reset_peak_memory_stats()
     before = counts()
-    try:
-        with watch_steps(state=True, tp=tp, stride=job.get("stride", 1),
-                         keep_steps=job.get("save", False),
-                         fsdp=fsdp) as seen:
-            t0 = time.time()
-            records = launch_train.run(argv)
-            t1 = time.time()
-    finally:
-        launch_train.get_config = full_config
+    with job_config(job.get("config")), \
+            watch_steps(state=True, tp=tp, stride=job.get("stride", 1),
+                        keep_steps=job.get("save", False),
+                        fsdp=fsdp) as seen:
+        t0 = time.time()
+        records = launch_train.run(argv)
+        t1 = time.time()
     after = counts()
     total = {k: after[k] - before[k] for k in after}
     rest = {k: v - sum(step[k] for step in seen["launches"])
