@@ -60,9 +60,13 @@ index i and tp rank t (the reference's ``("data", "model")`` mesh, model
 innermost): each rank holds only its tp shard of every tp-sharded leaf and
 of its moments (drawn a full leaf at a time, checkpointed as full leaves
 gathered over its tp group), and the model's tp sums run in its tp group;
-the dense, MoE and SSM families (a rank holds and computes only its own
-``E_pad / T`` experts, its own ``H / T`` SSM heads). With ``--dp-mode
-fsdp`` as well (FSDP x TP) rank ``i * T + t`` holds only data shard i of
+the dense, MoE, SSM and frontend-prefix families (a rank holds and
+computes only its own ``E_pad / T`` experts, its own ``H / T`` SSM heads;
+under ``--prefix`` every rank draws the global batch's prefix embeddings
+from ``(--seed, step)`` alike and keeps its data index's rows), and
+``--seq-parallel`` with the dense block (a rank's residual stream its
+sequence slice, gathered and reduce-scattered in its tp group). With
+``--dp-mode fsdp`` as well (FSDP x TP) rank ``i * T + t`` holds only data shard i of
 tp chunk t of every leaf sharded over both, and of its moments: init
 cuts both from each full leaf as it is drawn, a checkpoint gathers each
 leaf over the data group and then over the tp group into the full leaf,
@@ -71,10 +75,11 @@ and ``--resume`` cuts them again
 the reference's): the ``(pod, data)`` grid over ranks runs through
 ``build_train_step(..., group=)`` on a pod mesh (``tools/distcheck.py
 --pod-train``). ``--production-mesh``, ``--sync-mode vmap``,
-``--recovery``, ``--transport``, ``--adaptive``, and with ``--tp``
-``--seq-parallel`` and the hybrid and frontend-prefix families over
-ranks raise (later slices of ROADMAP A18c), as do pods x tp and Adafactor
-over tp ranks in ``build_train_step``.
+``--recovery``, ``--transport``, ``--adaptive``, and with ``--tp`` the
+hybrid family and ``--seq-parallel`` with the MoE or SSM block over ranks
+raise (later slices of ROADMAP A18c), as does ``--seq-parallel`` on a
+sequence (prefix and tokens) that does not split over T, and pods x tp
+and Adafactor over tp ranks in ``build_train_step``.
 On the card every Hadamard encode/decode, every drop-compensated mean and,
 with ``--strategy optireduce_q``, every quantization stage (grid pass,
 stage-1 codes, dequant + mean, stage-2 codes) is a launch of the port's
@@ -298,13 +303,16 @@ def _rank_setup(args):
             raise ValueError(
                 f"{flag} over ranks is a later slice of ROADMAP A18c (over "
                 "ranks the launcher runs replicated and --dp-mode fsdp, at "
-                "tp 1 and, for the dense, MoE and SSM families, at --tp "
-                "T; it refuses "
+                "tp 1 and, for the dense, MoE, SSM and frontend-prefix "
+                "families, at --tp T, with --seq-parallel for the dense "
+                "block; it refuses "
                 + ", ".join(f for f, _ in RANK_REFUSED) + ")")
     if args.tp != 1:
-        check_tp_ranks(get_smoke(args.arch) if args.smoke
-                       else get_config(args.arch),
-                       seq_parallel=args.seq_parallel)
+        cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+        check_tp_ranks(cfg, seq_parallel=args.seq_parallel, tp=args.tp,
+                       positions=args.seq_len + (
+                           cfg.prefix_len if args.prefix and cfg.frontend
+                           else 0))
     if world % args.tp or (args.dp is not None
                            and args.dp * args.tp != world):
         raise ValueError(f"--dp {args.dp} --tp {args.tp} under torchrun "

@@ -19,9 +19,10 @@ and ``wv`` (``kv_heads`` then names its local K / V head of each of its q
 heads), its column chunks of ``w_gate`` and ``w_up``, one partial product
 of its rows of ``wo`` and ``w_down`` before the sum over the tp group; the
 replicated input of the column-parallel products goes through
-``pctx.copy_tp``, and so do ``wk`` and ``wv`` where they are replicated
-over tp (``kv_shared``): each rank's gradient of them is its own q heads'
-part.
+``pctx.copy_act`` (``copy_tp``; under SP the sequence gather before it is
+the "f" already), and ``wk`` and ``wv`` through ``pctx.copy_tp`` where
+they are replicated over tp (``kv_shared``): each rank's gradient of them
+is its own q heads' part.
 
 The KV cache holds the post-RoPE K and V before any expansion to the q
 heads, ``(B, S, H_cache, dh)``; under tensor parallelism it is the global
@@ -204,7 +205,7 @@ def attention_train(x: torch.Tensor, w: dict, *, positions: torch.Tensor,
     attn_chunk = w.get("attn_chunk", 0)
     wk, wv = w["wk"], w["wv"]
     if pctx is not None:
-        x = pctx.copy_tp(x)
+        x = pctx.copy_act(x)
         if kv_shared:
             wk, wv = pctx.copy_tp(wk), pctx.copy_tp(wv)
     q = x @ w["wq"].to(x.dtype)
@@ -319,7 +320,7 @@ def gated_mlp(x: torch.Tensor, w: dict, *, activation: str = "silu",
     ``w_up`` column-parallel, ``w_down`` row-parallel."""
     act = activation_fn(activation)
     if pctx is not None:
-        x = pctx.copy_tp(x)
+        x = pctx.copy_act(x)
     g = x @ w["w_gate"].to(x.dtype)
     u = x @ w["w_up"].to(x.dtype)
     if _tp(pctx):

@@ -51,6 +51,19 @@ sublayers is sharded over tp along the sequence, a ``(T, B, S/T, D)`` stack
 of the ranks' slices. ``gather_seq`` puts the slices back together at a
 sublayer's input, and ``reduce_output`` sums the row-parallel partials and
 scatters the sum over the sequence (the reference's ``psum_scatter``).
+Over ranks a rank's residual stream is its own ``(1, B, S/T, D)`` slice:
+``gather_seq`` is an all-gather in the tp group (gloo's list form) whose
+backward is the reduce-scatter (the rank's slice of the tp group's
+rank-order sum of the full-sequence gradients); ``scatter_seq`` takes the
+rank's slice, its backward the all-gather of the slices' gradients (so
+what precedes it, the embedding and the frontend's projection, gets the
+whole gradient on every rank); ``reduce_output`` is that reduce-scatter
+forward (the rank's slice of ``psum_tp``'s rank-order sum, the same bits)
+and the all-gather backward. The gather's backward already sums the
+sublayer input's gradient over the tp group, so it is the "f" there:
+``copy_act`` is the identity under SP (``copy_tp`` otherwise), and
+``copy_seq`` sums the gradient of a replicated weight that acts on the
+rank's slice alone (the norms) over the tp group.
 
 Serving (``serve/engine.py``) runs the data peers as views of one global
 batch or of one global KV cache's sequence: ``psum_dp``, ``pmax_dp`` and
@@ -138,29 +151,52 @@ class ParallelCtx:
             return x
         return _CopyToTp.apply(x, self.tp_grid)
 
+    def copy_act(self, x: torch.Tensor) -> torch.Tensor:
+        """The "f" on the replicated activation at a column-parallel input:
+        ``copy_tp``, but the identity under SP, where the sequence gather
+        before it sums the input gradient over the tp group already (a
+        second sum would count each rank's part T times)."""
+        return x if self.seq_sharded() else self.copy_tp(x)
+
+    def copy_seq(self, w: torch.Tensor) -> torch.Tensor:
+        """A weight replicated over tp that acts on the residual stream
+        (the norms): under SP over ranks a rank applies it to its sequence
+        slice alone, so its gradient is summed over the tp group
+        (``copy_tp``); ``w`` itself otherwise."""
+        return self.copy_tp(w) if self.seq_sharded() else w
+
     def seq_sharded(self) -> bool:
         """Whether the residual stream runs as sequence slices (SP over
         more than one tp rank)."""
         return self.sp and self.tp_size() > 1
 
     def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
-        """``(T, B, S/T, D)`` -> ``(B, S, D)`` at a sublayer's input (SP);
-        the identity otherwise."""
+        """``(T, B, S/T, D)`` -> ``(B, S, D)`` at a sublayer's input (SP;
+        over ranks this rank's ``(1, B, S/T, D)`` slice, gathered over the
+        tp group); the identity otherwise."""
         if not self.seq_sharded():
             return x
+        if self.over_ranks():
+            return _GatherSeq.apply(x, self.tp_grid)
         return torch.cat(x.unbind(0), dim=1)
 
     def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, S, D)`` -> the ranks' sequence slices ``(T, B, S/T, D)``
-        (SP); the identity otherwise."""
+        (SP; over ranks this rank's ``(1, B, S/T, D)``); the identity
+        otherwise."""
         if not self.seq_sharded():
             return x
+        if self.over_ranks():
+            return _ScatterSeq.apply(x, self.tp_grid)
         return torch.stack(x.chunk(self.tp_size(), dim=1))
 
     def reduce_output(self, parts: torch.Tensor) -> torch.Tensor:
         """Row-parallel output reduction of the ``(T, B, S, D)`` partial
         products: ``psum_tp``, then under SP each rank's sequence slice of
-        the sum (the reference's ``psum_scatter``)."""
+        the sum (the reference's ``psum_scatter``; over ranks a
+        reduce-scatter in the tp group, adding in rank order)."""
+        if self.seq_sharded() and self.over_ranks():
+            return _ReduceScatterSeq.apply(parts, self.tp_grid)
         return self.scatter_seq(self.psum_tp(parts))
 
     def dp_axes(self) -> tuple[str, ...]:
@@ -244,6 +280,72 @@ class _CopyToTp(torch.autograd.Function):
     def backward(ctx, g):
         return collectives.psum(g.unsqueeze(0), ctx.grid,
                                 collectives.MODEL)[0], None
+
+
+def _gather_seq(x: torch.Tensor, grid) -> torch.Tensor:
+    """This rank's ``(1, B, S/T, D)`` slice -> ``(B, S, D)``: the tp
+    group's slices in rank order along the sequence."""
+    rows = collectives.gather_peers(x, grid, collectives.MODEL)
+    return torch.cat(rows.unbind(0), dim=1)
+
+
+def _reduce_scatter_seq(x: torch.Tensor, grid) -> torch.Tensor:
+    """``(B, S, D)`` on every tp rank -> ``(1, B, S/T, D)``: this rank's
+    slice of the tp group's sum, added in rank order in ``x``'s dtype (one
+    ``all_to_all`` of the T slices, then the ordered sum: the slice of
+    ``psum_tp``'s sum, bit for bit)."""
+    t = grid.tp
+    b, s, d = x.shape
+    sent = x.unflatten(1, (t, s // t)).movedim(1, 0).reshape(1, t, -1)
+    got = collectives.all_to_all(sent, grid, collectives.MODEL)
+    rows = got.view(t, b, s // t, d)
+    return collectives._sum_in_order(rows, 0)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """SP's gather over the tp group: the all-gather forward, the
+    reduce-scatter backward (the "f" of the sublayer it feeds)."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid = grid
+        return _gather_seq(x, grid)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_seq(g, ctx.grid), None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    """SP's ``reduce_output`` over the tp group: this rank's ``(1, B, S,
+    D)`` partial -> its ``(1, B, S/T, D)`` slice of the ordered sum; the
+    backward gathers the slices' gradients, every rank's partial feeding
+    the whole sequence."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid = grid
+        return _reduce_scatter_seq(x[0], grid)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.grid).unsqueeze(0), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """SP's entry over the tp group: ``(B, S, D)``, the same on every tp
+    rank -> this rank's ``(1, B, S/T, D)`` slice; the backward gathers the
+    slices' gradients, so the whole gradient reaches what came before."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid = grid
+        t = grid.index_on(collectives.MODEL)
+        return x.chunk(grid.tp, dim=1)[t].unsqueeze(0).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.grid), None
 
 
 # A no-parallelism context for single-peer use and references.

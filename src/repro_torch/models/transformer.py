@@ -69,8 +69,16 @@ group, the head is its ``(D, V_pad/T)`` columns, the attention runs its
 stack over the tp dim is the rank's one row (``models/parallel.py``); the
 MoE holds and computes only the rank's own experts (``models/moe.py``),
 Mamba-2 only the rank's own SSM heads (``models/ssm.py``). It runs the
-dense, MoE and SSM families without sequence parallelism; the rest raises
-(:func:`check_tp_ranks`, later slices of ROADMAP A18c).
+dense, MoE, SSM and frontend-prefix families, and sequence parallelism with
+the dense block: the rank's residual stream is its ``(1, B, S/T, D)``
+slice of prefix and tokens, each rank projects its data index's own
+prefix rows by the whole ``frontend_proj`` before the slice (whose
+backward gathers the whole gradient, so the projection's is complete on
+every rank, as without SP, where every column-parallel input's "f" makes
+the residual stream's gradient whole), and the norms, which see the
+rank's slice alone, have their gradient summed over the tp group
+(``pctx.copy_seq``). The hybrid family and the MoE or SSM block under SP
+raise (:func:`check_tp_ranks`, later slices of ROADMAP A18c).
 
 FSDP (``param_table(cfg, fsdp_axes=...)``): a leaf's ``fsdp_dim`` is the dim
 the reference shards over the fsdp axes: ``embed`` on dim 1, the
@@ -261,23 +269,34 @@ def _kv_maps(cfg: ModelConfig, t: int, device,
                   as_tensor(q_cache))
 
 
-def check_tp_ranks(cfg: ModelConfig, *, seq_parallel: bool = False) -> None:
-    """Raise on what tp over ranks does not run yet for ``cfg``, naming its
-    later slice of ROADMAP A18c: the hybrid and frontend-prefix families
-    and sequence parallelism (one rank a tp rank runs the dense, MoE and
-    SSM families, replicated or FSDP over the data ranks, one pod)."""
+# what one rank a tp rank runs, named by every refusal of a later slice
+TP_RANKS_RUN = ("one rank a tp rank runs the dense, MoE, SSM and "
+                "frontend-prefix families, replicated or FSDP over the data "
+                "ranks, one pod, and --seq-parallel with the dense block")
+
+
+def check_tp_ranks(cfg: ModelConfig, *, seq_parallel: bool = False,
+                   positions: int | None = None, tp: int = 1) -> None:
+    """Raise on what tp over ranks does not run for ``cfg``, naming its
+    slice of ROADMAP A18c: the hybrid family (slice 3), ``--seq-parallel``
+    with the MoE or SSM block (slice 12), and under ``--seq-parallel`` a
+    sequence of ``positions`` (prefix and tokens) that does not split over
+    the ``tp`` ranks (slice 6 splits it, as the stacked form does)."""
     what = None
-    if seq_parallel:
-        what = "--seq-parallel over tp ranks"
-    elif cfg.n_experts and cfg.ssm_heads:
-        what = f"the hybrid family over tp ranks ({cfg.name})"
-    elif cfg.frontend:
-        what = f"the frontend-prefix family over tp ranks ({cfg.name})"
+    if cfg.n_experts and cfg.ssm_heads:
+        what = (f"the hybrid family over tp ranks ({cfg.name}) is slice 3 "
+                "of ROADMAP A18c, which waits for a machine with four cards")
+    elif seq_parallel and (cfg.n_experts or cfg.ssm_heads):
+        block = "MoE" if cfg.n_experts else "SSM"
+        what = (f"--seq-parallel with the MoE or SSM block over tp ranks "
+                f"({cfg.name}'s {block} block) is slice 12 of ROADMAP A18c")
+    elif seq_parallel and positions is not None and positions % tp:
+        what = (f"--seq-parallel over tp ranks splits the sequence (prefix "
+                f"and tokens), {positions} positions here, over tp {tp} "
+                "(slice 6 of ROADMAP A18c; the reference truncates it: "
+                "ROADMAP C)")
     if what is not None:
-        raise ValueError(f"{what} is a later slice of ROADMAP A18c: one "
-                         "rank a tp rank runs the dense, MoE and SSM "
-                         "families, replicated or FSDP over the data "
-                         "ranks, one pod")
+        raise ValueError(f"{what}; {TP_RANKS_RUN}")
 
 
 class Leaf(NamedTuple):
@@ -556,7 +575,8 @@ def _layer(x: torch.Tensor, positions: torch.Tensor | None,
     and ``peers`` split the cache's sequence or the batch's rows over the
     data peers (``decode_step``)."""
     lw = dict(zip(names, weights))
-    h = pctx.gather_seq(rms_norm(x, lw["ln1"]))    # SP: the full sequence
+    # SP: the full sequence; over ranks the norm sees the rank's slice
+    h = pctx.gather_seq(rms_norm(x, pctx.copy_seq(lw["ln1"])))
     new_state = None
     if cfg.is_attn_layer(pos):
         aw = {"wq": lw["wq"], "wk": lw["wk"], "wv": lw["wv"], "wo": lw["wo"],
@@ -590,7 +610,7 @@ def _layer(x: torch.Tensor, positions: torch.Tensor | None,
         x = x + y
     if "ln2" not in lw:                    # pure-SSM layer: no FFN sublayer
         return x, new_state
-    h2 = pctx.gather_seq(rms_norm(x, lw["ln2"]))
+    h2 = pctx.gather_seq(rms_norm(x, pctx.copy_seq(lw["ln2"])))
     ff = None
     if "w_gate" in lw:
         ff = gated_mlp(h2, lw, activation=cfg.activation, pctx=pctx)
@@ -655,8 +675,11 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
     pctx = pctx or SINGLE
     t = pctx.tp_size()
     shard = None
+    prefix = cfg.frontend and "prefix_embeds" in batch
     if pctx.over_ranks():
-        check_tp_ranks(cfg, seq_parallel=pctx.sp)
+        check_tp_ranks(cfg, seq_parallel=pctx.sp, tp=t, positions=(
+            batch["tokens"].shape[1]
+            + (batch["prefix_embeds"].shape[1] if prefix else 0)))
         if collect_state:
             raise ValueError("serving over ranks is a later slice of "
                              "ROADMAP A18c: prefill runs as one process")
@@ -664,7 +687,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
     tokens = batch["tokens"].long()
     emb = _maybe_gather(pctx, params["embed"], 1, (), "embed")
     x = embed_tokens(emb, tokens, cfg, pctx)
-    if cfg.frontend and "prefix_embeds" in batch:
+    if prefix:
         proj = _maybe_gather(pctx, params["frontend_proj"], 0, (),
                              "frontend_proj")
         pref = batch["prefix_embeds"].to(cfg.param_dtype) @ proj.to(
@@ -705,7 +728,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, *, remat: bool = True,
                 x, st = _layer(*args, collect_state=collect_state)
                 if collect_state:
                     collected[pos].append(st)
-    x = pctx.gather_seq(rms_norm(x, params["final_ln"]))
+    x = pctx.gather_seq(rms_norm(x, pctx.copy_seq(params["final_ln"])))
     if not collect_state:
         return x
     return x, [type(sts[0])(*(torch.stack(parts) for parts in zip(*sts)))
@@ -735,7 +758,7 @@ def _chunk_loss_tp(x_chunk: torch.Tensor, y_chunk: torch.Tensor,
     the rank's ``(D, V/T)`` head, its one row), the max detached and
     ``pmax_tp``'d, the exp-sum and the picked logit ``psum_tp``'d."""
     t = pctx.tp_rows()
-    x_chunk = pctx.copy_tp(x_chunk)
+    x_chunk = pctx.copy_act(x_chunk)
     logits = x_chunk.to(torch.float32) @ head.to(torch.float32)
     b, c, vp = logits.shape
     v_local = vp // t

@@ -124,13 +124,18 @@ builds its tp chunk over its data group, the deferred VJP reduce-scatters
 its tp-local gradient in its data group (a site replicated over tp takes
 tp rank 0's reduced shard), the small leaves sync in the data group and
 take tp rank 0's values, and the norm gathers every rank's partial sums
-over the whole grid in the stacked form's order. The dense, MoE and SSM
-families (a rank holding only its own experts or SSM heads; the router,
-``wB`` and ``wC`` replicated over tp, their gradients summed over the tp
-group by ``copy_tp``; Mamba-2's ``conv_w``, ``a_log``, ``dt_bias`` and
-``d_skip``, tp-sharded with no FSDP dim, in the small bucket, each rank
-keeping its own chunk), one pod; sequence parallelism, pods x tp,
-Adafactor and the hybrid and frontend-prefix families over tp ranks raise
+over the whole grid in the stacked form's order. The dense, MoE, SSM and
+frontend-prefix families (a rank holding only its own experts or SSM
+heads; the router, ``wB`` and ``wC`` replicated over tp, their gradients
+summed over the tp group by ``copy_tp``; Mamba-2's ``conv_w``, ``a_log``,
+``dt_bias`` and ``d_skip``, tp-sharded with no FSDP dim, in the small
+bucket, each rank keeping its own chunk; ``frontend_proj`` replicated over
+tp, its gradient whole on every rank: the residual stream's gradient is),
+one pod, and ``seq_parallel`` with the dense block (a rank's residual
+stream its sequence slice, the norms' gradients summed over the tp group
+by ``copy_seq``, so every replicated leaf's gradient is whole before the
+sync and tp rank 0's synced values are the step's); pods x tp, Adafactor,
+the hybrid family and the MoE or SSM block under SP over tp ranks raise
 (later slices of ROADMAP A18c). A step is not bitwise
 the stacked one: a rank's "f" adds T partial input gradients where the
 stacked form runs one GEMM.
@@ -581,8 +586,10 @@ def _check_rank_form(cfg: ModelConfig, tc: TrainConfig, pod_axis,
             raise ValueError(f"{what} is a later slice of ROADMAP A18c: "
                              "one rank a peer runs replicated data "
                              "parallelism and FSDP over (pod, data) at "
-                             "tp 1, and the dense, MoE and SSM families "
-                             "replicated or FSDP over (data, model)")
+                             "tp 1, and the dense, MoE, SSM and "
+                             "frontend-prefix families replicated or FSDP "
+                             "over (data, model), the dense block also "
+                             "with --seq-parallel")
     if tp > 1:
         check_tp_ranks(cfg, seq_parallel=tc.seq_parallel)
 

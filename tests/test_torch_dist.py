@@ -188,10 +188,13 @@ def test_rank0_steps_are_the_stacked_steps(ranks, stacked, run):
 
 
 # "--tp": tp over ranks runs (tests/test_torch_dist_tp.py), and with
-# --dp-mode fsdp (tests/test_torch_dist_tp_fsdp.py); with --seq-parallel
-# either is a later slice
-REFUSED = [["--tp", "2", "--seq-parallel"], ["--production-mesh"],
-           ["--dp-mode", "fsdp", "--tp", "2", "--seq-parallel"],
+# --dp-mode fsdp (tests/test_torch_dist_tp_fsdp.py), either with
+# --seq-parallel too (tests/test_torch_dist_frontend.py), but not on a
+# sequence that does not split over tp (31 tokens over 2)
+REFUSED = [["--tp", "2", "--seq-parallel", "--seq-len", "31"],
+           ["--production-mesh"],
+           ["--dp-mode", "fsdp", "--tp", "2", "--seq-parallel", "--seq-len",
+            "31"],
            ["--dp-mode", "fsdp", "--production-mesh"],
            ["--sync-mode", "vmap"], ["--recovery", "stale"],
            ["--transport", "inproc"], ["--adaptive"]]
@@ -232,10 +235,13 @@ def one_rank_group(tmp_path):
 MISMATCH = r"a grid of 2 peers \(2 pods\) over a process group of 1 ranks"
 TRAINER_REFUSED = {"fsdp_pure_dp": (dict(dp_mode="fsdp", pure_dp=True),
                                     MISMATCH),
-                   # FSDP x TP runs; with sequence parallelism it is a
-                   # later slice
+                   # FSDP x TP runs, with sequence parallelism too
+                   # (tests/test_torch_dist_frontend.py): it gets past
+                   # the later slices' checks to the world's size
                    "fsdp_tp": (dict(dp_mode="fsdp", tp=2,
-                                    seq_parallel=True), "A18c"),
+                                    seq_parallel=True),
+                               r"a grid of 1 peers \(1 pods, tp 2\) over a "
+                               "process group of 1 ranks"),
                    "pure_dp": (dict(pure_dp=True), MISMATCH),
                    "vmap": (dict(sync_mode="vmap"), "A18c"),
                    "recovery": (dict(recovery="stale"), "A18c"),
@@ -245,7 +251,8 @@ TRAINER_REFUSED = {"fsdp_pure_dp": (dict(dp_mode="fsdp", pure_dp=True),
 @pytest.mark.parametrize("case", list(TRAINER_REFUSED))
 def test_trainer_refuses_later_slices(one_rank_group, case):
     """The later slices of A18c raise naming it; a pod grid whose size is
-    not the world's raises on the mismatch."""
+    not the world's, and FSDP x TP with sequence parallelism on a world
+    that is not 2 ranks, raise on the mismatch."""
     from repro_torch.configs import get_smoke
     from repro_torch.core.pipeline import OptiReduceConfig
     from repro_torch.launch.mesh import make_host_mesh

@@ -590,16 +590,22 @@ def test_rank_steps_match_the_reference(ranks, ref_result, run):
 # ---------------------------------------------------------------- refusal
 @pytest.mark.parametrize("arch,seq_parallel,what", [
     ("jamba-v0.1-52b", False, "the hybrid family"),
-    ("llava-next-mistral-7b", False, "the frontend-prefix family"),
-    ("mamba2-1.3b", True, "--seq-parallel over tp ranks")])
+    # the frontend-prefix family runs over tp ranks with sequence
+    # parallelism (tests/test_torch_dist_frontend.py), not on a prefix and
+    # tokens that do not split over tp: 8 + 33 over tp 2
+    ("llava-next-mistral-7b", True, "41 positions here, over tp 2"),
+    ("mamba2-1.3b", True, "--seq-parallel with the MoE or SSM block")])
 def test_check_tp_ranks_still_refuses_later_slices(arch, seq_parallel,
                                                    what):
-    """The hybrid and frontend-prefix families and sequence parallelism
-    (the SSM family's too) over tp ranks still raise, naming their slice
-    and what runs now."""
-    with pytest.raises(ValueError, match=f"{what}.*ROADMAP A18c: one rank "
-                       "a tp rank runs the dense, MoE and SSM families"):
-        check_tp_ranks(get_smoke(arch), seq_parallel=seq_parallel)
+    """The hybrid family, sequence parallelism with the SSM block (and
+    the MoE's) and a sequence that does not split over tp still raise
+    over tp ranks, naming their slice and what runs now."""
+    cfg = get_smoke(arch)
+    with pytest.raises(ValueError, match=f"{what}.*ROADMAP A18c.*one rank "
+                       "a tp rank runs the dense, MoE, SSM and "
+                       "frontend-prefix families"):
+        check_tp_ranks(cfg, seq_parallel=seq_parallel, tp=2,
+                       positions=cfg.prefix_len + 33)
 
 
 @pytest.mark.parametrize("overrides", [None, SSM_PAD],

@@ -42,7 +42,8 @@ tolerances: loss and grad_norm 1e-5 relative, AdamW's moments 1e-6 and
 1e-7 absolute, parameters 1e-1 x lr. The refused combinations raise
 naming their slice of ROADMAP A18c (FSDP x TP runs:
 ``tests/test_torch_dist_tp_fsdp.py``; the MoE family:
-``tests/test_torch_dist_moe.py``).
+``tests/test_torch_dist_moe.py``; the frontend-prefix families and
+sequence parallelism: ``tests/test_torch_dist_frontend.py``).
 """
 import json
 import os
@@ -435,28 +436,36 @@ def test_checkpoint_is_the_shards_put_together(ranks, stacked, tmp_path):
 
 # ---------------------------------------------------------------- refused
 LAUNCHER_REFUSED = {
-    # FSDP x TP runs (tests/test_torch_dist_tp_fsdp.py), the MoE and SSM
-    # families too (tests/test_torch_dist_moe.py, test_torch_dist_ssm.py),
-    # not for the hybrid family
+    # FSDP x TP runs (tests/test_torch_dist_tp_fsdp.py), the MoE, SSM and
+    # frontend-prefix families too (tests/test_torch_dist_moe.py,
+    # test_torch_dist_ssm.py, test_torch_dist_frontend.py), not for the
+    # hybrid family
     "fsdp_x_tp": (["--dp-mode", "fsdp", "--arch", "jamba-v0.1-52b"],
                   "the hybrid family"),
-    "seq_parallel": (["--seq-parallel"], "--seq-parallel over tp ranks"),
+    # --seq-parallel runs with the dense block (test_torch_dist_frontend.py)
+    # on a sequence that splits over tp, not on 31 tokens over tp 2
+    "seq_parallel": (["--seq-parallel", "--seq-len", "31"],
+                     "31 positions here, over tp 2"),
     # the MoE family runs over tp ranks, not with sequence parallelism
     "moe": (["--arch", "qwen2-moe-a2.7b", "--seq-parallel"],
-            "--seq-parallel over tp ranks"),
+            "--seq-parallel with the MoE or SSM block"),
     # the SSM family runs over tp ranks, not with sequence parallelism
     "ssm": (["--arch", "mamba2-1.3b", "--seq-parallel"],
-            "--seq-parallel over tp ranks"),
+            "--seq-parallel with the MoE or SSM block"),
     "hybrid": (["--arch", "jamba-v0.1-52b"], "the hybrid family"),
-    "frontend": (["--arch", "llava-next-mistral-7b"],
-                 "the frontend-prefix family")}
+    # the frontend-prefix family runs over tp ranks, with --seq-parallel
+    # too, not where its 8-position prefix and 33 tokens do not split
+    "frontend": (["--arch", "llava-next-mistral-7b", "--seq-parallel",
+                  "--prefix", "--seq-len", "33"],
+                 "41 positions here, over tp 2")}
 
 
 @pytest.mark.parametrize("case", list(LAUNCHER_REFUSED))
 def test_launcher_refuses_later_tp_slices(monkeypatch, case):
-    """Under torchrun ``--tp`` with sequence parallelism or the hybrid or
-    frontend-prefix family (with or without FSDP) raises naming its slice
-    of A18c, before the process group is joined."""
+    """Under torchrun ``--tp`` with the hybrid family (with or without
+    FSDP), with sequence parallelism on the MoE or SSM block, or on a
+    sequence (prefix and tokens) that does not split over tp, raises
+    naming its slice of A18c, before the process group is joined."""
     flags, what = LAUNCHER_REFUSED[case]
     monkeypatch.setenv("WORLD_SIZE", str(WORLD))
     with pytest.raises(ValueError, match=f"{what}.*ROADMAP A18c"):
@@ -480,28 +489,33 @@ def one_rank_group(tmp_path):
     dist.destroy_process_group()
 
 
+# what: the later slice a combination raises for; None where this slice
+# lets it through to the world's size (one rank here, a grid of 2)
 TRAINER_REFUSED = {
     # FSDP x TP runs, not on a grid of pods
     "fsdp_x_tp": ({"dp_mode": "fsdp"}, "gpt2-paper", "pods x tp"),
-    "seq_parallel": ({"seq_parallel": True}, "gpt2-paper",
-                     "--seq-parallel over tp ranks"),
+    # sequence parallelism runs over tp ranks with the dense block
+    "seq_parallel": ({"seq_parallel": True}, "gpt2-paper", None),
     "pods_x_tp": ({}, "gpt2-paper", "pods x tp"),
     "adafactor": ({"optimizer": "adafactor"}, "gpt2-paper",
                   "Adafactor over tp ranks"),
     # the MoE family runs over tp ranks, not with sequence parallelism
     "moe": ({"seq_parallel": True}, "qwen2-moe-a2.7b",
-            "--seq-parallel over tp ranks"),
+            "--seq-parallel with the MoE or SSM block"),
     "ssm": ({"seq_parallel": True}, "mamba2-1.3b",
-            "--seq-parallel over tp ranks"),
+            "--seq-parallel with the MoE or SSM block"),
     "hybrid": ({}, "jamba-v0.1-52b", "the hybrid family"),
-    "frontend": ({}, "musicgen-medium", "the frontend-prefix family")}
+    # the frontend-prefix family runs over tp ranks
+    "frontend": ({}, "musicgen-medium", None)}
 
 
 @pytest.mark.parametrize("case", list(TRAINER_REFUSED))
 def test_trainer_refuses_later_tp_slices(one_rank_group, case):
     """``build_train_step(..., group=)`` at tp 2 raises on each
     combination a later slice of A18c runs, before it checks the world's
-    size (one rank here)."""
+    size (one rank here); the combinations this slice runs (sequence
+    parallelism, the frontend-prefix family) get past that check to the
+    world's size."""
     from repro_torch.launch.mesh import HostMesh, make_host_mesh
     from repro_torch.optim.optimizers import OptimizerConfig
     from repro_torch.train.trainer import TrainConfig, build_train_step
@@ -511,7 +525,10 @@ def test_trainer_refuses_later_tp_slices(one_rank_group, case):
     mesh = (HostMesh(("pod", "data", "model"), (2, 1, TP))
             if case in ("pods_x_tp", "fsdp_x_tp")
             else make_host_mesh(dp=1, tp=TP))
-    with pytest.raises(ValueError, match=f"{what}.*ROADMAP A18c"):
+    match = (f"{what}.*ROADMAP A18c" if what is not None
+             else r"a grid of 1 peers \(1 pods, tp 2\) over a process "
+             "group of 1 ranks")
+    with pytest.raises(ValueError, match=match):
         build_train_step(get_smoke(arch), TrainConfig(optimizer=opt, **kw),
                          mesh, device="cpu", group=one_rank_group)
 

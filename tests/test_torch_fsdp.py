@@ -246,103 +246,56 @@ class JaxDraws:
         return torch.from_numpy(np.array(jax.random.uniform(k, shape)))
 
 
-@pytest.fixture(scope="module")
-def ref(tmp_path_factory):
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The smoke model is too small to gain from torch's intra-op threads,
+    and under the suite's parallel workers those threads contend for the
+    cores; one thread a test, the worker's setting restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def child(tmp_path_factory):
+    """The reference's runs, in a child started before the file's first
+    test: it runs while the tests that need none of it do (they come
+    first)."""
     out = tmp_path_factory.mktemp("torch_fsdp") / "ref.npz"
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run(
-        [sys.executable, "-c", CHILD, str(out), str(BLOCK), str(RATE),
-         str(SEQ), str(GLOBAL_BATCH), str(LR), str(BUCKET), str(SKIP),
-         str(STEPS), repr(RS_CASES), repr(STEP_CASES)],
-        env=env, capture_output=True, text=True, timeout=900)
-    assert proc.returncode == 0, proc.stdout + "\n" + proc.stderr
+    with open(out.with_suffix(".log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CHILD, str(out), str(BLOCK), str(RATE),
+             str(SEQ), str(GLOBAL_BATCH), str(LR), str(BUCKET), str(SKIP),
+             str(STEPS), repr(RS_CASES), repr(STEP_CASES)],
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        yield proc, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.fixture(scope="module")
+def ref(child):
+    proc, out = child
+    assert proc.wait(timeout=900) == 0, out.with_suffix(".log").read_text()
     with np.load(out) as z:
         return dict(z)
 
 
-# ------------------------------------------------------------ reduce-scatter
-def _rs_input(x, g, n, inp, dtype):
-    x = torch.from_numpy(x)
-    if inp == "peer":
-        local = x[:g * n]
-    else:
-        local = torch.cat([x[:n]] * g)
-        if inp == "pod_scaled":
-            scale = torch.arange(g, dtype=torch.float32).repeat_interleave(n)
-            local = local * (1.0 + scale)[:, None, None]
-    return local.to(getattr(torch, dtype))
-
-
-def _port_rs(ref, case):
-    g, n, dtype, rate, bits, hops, dim, inp, ht = RS_CASES[case]
-    cfg = OptiReduceConfig(drop_rate=rate, hadamard_block=BLOCK,
-                           rs_wire_bits=bits, use_hadamard=ht,
-                           pod_axis="pod" if g > 1 else None)
-    ctx = SyncContext(cfg=cfg, draws=JaxDraws((1,), cfg), bucket=(),
-                      grid=collectives.Grid(pods=g))
-    out = _rs_input(ref["x"], g, n, inp, dtype)
-    for ax in hops:
-        axis = collectives.DATA if ax == "data" else collectives.POD
-        out = reduce_scatter_axis(out, axis, dim, ctx,
-                                  with_drops=ax == "data")
-    return out, cfg
-
-
-@pytest.mark.parametrize("case", list(RS_CASES))
-def test_reduce_scatter_matches_reference(ref, case):
-    got, cfg = _port_rs(ref, case)
-    want = ref["rs/" + case]
-    bits = RS_CASES[case][4]
-    identity = case.startswith("identity")
-    assert tuple(got.shape) == want.shape
-    # the wire dtype: Identity keeps bf16, a rotation promotes to fp32
-    assert got.dtype == (torch.bfloat16 if identity else torch.float32)
-    got = got.to(torch.float32).numpy()
-    if identity:
-        np.testing.assert_array_equal(got, want)
-        return
-    err = np.abs(got - want)
-    if not bits:
-        assert float(err.max()) <= ROT_TOL, float(err.max())
-        return
-    # the 8-bit wire: a code on a floor boundary moves its block
-    blocks = err.reshape(err.shape[0], -1)
-    off = blocks > ROT_TOL
-    assert off.mean() <= 0.01, off.mean()
-    scale = np.abs(want).max()
-    assert float(err.max()) <= 2 * scale / 255 + ROT_TOL
-
-
-def test_parallel_ctx_dp_half_matches_reference(ref):
-    """``ParallelCtx``'s data-parallel collectives on the (pod 2, data 4)
-    grid: each peer's pod-major index, the sum over both axes, and the
-    FSDP gather over the data axis (each pod its own 4 shards)."""
-    pctx = ParallelCtx(dp_axis="data", pod_axis="pod", fsdp=True,
-                       sizes={"pod": 2, "data": 4})
-    assert pctx.dp_axes() == ("pod", "data") and pctx.dp_size() == 8
-    local = torch.from_numpy(ref["x"][:, :6, :4])
-    np.testing.assert_array_equal(pctx.dp_shard_index().numpy(),
-                                  ref["pctx/index"])
-    np.testing.assert_allclose(pctx.psum_dp(local).numpy(),
-                               ref["pctx/psum"], atol=7 * 2.0 ** -23 * 4,
-                               rtol=0)
-    np.testing.assert_array_equal(pctx.all_gather_dp(local, 1).numpy(),
-                                  ref["pctx/gather"])
-    # the tp half rides along: no tp axis, no tp collective
-    assert pctx.tp_size() == 1 and pctx.psum_tp(local) is local
-
-
-def test_reduce_scatter_2d_replica_consistent(ref):
-    """The port's form of the reference's test of the same name: with a
-    pod-replicated gradient the data-axis hop gives both pods the same
-    bits, the 8-bit grids being shared over both axes."""
-    got, _ = _port_rs(ref, "rs2d_replicated")
-    assert torch.equal(got[:4], got[4:])
-    grids, _ = _port_rs(ref, "rs2d_grids")
-    assert not torch.equal(grids[:4], grids[4:])   # the scale reaches out
+# ------------------------------------------ without the reference: first
+def _tc(mode, pure, micro, strategy, rate=RATE):
+    sync = OptiReduceConfig(strategy=strategy, drop_rate=rate,
+                            hadamard_block=BLOCK, skip_threshold=SKIP)
+    return TrainConfig(sync=sync, optimizer=OptimizerConfig(lr=LR),
+                       bucket_elems=BUCKET, seq_chunk=SEQ, dp_mode=mode,
+                       pure_dp=pure, microbatch=micro)
 
 
 def test_reduce_scatter_lossless_is_the_mean():
@@ -355,69 +308,6 @@ def test_reduce_scatter_lossless_is_the_mean():
     out = reduce_scatter_axis(g, collectives.DATA, 1, ctx)
     want = g.mean(0).reshape(8, 4, 3).permute(1, 0, 2)
     torch.testing.assert_close(out, want, atol=1e-7, rtol=0)
-
-
-# ------------------------------------------------------------------ trainer
-def _port_params(ref):
-    like = init_params(torch_key(0), get_smoke("gpt2-paper"),
-                       device="cpu")
-    n = len([k for k in ref if k.startswith("init/")])
-    return params_from_jax(tree_unflatten(
-        like, [ref[f"init/{i}"] for i in range(n)]))
-
-
-def _tc(mode, pure, micro, strategy, rate=RATE):
-    sync = OptiReduceConfig(strategy=strategy, drop_rate=rate,
-                            hadamard_block=BLOCK, skip_threshold=SKIP)
-    return TrainConfig(sync=sync, optimizer=OptimizerConfig(lr=LR),
-                       bucket_elems=BUCKET, seq_chunk=SEQ, dp_mode=mode,
-                       pure_dp=pure, microbatch=micro)
-
-
-def _run_port(ref, case):
-    shape, mode, pure, micro, strategy = STEP_CASES[case]
-    cfg = get_smoke("gpt2-paper")
-    tc = _tc(mode, pure, micro, strategy)
-    step_fn, opt = build_train_step(cfg, tc, make_host_mesh(*shape),
-                                    device="cpu")
-    params = _port_params(ref)
-    state = opt.init(params)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
-                                  global_batch=GLOBAL_BATCH, seed=0))
-    sync = dataclasses.replace(tc.sync, pod_axis="model" if pure else None)
-    history = []
-    for step in range(STEPS):
-        params, state, m = step_fn(
-            params, state, data.host_batch(step, 0, 1), step, torch_key(0),
-            draws=JaxDraws((0, step, 7), sync),
-            site_draws=JaxDraws((0, step), sync))
-        history.append(({k: float(v) for k, v in m.items()},
-                        [p.detach().clone() for p in tree_leaves(params)],
-                        [x.clone() for x in tree_leaves(state.m)],
-                        [x.clone() for x in tree_leaves(state.v)]))
-    return history
-
-
-@pytest.mark.parametrize("case", list(STEP_CASES))
-def test_train_steps_match_reference(ref, case):
-    for step, (metrics, leaves, ms, vs) in enumerate(_run_port(ref, case)):
-        pre = f"{case}/{step}"
-        for k in ("loss", "grad_norm"):
-            want = float(ref[f"{pre}/metric/{k}"])
-            assert metrics[k] == pytest.approx(want, rel=1e-5), (step, k)
-        assert metrics["loss_frac"] == pytest.approx(
-            float(ref[f"{pre}/metric/loss_frac"]), abs=1e-7)
-        assert metrics["skipped"] == float(ref[f"{pre}/metric/skipped"])
-        for i, (p, m, v) in enumerate(zip(leaves, ms, vs)):
-            np.testing.assert_allclose(m.numpy(), ref[f"{pre}/m/{i}"],
-                                       atol=1e-6, rtol=0,
-                                       err_msg=f"{pre} moment {i}")
-            np.testing.assert_allclose(v.numpy(), ref[f"{pre}/v/{i}"],
-                                       atol=1e-7, rtol=0,
-                                       err_msg=f"{pre} second moment {i}")
-            np.testing.assert_allclose(p.numpy(), ref[f"{pre}/param/{i}"],
-                                       atol=PARAM_TOL, rtol=0,
-                                       err_msg=f"{pre} leaf {i}")
 
 
 def test_lossless_fsdp_equals_replicated():
@@ -515,3 +405,140 @@ def test_tensor_parallel_mesh_names_a15b():
         _, _, m = step_fn(params, state, data.host_batch(0, 0, 1), 0,
                           torch_key(0))
         assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+
+
+# ------------------------------------------------------------ reduce-scatter
+def _rs_input(x, g, n, inp, dtype):
+    x = torch.from_numpy(x)
+    if inp == "peer":
+        local = x[:g * n]
+    else:
+        local = torch.cat([x[:n]] * g)
+        if inp == "pod_scaled":
+            scale = torch.arange(g, dtype=torch.float32).repeat_interleave(n)
+            local = local * (1.0 + scale)[:, None, None]
+    return local.to(getattr(torch, dtype))
+
+
+def _port_rs(ref, case):
+    g, n, dtype, rate, bits, hops, dim, inp, ht = RS_CASES[case]
+    cfg = OptiReduceConfig(drop_rate=rate, hadamard_block=BLOCK,
+                           rs_wire_bits=bits, use_hadamard=ht,
+                           pod_axis="pod" if g > 1 else None)
+    ctx = SyncContext(cfg=cfg, draws=JaxDraws((1,), cfg), bucket=(),
+                      grid=collectives.Grid(pods=g))
+    out = _rs_input(ref["x"], g, n, inp, dtype)
+    for ax in hops:
+        axis = collectives.DATA if ax == "data" else collectives.POD
+        out = reduce_scatter_axis(out, axis, dim, ctx,
+                                  with_drops=ax == "data")
+    return out, cfg
+
+
+@pytest.mark.parametrize("case", list(RS_CASES))
+def test_reduce_scatter_matches_reference(ref, case):
+    got, cfg = _port_rs(ref, case)
+    want = ref["rs/" + case]
+    bits = RS_CASES[case][4]
+    identity = case.startswith("identity")
+    assert tuple(got.shape) == want.shape
+    # the wire dtype: Identity keeps bf16, a rotation promotes to fp32
+    assert got.dtype == (torch.bfloat16 if identity else torch.float32)
+    got = got.to(torch.float32).numpy()
+    if identity:
+        np.testing.assert_array_equal(got, want)
+        return
+    err = np.abs(got - want)
+    if not bits:
+        assert float(err.max()) <= ROT_TOL, float(err.max())
+        return
+    # the 8-bit wire: a code on a floor boundary moves its block
+    blocks = err.reshape(err.shape[0], -1)
+    off = blocks > ROT_TOL
+    assert off.mean() <= 0.01, off.mean()
+    scale = np.abs(want).max()
+    assert float(err.max()) <= 2 * scale / 255 + ROT_TOL
+
+
+def test_parallel_ctx_dp_half_matches_reference(ref):
+    """``ParallelCtx``'s data-parallel collectives on the (pod 2, data 4)
+    grid: each peer's pod-major index, the sum over both axes, and the
+    FSDP gather over the data axis (each pod its own 4 shards)."""
+    pctx = ParallelCtx(dp_axis="data", pod_axis="pod", fsdp=True,
+                       sizes={"pod": 2, "data": 4})
+    assert pctx.dp_axes() == ("pod", "data") and pctx.dp_size() == 8
+    local = torch.from_numpy(ref["x"][:, :6, :4])
+    np.testing.assert_array_equal(pctx.dp_shard_index().numpy(),
+                                  ref["pctx/index"])
+    np.testing.assert_allclose(pctx.psum_dp(local).numpy(),
+                               ref["pctx/psum"], atol=7 * 2.0 ** -23 * 4,
+                               rtol=0)
+    np.testing.assert_array_equal(pctx.all_gather_dp(local, 1).numpy(),
+                                  ref["pctx/gather"])
+    # the tp half rides along: no tp axis, no tp collective
+    assert pctx.tp_size() == 1 and pctx.psum_tp(local) is local
+
+
+def test_reduce_scatter_2d_replica_consistent(ref):
+    """The port's form of the reference's test of the same name: with a
+    pod-replicated gradient the data-axis hop gives both pods the same
+    bits, the 8-bit grids being shared over both axes."""
+    got, _ = _port_rs(ref, "rs2d_replicated")
+    assert torch.equal(got[:4], got[4:])
+    grids, _ = _port_rs(ref, "rs2d_grids")
+    assert not torch.equal(grids[:4], grids[4:])   # the scale reaches out
+
+
+# ------------------------------------------------------------------ trainer
+def _port_params(ref):
+    like = init_params(torch_key(0), get_smoke("gpt2-paper"),
+                       device="cpu")
+    n = len([k for k in ref if k.startswith("init/")])
+    return params_from_jax(tree_unflatten(
+        like, [ref[f"init/{i}"] for i in range(n)]))
+
+
+def _run_port(ref, case):
+    shape, mode, pure, micro, strategy = STEP_CASES[case]
+    cfg = get_smoke("gpt2-paper")
+    tc = _tc(mode, pure, micro, strategy)
+    step_fn, opt = build_train_step(cfg, tc, make_host_mesh(*shape),
+                                    device="cpu")
+    params = _port_params(ref)
+    state = opt.init(params)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                  global_batch=GLOBAL_BATCH, seed=0))
+    sync = dataclasses.replace(tc.sync, pod_axis="model" if pure else None)
+    history = []
+    for step in range(STEPS):
+        params, state, m = step_fn(
+            params, state, data.host_batch(step, 0, 1), step, torch_key(0),
+            draws=JaxDraws((0, step, 7), sync),
+            site_draws=JaxDraws((0, step), sync))
+        history.append(({k: float(v) for k, v in m.items()},
+                        [p.detach().clone() for p in tree_leaves(params)],
+                        [x.clone() for x in tree_leaves(state.m)],
+                        [x.clone() for x in tree_leaves(state.v)]))
+    return history
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_train_steps_match_reference(ref, case):
+    for step, (metrics, leaves, ms, vs) in enumerate(_run_port(ref, case)):
+        pre = f"{case}/{step}"
+        for k in ("loss", "grad_norm"):
+            want = float(ref[f"{pre}/metric/{k}"])
+            assert metrics[k] == pytest.approx(want, rel=1e-5), (step, k)
+        assert metrics["loss_frac"] == pytest.approx(
+            float(ref[f"{pre}/metric/loss_frac"]), abs=1e-7)
+        assert metrics["skipped"] == float(ref[f"{pre}/metric/skipped"])
+        for i, (p, m, v) in enumerate(zip(leaves, ms, vs)):
+            np.testing.assert_allclose(m.numpy(), ref[f"{pre}/m/{i}"],
+                                       atol=1e-6, rtol=0,
+                                       err_msg=f"{pre} moment {i}")
+            np.testing.assert_allclose(v.numpy(), ref[f"{pre}/v/{i}"],
+                                       atol=1e-7, rtol=0,
+                                       err_msg=f"{pre} second moment {i}")
+            np.testing.assert_allclose(p.numpy(), ref[f"{pre}/param/{i}"],
+                                       atol=PARAM_TOL, rtol=0,
+                                       err_msg=f"{pre} leaf {i}")

@@ -4,8 +4,21 @@ kernels), and each ROADMAP item's flags training through it.
 import math
 
 import pytest
+import torch
 
 from repro_torch.launch import train
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The smoke model is too small to gain from torch's intra-op threads,
+    and under the suite's parallel workers those threads contend for the
+    cores; one thread a test, the worker's setting restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 def test_smoke_launch_two_steps_on_cpu(capsys):

@@ -110,6 +110,17 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The smoke model is too small to gain from torch's intra-op threads,
+    and under the suite's parallel workers those threads contend for the
+    cores; one thread a test, the worker's setting restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def smoke_params():
     return jinit(jax.random.PRNGKey(0), jget_smoke("gpt2-paper"))

@@ -67,6 +67,13 @@ Each rank runs on ``cuda:(LOCAL_RANK % device_count())`` unless
   digests of the rank's state and of its leaves replicated over tp,
   launches, state bytes, and with ``"save"`` each step's leaves in
   ``OUT/<name>.rank<r>.pt``.
+- ``--sp-unit T``: sequence parallelism's collectives on the ``(data N,
+  model T)`` grid (:func:`sp_unit`: ``scatter_seq``, ``gather_seq`` and
+  ``reduce_output`` around one norm, a column-parallel and a row-parallel
+  product and a vocab-parallel head, values and gradients), each rank's
+  in ``OUT/sp_unit.rank<r>.pt``, as written and with the "f" doubled or
+  the norms' tp sum left out (:data:`SP_VARIANTS`). The launcher's jobs
+  take ``--seq-parallel`` and ``--prefix`` in their ``argv`` as any flag.
 - ``--pods G1,G2,...`` (default 1): the grids the sync cases above run
   on. G = 1 is the flat grid; G > 1 the same world as a ``(pod G, data
   N)`` grid of G x N ranks, pod-major (``collectives.rank_grid(pods=G)``,
@@ -123,6 +130,7 @@ from repro_torch.kernels.masked_sum import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.quant import ops as gq_ops  # noqa: E402
 from repro_torch.kernels.runtime import resolve_device  # noqa: E402
 from repro_torch.kernels.threefry import ops as tf_ops  # noqa: E402
+from repro_torch.models.parallel import ParallelCtx  # noqa: E402
 from repro_torch.train import elastic  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
@@ -467,8 +475,59 @@ def watch_steps(keep: bool = False, wait_for: str | None = None, *,
         copies.clear()
 
 
+# sp_unit's shapes: batch, sequence, width, MLP width, vocab
+SP_UNIT = (2, 8, 16, 32, 24)
+# sp_unit's forms: as the model runs; the "f" doubled (``copy_tp`` on the
+# gathered activation, whose gather sums its gradient already); the norms'
+# sum over the tp group left out (``copy_seq`` as the identity)
+SP_VARIANTS = ("sp", "doubled_f", "no_norm_sum")
+
+
+def sp_unit(pctx, variant: str = "sp", seed: int = 0) -> dict:
+    """One Megatron-SP sublayer and head on seeded fp32 tensors, under
+    ``pctx`` (``sp`` over T tp ranks: the stacked form, or with
+    ``tp_grid`` over ranks, this rank's shards): ``x`` ``(B, S, D)``,
+    ``scatter_seq``, a norm, ``gather_seq``, a column-parallel product
+    (``copy_act``), a row-parallel one (``reduce_output``), the residual,
+    a second norm, ``gather_seq`` and a vocab-parallel head whose squared
+    logits ``psum_tp`` adds. Returns the loss, the gathered residual and
+    the gradients of ``x``, both norms and the three weights (a rank's
+    chunk of the column-parallel ones' output dim and of ``w_down``'s
+    rows). ``variant`` (:data:`SP_VARIANTS`) breaks the form on purpose."""
+    from repro_torch.models.layers import rms_norm, row_parallel
+    b, s, d, f, v = SP_UNIT
+    g = torch.Generator().manual_seed(seed)
+    full = {"x": torch.randn(b, s, d, generator=g),
+            "ln1": 1 + 0.1 * torch.randn(d, generator=g),
+            "ln2": 1 + 0.1 * torch.randn(d, generator=g),
+            "w_up": torch.randn(d, f, generator=g) / d ** 0.5,
+            "w_down": torch.randn(f, d, generator=g) / f ** 0.5,
+            "head": torch.randn(d, v, generator=g) / d ** 0.5}
+    t = pctx.tp_size()
+    over = pctx.over_ranks()
+    k = pctx.tp_grid.index_on(collectives.MODEL) if over else 0
+    dims = {"w_up": 1, "w_down": 0, "head": 1}
+    own = {n: (x.chunk(t, dims[n])[k] if over and n in dims else x)
+           .clone().requires_grad_(True) for n, x in full.items()}
+    copy_act = pctx.copy_tp if variant == "doubled_f" else pctx.copy_act
+    copy_seq = ((lambda w: w) if variant == "no_norm_sum"
+                else pctx.copy_seq)
+    xs = pctx.scatter_seq(own["x"])
+    h = pctx.gather_seq(rms_norm(xs, copy_seq(own["ln1"])))
+    u = copy_act(h) @ own["w_up"]
+    out = xs + row_parallel(u, own["w_down"], pctx)
+    z = pctx.gather_seq(rms_norm(out, copy_seq(own["ln2"])))
+    logits = copy_act(z) @ own["head"]
+    part = (logits * logits).sum() / 2
+    loss = pctx.psum_tp(part.reshape(1)) if over else part
+    loss.backward()
+    return {"loss": loss.detach(), "out": pctx.gather_seq(out).detach(),
+            **{f"grad/{n}": x.grad for n, x in own.items()}}
+
+
 def replicated_leaves(cfg, tp: int, params, state) -> dict:
-    """The leaves replicated over tp (the router, the norms) of ``params``
+    """The leaves replicated over tp (the router, ``wB`` and ``wC``,
+    ``frontend_proj``, the norms) of ``params``
     and of the optimizer ``state`` (trees like the parameters: AdamW's two
     moments, momentum's one), tree order, on the host: ``{"params": [...],
     "state": [...]}``; a rank's own pieces of them under FSDP."""
@@ -841,6 +900,12 @@ def run(args, device) -> None:
             job = json.loads(spec)
             report["train"][job["name"]] = pod_train(job, device,
                                                      dist.group.WORLD)
+        if args.sp_unit:
+            grid = collectives.rank_grid(tp=args.sp_unit)
+            pctx = ParallelCtx(tp_axis="model", sp=True, tp_grid=grid,
+                               sizes={"model": args.sp_unit})
+            torch.save({v: sp_unit(pctx, v) for v in SP_VARIANTS},
+                       out_dir / f"sp_unit.rank{rank}.pt")
         for spec in args.tp_train:
             job = json.loads(spec)
             report["train"][job["name"]] = tp_train(job, out_dir, rank)
@@ -873,6 +938,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tp", type=int, default=1,
                     help="T > 1: the small arena's tp cases on the (data, "
                          "model) grid of the world's ranks, model innermost")
+    ap.add_argument("--sp-unit", type=int, default=0, metavar="T",
+                    help="sp_unit's forms on the (data, model) grid of tp "
+                         "T, before the --tp-train runs")
     ap.add_argument("--tp-train", action="append", default=[],
                     help='JSON of a tp_train run {"name": ..., "argv": '
                          '[...], "save": ..., "stride": ...}')

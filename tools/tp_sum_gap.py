@@ -1,12 +1,15 @@
 """How far the AdamW first moments of the weights replicated over tp whose
 gradient is summed over the tp group (the MoE's router, Mamba-2's ``wB``
-and ``wC``) lie over tp ranks from the one-process form's in bf16, and how
-far they would lie without that sum.
+and ``wC``, the norms under sequence parallelism) lie over tp ranks from
+the one-process form's in bf16, and how far they would lie without that
+sum.
 
 Over ranks each tp rank's router gradient reaches only its own experts'
-slots (``models/moe.py``), and its ``wB`` / ``wC`` gradient only its own
-SSM heads (``models/ssm.py``); both sum it over the tp group
-(``copy_tp``). In fp32 the two forms agree to rounding
+slots (``models/moe.py``), its ``wB`` / ``wC`` gradient only its own
+SSM heads (``models/ssm.py``), and under ``--seq-parallel`` its norms'
+gradient only its own sequence slice (llava-next-mistral-7b, with its
+prefix: ``models/transformer.py``); each sums it over the tp group
+(``copy_tp``, ``copy_seq``). In fp32 the two forms agree to rounding
 (``tests/test_torch_dist_moe.py``, ``tests/test_torch_dist_ssm.py``); in
 bf16 each rank's partial gradient is rounded before the sum, and the steps
 after the first run on parameters that differ by that rounding. This tool
@@ -25,6 +28,8 @@ leaf's ``max |m_rank - m_one| / max |m_one|`` (equal on every rank)::
   PYTHONPATH=src python tools/tp_sum_gap.py build/bc_gap --arch mamba2-1.3b
   PYTHONPATH=src python tools/tp_sum_gap.py build/bc_gap12 --arch \\
       mamba2-1.3b --layers 12
+  PYTHONPATH=src python tools/tp_sum_gap.py build/sp_gap --arch \\
+      llava-next-mistral-7b [--no-sum]
 """
 from __future__ import annotations
 
@@ -52,7 +57,11 @@ ARGV = ["--smoke", "--device", "cpu", "--seq-len", "64", "--global-batch",
         "8", "--log-every", "1", "--lr", "3e-4", "--drop-pattern", "tail",
         "--steps", "2", "--dp", "2", "--tp", "2"]
 # the leaves replicated over tp, by family
-REPLICATED = ("router", "wB", "wC", "ln1", "ln2", "final_ln")
+REPLICATED = ("router", "wB", "wC", "frontend_proj", "ln1", "ln2",
+              "final_ln")
+# the frontend arch trains with its prefix under sequence parallelism
+FRONTEND = "llava-next-mistral-7b"
+SP_FLAGS = ["--seq-parallel", "--prefix"]
 
 
 def config(arch: str, layers: int | None = None):
@@ -67,9 +76,12 @@ def config(arch: str, layers: int | None = None):
 def patch(arch: str, no_sum: bool, layers: int | None) -> None:
     """The launcher reads :func:`config`; with ``no_sum`` the ``copy_tp``
     of a weight summed over tp (the router's ``(D, E_pad)``, ``wB``'s and
-    ``wC``'s ``(D, N)``) passes its gradient through unsummed."""
+    ``wC``'s ``(D, N)``) passes its gradient through unsummed, and so does
+    the norms' ``copy_seq`` under sequence parallelism."""
     launch_train.get_smoke = lambda name: config(name, layers)
-    if no_sum:
+    if no_sum and arch == FRONTEND:
+        parallel.ParallelCtx.copy_seq = lambda self, w: w
+    elif no_sum:
         cfg = config(arch)
         width = cfg.n_experts or cfg.ssm_state
         copy = parallel.ParallelCtx.copy_tp
@@ -85,14 +97,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out")
     ap.add_argument("--arch", default="qwen2-moe-a2.7b",
-                    choices=("qwen2-moe-a2.7b", "mamba2-1.3b"))
+                    choices=("qwen2-moe-a2.7b", "mamba2-1.3b", FRONTEND))
     ap.add_argument("--no-sum", action="store_true")
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--rank", nargs=argparse.REMAINDER,
                     help="(internal) one rank: distcheck's arguments")
     args = ap.parse_args(argv)
     patch(args.arch, args.no_sum, args.layers)
-    run_argv = ARGV + ["--arch", args.arch]
+    run_argv = ARGV + ["--arch", args.arch] + (
+        SP_FLAGS if args.arch == FRONTEND else [])
     if args.rank is not None:
         return distcheck.main([args.out] + args.rank)
     out = Path(args.out)
